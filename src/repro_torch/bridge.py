@@ -1,0 +1,65 @@
+"""Trees of arrays between the JAX reference's layout and the port's tensors.
+
+The reference keys its params and masks as nested dicts whose flattened
+paths are ``"/"``-joined (``repro/train/checkpoint.py:_flatten``); a format
+leaf flattens to its array fields (``…/values``, ``…/indices``). The port
+keeps the same paths and the same stacked layout, so a tree converts leaf
+for leaf. This module imports no JAX: the caller turns JAX arrays into
+numpy arrays (``np.asarray``) before handing them over.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.sparse import formats as F
+
+
+def flatten(tree, prefix: tuple = ()) -> dict:
+    """Nested dict -> {"a/b/c": leaf}; ``Condensed`` leaves give their arrays."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, prefix + (str(k),)))
+    elif isinstance(tree, F.Condensed):
+        out["/".join(prefix + ("values",))] = tree.values
+        out["/".join(prefix + ("indices",))] = tree.indices
+    else:
+        out["/".join(prefix)] = tree
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dict."""
+    out: dict = {}
+    for key, leaf in flat.items():
+        *parents, last = key.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
+def _to_tensor(arr, device) -> torch.Tensor:
+    arr = np.array(arr)  # a writable copy (JAX hands out read-only views)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: reinterpret the bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def from_jax_numpy(tree: dict, device="cpu") -> dict:
+    """The reference's params or masks (numpy leaves, nested or "/"-keyed)
+    as the port's nested tree of tensors on ``device``, same layout."""
+    return unflatten({k: _to_tensor(v, device) for k, v in flatten(tree).items()})
+
+
+def to_jax_numpy(tree: dict) -> dict:
+    """The port's tree as nested numpy arrays under the reference's paths.
+
+    bfloat16 tensors come back as float32 (exact); numpy has no bf16.
+    """
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return unflatten({k: arr(v) for k, v in flatten(tree).items()})

@@ -1,0 +1,159 @@
+"""GQA attention: chunked (online-softmax) prefill + KV-cache decode (port of
+``repro/models/attention.py``).
+
+Plain tensor code, written as the reference writes it: scores in float32,
+probabilities cast to the value dtype before the value product, masked
+slots at ``NEG_INF`` so their weights underflow to exact zeros. Attention
+is not a TPU kernel in the reference, so it has no hand-written kernel here.
+The cache write is in place: one preallocated cache serves a whole
+generation, as the reference's donated cache does.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def expand_kv(k: torch.Tensor, head_to_kv: tuple) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D) by the static q-head -> kv-head map."""
+    hkv = k.shape[2]
+    if head_to_kv == tuple(range(hkv)):
+        return k
+    group = len(head_to_kv) // hkv
+    if head_to_kv == tuple(h // group for h in range(len(head_to_kv))):
+        # plain GQA groups: no index tensor, whose host-to-device copy
+        # would synchronise the stream on every call
+        return torch.repeat_interleave(k, group, dim=2)
+    idx = torch.tensor(head_to_kv, dtype=torch.long, device=k.device)
+    return torch.index_select(k, 2, idx)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      head_to_kv: tuple, causal: bool = True, window: int = 0,
+                      q_offset: int = 0, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Memory-efficient attention.
+
+    q: (B, Tq, H, D); k, v: (B, S, Hkv, D). Returns (B, Tq, H, D).
+    ``q_offset`` is the absolute position of q[0].
+    """
+    b, tq, h, d = q.shape
+    s = k.shape[1]
+    q = q * d ** -0.5
+    k = expand_kv(k, head_to_kv)
+    v = expand_kv(v, head_to_kv)
+
+    q_chunk = min(q_chunk, tq)
+    n_q = -(-tq // q_chunk)
+    pad_q = n_q * q_chunk - tq
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+
+    outs = []
+    for i in range(n_q):  # exact causal kv extent per q chunk
+        q_i = q[:, i * q_chunk: (i + 1) * q_chunk]
+        q_lo = q_offset + i * q_chunk
+        q_hi = q_lo + q_chunk
+        kv_hi = min(s, q_hi) if causal else s
+        kv_lo = max(0, q_lo - window + 1) if (window and causal) else 0
+        kv_lo = (kv_lo // kv_chunk) * kv_chunk
+        kv_hi = min(s, -(-kv_hi // kv_chunk) * kv_chunk)
+        if kv_hi <= kv_lo:  # fully masked chunk
+            outs.append(torch.zeros((b, q_chunk, h, d), dtype=v.dtype, device=v.device))
+            continue
+        outs.append(_attend_one_q_chunk(
+            q_i, k[:, kv_lo:kv_hi], v[:, kv_lo:kv_hi], q_pos0=q_lo, kv_pos0=kv_lo,
+            causal=causal, window=window, kv_chunk=kv_chunk))
+    return torch.cat(outs, dim=1)[:, :tq]
+
+
+def _attend_one_q_chunk(q_i, k_i, v_i, *, q_pos0, kv_pos0, causal, window, kv_chunk):
+    """Online-softmax loop over kv chunks for one q chunk.
+
+    q_i: (B, Qc, H, D); k_i/v_i: (B, Skv, H, D) — the causal slab, kv expanded.
+    """
+    b, qc, h, d = q_i.shape
+    skv = k_i.shape[1]
+    kv_chunk = min(kv_chunk, skv)
+    n_kv = -(-skv // kv_chunk)
+    pad = n_kv * kv_chunk - skv
+    if pad:
+        k_i = torch.nn.functional.pad(k_i, (0, 0, 0, 0, 0, pad))
+        v_i = torch.nn.functional.pad(v_i, (0, 0, 0, 0, 0, pad))
+
+    dev = q_i.device
+    q_pos = q_pos0 + torch.arange(qc, device=dev)
+    q32 = q_i.float()
+    acc = torch.zeros((b, h, qc, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, qc), dtype=torch.float32, device=dev)
+    for blk in range(n_kv):
+        k_blk = k_i[:, blk * kv_chunk: (blk + 1) * kv_chunk]
+        v_blk = v_i[:, blk * kv_chunk: (blk + 1) * kv_chunk]
+        kv_pos = kv_pos0 + blk * kv_chunk + torch.arange(kv_chunk, device=dev)
+        # float32 scores, as preferred_element_type=f32 in the reference
+        s_blk = torch.einsum("bqhd,bshd->bhqs", q32, k_blk.float())
+        mask = torch.ones((qc, kv_chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        mask &= kv_pos[None, :] < kv_pos0 + skv  # padded kv tail
+        s_blk = torch.where(mask[None, None], s_blk, NEG_INF)
+        m_new = torch.maximum(m, s_blk.amax(dim=-1))
+        p = torch.exp(s_blk - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        upd = torch.einsum("bhqs,bshd->bhqd", p.to(v_blk.dtype), v_blk)
+        acc = acc * corr[..., None] + upd.float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(v_i.dtype)  # (B, Qc, H, D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: int, *, head_to_kv: tuple, window: int = 0) -> torch.Tensor:
+    """Single-token attention against a (possibly ring-buffered) KV cache.
+
+    q: (B, 1, H, D); k_cache/v_cache: (B, S, Hkv, D); cache_len: tokens in
+    the cache *including* the one just written.
+    """
+    b, _, h, d = q.shape
+    s = k_cache.shape[1]
+    k_exp = expand_kv(k_cache, head_to_kv)
+    v_exp = expand_kv(v_cache, head_to_kv)
+    scores = torch.einsum("bqhd,bshd->bhqs", (q * d ** -0.5).float(),
+                          k_exp.float())[:, :, 0]                     # (B, H, S)
+    slots = torch.arange(s, device=q.device)
+    if window:
+        t = cache_len - 1 - ((cache_len - 1 - slots) % s)
+        valid = (t >= 0) & (t < cache_len) & (t > cache_len - 1 - window)
+    else:
+        valid = slots < cache_len
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", p.to(v_exp.dtype), v_exp)
+    return out.reshape(b, 1, h, d)
+
+
+def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, cache_len: int):
+    """Write T_new tokens into the cache in place (ring semantics if the
+    cache is smaller). k_cache: (B, S, Hkv, D); k_new: (B, T, Hkv, D);
+    cache_len: tokens already present. Returns the (same) caches."""
+    s = k_cache.shape[1]
+    t = k_new.shape[1]
+    if t >= s:  # only the trailing window survives a big prefill
+        k_new, v_new = k_new[:, -s:], v_new[:, -s:]
+        start, t = (cache_len + t - s) % s, s
+    else:
+        start = cache_len % s
+    if start + t <= s:
+        k_cache[:, start:start + t] = k_new
+        v_cache[:, start:start + t] = v_new
+    else:
+        pos = (start + torch.arange(t, device=k_cache.device)) % s
+        k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
+    return k_cache, v_cache

@@ -1,0 +1,79 @@
+"""Primitive layers: norms, init, RoPE, sparse-aware linear apply (port of
+``repro/models/layers.py``).
+
+Functions on tensors with the reference's signatures; random init draws
+from an explicit ``torch.Generator`` on the generator's device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch.core.srigl import apply_mask_for_forward
+from repro_torch.sparse import formats as F
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Normal init, std = 1/sqrt(d_in), shape (*lead, d_in, d_out)."""
+    w = torch.randn((*lead, d_in, d_out), generator=generator, device=generator.device)
+    return (w / d_in ** 0.5).to(dtype)
+
+
+def sparse_init(generator: torch.Generator, d_in: int, d_out: int, k: int,
+                dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Fan-in-aware init for sparse layers (Evci et al. 2022): std = 1/sqrt(k)."""
+    w = torch.randn((*lead, d_in, d_out), generator=generator, device=generator.device)
+    return (w / max(k, 1) ** 0.5).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, device=generator.device)
+    return (w * 0.02).to(dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, mask=None) -> torch.Tensor:
+    """y = x @ (w masked if sparse), dispatching on the serving leaf's type.
+
+    * ``formats.Condensed`` — the format executes itself (the condensed
+      gather kernel).
+    * bool tensor — masked-dense ``torch.matmul`` on ``w * mask``.
+    * None — dense.
+
+    The weight is cast to ``x.dtype``; that is a no-op for a serving copy
+    already stored at the compute dtype (``model.serving_params``).
+    """
+    if isinstance(mask, F.Condensed):
+        return mask.apply(x, w)
+    if mask is not None:
+        w = apply_mask_for_forward(w, mask)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Zero-centred RMSNorm, ``x * (1 + scale)``, computed in float32."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, H, D); positions: broadcastable to (..., T)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)                # (D/2,)
+    ang = positions[..., None].float() * freqs                   # (..., T, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return Fn.silu(gate) * up

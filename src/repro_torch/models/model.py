@@ -1,0 +1,266 @@
+"""Decoder LM, dense family (port of ``repro/models/model.py``).
+
+Parameters are a nested dict with the reference's paths and stacked layout:
+``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0. The
+reference scans over that axis with ``lax.scan``; here a Python loop slices
+one layer at a time. Sparse linears receive their serving leaf (a bool mask
+or a ``formats.Condensed``) from the ``masks`` tree, whose paths mirror the
+params.
+
+Ported so far: the dense family (qwen3-style GQA with qk-norm, RoPE, SwiGLU)
+without sliding windows, for serving: ``init_params``, ``prefill_step``,
+``decode_step`` and their pieces. The loss, the other families and the paged
+KV pool come with later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.sparse import formats as F
+
+Params = dict
+Masks = dict
+
+# weights consumed by a matmul; ``serving_params`` stores them at the
+# compute dtype once instead of casting them on every call
+MATMUL_WEIGHTS = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
+                            "w_gate", "w_up", "w_down"})
+
+
+def _dt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _pdt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def check_supported(cfg) -> None:
+    if (cfg.family != "dense" or cfg.local_global_ratio or cfg.mrope
+            or not cfg.causal or cfg.is_moe):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense causal family is ported so far")
+
+
+# ===========================================================================
+# init
+# ===========================================================================
+
+def _init_attn_block(generator: torch.Generator, cfg, dtype, k_fan: dict,
+                     with_mlp: bool = True, *, lead: tuple[int, ...] = ()) -> dict:
+    """One block's params, or a stack of them with leading dims ``lead``."""
+    d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    dev = generator.device
+
+    def maybe_sparse(a, b, name):
+        fan = k_fan.get(name)
+        if fan:
+            return L.sparse_init(generator, a, b, fan, dtype, lead=lead)
+        return L.dense_init(generator, a, b, dtype, lead=lead)
+
+    def zeros(n):
+        return torch.zeros((*lead, n), dtype=dtype, device=dev)
+
+    p = {
+        "ln1": zeros(d),
+        "wq": maybe_sparse(d, qd, "wq"),
+        "wk": maybe_sparse(d, kvd, "wk"),
+        "wv": maybe_sparse(d, kvd, "wv"),
+        "wo": maybe_sparse(qd, d, "wo"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = zeros(hd)
+        p["k_norm"] = zeros(hd)
+    if with_mlp:
+        p["ln2"] = zeros(d)
+        p["w_gate"] = maybe_sparse(d, cfg.d_ff, "w_gate")
+        p["w_up"] = maybe_sparse(d, cfg.d_ff, "w_up")
+        p["w_down"] = maybe_sparse(cfg.d_ff, d, "w_down")
+    return p
+
+
+def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> Params:
+    """Initialize the parameter tree for ``cfg`` on ``generator``'s device.
+
+    ``k_fan`` maps sparse layer names to their constant fan-in k, so sparse
+    layers get 1/sqrt(k)-scaled init (``registry.k_fan_map``).
+    """
+    check_supported(cfg)
+    k_fan = k_fan or {}
+    dtype = _pdt(cfg)
+    d, vp = cfg.d_model, cfg.vocab_padded
+    params: Params = {"final_norm": torch.zeros((d,), dtype=dtype, device=generator.device)}
+    params["embed"] = L.embed_init(generator, vp, d, dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, d, vp, dtype)
+    params["blocks"] = _init_attn_block(generator, cfg, dtype, k_fan, lead=(cfg.n_layers,))
+    return params
+
+
+def serving_params(cfg, params: Params) -> Params:
+    """The serving copy: matmul weights cast to the compute dtype, once.
+
+    Identical numbers to the reference's per-call ``w.astype(x.dtype)``
+    (a cast commutes with masking and gathering); norm scales stay at the
+    param dtype because ``rms_norm`` reads them in float32. Tensors already
+    at the compute dtype are shared, not copied.
+    """
+    dt = _dt(cfg)
+
+    def rec(tree):
+        return {k: rec(v) if isinstance(v, dict)
+                else (v.to(dt) if k in MATMUL_WEIGHTS else v)
+                for k, v in tree.items()}
+    return rec(params)
+
+
+# ===========================================================================
+# sublayer applies
+# ===========================================================================
+
+def _heads(x, n, hd):
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked params or serving tree."""
+    return {k: v.layer(i) if isinstance(v, F.Condensed) else v[i]
+            for k, v in tree.items()}
+
+
+def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: int,
+                  q_offset: int = 0, cache: tuple | None = None, decode: bool = False):
+    """Pre-norm attention sublayer (residual added by caller).
+
+    cache: (k_cache, v_cache, cache_len) for decode / prefill-write; the
+    write is in place. Returns (out, (k_cache, v_cache) or None).
+    """
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = _heads(L.linear(h, p["wq"], m.get("wq")), cfg.n_heads_padded, cfg.head_dim)
+    k = _heads(L.linear(h, p["wk"], m.get("wk")), cfg.n_kv_heads_padded, cfg.head_dim)
+    v = _heads(L.linear(h, p["wv"], m.get("wv")), cfg.n_kv_heads_padded, cfg.head_dim)
+
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if decode:
+        k_cache, v_cache, cache_len = cache
+        k_cache, v_cache = A.cache_write(k_cache, v_cache, k, v, cache_len)
+        attn = A.decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                  head_to_kv=cfg.head_to_kv, window=window)
+        new_cache = (k_cache, v_cache)
+    else:
+        attn = A.chunked_attention(
+            q, k, v, head_to_kv=cfg.head_to_kv, causal=cfg.causal, window=window,
+            q_offset=q_offset, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+        if cache is not None:  # prefill: fill the cache
+            k_cache, v_cache, cache_len = cache
+            new_cache = A.cache_write(k_cache, v_cache, k, v, cache_len)
+
+    if cfg.n_heads_padded != cfg.n_heads:  # zero padded heads
+        head_mask = torch.arange(cfg.n_heads_padded, device=x.device) < cfg.n_heads
+        attn = attn * head_mask[None, None, :, None].to(attn.dtype)
+    out = L.linear(attn.reshape(*x.shape[:-1], cfg.q_dim), p["wo"], m.get("wo"))
+    return out, new_cache
+
+
+def mlp_sublayer(cfg, p: dict, m: dict, x: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    gate = L.linear(h, p["w_gate"], m.get("w_gate"))
+    up = L.linear(h, p["w_up"], m.get("w_up"))
+    return L.linear(L.swiglu(gate, up), p["w_down"], m.get("w_down"))
+
+
+def attn_mlp_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
+                   decode=False):
+    a, new_cache = attn_sublayer(cfg, p, m, x, positions=positions, window=window,
+                                 q_offset=q_offset, cache=cache, decode=decode)
+    x = x + a
+    x = x + mlp_sublayer(cfg, p, m, x)
+    return x, new_cache
+
+
+# ===========================================================================
+# embedding / head
+# ===========================================================================
+
+def embed_inputs(cfg, params: Params, batch: dict):
+    """Token embedding. Returns (x (B, T, d), positions (B, T))."""
+    toks = batch["tokens"]
+    x = params["embed"][toks].to(_dt(cfg))
+    bsz, t = toks.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(t, device=toks.device)[None].expand(bsz, t)
+    return x, positions
+
+
+def _lm_logits(cfg, params: Params, last: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the (tied) head; padded vocab columns are -inf."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(last, head.to(last.dtype)).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        valid = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, -torch.inf)
+    return logits
+
+
+# ===========================================================================
+# serving: KV cache, prefill, single-token decode
+# ===========================================================================
+
+def _attn_cache(cfg, n: int, bsz: int, s: int, dtype, device):
+    shape = (n, bsz, s, cfg.n_kv_heads_padded, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
+    """Decode state for ``bsz`` streams of up to ``max_len`` tokens.
+
+    ``"len"`` is a host int (tokens already in the cache); the k/v tensors
+    are written in place by ``prefill_step``/``decode_step``.
+    """
+    check_supported(cfg)
+    s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+    return {"len": 0, "blocks": _attn_cache(cfg, cfg.n_layers, bsz, s, _dt(cfg), device)}
+
+
+def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
+    stack_p, stack_m = params["blocks"], masks.get("blocks", {})
+    kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
+    for i in range(cfg.n_layers):
+        x, _ = attn_mlp_block(cfg, _layer(stack_p, i), _layer(stack_m, i), x,
+                              positions=positions, window=cfg.sliding_window,
+                              cache=(kc[i], vc[i], cache["len"]), decode=decode)
+    return x
+
+
+def prefill_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
+    """Process a full prompt, fill the cache in place, return last-token logits.
+
+    batch["tokens"]: (B, T). Returns (logits (B, V) float32, cache).
+    """
+    masks = masks or {}
+    x, positions = embed_inputs(cfg, params, batch)
+    x = _run_blocks(cfg, params, masks, x, positions, cache, decode=False)
+    cache["len"] += x.shape[1]
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(cfg, params, x[:, -1]), cache
+
+
+def decode_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
+    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, V), cache)."""
+    masks = masks or {}
+    x, positions = embed_inputs(cfg, params, batch)
+    positions = positions + cache["len"]
+    x = _run_blocks(cfg, params, masks, x, positions, cache, decode=True)
+    cache["len"] += 1
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(cfg, params, x[:, 0]), cache

@@ -1,0 +1,73 @@
+"""The port stands alone: no JAX and nothing of ``repro`` at import or in its
+sources, and no quiet drop to the CPU."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import os  # noqa: E402
+import re  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.kernels import condensed_matmul as cm  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s))",
+    re.MULTILINE)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference_module():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.launch.serve, repro_torch.bridge\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_source_imports_neither_jax_nor_the_reference(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.findall(text), f"{path} imports jax or repro"
+
+
+def test_forbidden_pattern_catches_what_it_must():
+    for line in ("import jax", "from jax import numpy", "import repro.configs",
+                 "from repro.sparse import formats", "from repro import configs"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.sparse import formats"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_entry_points_refuse_to_drop_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-1.7b", "--smoke", "--gen", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrapper_takes_the_plain_version_only_on_the_cpu():
+    """A tensor that is not on the CPU never reaches the plain version: it
+    launches the kernel (CUDA) or raises."""
+    x = torch.zeros((2, 8), device="meta")
+    values = torch.zeros((3, 2), device="meta")
+    idx = torch.zeros((3, 2), dtype=torch.int32, device="meta")
+    before = cm.condensed_matmul.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cm.condensed_matmul(x, values, idx)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cm.condensed_matmul_decode(x, values, idx)
+    assert cm.condensed_matmul.launches == before
