@@ -9,19 +9,31 @@ Phases, each of which raises (exit code != 0) on any failed check:
    with nvcc for sm_90a, all at once.
 2. kernels: the condensed gather kernel (K1) at every shape the serving
    path of full-width qwen3-1.7b gives it (wo, w_gate/w_up, w_down; decode
-   B=4 and prefill B*T=128; bfloat16 and float32), held to its plain
-   version within the stated tolerance, with the decode launch bitwise
-   equal to the tiled launch. Times are CUDA-event medians over replays
-   of a CUDA graph of launches that cycle through enough copies of the
-   weights to keep L2 cold.
+   B=4 and prefill B*T=128; bfloat16 and float32), then K4 (condensed over
+   active rows), K5 (structured) and K6 (structured, gather inside; decode
+   only) at the shapes of those stacks with half their neurons ablated.
+   Each is held to its plain version within the stated tolerance, with
+   the decode launch bitwise equal to the tiled launch, K6 bitwise equal
+   to K5 and K4 bitwise equal to K1 on the same rows followed by a
+   scatter. Times are CUDA-event medians over replays of a CUDA graph of
+   launches that cycle through enough copies of the weights to keep L2
+   cold.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
    path, in bfloat16 and again in float32. The condensed run must launch
    K1 exactly 4 * 28 * (1 + 16) times; the two paths' tokens must agree
    except where the masked path's top-2 logit gap is a tie at that dtype.
-4. reference: the smoke config on the card against the port's CPU path
-   (plain versions), which the CPU tests hold to the JAX reference.
+4. ablation: the same model with half of every stack's neurons ablated:
+   condensed_over_active on the ablated masks (K4 4 * 28 * 17 times),
+   structured on ablation-only masks (K5 4 * 28 * 17 times) and again with
+   prefetch_gather (K6 4 * 28 * 16 times at decode, K5 4 * 28 at prefill),
+   each against the masked path on its own masks, bf16 and f32.
+5. auto: --path auto on the ablated masks at B=4 (bucket 8); each kernel
+   must launch as often as the plan's decisions imply.
+6. reference: the smoke config on the card against the port's CPU path
+   (plain versions), which the CPU tests hold to the JAX reference, on the
+   condensed, condensed_over_active and structured paths.
 
 Imports only torch, numpy, the standard library and repro_torch. Prints
 the card's name and power limit, a JSON line describing each kernel, and
@@ -30,8 +42,11 @@ build/chip_smoke_kernels.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,6 +65,29 @@ REPEATS = 5  # timed generate runs per path and dtype (tokens must repeat exactl
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=8e-3, atol=1e-5)}
 # masked vs condensed tokens may part only at a top-2 logit gap below this
 TIE_GAP = {"bfloat16": 0.05, "float32": 1e-3}
+# Two correct paths' bf16 logits differ by more than TIE_GAP: per-output
+# rounding of every linear compounds over 28 layers (measured at prefill,
+# NVIDIA H100: up to 0.078 condensed, 0.14 structured, against masked). The
+# ablation paths are therefore held to masked with a tie threshold of
+# max(TIE_GAP, 2 * d), where d is the largest |logit difference| the two
+# paths show on the same prefill (a top-2 swap needs a gap below 2 * d),
+# and d itself must stay below this bound.
+LOGIT_NOISE_BOUND = {"bfloat16": 0.25, "float32": 5e-4}
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = (  # key, wrapper, CUDA source, the TPU kernel it replaces
+    ("K1", "condensed_matmul", CSRC + "condensed_matmul.cu",
+     "src/repro/kernels/condensed_matmul.py:235"),
+    ("K4", "condensed_over_active_matmul", CSRC + "structured_matmul.cu",
+     "src/repro/kernels/structured_matmul.py:274"),
+    ("K5", "structured_matmul", CSRC + "structured_matmul.cu",
+     "src/repro/kernels/structured_matmul.py:217"),
+    ("K6", "structured_matmul_prefetch", CSRC + "structured_matmul.cu",
+     "src/repro/kernels/structured_matmul.py:244"),
+)
+ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
+# the port's kernels as the profiler names them: K1 and K4 share
+# gather_rows_kernel, K5 and K6 structured_kernel
+PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_kernel")
 
 
 def _time_ms(fn, arg_sets, reps: int = 5, iters: int = 30) -> float:
@@ -106,11 +144,14 @@ def build_phase():
     print(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in names:
-        if name in _build.build_logs:
-            print(f"[build] {name}: {_build.build_seconds[name]:.1f}s")
-            for line in _build.build_logs[name].splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"[build]   {line.strip()}")
+        if name in _build.build_logs:  # what ptxas said of the source's kernels
+            log = _build.build_logs[name]
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+            spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
+            smem = [int(r) for r in re.findall(r"(\d+) bytes smem", log)] or [0]
+            print(f"[build] {name}: {_build.build_seconds[name]:.1f}s, {len(regs)} kernels, "
+                  f"registers {min(regs)}-{max(regs)}, static smem up to {max(smem)} bytes, "
+                  f"spill stores up to {max(spills)} bytes")
 
 
 def kernel_phase(device):
@@ -166,18 +207,191 @@ def kernel_phase(device):
                 ops = 2 * b * n_out * k
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-                rec = dict(stack=name, d_in=d_in, n_out=n_out, k=k, dtype=dtype_name,
-                           batch=b, launch=launch, ms=ms, plain_ms=plain_ms,
+                rec = dict(kernel="K1", stack=name, d_in=d_in, n_out=n_out, k=k,
+                           dtype=dtype_name, batch=b, launch=launch, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
                            bytes=nbytes, ops=ops, eager_call_ms=call_ms,
                            max_abs_err=err, bitwise=pair)
                 cases.append(rec)
-                print(f"[kernel] {name:6s} {d_in}->{n_out} k={k} {dtype_name:8s} B={b:3d} "
+                print(f"[kernel] K1  {name:6s} {d_in}->{n_out} k={k} {dtype_name:8s} B={b:3d} "
                       f"{launch:6s}: ms {ms:.5f} | plain {plain_ms:.5f} | torch.matmul "
                       f"{library_ms:.5f} | bound {rec['bound_ms']:.5f} ({rec['bound_by']}) | "
                       f"eager call {call_ms:.5f} | max_abs_err {err:.3g} | {pair}: bitwise")
             del weight_sets, dense_sets
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _ablated(mask, frac: float):
+    """``mask`` with the last ``frac`` of its output columns emptied."""
+    import torch
+    d_out = mask.shape[-1]
+    cut = d_out - max(1, int(d_out * frac))
+    return mask & (torch.arange(d_out, device=mask.device) < cut)
+
+
+def _ablate_masks(reg, masks, frac: float):
+    """Constant fan-in masks with SRigL-style neuron ablation on top (the
+    reference's benchmarks/serve_paths.py _ablate_masks)."""
+    from repro_torch.sparse import registry as REG
+    out: dict = {}
+    for s in reg:
+        REG.set_path(out, s.path, _ablated(REG.get_path(masks, s.path), frac))
+    return out
+
+
+def _ablation_only(reg, masks, frac: float):
+    """Masks that are purely neuron ablation: active columns fully dense,
+    ablated ones empty (the reference's tests/test_plan.py _ablation_only),
+    where the structured representation is exact."""
+    import torch
+    from repro_torch.sparse import registry as REG
+    out: dict = {}
+    for s in reg:
+        m = REG.get_path(masks, s.path)
+        REG.set_path(out, s.path, _ablated(torch.ones_like(m), frac))
+    return out
+
+
+def ablation_kernel_phase(device):
+    """K4, K5 and K6 at every main-path shape of the ablated stacks; returns
+    the per-case records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(2)
+    shapes = {}
+    for s in REG.build_registry(cfg):  # w_up has w_gate's shape
+        shapes.setdefault((s.d_in, s.d_out), (s.path[-1], D.fan_in_from_density(s.d_in, s.density)))
+    cases = []
+
+    def record(kernel, name, d_in, d_out, dtype_name, b, launch, fn, arg_sets, plain,
+               library, library_sets, nbytes, ops, err, pair):
+        ms = _time_ms(fn, arg_sets)
+        plain_ms = _time_ms(plain, arg_sets, iters=10)
+        library_ms = _time_ms(library, library_sets)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+        rec = dict(kernel=kernel, stack=name, d_in=d_in, d_out=d_out, dtype=dtype_name,
+                   batch=b, launch=launch, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair)
+        cases.append(rec)
+        print(f"[kernel] {kernel:3s} {name:6s} {d_in}->{d_out} {dtype_name:8s} B={b:3d} "
+              f"{launch:6s}: ms {ms:.5f} | plain {plain_ms:.5f} | library {library_ms:.5f} | "
+              f"bound {rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g} | "
+              f"{pair}: bitwise")
+
+    def check(kernel, got, want, dtype_name, what):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype_name],
+                                   msg=lambda m: f"{kernel} {what}: {m}")
+        return (got.float() - want.float()).abs().max().item()
+
+    def same(kernel, a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{kernel} {what} is not bitwise")
+
+    for (d_in, d_out), (name, k) in shapes.items():
+        mask = _ablated(topology.random_constant_fan_in_mask(gen, d_in, d_out, k), ABLATION)
+        w = torch.randn((d_in, d_out), generator=gen, device=device) / k ** 0.5
+        only = _ablated(torch.ones_like(mask), ABLATION)
+        stats = F.realized_stats(mask)
+        a_pad = sm.padded_active_count(stats.max_active, d_out)
+        print(f"[kernel] {name} {d_in}->{d_out}: k {stats.k}, a = a_pad = {a_pad}")
+        if stats.k != k or a_pad != stats.max_active:
+            raise AssertionError(f"{name}: k {stats.k}, a {stats.max_active}, a_pad {a_pad}")
+        coa = F.CondensedOverActive.export_from_dense(w, mask, stats)
+        ai = F.StructuredFanIn.from_mask(only).active_index
+        ai_long = ai.long()
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            isz = torch.empty((), dtype=dtype).element_size()
+            vals, idx, oi = coa.values.to(dtype).contiguous(), coa.indices, coa.out_index
+            masked = (w * mask).to(dtype).contiguous()
+            dense = w.to(dtype).contiguous()
+            panel = sm._gather_columns(dense, ai)
+            coa_sets = [(vals.clone(), idx.clone(), oi.clone())
+                        for _ in range(_copies(vals.numel() * (isz + 4)))]
+            masked_sets = [masked.clone() for _ in range(_copies(masked.numel() * isz))]
+            panel_sets = [panel.clone() for _ in range(_copies(panel.numel() * isz))]
+            dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * isz))]
+            for b, launch in ((BATCH, "decode"), (BATCH * PROMPT, "tiled")):
+                x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+                out_bytes = b * d_in * isz + b * d_out * isz
+
+                # K4
+                y = sm.condensed_over_active_matmul(x, vals, idx, oi, d_out)
+                err = check("K4", y, ref.condensed_over_active_matmul_ref(x, vals, idx, oi, d_out),
+                            dtype_name, f"{name} B={b}")
+                other = (sm.condensed_over_active_matmul(x, vals, idx, oi, d_out, block_b=8)
+                         if launch == "decode" else
+                         sm.condensed_over_active_matmul(x, vals, idx, oi, d_out, block_b=2))
+                pair = "decode == tiled(8)" if launch == "decode" else "tiled(8) == tiled(2)"
+                same("K4", y, other, f"{name} {dtype_name} B={b}: {pair}")
+                k1 = ref._scatter_columns(cm.condensed_matmul(x, vals, idx), oi, d_out)
+                same("K4", y, k1, f"{name} {dtype_name} B={b}: K4 == K1 then scatter")
+                k1_rows_ms = _time_ms(lambda x_, v_, i_, o_: cm.condensed_matmul(x_, v_, i_),
+                                      [(x, *c) for c in coa_sets])
+                record("K4", name, d_in, d_out, dtype_name, b, launch,
+                       lambda *a: sm.condensed_over_active_matmul(*a, d_out),
+                       [(x, *c) for c in coa_sets],
+                       lambda *a: ref.condensed_over_active_matmul_ref(*a, d_out),
+                       torch.matmul, [(x, m) for m in masked_sets],
+                       vals.numel() * (isz + 4) + oi.numel() * 4 + out_bytes,
+                       2 * b * vals.numel(), err, pair + ", K4 == K1 then scatter")
+                cases[-1]["k1_same_rows_ms"] = k1_rows_ms
+                print(f"[kernel] K1  {name:6s} on K4's {vals.shape[0]} rows, unscattered: "
+                      f"ms {k1_rows_ms:.5f}")
+
+                # K5, on the gathered panel
+                y = sm.structured_matmul_pregathered(x, panel, ai, d_out)
+                want = ref.structured_matmul_ref(x, panel, ai, d_out)
+                err = check("K5", y, want, dtype_name, f"{name} B={b}")
+                if launch == "decode":
+                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=16)
+                    pair = "decode == tiled(16)"
+                else:
+                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=2)
+                    pair = "tiled(16) == tiled(2)"
+                same("K5", y, other, f"{name} {dtype_name} B={b}: {pair}")
+                same("K5", y, sm.structured_matmul(x, dense, ai),
+                     f"{name} {dtype_name} B={b}: pregathered == gathered by the wrapper")
+                struct_bytes = panel.numel() * isz + ai.numel() * 4 + out_bytes
+                struct_ops = 2 * b * panel.numel()
+                record("K5", name, d_in, d_out, dtype_name, b, launch,
+                       lambda x_, p_: sm.structured_matmul_pregathered(x_, p_, ai, d_out),
+                       [(x, p) for p in panel_sets],
+                       lambda x_, p_: ref.structured_matmul_ref(x_, p_, ai, d_out),
+                       lambda x_, p_: torch.zeros((b, d_out), dtype=dtype, device=device)
+                       .index_copy_(1, ai_long, torch.matmul(x_, p_)),
+                       [(x, p) for p in panel_sets], struct_bytes, struct_ops, err, pair)
+
+                # K6, decode only: reads the dense weight through active_index
+                if launch == "decode":
+                    y6 = sm.structured_matmul_prefetch(x, dense, ai)
+                    err = check("K6", y6, want, dtype_name, f"{name} B={b}")
+                    same("K6", y6, y, f"{name} {dtype_name} B={b}: K6 == K5 decode")
+                    record("K6", name, d_in, d_out, dtype_name, b, launch,
+                           lambda x_, w_: sm.structured_matmul_prefetch(x_, w_, ai),
+                           [(x, d) for d in dense_sets],
+                           lambda x_, w_: ref.structured_matmul_ref(
+                               x_, sm._gather_columns(w_, ai), ai, d_out),
+                           lambda x_, p_: torch.zeros((b, d_out), dtype=dtype, device=device)
+                           .index_copy_(1, ai_long, torch.matmul(x_, p_)),
+                           [(x, p) for p in panel_sets], struct_bytes, struct_ops, err,
+                           "K6 == K5 decode")
+            del coa_sets, masked_sets, panel_sets, dense_sets
     torch.cuda.empty_cache()
     return cases
 
@@ -206,14 +420,19 @@ def _device_profile(fn, label: str) -> None:
         print(f"[profile:{label}] device time not measured (no CUDA events)")
         return
     device_ms = sum(r[1] for r in rows)
-    k1 = [r for r in rows if "condensed_fwd_kernel" in r[0]]
-    k1_ms = sum(r[1] for r in k1)
+    ours = [r for r in rows if any(k in r[0] for k in PORT_KERNEL_NAMES)]
+    ours_ms = sum(r[1] for r in ours)
     print(f"[profile:{label}] generate {BATCH}x{PROMPT}+{GEN}: wall {wall_ms:.2f} ms, "
           f"device busy {device_ms:.3f} ms ({device_ms / wall_ms:.1%}), idle "
-          f"{1 - device_ms / wall_ms:.1%}; K1 {k1_ms:.3f} ms in "
-          f"{sum(r[2] for r in k1)} launches ({k1_ms / device_ms:.1%} of device time)")
+          f"{1 - device_ms / wall_ms:.1%}; port kernels {ours_ms:.3f} ms in "
+          f"{sum(r[2] for r in ours)} launches ({ours_ms / device_ms:.1%} of device time)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[profile:{label}]   {ms:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def _rates(tok_s: dict) -> str:
+    return "; ".join(f"{p} median {statistics.median(r):.1f} tok/s (min {min(r):.1f}, max "
+                     f"{max(r):.1f}, n={len(r)})" for p, r in tok_s.items())
 
 
 def _first_divergence(a, b):
@@ -248,14 +467,51 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
         return torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
-def slice_phase(device, card: str):
-    """Full-width qwen3-1.7b through both paths; returns K1's launch count."""
+def _kernel_functions() -> dict:
+    """Each kernel's wrapper function, which carries its launch count."""
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import structured_matmul as sm
+    return {"K1": cm.condensed_matmul, "K4": sm.condensed_over_active_matmul,
+            "K5": sm.structured_matmul, "K6": sm.structured_matmul_prefetch}
+
+
+def _zero_counts() -> None:
+    for fn in _kernel_functions().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_functions().items()}
+
+
+def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None) -> int:
+    """Tokens of a path against the masked path's on the same masks: they
+    may part only where the masked top-2 logit gap is a tie (below ``tie``,
+    by default TIE_GAP at this dtype). Returns the number of streams that
+    agree in full."""
+    dtype_name = cfg.dtype
+    tie = TIE_GAP[dtype_name] if tie is None else tie
+    if out.shape != (BATCH, PROMPT + GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: bad tokens, shape {tuple(out.shape)}")
+    div = _first_divergence(out[:, PROMPT:], toks_m)
+    for b, j in enumerate(div):
+        if j is None:
+            continue
+        gap = gaps[b, j].item()
+        print(f"[{label}] stream {b}: parts from masked at generated token {j}, masked "
+              f"top-2 gap {gap:.3g} (tie below {tie:.3g})")
+        if gap >= tie:
+            raise AssertionError(f"{label}: tokens differ from masked at a gap of {gap}")
+    return sum(j is None for j in div)
+
+
+def model_setup(device) -> dict:
+    """Full-width qwen3-1.7b: random weights and SRigL ERK masks at 90% from
+    a seeded generator, and the prompts every path serves."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import condensed_matmul as cm
-    from repro_torch.launch.engine import ServingModel
     from repro_torch.models import model as M
-    from repro_torch.sparse import condensed as COND
     from repro_torch.sparse import registry as REG
 
     base = configs.get_config(ARCH)
@@ -273,6 +529,19 @@ def slice_phase(device, card: str):
     print(f"[slice] {ARCH}: {base.n_layers} layers, d_model {base.d_model}, d_ff "
           f"{base.d_ff}, vocab {base.vocab_size}; fan-ins {k_fan}; init "
           f"{time.perf_counter() - t0:.1f}s")
+    return dict(base=base, reg=reg, k_fan=k_fan, params=params, masks=masks, prompts=prompts)
+
+
+def slice_phase(setup: dict, card: str):
+    """Full-width qwen3-1.7b through both paths; returns K1's launch count."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.launch.engine import ServingModel
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import registry as REG
+
+    base, reg, k_fan = setup["base"], setup["reg"], setup["k_fan"]
+    params, masks, prompts = setup["params"], setup["masks"], setup["prompts"]
     expected = 4 * base.n_layers * (1 + GEN)
     launches = None
     for dtype_name in ("bfloat16", "float32"):
@@ -290,11 +559,12 @@ def slice_phase(device, card: str):
         cond_model.generate(prompts, GEN)  # warm-up outside the counted run
         masked_model.generate(prompts, GEN)
 
-        cm.condensed_matmul.launches = 0
+        _zero_counts()
         out_c, tok_s_c = cond_model.serve_once(prompts, GEN, "condensed")
         n = cm.condensed_matmul.launches
-        if n != expected:
-            raise AssertionError(f"K1 launched {n} times, expected {expected}")
+        if _counts() != {"K1": expected, "K4": 0, "K5": 0, "K6": 0}:
+            raise AssertionError(f"condensed path launched {_counts()}, expected K1 "
+                                 f"{expected} and nothing else")
         out_m, tok_s_m = masked_model.serve_once(prompts, GEN, "masked")
         if launches is None:
             launches = n
@@ -312,32 +582,165 @@ def slice_phase(device, card: str):
         toks_m, gaps = _masked_gaps(cfg, masked_model, prompts, GEN)
         if not torch.equal(toks_m, out_m[:, PROMPT:]):
             raise AssertionError("masked step-by-step run differs from generate")
-        for out in (out_c, out_m):
-            if out.shape != (BATCH, PROMPT + GEN) or not bool(
-                    ((out >= 0) & (out < cfg.vocab_size)).all()):
-                raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
-        div = _first_divergence(out_c[:, PROMPT:], out_m[:, PROMPT:])
-        for b, j in enumerate(div):
-            if j is None:
-                continue
-            gap = gaps[b, j].item()
-            print(f"[slice:{dtype_name}] stream {b}: paths part at generated "
-                  f"token {j}, masked top-2 gap {gap:.3g} (tie below "
-                  f"{TIE_GAP[dtype_name]})")
-            if gap >= TIE_GAP[dtype_name]:
-                raise AssertionError(f"condensed and masked tokens differ at a "
-                                     f"gap of {gap} ({dtype_name})")
-        rates = "; ".join(
-            f"{p} median {statistics.median(r):.1f} tok/s (min {min(r):.1f}, max "
-            f"{max(r):.1f}, n={len(r)})" for p, r in tok_s.items())
-        print(f"[slice:{dtype_name}] {card}: decode {rates}; K1 launches {n}; "
-              f"streams agreeing in full "
-              f"{sum(j is None for j in div)}/{BATCH}; min masked top-2 gap "
+        _check_ties(f"slice:{dtype_name}", cfg, out_m, toks_m, gaps)
+        agree = _check_ties(f"slice:{dtype_name}", cfg, out_c, toks_m, gaps)
+        print(f"[slice:{dtype_name}] {card}: decode {_rates(tok_s)}; K1 launches {n}; "
+              f"streams agreeing in full {agree}/{BATCH}; min masked top-2 gap "
               f"{gaps.min().item():.3g}")
         print(f"[slice:{dtype_name}] condensed first stream: {out_c[0, PROMPT:].tolist()}")
         del cond, cond_model, masked_model
         torch.cuda.empty_cache()
     return launches
+
+
+def _tie_threshold(label: str, cfg, model, masked_model, prompts) -> float:
+    """max(TIE_GAP, 2 * d), d the largest |logit difference| between a path
+    and masked on the same prefill; d must stay below LOGIT_NOISE_BOUND."""
+    import torch
+    from repro_torch.models import model as M
+    logits = []
+    with torch.inference_mode():
+        for m in (model, masked_model):
+            cache = M.init_cache(cfg, prompts.shape[0], prompts.shape[1], prompts.device)
+            lg, _ = M.prefill_step(cfg, m.compute, m.serving, {"tokens": prompts}, cache)
+            logits.append(lg[:, :cfg.vocab_size])
+        d = (logits[0] - logits[1]).abs().max().item()
+    if not d <= LOGIT_NOISE_BOUND[cfg.dtype]:
+        raise AssertionError(f"{label}: prefill logits differ from masked by {d}, above "
+                             f"{LOGIT_NOISE_BOUND[cfg.dtype]}")
+    tie = max(TIE_GAP[cfg.dtype], 2 * d)
+    print(f"[{label}] prefill logits differ from masked by at most {d:.4g}: tie below {tie:.4g}")
+    return tie
+
+
+@contextlib.contextmanager
+def _prefetch_gather(on: bool):
+    """REPRO_PREFETCH_GATHER for the structured decode launches inside."""
+    old = os.environ.get("REPRO_PREFETCH_GATHER")
+    os.environ["REPRO_PREFETCH_GATHER"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_PREFETCH_GATHER"]
+        else:
+            os.environ["REPRO_PREFETCH_GATHER"] = old
+
+
+def _serve_counted(label: str, model, prompts, expected: dict):
+    """A warm-up, then one run with the launch counts zeroed just before and
+    read just after (they must equal ``expected``), then REPEATS - 1 more
+    timed runs that must give the same tokens. Returns (tokens, tok/s list,
+    the counted run's launch counts)."""
+    import torch
+    model.generate(prompts, GEN)
+    _zero_counts()
+    out, rate = model.serve_once(prompts, GEN, label, quiet=True)
+    counts = _counts()
+    if counts != expected:
+        raise AssertionError(f"{label}: launched {counts}, expected {expected}")
+    rates = [rate]
+    for _ in range(1, REPEATS):
+        again, rate = model.serve_once(prompts, GEN, label, quiet=True)
+        if not torch.equal(again, out):
+            raise AssertionError(f"{label}: a repeated run gave other tokens")
+        rates.append(rate)
+    return out, rates, counts
+
+
+def ablation_phase(setup: dict, card: str) -> dict:
+    """Full-width qwen3-1.7b with half of every sparse stack's neurons
+    ablated: condensed_over_active (K4) on the ablated constant fan-in
+    masks, structured (K5) and structured with prefetch_gather (K6 at
+    decode, K5 at prefill) on ablation-only masks, each held to the masked
+    path on its own masks. Returns the bf16 runs' launch counts."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ServingModel
+
+    base, reg, params, prompts = setup["base"], setup["reg"], setup["params"], setup["prompts"]
+    per_pass = 4 * base.n_layers  # sparse linears per forward pass
+    sets = {"ablated": _ablate_masks(reg, setup["masks"], ABLATION),
+            "ablation-only": _ablation_only(reg, setup["masks"], ABLATION)}
+    none = {"K1": 0, "K4": 0, "K5": 0, "K6": 0}
+    runs = (  # label, mask set, path, prefetch_gather, expected launches
+        ("condensed_over_active", "ablated", "condensed_over_active", False,
+         {**none, "K4": per_pass * (1 + GEN)}),
+        ("structured", "ablation-only", "structured", False,
+         {**none, "K5": per_pass * (1 + GEN)}),
+        ("structured+prefetch", "ablation-only", "structured", True,
+         {**none, "K5": per_pass, "K6": per_pass * GEN}),
+    )
+    launches = {}
+    for dtype_name in ("bfloat16", "float32"):
+        cfg = base.replace(dtype=dtype_name)
+        tok_s, masked = {}, {}
+        for set_name, m in sets.items():
+            model = ServingModel(cfg, params, m)
+            label = f"masked/{set_name}"
+            out, tok_s[label], _ = _serve_counted(label, model, prompts, none)
+            toks_m, gaps = _masked_gaps(cfg, model, prompts, GEN)
+            if not torch.equal(toks_m, out[:, PROMPT:]):
+                raise AssertionError(f"{label}: step-by-step run differs from generate")
+            masked[set_name] = (model, toks_m, gaps)
+            if dtype_name == "bfloat16":
+                _device_profile(lambda: model.generate(prompts, GEN), label)
+        outs = {}
+        for label, set_name, path, prefetch, expected in runs:
+            with _prefetch_gather(prefetch):
+                t0 = time.perf_counter()
+                plan = serve.build_plan(cfg, reg, params, sets[set_name], path, batch_size=BATCH)
+                torch.cuda.synchronize()
+                export_s = time.perf_counter() - t0
+                model = ServingModel(cfg, params, plan)
+                outs[label], tok_s[label], counts = _serve_counted(label, model, prompts,
+                                                                   expected)
+                if dtype_name == "bfloat16":
+                    launches[label] = counts
+                    _device_profile(lambda: model.generate(prompts, GEN), label)
+                masked_model, toks_m, gaps = masked[set_name]
+                name = f"ablation:{dtype_name}:{label}"
+                tie = _tie_threshold(name, cfg, model, masked_model, prompts)
+                del model, plan
+            agree = _check_ties(name, cfg, outs[label], toks_m, gaps, tie)
+            print(f"[ablation:{dtype_name}] {label} on the {set_name} masks: export "
+                  f"{export_s:.1f}s, launches {expected}, streams agreeing with masked in "
+                  f"full {agree}/{BATCH}; first stream {outs[label][0, PROMPT:].tolist()}")
+        if not torch.equal(outs["structured+prefetch"], outs["structured"]):
+            raise AssertionError(f"{dtype_name}: prefetch_gather changed the structured tokens")
+        print(f"[ablation:{dtype_name}] {card}: structured+prefetch tokens == structured "
+              f"tokens; decode {_rates(tok_s)}")
+        del masked
+        torch.cuda.empty_cache()
+    return launches
+
+
+def auto_phase(setup: dict) -> None:
+    """--path auto on the ablated masks at B=4 (bucket 8), bf16: the launch
+    count of each kernel must be what the plan's decisions imply."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ServingModel
+
+    base, reg, params, prompts = setup["base"], setup["reg"], setup["params"], setup["prompts"]
+    cfg = base.replace(dtype="bfloat16")
+    ablated = _ablate_masks(reg, setup["masks"], ABLATION)
+    plan = serve.build_plan(cfg, reg, params, ablated, "auto", batch_size=BATCH)
+    print(plan.describe(requested_batch=BATCH))
+    if plan.batch_size != 8:
+        raise AssertionError(f"B={BATCH} planned at bucket {plan.batch_size}, not 8")
+    kernel_of = {"condensed": "K1", "condensed_over_active": "K4", "structured": "K5"}
+    expected = {"K1": 0, "K4": 0, "K5": 0, "K6": 0}
+    for s in reg:
+        rep = plan.representation_of(s.name)
+        if rep in kernel_of:
+            expected[kernel_of[rep]] += base.n_layers * (1 + GEN)
+    model, masked = ServingModel(cfg, params, plan), ServingModel(cfg, params, ablated)
+    with _prefetch_gather(False):
+        out, rates, _ = _serve_counted("auto", model, prompts, expected)
+    tie = _tie_threshold("auto", cfg, model, masked, prompts)
+    agree = _check_ties("auto", cfg, out, *_masked_gaps(cfg, masked, prompts, GEN), tie)
+    print(f"[auto] launches {expected} as the decisions imply; streams agreeing with "
+          f"masked in full {agree}/{BATCH}; decode {_rates({'auto': rates})}")
 
 
 def reference_phase(device):
@@ -355,17 +758,24 @@ def reference_phase(device):
     params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
     prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen, dtype=torch.int32)
-    cond = COND.export_condensed(cfg, reg, params, masks)
-    cpu = E.generate(cfg, params, cond, prompts, 10)
+    trees = {  # each path on masks where it is exact
+        "condensed": COND.export_condensed(cfg, reg, params, masks),
+        "condensed_over_active": COND.export_condensed_over_active(
+            cfg, reg, params, _ablate_masks(reg, masks, ABLATION)),
+        "structured": COND.export_structured(cfg, reg, _ablation_only(reg, masks, ABLATION)),
+    }
 
-    def to_dev(tree):  # tensors and Condensed leaves alike
+    def to_dev(tree):  # tensors and format leaves alike
         return {k: to_dev(v) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
-    gpu = E.generate(cfg, to_dev(params), to_dev(cond), prompts.to(device), 10)
-    if not torch.equal(gpu.cpu(), cpu):
-        raise AssertionError(f"smoke tokens differ: card {gpu.tolist()} cpu {cpu.tolist()}")
-    print(f"[reference] smoke {ARCH} condensed on the card == CPU plain path: "
-          f"{cpu[0, 8:].tolist()}")
+    for path, tree in trees.items():
+        cpu = E.generate(cfg, params, tree, prompts, 10)
+        gpu = E.generate(cfg, to_dev(params), to_dev(tree), prompts.to(device), 10)
+        if not torch.equal(gpu.cpu(), cpu):
+            raise AssertionError(f"smoke {path} tokens differ: card {gpu.tolist()} "
+                                 f"cpu {cpu.tolist()}")
+        print(f"[reference] smoke {ARCH} {path} on the card == CPU plain path: "
+              f"{cpu[0, 8:].tolist()}")
 
 
 def main() -> int:
@@ -375,7 +785,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from repro_torch.kernels import condensed_matmul as cm
 
     # full float32 products and reductions in every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -391,32 +800,44 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     build_phase()
-    cases = kernel_phase(device)
-    launches = slice_phase(device, card)
+    cases = kernel_phase(device) + ablation_kernel_phase(device)
+    setup = model_setup(device)
+    launches = {"K1": slice_phase(setup, card)}
+    ablation = ablation_phase(setup, card)
+    launches.update(K4=ablation["condensed_over_active"]["K4"],
+                    K5=ablation["structured"]["K5"],
+                    K6=ablation["structured+prefetch"]["K6"])
+    auto_phase(setup)
+    del setup
     reference_phase(device)
 
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi, "cases": cases}, indent=1))
-    layer = [c for c in cases if c["dtype"] == "bfloat16" and c["launch"] == "decode"]
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
-    total = {key: sum(c[key] * per_layer[c["stack"]] for c in layer)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    kernels = [{
-        "name": "condensed_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/condensed_matmul.cu",
-        "replaces": "src/repro/kernels/condensed_matmul.py:235",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in layer),
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in layer) else "operations",
-        "library_ms": total["library_ms"],
-        "shape": "one decode layer: wo + w_gate + w_up + w_down, B=4, bfloat16",
-    }]
+    kernels = []
+    for key, name, source, replaces in KERNELS:
+        layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
+                 and c["launch"] == "decode"]
+        total = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
+                 for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[key],
+            "max_abs_err": max(c["max_abs_err"] for c in layer),
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in layer)
+                         else "operations"),
+            "library_ms": total["library_ms"],
+            "shape": "one decode layer: wo + w_gate + w_up + w_down, B=4, bfloat16"
+                     + (", 50% of each stack's neurons ablated" if key != "K1" else ""),
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

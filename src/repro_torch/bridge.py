@@ -16,14 +16,15 @@ from repro_torch.sparse import formats as F
 
 
 def flatten(tree, prefix: tuple = ()) -> dict:
-    """Nested dict -> {"a/b/c": leaf}; ``Condensed`` leaves give their arrays."""
+    """Nested dict -> {"a/b/c": leaf}; a format leaf gives its arrays
+    (``…/values``, ``…/indices``, ``…/out_index``, ``…/active_index``…)."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(flatten(v, prefix + (str(k),)))
-    elif isinstance(tree, F.Condensed):
-        out["/".join(prefix + ("values",))] = tree.values
-        out["/".join(prefix + ("indices",))] = tree.indices
+    elif isinstance(tree, F.SparseFormat):
+        for name, arr in tree.arrays().items():
+            out["/".join(prefix + (name,))] = arr
     else:
         out["/".join(prefix)] = tree
     return out

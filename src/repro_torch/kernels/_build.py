@@ -3,7 +3,8 @@
 Each ``kernels/csrc/<name>.cu`` exposes a plain C interface and is compiled
 for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the root
 of the checkout, at first use. The hash covers the source and the flags, so
-an edited source is rebuilt and a built one is reused. Nothing is compiled
+an edited source is rebuilt and a built one is reused; the hash also covers
+every header in ``csrc/`` (``*.cuh``), which the sources include. Nothing is compiled
 when a module is imported: the CPU tests import every module and this
 machine class may have no ``nvcc``.
 """
@@ -42,6 +43,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

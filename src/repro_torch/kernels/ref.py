@@ -26,3 +26,58 @@ def condensed_matmul_ref(x: torch.Tensor, values: torch.Tensor,
     gathered = x[:, indices.long()].float()              # (B, n_out, k)
     acc = (gathered * values.float()[None]).sum(dim=-1)  # f32 accumulate
     return acc.to(x.dtype)
+
+
+def condensed_over_active_matmul_ref(x: torch.Tensor, values: torch.Tensor,
+                                     indices: torch.Tensor, out_index: torch.Tensor,
+                                     d_out: int) -> torch.Tensor:
+    """Condensed gather over the surviving rows, scattered to dense columns.
+
+    values, indices : (a, k)   the a <= d_out surviving rows
+    out_index       : (a,)     int — dense output column of each row;
+                               ``d_out`` marks a padding row (dropped)
+    returns         : (B, d_out), ablated columns exact zeros
+
+    Row r is ``condensed_matmul_ref``'s row r (f32 accumulate, one cast to
+    ``x.dtype``), stored at column ``out_index[r]`` — the function of
+    ``repro/kernels/structured_matmul.py::_coa_kernel``.
+    """
+    y = condensed_matmul_ref(x, values, indices)                     # (B, a)
+    return _scatter_columns(y, out_index, d_out)
+
+
+def structured_matmul_ref(x: torch.Tensor, panel: torch.Tensor,
+                          active_index: torch.Tensor, d_out: int) -> torch.Tensor:
+    """Matmul over gathered columns, each placed at its dense position.
+
+    panel        : (d_in, a_pad)  the surviving columns of the dense weight
+    active_index : (a_pad,)       int — dense column of each panel column;
+                                  ``d_out`` marks a padding slot (dropped)
+    returns      : (B, d_out), ablated columns exact zeros
+
+    ``f32(x) @ f32(panel)`` with one cast to ``x.dtype`` — the function of
+    ``repro/kernels/structured_matmul.py::_structured_kernel``.
+    """
+    y = (x.float() @ panel.float()).to(x.dtype)                      # (B, a_pad)
+    return _scatter_columns(y, active_index, d_out)
+
+
+def _scatter_columns(y: torch.Tensor, index: torch.Tensor, d_out: int) -> torch.Tensor:
+    """(B, a) -> (B, d_out): column j of y to column index[j], sentinel
+    (out-of-range) slots dropped, every other column zero. Out-of-range
+    slots land in a spare column that is cut off, so nothing here waits for
+    the device (a CUDA graph can capture it)."""
+    dst = torch.where((index >= 0) & (index < d_out), index, d_out).long()
+    out = torch.zeros((y.shape[0], d_out + 1), dtype=y.dtype, device=y.device)
+    return out.index_copy_(1, dst, y)[:, :d_out].contiguous()
+
+
+def structured_dense(x: torch.Tensor, weight: torch.Tensor,
+                     neuron_active: torch.Tensor) -> torch.Tensor:
+    """Fig. 4 "structured-only" formula: ``x @ (weight * neuron_active)``.
+
+    weight (d_in, n_out); ablated outputs are exact zeros. The formula of
+    ``repro/kernels/ops.py::structured_dense``, in ``x.dtype`` as there; the
+    structured kernel (K5) is held to it with a tolerance.
+    """
+    return x @ (weight * neuron_active[None, :].to(weight.dtype))

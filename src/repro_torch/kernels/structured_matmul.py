@@ -1,0 +1,323 @@
+"""Ablation-aware matmuls: wrappers of the Hopper kernels K4, K5 and K6
+(port of ``repro/kernels/structured_matmul.py``).
+
+* K4, ``condensed_over_active_matmul(_decode)``: K1's condensed gather over
+  the ``a <= d_out`` surviving rows, each row stored at its dense column
+  ``out_index[r]`` (the reference's ``_coa_kernel``).
+* K5, ``structured_matmul(_decode)`` and ``structured_matmul_pregathered``:
+  ``x @ panel`` over the gathered surviving columns, each stored at
+  ``active_index[j]`` (``_structured_kernel``). The panel comes from
+  ``_gather_columns``, an ``index_select`` per call: the reference's XLA
+  ``take``, which its decode scan hoists out of the token loop and eager
+  PyTorch does not.
+* K6, ``structured_matmul_prefetch``: K5 reading the dense weight through
+  ``active_index`` inside the kernel, so no panel is gathered
+  (``_structured_prefetch_kernel``); decode shapes only.
+
+The CUDA source is ``csrc/structured_matmul.cu`` (its header note gives the
+bounds and the design); ``ref.condensed_over_active_matmul_ref`` and
+``ref.structured_matmul_ref`` are the plain versions.
+
+Ablated columns are exact zeros: the kernels' C entry points clear the
+output with ``cudaMemsetAsync`` before the launch, so the wrappers allocate
+it with ``torch.empty``, and one call is one memset plus one kernel launch
+(K5/K6 keep their tickets right after the output, in the same buffer). Sentinel slots
+(``out_index`` or ``active_index`` equal to ``d_out``) are dropped.
+
+Dispatch is as for K1 (``condensed_matmul``): a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. ``B <= SMALL_BATCH_MAX``
+takes the decode launch (the batch in one block row, padded to a power of
+two), larger batches the tiled launch; the two are bitwise equal, and K6 is
+bitwise equal to K5's decode launch. The working set need not fit shared
+memory: K4 stages x as K1 does (``_fit_rows`` shrinks the block's rows), and
+K5/K6 stage only 256 input features of x per block and read the weight
+from global memory, so ``prefetch_gather`` (``REPRO_PREFETCH_GATHER=1`` when
+None, as in the reference) has no memory budget to check.
+
+``<kernel function>.launches`` counts kernel launches (never plain-version
+calls): ``condensed_over_active_matmul.launches`` (K4),
+``structured_matmul.launches`` (K5) and ``structured_matmul_prefetch.launches``
+(K6).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import condensed_matmul as cm
+from repro_torch.kernels import ref
+
+SMALL_BATCH_MAX = cm.SMALL_BATCH_MAX
+# the reference pads active_index to its 128-lane tile; the port keeps that
+# padding so that its exports equal the reference's exactly
+LANE = 128
+SPLIT_ROWS = 256       # kSplitRows in csrc/structured_matmul.cu
+TILED_ROWS = 16        # batch rows per block of K5's tiled launch
+STRUCTURED_ROWS = (1, 2, 4, 8, 16)
+
+
+def padded_active_count(a, d_out: int) -> int:
+    """Exported ``active_index`` length: the realized active-column count
+    rounded up to the 128-lane tile, capped at the padded dense width.
+    Accepts a float ``a`` (the cost model prices fractional row counts)."""
+    def ceil_to(n: int) -> int:
+        return -(-n // LANE) * LANE
+    return min(ceil_to(int(max(a, 1))), ceil_to(int(max(d_out, 1))))
+
+
+def _prefetch_default() -> bool:
+    return os.environ.get("REPRO_PREFETCH_GATHER", "0") != "0"
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("structured_matmul")
+    fn = lib.coa_matmul_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.structured_matmul_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                            ctypes.c_longlong] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.structured_matmul_out_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    lib.structured_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.structured_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + _lib().structured_matmul_error_string(err).decode())
+
+
+def _check_index(index: torch.Tensor, x: torch.Tensor, name: str) -> None:
+    if index.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {index.dtype}")
+    if index.device != x.device or not index.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on x's device")
+
+
+def _check_structured(x: torch.Tensor, w: torch.Tensor,
+                      active_index: torch.Tensor) -> None:
+    if x.ndim != 2 or w.ndim != 2 or active_index.ndim != 1 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"need x (B, d_in), a weight (d_in, n) and active_index (a,); "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(active_index.shape)}")
+    if x.dtype not in cm._DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"x and the weight must both be float32 or bfloat16; got "
+                        f"{x.dtype}, {w.dtype}")
+    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and the weight must be contiguous and on one device")
+    _check_index(active_index, x, "active_index")
+
+
+def _on_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the {what} kernel runs on CUDA tensors, not {x.device}")
+
+
+def _decode_rows(b: int) -> int:
+    return next(r for r in cm.BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: structured
+# ---------------------------------------------------------------------------
+
+def _gather_columns(w: torch.Tensor, active_index: torch.Tensor) -> torch.Tensor:
+    """(d_in, a) panel of surviving columns. Padding entries clip to the
+    last column; their (finite) products are dropped at the store."""
+    return w.index_select(1, active_index.clamp(max=w.shape[-1] - 1))
+
+
+def _structured_launch(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor,
+                       d_out: int, block_rows: int, gather: bool) -> torch.Tensor:
+    b, d_in = x.shape
+    a_pad = active_index.shape[0]
+    if b == 0 or a_pad == 0:
+        return torch.zeros((b, d_out), dtype=x.dtype, device=x.device)
+    lib, dtype = _lib(), cm._DTYPE_CODES[x.dtype]
+    # the output and, after it, the kernel's tickets: one buffer, one memset
+    region = torch.empty(lib.structured_matmul_out_bytes(b, d_out, a_pad, dtype, block_rows),
+                         dtype=torch.uint8, device=x.device)
+    out = region[:b * d_out * x.element_size()].view(x.dtype).view(b, d_out)
+    ws = torch.empty(-(-d_in // SPLIT_ROWS) * b * a_pad, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.structured_matmul_fwd(
+            x.data_ptr(), w.data_ptr(), active_index.data_ptr(), region.data_ptr(),
+            region.numel(), ws.data_ptr(), ws.numel(), b, d_in, a_pad, d_out, w.shape[1],
+            int(gather), dtype, block_rows, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "structured_matmul")
+    if gather:
+        structured_matmul_prefetch.launches += 1
+    else:
+        structured_matmul.launches += 1
+    return out
+
+
+def _panel_matmul(x: torch.Tensor, panel: torch.Tensor, active_index: torch.Tensor,
+                  d_out: int, block_b: int | None) -> torch.Tensor:
+    """K5 on a gathered (d_in, a_pad) panel: the plain version on the CPU,
+    else the decode launch (B <= 8, ``block_b`` None) or the tiled one."""
+    if block_b is not None and block_b not in STRUCTURED_ROWS:
+        raise ValueError(f"block_b must be one of {STRUCTURED_ROWS}, got {block_b}")
+    if x.device.type == "cpu":
+        return ref.structured_matmul_ref(x, panel, active_index, d_out)
+    _on_cuda(x, "structured_matmul")
+    if block_b is None:
+        block_b = (_decode_rows(x.shape[0]) if x.shape[0] <= SMALL_BATCH_MAX
+                   else TILED_ROWS)
+    return _structured_launch(x, panel, active_index, d_out, block_b, gather=False)
+
+
+def structured_matmul(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor, *,
+                      block_b: int | None = None,
+                      prefetch_gather: bool | None = None) -> torch.Tensor:
+    """Column-gathered structured matmul. x (B, d_in), w (d_in, d_out),
+    active_index (a,) int32 surviving-column ids (``d_out`` = padding).
+    Returns (B, d_out) with ablated columns exact zeros.
+
+    ``block_b=None`` routes decode shapes (B <= SMALL_BATCH_MAX) to
+    ``structured_matmul_decode``; otherwise the tiled launch runs with
+    ``block_b`` batch rows per block (16 by default).
+    """
+    _check_structured(x, w, active_index)
+    if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
+        return structured_matmul_decode(x, w, active_index, prefetch_gather=prefetch_gather)
+    return _panel_matmul(x, _gather_columns(w, active_index), active_index, w.shape[1],
+                         block_b)
+
+
+structured_matmul.launches = 0
+
+
+def structured_matmul_decode(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor, *,
+                             prefetch_gather: bool | None = None) -> torch.Tensor:
+    """Decode launch (the batch in one block row). Bitwise equal to the
+    tiled launch. ``prefetch_gather=True`` runs K6, which reads ``w``
+    through ``active_index`` instead of a gathered panel; None reads
+    ``REPRO_PREFETCH_GATHER``."""
+    _check_structured(x, w, active_index)
+    use_prefetch = _prefetch_default() if prefetch_gather is None else prefetch_gather
+    if use_prefetch:
+        return structured_matmul_prefetch(x, w, active_index)
+    panel = _gather_columns(w, active_index)
+    if x.device.type == "cpu":
+        return ref.structured_matmul_ref(x, panel, active_index, w.shape[1])
+    _on_cuda(x, "structured_matmul")
+    return _structured_launch(x, panel, active_index, w.shape[1],
+                              _decode_rows(x.shape[0]), gather=False)
+
+
+def structured_matmul_prefetch(x: torch.Tensor, w: torch.Tensor,
+                               active_index: torch.Tensor) -> torch.Tensor:
+    """K6: the decode launch of K5 with the column gather inside the kernel,
+    reading the dense (d_in, d_out) ``w`` at ``active_index`` (B <= 8).
+    Bitwise equal to ``structured_matmul_decode`` without prefetch."""
+    _check_structured(x, w, active_index)
+    if x.device.type == "cpu":
+        return ref.structured_matmul_ref(x, _gather_columns(w, active_index), active_index,
+                                         w.shape[1])
+    _on_cuda(x, "structured_matmul_prefetch")
+    if x.shape[0] > SMALL_BATCH_MAX:
+        raise ValueError(f"the prefetch kernel takes decode batches (B <= "
+                         f"{SMALL_BATCH_MAX}), got B={x.shape[0]}")
+    return _structured_launch(x, w, active_index, w.shape[1], _decode_rows(x.shape[0]),
+                              gather=True)
+
+
+structured_matmul_prefetch.launches = 0
+
+
+def structured_matmul_pregathered(x: torch.Tensor, panel: torch.Tensor,
+                                  active_index: torch.Tensor, d_out: int, *,
+                                  block_b: int | None = None) -> torch.Tensor:
+    """Structured matmul over a caller-supplied (d_in, a) panel of already
+    gathered columns; the same kernel as ``structured_matmul``, no gather."""
+    _check_structured(x, panel, active_index)
+    if panel.shape[1] != active_index.shape[0]:
+        raise ValueError(f"panel has {panel.shape[1]} columns for "
+                         f"{active_index.shape[0]} active_index entries")
+    return _panel_matmul(x, panel, active_index, d_out, block_b)
+
+
+# ---------------------------------------------------------------------------
+# K4: condensed over active rows
+# ---------------------------------------------------------------------------
+
+def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                out_index: torch.Tensor, d_out: int, block_rows: int) -> torch.Tensor:
+    _on_cuda(x, "condensed_over_active_matmul")
+    b, d_in = x.shape
+    a, k = values.shape
+    out = torch.empty((b, d_out), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return out
+    if a == 0:
+        return out.zero_()
+    grid_rows = -(-b // block_rows)
+    per_warp = max(1, min(8, a * grid_rows
+                          // (cm._WARPS_PER_BLOCK * 2 * cm._sm_count(x.device.index or 0))))
+    with torch.cuda.device(x.device):
+        err = _lib().coa_matmul_fwd(
+            x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
+            out.data_ptr(), b, d_in, a, k, d_out, cm._DTYPE_CODES[x.dtype], block_rows,
+            per_warp, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "condensed_over_active_matmul")
+    condensed_over_active_matmul.launches += 1
+    return out
+
+
+def _check_coa(x, values, indices, out_index) -> None:
+    cm._check(x, values, indices)
+    if out_index.shape != values.shape[:1]:
+        raise ValueError(f"out_index must be (a,) = {tuple(values.shape[:1])}, got "
+                         f"{tuple(out_index.shape)}")
+    _check_index(out_index, x, "out_index")
+
+
+def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
+                                 indices: torch.Tensor, out_index: torch.Tensor,
+                                 d_out: int, *, block_b: int | None = None) -> torch.Tensor:
+    """Condensed gather over the surviving rows, written through
+    ``out_index`` into a (B, d_out) output. x (B, d_in); values, indices
+    (a, k); out_index (a,) int32, ``d_out`` marking padding rows.
+
+    ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
+    batches to the tiled launch with 8-row tiles; an explicit ``block_b``
+    (1, 2, 4 or 8) forces the tiled launch at that tile (shrunk where the x
+    tile would not fit shared memory).
+    """
+    _check_coa(x, values, indices, out_index)
+    if block_b is not None and block_b not in cm.BLOCK_ROWS:
+        raise ValueError(f"block_b must be one of {cm.BLOCK_ROWS}, got {block_b}")
+    if x.device.type == "cpu":
+        return ref.condensed_over_active_matmul_ref(x, values, indices, out_index, d_out)
+    if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
+        return condensed_over_active_matmul_decode(x, values, indices, out_index, d_out)
+    rows = SMALL_BATCH_MAX if block_b is None else block_b
+    return _coa_launch(x, values, indices, out_index, d_out,
+                       cm._fit_rows(rows, x.shape[1], x.element_size()))
+
+
+condensed_over_active_matmul.launches = 0
+
+
+def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
+                                        indices: torch.Tensor, out_index: torch.Tensor,
+                                        d_out: int) -> torch.Tensor:
+    """Decode launch of K4 (the batch in one block row); bitwise equal to
+    the tiled launch."""
+    _check_coa(x, values, indices, out_index)
+    if x.device.type == "cpu":
+        return ref.condensed_over_active_matmul_ref(x, values, indices, out_index, d_out)
+    return _coa_launch(x, values, indices, out_index, d_out,
+                       cm._fit_rows(_decode_rows(x.shape[0]), x.shape[1], x.element_size()))

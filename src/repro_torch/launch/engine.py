@@ -2,14 +2,16 @@
 ``repro/launch/engine.py``).
 
 ``generate`` and ``serve_once`` run one greedy prefill + decode pass over a
-params tree and a serving tree (bool masks or ``formats.Condensed``
-leaves), under ``torch.inference_mode()``. The reference's donated cache
-becomes one preallocated cache written in place. ``ServingModel`` is the
-thin ``nn.Module`` that owns the parameters under their reference paths,
-the serving copy at the compute dtype and the serving tree.
+params tree and a serving tree (bool masks or ``formats`` leaves), under
+``torch.inference_mode()``. The reference's donated cache becomes one
+preallocated cache written in place. ``ServingModel`` is the thin
+``nn.Module`` that owns the parameters under their reference paths, the
+serving copy at the compute dtype and the serving tree, which may come from
+a ``sparse.plan.Plan`` (planned at the request's batch bucket, as the
+reference's engine keys its plans).
 
-The paged continuous-batching scheduler (``ServingEngine``), plans,
-speculation and live sync come with later slices.
+The paged continuous-batching scheduler (``ServingEngine``), speculation and
+live sync come with later slices.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 
 from repro_torch import bridge
 from repro_torch.models import model as M
+from repro_torch.sparse import plan as PLAN
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -92,18 +95,20 @@ class ServingModel(nn.Module):
     """Parameters under the reference's "/"-joined paths, plus one serving tree.
 
     ``serving`` is the masks slot of the model: the bool masks (masked
-    path) or ``sparse.condensed.export_condensed``'s tree (condensed path).
-    The serving copy of the params (``models.model.serving_params``) is
-    made once here, so no call casts weights.
+    path), an export's tree of ``formats`` leaves, or a ``sparse.plan.Plan``,
+    whose serving tree is used (``self.plan`` keeps the plan). The serving
+    copy of the params (``models.model.serving_params``) is made once here,
+    so no call casts weights.
     """
 
-    def __init__(self, cfg, params: dict, serving: dict):
+    def __init__(self, cfg, params: dict, serving: dict | PLAN.Plan):
         super().__init__()
         self.cfg = cfg
         self.weights = nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
              for k, v in bridge.flatten(params).items()})
-        self.serving = serving
+        self.plan = serving if isinstance(serving, PLAN.Plan) else None
+        self.serving = self.plan.serving_tree if self.plan else serving
         self.compute = M.serving_params(cfg, params)
 
     def serve_once(self, prompts: torch.Tensor, gen_len: int, path_name: str,

@@ -9,12 +9,24 @@ one greedy prefill + decode pass:
 
   --path masked      masked-dense ``torch.matmul`` on ``w * mask``
   --path condensed   every sparse linear runs the condensed gather kernel
-                     over ``formats.Condensed`` leaves (paper Alg. 1)
+                     (K1) over ``formats.Condensed`` leaves (paper Alg. 1)
+  --path structured  ablated neurons dropped, surviving columns gathered
+                     and multiplied by the structured kernel (K5; K6 at
+                     decode with ``REPRO_PREFETCH_GATHER=1``): exact only
+                     for ablation-only masks
+  --path condensed_over_active
+                     ablated neurons dropped, then the condensed gather over
+                     the surviving rows, scattered back to dense columns
+                     (K4): the paper's combined Fig. 4 point
+  --path auto        per-stack cost model (``sparse.plan``) at the batch's
+                     bucket; prints the plan
 
-The two evaluate the same masked weights, so their tokens agree (up to
-float ties). Runs on CUDA unless ``--device cpu``; with no card and no
-``--device cpu`` it exits with an error. The paged scheduler and the other
-paths of the reference CLI come with later slices.
+Every path but masked goes through ``sparse.plan.build_plan`` at the
+request's batch bucket. masked, condensed, condensed_over_active and auto
+evaluate the same masked weights, so their tokens agree (up to float ties).
+Runs on CUDA unless ``--device cpu``; with no card and no ``--device cpu``
+it exits with an error. The paged scheduler and the other options of the
+reference CLI come with later slices.
 """
 from __future__ import annotations
 
@@ -25,20 +37,27 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.launch.engine import ServingModel
 from repro_torch.models import model as M
-from repro_torch.sparse import condensed as COND
+from repro_torch.sparse import plan as PLAN
 from repro_torch.sparse import registry as REG
 
-PATHS = ("masked", "condensed")
+PATHS = PLAN.PATHS
 
 
-def build_serving_masks(cfg, registry, params, masks, path: str) -> dict:
-    """The serving tree for ``path``: ``masks`` itself for masked, the
-    condensed export for condensed."""
+def build_plan(cfg, registry, params, masks, path: str, *,
+               batch_size: int = 1) -> PLAN.Plan:
+    """The execution plan for ``path``, priced at ``batch_size``'s bucket."""
+    return PLAN.build_plan(cfg, registry, params, masks, path=path,
+                           batch_size=PLAN.batch_bucket(max(int(batch_size), 1)))
+
+
+def build_serving_masks(cfg, registry, params, masks, path: str,
+                        batch_size: int = 1) -> dict:
+    """The serving tree for ``path``: ``masks`` itself for masked, else the
+    tree of the plan built at ``batch_size``'s bucket."""
     if path == "masked":
         return masks
-    if path == "condensed":
-        return COND.export_condensed(cfg, registry, params, masks)
-    raise ValueError(f"unknown path {path!r}; ported paths: {PATHS}")
+    return build_plan(cfg, registry, params, masks, path,
+                      batch_size=batch_size).serving_tree
 
 
 def main(argv=None):
@@ -60,10 +79,14 @@ def main(argv=None):
     reg = REG.build_registry(cfg)
     params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"] if reg else {}
-    if args.path != "masked" and not reg:
-        raise SystemExit(f"{args.arch} has no sparse stacks — only --path masked")
-    model = ServingModel(cfg, params,
-                         build_serving_masks(cfg, reg, params, masks, args.path))
+    if args.path not in ("masked", "auto") and not reg:
+        raise SystemExit(f"{args.arch} has no sparse stacks — only --path masked/auto")
+    serving = masks
+    if args.path != "masked":
+        serving = build_plan(cfg, reg, params, masks, args.path, batch_size=args.batch)
+        if args.path == "auto":
+            print(serving.describe(requested_batch=args.batch))
+    model = ServingModel(cfg, params, serving)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
     out, _ = model.serve_once(prompts, args.gen, args.path)

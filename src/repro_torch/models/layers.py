@@ -36,15 +36,15 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 def linear(x: torch.Tensor, w: torch.Tensor, mask=None) -> torch.Tensor:
     """y = x @ (w masked if sparse), dispatching on the serving leaf's type.
 
-    * ``formats.Condensed`` — the format executes itself (the condensed
-      gather kernel).
+    * a ``formats.SparseFormat`` — the format executes itself (a condensed,
+      condensed-over-active or structured kernel, or the masked matmul).
     * bool tensor — masked-dense ``torch.matmul`` on ``w * mask``.
     * None — dense.
 
     The weight is cast to ``x.dtype``; that is a no-op for a serving copy
     already stored at the compute dtype (``model.serving_params``).
     """
-    if isinstance(mask, F.Condensed):
+    if isinstance(mask, F.SparseFormat):
         return mask.apply(x, w)
     if mask is not None:
         w = apply_mask_for_forward(w, mask)

@@ -4,8 +4,8 @@ Parameters are a nested dict with the reference's paths and stacked layout:
 ``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0. The
 reference scans over that axis with ``lax.scan``; here a Python loop slices
 one layer at a time. Sparse linears receive their serving leaf (a bool mask
-or a ``formats.Condensed``) from the ``masks`` tree, whose paths mirror the
-params.
+or a ``formats.SparseFormat``) from the ``masks`` tree, whose paths mirror
+the params.
 
 Ported so far: the dense family (qwen3-style GQA with qk-norm, RoPE, SwiGLU)
 without sliding windows, for serving: ``init_params``, ``prefill_step``,
@@ -126,7 +126,7 @@ def _heads(x, n, hd):
 
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked params or serving tree."""
-    return {k: v.layer(i) if isinstance(v, F.Condensed) else v[i]
+    return {k: v.layer(i) if isinstance(v, F.SparseFormat) else v[i]
             for k, v in tree.items()}
 
 

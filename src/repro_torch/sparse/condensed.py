@@ -1,10 +1,12 @@
 """Condensed-representation export: masks -> serving trees (port of
 ``repro/sparse/condensed.py``).
 
-The same trained weights serve as masked-dense or as condensed constant
-fan-in (paper Sec. 4.4). ``export_condensed`` turns a (params, masks) pair
-into a serving tree whose sparse leaves are ``formats.Condensed``; the tree
-plugs into the masks slot of ``models.model.prefill_step``/``decode_step``.
+The same trained weights serve as masked-dense, condensed constant fan-in,
+structured or condensed-over-active (paper Sec. 4.4, Fig. 4). The exports
+here turn a (params, masks) pair into a serving tree whose sparse leaves
+are ``formats`` objects; the tree plugs into the masks slot of
+``models.model.prefill_step``/``decode_step``. Values are stored once at
+the compute dtype ``cfg.dtype``, so serving casts nothing per call.
 """
 from __future__ import annotations
 
@@ -27,19 +29,51 @@ def export_stats(registry, masks: dict) -> dict[str, F.ExportStats]:
     return {s.name: F.stats_from_row(r) for s, r in zip(registry, table)}
 
 
+def condense_active_stack_leaf(weight, mask, stats: F.ExportStats, *,
+                               dtype: torch.dtype | None = None) -> F.CondensedOverActive:
+    """Condensed-over-active format for one stack at its realized stats."""
+    return F.CondensedOverActive.export_from_dense(weight, mask, stats, dtype=dtype)
+
+
+def structured_stack_leaf(mask, *, weight_itemsize: int = 4,
+                          stats: F.ExportStats | None = None) -> F.StructuredFanIn:
+    """Structured-only format for one stack (``StructuredFanIn.from_mask``)."""
+    return F.StructuredFanIn.from_mask(mask, stats, weight_itemsize=weight_itemsize)
+
+
 def export_condensed(cfg, registry, params: dict, masks: dict,
                      stats: dict[str, F.ExportStats] | None = None) -> dict:
     """Concrete export after training; k per stack = max realized fan-in.
+    Leaves are ``formats.Condensed``."""
+    return _export_tree(cfg, F.Condensed, registry, params, masks, stats)
 
-    Leaves are ``formats.Condensed`` with values stored once at the compute
-    dtype ``cfg.dtype``, so serving casts nothing per call.
-    """
+
+def export_condensed_over_active(cfg, registry, params: dict, masks: dict,
+                                 stats: dict[str, F.ExportStats] | None = None) -> dict:
+    """Ablated neurons dropped, survivors condensed: ``formats.CondensedOverActive``
+    leaves (the paper's combined Fig. 4 point, exact for any mask)."""
+    return _export_tree(cfg, F.CondensedOverActive, registry, params, masks, stats)
+
+
+def export_structured(cfg, registry, masks: dict,
+                      stats: dict[str, F.ExportStats] | None = None) -> dict:
+    """Structured-only serving tree: ``formats.StructuredFanIn`` leaves, each
+    ``active_index`` sized at its stack's realized active count. The leaves
+    read the live dense weights, so there are no values to store."""
+    stats = stats if stats is not None else export_stats(registry, masks)
+    out: dict = {}
+    for s in registry:
+        REG.set_path(out, s.path, structured_stack_leaf(REG.get_path(masks, s.path),
+                                                        stats=stats[s.name]))
+    return out
+
+
+def _export_tree(cfg, cls, registry, params, masks, stats):
     stats = stats if stats is not None else export_stats(registry, masks)
     dtype = getattr(torch, cfg.dtype)
     out: dict = {}
     for s in registry:
         w = REG.get_path(params, s.path)
         m = REG.get_path(masks, s.path)
-        REG.set_path(out, s.path,
-                     F.Condensed.export_from_dense(w, m, stats[s.name], dtype=dtype))
+        REG.set_path(out, s.path, cls.export_from_dense(w, m, stats[s.name], dtype=dtype))
     return out

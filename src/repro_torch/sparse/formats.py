@@ -1,19 +1,39 @@
 """Serving formats for sparse weight stacks (port of ``repro/sparse/formats.py``).
 
-Only ``Condensed`` is ported so far: the constant fan-in gather layout of
-the paper's Alg. 1. ``MaskedDense``, ``StructuredFanIn``,
-``CondensedOverActive``, quantized values and tensor-parallel blocks come
-with later slices.
+One trained constant fan-in topology executes under several storage and
+compute representations (paper Sec. 4.4, Fig. 4); each is a frozen
+dataclass with the ``SparseFormat`` protocol:
+
+* ``MaskedDense``         — dense weight + bool mask, dense matmul.
+* ``StructuredFanIn``     — ablated output neurons dropped, surviving
+                            columns kept dense and run through the
+                            column-gathered kernel (K5/K6). Exact only for
+                            ablation-only masks.
+* ``Condensed``           — the constant fan-in gather layout (Alg. 1, K1).
+* ``CondensedOverActive`` — ablated neurons dropped first, survivors
+                            condensed (K4). Exact for any mask.
+
+Protocol: ``apply(x, w)`` runs one layer (``w`` is the live dense weight,
+read by the masked and structured formats); ``layer(i)`` slices layer ``i``
+out of a stack; ``to(device)``; ``spec()`` gives the static ``FormatSpec``
+that ``estimate_cost`` / ``estimate_weight_bytes`` price (the plan's cost
+model, the same formulas as the reference so that plans agree).
+
+Float formats only so far: quantized values, tensor-parallel blocks and the
+donated refreshes come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing
 
 import torch
 
 from repro_torch.core import topology
+from repro_torch.core.srigl import apply_mask_for_forward
 from repro_torch.kernels import ops
+from repro_torch.kernels.structured_matmul import padded_active_count
 
 
 class ExportStats(typing.NamedTuple):
@@ -47,28 +67,222 @@ def realized_stats(mask: torch.Tensor) -> ExportStats:
     return stats_from_row(stats_row(mask).tolist())
 
 
+@dataclasses.dataclass(frozen=True)
+class FormatSpec:
+    """Static geometry a format is priced from (no tensors)."""
+
+    d_in: int
+    d_out: int
+    n_replicas: int
+    itemsize: int           # bytes of one stored value or weight
+    k: int                  # constant fan-in
+    max_active: float       # exported row count (condensed-over-active, structured)
+    active_fraction: float  # mean active-neuron fraction
+
+
+def spec_for_stack(stack, stats: ExportStats, itemsize: int) -> FormatSpec:
+    """``stack``: a registry ``SparseStack`` or anything with d_in/d_out."""
+    return FormatSpec(d_in=stack.d_in, d_out=stack.d_out,
+                      n_replicas=getattr(stack, "n_replicas", 1), itemsize=itemsize,
+                      k=max(stats.k, 1), max_active=max(stats.max_active, 1),
+                      active_fraction=min(max(stats.active_fraction, 0.0), 1.0))
+
+
+def active_index_from_bools(neuron_active: torch.Tensor, a_pad: int) -> torch.Tensor:
+    """Surviving-column ids for the structured kernel: (*lead, a_pad) int32,
+    the active columns in increasing order, then the sentinel ``d_out``."""
+    d_out = neuron_active.shape[-1]
+    n = min(a_pad, d_out)
+    order = torch.argsort((~neuron_active).to(torch.uint8), dim=-1, stable=True)[..., :n]
+    ids = torch.where(torch.gather(neuron_active, -1, order), order, d_out)
+    pad = ids.new_full((*ids.shape[:-1], a_pad - n), d_out)
+    return torch.cat([ids, pad], dim=-1).to(torch.int32).contiguous()
+
+
+def active_index_from_mask(mask: torch.Tensor, a_pad: int) -> torch.Tensor:
+    """``active_index_from_bools`` of the mask's column-activity bools."""
+    return active_index_from_bools(mask.any(dim=-2), a_pad)
+
+
+def _condense_active_stack(weight: torch.Tensor, mask: torch.Tensor, k: int, a: int):
+    """Condensed-over-active arrays of one stack (*lead, d_in, d_out).
+
+    Active output columns first (a stable sort, so in increasing order), the
+    first ``a`` of them condensed to fan-in ``k``. Rows past a layer's
+    realized active count are padding: values 0 and ``out_index == d_out``.
+    A neuron is active iff its mask column has any non-zero.
+    """
+    d_out = weight.shape[-1]
+    col_active = mask.any(dim=-2)                                     # (*lead, d_out)
+    order = torch.argsort((~col_active).to(torch.uint8), dim=-1, stable=True)[..., :a]
+    sel = torch.gather(col_active, -1, order)                         # (*lead, a)
+    cols = order[..., None, :].expand(*weight.shape[:-1], a)
+    w_sel = torch.gather(weight, -1, cols)
+    m_sel = torch.gather(mask, -1, cols) & sel[..., None, :]
+    values, indices = topology.dense_to_condensed(w_sel * m_sel, m_sel, k)
+    out_index = torch.where(sel, order, d_out).to(torch.int32).contiguous()
+    return values, indices, out_index
+
+
+class SparseFormat:
+    """Base of the serving formats (see the module docstring).
+
+    Subclasses are frozen dataclasses naming their tensor fields in
+    ``_array_fields``; ``layer``, ``to`` and ``bridge.flatten`` walk those.
+    """
+
+    format_name: typing.ClassVar[str]
+    _array_fields: typing.ClassVar[tuple[str, ...]]
+
+    def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def arrays(self) -> dict[str, torch.Tensor]:
+        return {f: getattr(self, f) for f in self._array_fields}
+
+    def layer(self, i: int):
+        """Layer ``i`` of a stacked instance (each tensor indexed on axis 0)."""
+        return dataclasses.replace(self, **{f: t[i] for f, t in self.arrays().items()})
+
+    def to(self, device):
+        return dataclasses.replace(self, **{f: t.to(device) for f, t in self.arrays().items()})
+
+    def spec(self) -> FormatSpec:
+        raise NotImplementedError
+
+    def cost(self, batch: int, profile) -> float:
+        """Estimated seconds per serving step for this exported instance."""
+        return self.estimate_cost(self.spec(), batch, profile)
+
+    @classmethod
+    def estimate_cost(cls, spec: FormatSpec, batch: int, profile) -> float:
+        raise NotImplementedError
+
+    @classmethod
+    def estimate_weight_bytes(cls, spec: FormatSpec) -> int:
+        """Per-step weight-side bytes this format reads."""
+        raise NotImplementedError
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class Condensed:
+class MaskedDense(SparseFormat):
+    """Dense weight + bool mask, dense matmul. ``weight_itemsize`` records the
+    dense weight's bytes per element so the instance prices itself."""
+
+    mask: torch.Tensor                   # (*lead, d_in, d_out) bool
+    weight_itemsize: int = 4
+
+    format_name: typing.ClassVar[str] = "masked"
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("mask",)
+
+    def apply(self, x, w=None):
+        return torch.matmul(x, apply_mask_for_forward(w, self.mask).to(x.dtype))
+
+    @classmethod
+    def export_from_dense(cls, w, mask, stats=None):
+        return cls(mask=mask, weight_itemsize=w.element_size())
+
+    def spec(self):
+        d_in, d_out = self.mask.shape[-2:]
+        return FormatSpec(d_in=d_in, d_out=d_out, n_replicas=math.prod(self.mask.shape[:-2]),
+                          itemsize=self.weight_itemsize, k=d_in, max_active=d_out,
+                          active_fraction=1.0)
+
+    @classmethod
+    def estimate_cost(cls, spec, batch, profile):
+        b = max(int(batch), 1)
+        flops = 2.0 * b * spec.n_replicas * spec.d_in * spec.d_out
+        return max(cls.estimate_weight_bytes(spec) / profile.hbm_bytes_per_s,
+                   flops / profile.mxu_flops_per_s)
+
+    @classmethod
+    def estimate_weight_bytes(cls, spec):
+        # the dense weight and the bool mask the masked path also reads
+        return spec.n_replicas * spec.d_in * spec.d_out * (spec.itemsize + 1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StructuredFanIn(SparseFormat):
+    """Fig. 4 "structured": ablated neurons dropped, active columns dense.
+
+    Runs the column-gathered kernel over ``active_index`` (the surviving
+    column ids padded with the sentinel ``d_out`` to ``padded_active_count``),
+    so the weight bytes and flops scale with the active fraction. Exact only
+    for ablation-only masks, where it equals ``ops.structured_dense``.
+    """
+
+    neuron_active: torch.Tensor          # (*lead, d_out) bool
+    active_index: torch.Tensor           # (*lead, a_pad) int32, padding = d_out
+    d_in: int = 0
+    weight_itemsize: int = 4
+
+    format_name: typing.ClassVar[str] = "structured"
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("neuron_active", "active_index")
+
+    def apply(self, x, w=None):
+        return ops.structured_linear_nd(x, w, self.active_index)
+
+    @classmethod
+    def export_from_dense(cls, w, mask, stats=None):
+        return cls.from_mask(mask, stats, weight_itemsize=w.element_size())
+
+    @classmethod
+    def from_mask(cls, mask, stats=None, *, weight_itemsize: int = 4):
+        """A neuron is active iff its mask column has any non-zero;
+        ``active_index`` is sized at the realized active count (``stats``,
+        else one host sync)."""
+        stats = stats if stats is not None else realized_stats(mask)
+        d_out = int(mask.shape[-1])
+        a_pad = padded_active_count(max(stats.max_active, 1), d_out)
+        return cls(neuron_active=mask.any(dim=-2),
+                   active_index=active_index_from_mask(mask, a_pad),
+                   d_in=int(mask.shape[-2]), weight_itemsize=weight_itemsize)
+
+    def spec(self):
+        d_out = self.neuron_active.shape[-1]
+        a_pad = self.active_index.shape[-1]
+        return FormatSpec(d_in=self.d_in, d_out=d_out,
+                          n_replicas=math.prod(self.neuron_active.shape[:-1]),
+                          itemsize=self.weight_itemsize, k=self.d_in, max_active=a_pad,
+                          active_fraction=min(a_pad / max(d_out, 1), 1.0))
+
+    @classmethod
+    def estimate_cost(cls, spec, batch, profile):
+        # priced as the reference prices it, at the padded column count and
+        # with its one-hot scatter epilogue's flops (a_pad * d_out per row),
+        # so that the port's plans decide as the reference's do
+        b = max(int(batch), 1)
+        a_pad = padded_active_count(spec.max_active, spec.d_out)
+        flops = 2.0 * b * spec.n_replicas * a_pad * (spec.d_in + spec.d_out)
+        return max(cls.estimate_weight_bytes(spec) / profile.hbm_bytes_per_s,
+                   flops / profile.mxu_flops_per_s)
+
+    @classmethod
+    def estimate_weight_bytes(cls, spec):
+        # the gathered (d_in, a_pad) panel and the int32 active_index
+        a_pad = padded_active_count(spec.max_active, spec.d_out)
+        return spec.n_replicas * a_pad * (spec.d_in * spec.itemsize + 4)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Condensed(SparseFormat):
     """Fig. 4 "condensed": values and int32 indices at constant fan-in k.
 
     ``values`` and ``indices`` are (*lead, d_out, k); ``d_in`` is the dense
-    fan-in the indices address. ``apply`` takes one layer's arrays (no lead
-    dims); ``layer(i)`` slices them out of a stack.
+    fan-in the indices address.
     """
+
     values: torch.Tensor
     indices: torch.Tensor
     d_in: int = 0
+
+    format_name: typing.ClassVar[str] = "condensed"
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices")
 
     def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
         # the values' cast to the activation dtype is a no-op when the export
         # already stored them at the compute dtype (export_condensed does)
         return ops.condensed_linear_nd(x, self.values.to(x.dtype), self.indices)
-
-    def layer(self, i: int) -> "Condensed":
-        return Condensed(self.values[i], self.indices[i], self.d_in)
-
-    def to(self, device) -> "Condensed":
-        return Condensed(self.values.to(device), self.indices.to(device), self.d_in)
 
     @classmethod
     def export_from_dense(cls, w: torch.Tensor, mask: torch.Tensor,
@@ -86,3 +300,85 @@ class Condensed:
             values = values.to(dtype)
         return cls(values=values.contiguous(), indices=indices,
                    d_in=int(w.shape[-2]))
+
+    def spec(self):
+        d_out, k = self.values.shape[-2:]
+        return FormatSpec(d_in=self.d_in, d_out=d_out,
+                          n_replicas=math.prod(self.values.shape[:-2]),
+                          itemsize=self.values.element_size(), k=k, max_active=d_out,
+                          active_fraction=1.0)
+
+    @classmethod
+    def estimate_cost(cls, spec, batch, profile):
+        b = max(int(batch), 1)
+        gather_flops = 2.0 * b * spec.n_replicas * spec.d_out * spec.k
+        return max(cls.estimate_weight_bytes(spec) / profile.hbm_bytes_per_s,
+                   gather_flops / profile.gather_rate(b))
+
+    @classmethod
+    def estimate_weight_bytes(cls, spec):
+        # values + int32 indices
+        return spec.n_replicas * spec.d_out * spec.k * (spec.itemsize + 4)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CondensedOverActive(SparseFormat):
+    """Fig. 4's combined point: drop ablated neurons, condense survivors.
+
+    ``values``/``indices`` (*lead, a, k) cover the ``a <= d_out`` surviving
+    rows; ``out_index`` (*lead, a) int32 is each row's dense output column,
+    ``d_out`` marking a padding row. Exact for any mask.
+    """
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    out_index: torch.Tensor
+    d_in: int = 0
+    d_out: int = 0
+
+    format_name: typing.ClassVar[str] = "condensed_over_active"
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "out_index")
+
+    def apply(self, x, w=None):
+        return ops.condensed_over_active_linear_nd(x, self.values.to(x.dtype), self.indices,
+                                                   self.out_index, self.d_out)
+
+    @classmethod
+    def export_from_dense(cls, w, mask, stats=None, *, dtype=None):
+        """``dtype`` stores the values at that dtype, as ``Condensed`` does."""
+        stats = stats if stats is not None else realized_stats(mask)
+        values, indices, out_index = _condense_active_stack(
+            w, mask, max(stats.k, 1), max(stats.max_active, 1))
+        if dtype is not None:
+            values = values.to(dtype)
+        return cls(values=values.contiguous(), indices=indices, out_index=out_index,
+                   d_in=int(w.shape[-2]), d_out=int(w.shape[-1]))
+
+    def spec(self):
+        a, k = self.values.shape[-2:]
+        return FormatSpec(d_in=self.d_in, d_out=self.d_out,
+                          n_replicas=math.prod(self.values.shape[:-2]),
+                          itemsize=self.values.element_size(), k=k, max_active=a,
+                          active_fraction=a / max(self.d_out, 1))
+
+    @classmethod
+    def estimate_cost(cls, spec, batch, profile):
+        # priced at the exported row fraction (max_active rows per replica,
+        # padding included): the kernel runs over all of them
+        b = max(int(batch), 1)
+        row_frac = min(max(spec.max_active / max(spec.d_out, 1), 0.0), 1.0)
+        gather_flops = 2.0 * b * spec.n_replicas * spec.d_out * spec.k
+        return max(cls.estimate_weight_bytes(spec) / profile.hbm_bytes_per_s,
+                   row_frac * gather_flops / profile.gather_rate(b))
+
+    @classmethod
+    def estimate_weight_bytes(cls, spec):
+        # max_active rows of k values and k int32 indices, plus out_index
+        return (spec.n_replicas * spec.max_active * spec.k * spec.itemsize
+                + spec.n_replicas * spec.max_active * (spec.k * 4 + 4))
+
+
+FORMATS: dict[str, type[SparseFormat]] = {
+    cls.format_name: cls
+    for cls in (MaskedDense, Condensed, StructuredFanIn, CondensedOverActive)
+}

@@ -1,0 +1,259 @@
+"""Serving execution plans: per-stack representation choice (port of
+``repro/sparse/plan.py``).
+
+The same trained constant fan-in weights execute under several
+representations, and which one wins depends on the request's batch and the
+hardware's balance (paper Sec. 4.4). ``build_plan`` turns a (params, masks)
+pair into a ``Plan``: a representation per ``SparseStack`` (priced by each
+format's ``estimate_cost`` when ``path="auto"``, forced otherwise) and the
+serving tree of format objects that plugs into the masks slot of
+``prefill_step``/``decode_step``.
+
+Plans are priced at a batch *bucket* (``batch_bucket``), as the reference's
+engine keys them, so ``--path auto`` decides at the same batch as there.
+
+Ported so far for one device (``tp=1``) and float values. Queued:
+``HardwareProfile.measure`` (CUDA events on the card), ``Plan.refresh`` (it
+needs the trainer's mask versions), quantized values, tensor parallelism
+and the speculative-draft helpers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.sparse import condensed as COND
+from repro_torch.sparse import formats as F
+from repro_torch.sparse import registry as REG
+
+REPRESENTATIONS = ("masked", "condensed", "structured", "condensed_over_active")
+PATHS = REPRESENTATIONS + ("auto",)
+
+# fraction below 1.0 at which a stack counts as having ablated neurons (guards
+# against float fuzz in the mean-active reduction)
+_ABLATION_EPS = 1e-6
+
+# the reference's batch buckets (``repro/sparse/autotune.py``): geometric, x4
+BATCH_BUCKETS = (1, 8, 32, 128, 512, 2048)
+
+
+def batch_bucket(b: int) -> int:
+    """Smallest bucket >= b; above the table the x4 progression continues.
+    A ceiling: a batch is never priced at a bucket smaller than itself."""
+    for v in BATCH_BUCKETS:
+        if b <= v:
+            return v
+    v = BATCH_BUCKETS[-1]
+    while v < b:
+        v *= 4
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareProfile:
+    """Throughput balance the format cost models price against.
+
+    The gather unit may be calibrated at two batch points
+    (``gather_flops_per_s`` at ``gather_small_batch``,
+    ``gather_flops_per_s_large`` at ``gather_large_batch``);
+    ``gather_rate(batch)`` interpolates log-log between them, and a profile
+    with no large point has one rate.
+
+    ``DEFAULT_PROFILE`` is one NVIDIA H100 SXM (80 GB HBM3, 700 W limit):
+    ``hbm_bytes_per_s`` 3.35 TB/s and ``mxu_flops_per_s`` 989 TFLOP/s (dense
+    bf16 tensor cores) from NVIDIA's data sheet; ``gather_flops_per_s`` is
+    ``2 * B * n_out * k / t`` of the condensed gather kernel (K1) at decode,
+    B = 4, the median of its six decode cases (wo, w_gate, w_down of
+    qwen3-1.7b at 90% sparsity, bf16 and f32) in PERF.md section 6, measured
+    by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700.00 W.
+    """
+
+    name: str
+    hbm_bytes_per_s: float
+    mxu_flops_per_s: float
+    gather_flops_per_s: float
+    gather_flops_per_s_large: float | None = None
+    gather_small_batch: int = 8
+    gather_large_batch: int = 512
+
+    def gather_rate(self, batch: int) -> float:
+        """Gather throughput at ``batch``, clamped outside the two points."""
+        small, large = self.gather_flops_per_s, self.gather_flops_per_s_large
+        if not large or self.gather_large_batch <= self.gather_small_batch:
+            return small
+        b = int(batch)
+        if b <= self.gather_small_batch:
+            return small
+        if b >= self.gather_large_batch:
+            return large
+        t = ((math.log(b) - math.log(self.gather_small_batch))
+             / (math.log(self.gather_large_batch) - math.log(self.gather_small_batch)))
+        return math.exp((1.0 - t) * math.log(small) + t * math.log(large))
+
+
+DEFAULT_PROFILE = HardwareProfile(name="h100-sxm", hbm_bytes_per_s=3.35e12,
+                                  mxu_flops_per_s=989e12, gather_flops_per_s=9.31e11)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackDecision:
+    """One stack's chosen representation and the cost table that chose it."""
+
+    name: str
+    representation: str
+    est_s: dict[str, float]       # representation -> est. seconds per step
+    stats: F.ExportStats          # realized fan-in / ablation at export time
+
+    @property
+    def active_fraction(self) -> float:
+        return self.stats.active_fraction
+
+
+def stack_costs(stack, *, batch_size: int, itemsize: int, k: int,
+                active_fraction: float, profile: HardwareProfile = DEFAULT_PROFILE,
+                max_active_fraction: float | None = None) -> dict[str, float]:
+    """Estimated seconds per serving step for each representation.
+
+    ``max_active_fraction`` is the exported row fraction that prices
+    condensed_over_active (the leaf carries max_active rows per layer);
+    the mean ``active_fraction`` is the fallback.
+    """
+    b = max(int(batch_size), 1)
+    act = min(max(active_fraction, 0.0), 1.0)
+    row_frac = act if max_active_fraction is None else min(max(max_active_fraction, 0.0), 1.0)
+    spec = F.FormatSpec(d_in=stack.d_in, d_out=stack.d_out, n_replicas=stack.n_replicas,
+                        itemsize=itemsize, k=max(k, 1), max_active=row_frac * stack.d_out,
+                        active_fraction=act)
+    return {name: cls.estimate_cost(spec, b, profile) for name, cls in F.FORMATS.items()}
+
+
+def _max_active_fraction(stack, stats: F.ExportStats) -> float:
+    """Exported-row fraction: the leaf carries max_active rows per layer."""
+    return max(stats.max_active, 1) / max(stack.d_out, 1)
+
+
+def _costs(stack, batch_size: int, itemsize: int, stats: F.ExportStats,
+           profile: HardwareProfile) -> dict[str, float]:
+    return stack_costs(stack, batch_size=batch_size, itemsize=itemsize, k=max(stats.k, 1),
+                       active_fraction=stats.active_fraction, profile=profile,
+                       max_active_fraction=_max_active_fraction(stack, stats))
+
+
+def select_representation(stack, *, batch_size: int, itemsize: int, stats: F.ExportStats,
+                          profile: HardwareProfile = DEFAULT_PROFILE) -> StackDecision:
+    """Cost-model choice among the representations exact for this stack.
+
+    Masked and condensed are always exact; condensed_over_active joins once
+    ablation has left dead rows to drop, and structured only for
+    ablation-only stacks (every surviving column fully dense,
+    ``stats.min_fan_in >= d_in``).
+    """
+    costs = _costs(stack, batch_size, itemsize, stats, profile)
+    cands = ("masked", "condensed")
+    if stats.active_fraction < 1.0 - _ABLATION_EPS:
+        cands += ("condensed_over_active",)
+        if stats.min_fan_in >= stack.d_in:
+            cands += ("structured",)
+    rep = min(cands, key=lambda r: costs[r])
+    return StackDecision(name=stack.name, representation=rep, est_s=costs, stats=stats)
+
+
+def _build_leaf(rep: str, weight: torch.Tensor, mask: torch.Tensor, stats: F.ExportStats,
+                dtype: torch.dtype | None = None) -> F.SparseFormat:
+    """The format object of one stack; the value-storing formats store their
+    values at ``dtype`` (the compute dtype), the others read the live weight."""
+    try:
+        cls = F.FORMATS[rep]
+    except KeyError:
+        raise ValueError(f"unknown representation {rep!r}") from None
+    if rep in ("condensed", "condensed_over_active"):
+        return cls.export_from_dense(weight, mask, stats, dtype=dtype)
+    return cls.export_from_dense(weight, mask, stats)
+
+
+def _decide(stack, path: str, *, batch_size: int, itemsize: int, stats: F.ExportStats,
+            profile: HardwareProfile) -> StackDecision:
+    """One stack's decision: the cost model's for "auto", forced otherwise."""
+    if path == "auto":
+        return select_representation(stack, batch_size=batch_size, itemsize=itemsize,
+                                     stats=stats, profile=profile)
+    return StackDecision(name=stack.name, representation=path,
+                         est_s=_costs(stack, batch_size, itemsize, stats, profile),
+                         stats=stats)
+
+
+@dataclasses.dataclass
+class Plan:
+    """Decisions per stack and the serving tree they built.
+
+    ``serving_tree`` plugs into the masks slot of prefill/decode_step; its
+    leaves are ``formats`` objects, and ``models.layers.linear`` dispatches
+    on their type.
+    """
+
+    cfg: object
+    registry: list
+    path: str                      # requested path ("auto" or a fixed representation)
+    batch_size: int                # the batch the plan was priced at (a bucket)
+    profile: HardwareProfile
+    decisions: dict[str, StackDecision]
+    serving_tree: dict
+
+    def representation_of(self, name: str) -> str:
+        return self.decisions[name].representation
+
+    def weight_bytes(self) -> tuple[int, int]:
+        """(serving weight bytes under this plan, masked-path weight bytes),
+        each format pricing its own export from the realized stats."""
+        itemsize = getattr(torch, self.cfg.param_dtype).itemsize
+        masked_ref = serving = 0
+        for s in self.registry:
+            dec = self.decisions[s.name]
+            spec = F.spec_for_stack(s, dec.stats, itemsize)
+            serving += F.FORMATS[dec.representation].estimate_weight_bytes(spec)
+            masked_ref += F.MaskedDense.estimate_weight_bytes(spec)
+        return serving, masked_ref
+
+    def describe(self, requested_batch: int | None = None) -> str:
+        """Human-readable plan table; a requested batch that differs from the
+        bucket the plan was priced at is printed beside it."""
+        batch_s = f"batch={self.batch_size}"
+        if requested_batch is not None and int(requested_batch) != self.batch_size:
+            batch_s = f"batch={int(requested_batch)} (bucket {self.batch_size})"
+        lines = [f"[plan] path={self.path} {batch_s} profile={self.profile.name}"]
+        for name, dec in self.decisions.items():
+            lines.append(
+                f"[plan]   {name:24s} -> {dec.representation:22s} "
+                f"(est {dec.est_s[dec.representation] * 1e6:8.3f} us/step, "
+                f"k={dec.stats.k}, active={dec.active_fraction:.2f})")
+        return "\n".join(lines)
+
+
+def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
+               path: str = "auto", profile: HardwareProfile = DEFAULT_PROFILE) -> Plan:
+    """The per-stack execution plan for a request of ``batch_size`` rows.
+
+    ``path="auto"`` chooses per stack by the cost model, a representation
+    name forces it everywhere. Costs are priced at the param dtype's width,
+    as in the reference; condensed values are stored at ``cfg.dtype``.
+    """
+    if path not in PATHS:
+        raise ValueError(f"unknown serving path {path!r}; expected one of {PATHS}")
+    registry = list(registry or [])
+    itemsize = getattr(torch, cfg.param_dtype).itemsize
+    dtype = getattr(torch, cfg.dtype)
+    stats = COND.export_stats(registry, masks)
+    decisions: dict[str, StackDecision] = {}
+    tree: dict = {}
+    for s in registry:
+        dec = _decide(s, path, batch_size=batch_size, itemsize=itemsize,
+                      stats=stats[s.name], profile=profile)
+        decisions[s.name] = dec
+        REG.set_path(tree, s.path, _build_leaf(dec.representation,
+                                               REG.get_path(params, s.path),
+                                               REG.get_path(masks, s.path),
+                                               stats[s.name], dtype))
+    return Plan(cfg=cfg, registry=registry, path=path, batch_size=batch_size,
+                profile=profile, decisions=decisions, serving_tree=tree)

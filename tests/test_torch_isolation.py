@@ -34,6 +34,21 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
     assert res.stdout.strip() == "ok"
 
 
+def test_importing_the_ablation_kernels_and_the_plan_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.kernels.structured_matmul, repro_torch.sparse.plan\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
                                        ROOT / "chip_smoke.py"]))
