@@ -15,9 +15,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    Each is held to its plain version within the stated tolerance, with
    the decode launch bitwise equal to the tiled launch, K6 bitwise equal
    to K5 and K4 bitwise equal to K1 on the same rows followed by a
-   scatter. Times are CUDA-event medians over replays of a CUDA graph of
-   launches that cycle through enough copies of the weights to keep L2
-   cold.
+   scatter. Then K2 (the condensed gather over int8 / fp8 codes with a
+   float32 scale per neuron) at K1's shapes and K2-coa (the same over the
+   surviving rows, stored through out_index) at K4's, each with int8 and
+   fp8 codes, bf16 and f32 x, B=4 and B*T=128: decode == tiled bitwise,
+   K2-coa == K2 on the same rows then a scatter bitwise, and in f32
+   K2 == K1(f32(codes)) * scales bitwise. Times are CUDA-event medians over
+   replays of a CUDA graph of launches that cycle through enough copies of
+   the weights to keep L2 cold.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -31,7 +36,17 @@ Phases, each of which raises (exit code != 0) on any failed check:
    each against the masked path on its own masks, bf16 and f32.
 5. auto: --path auto on the ablated masks at B=4 (bucket 8); each kernel
    must launch as often as the plan's decisions imply.
-6. reference: the smoke config on the card against the port's CPU path
+6. quant: --values-dtype int8 and fp8 on full-width qwen3-1.7b, bf16 and
+   f32: condensed on the 90% masks and condensed_over_active on the ablated
+   masks must launch K2 (K2-coa) 4 * 28 * 17 times and nothing else, and
+   their tokens agree, except at near-ties, with a twin that serves the
+   same codes and scales dequantized into a float export through K1 (K4);
+   structured int8 on ablation-only masks (K5 4 * 28 * 17 times) gives its
+   dequantized twin's tokens exactly.
+7. checkpoint: the int8 condensed serving tree saved with
+   repro_torch.train.checkpoint.save and restored into a fresh template on
+   the card gives identical arrays and identical tokens.
+8. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths.
 
@@ -83,7 +98,13 @@ KERNELS = (  # key, wrapper, CUDA source, the TPU kernel it replaces
      "src/repro/kernels/structured_matmul.py:217"),
     ("K6", "structured_matmul_prefetch", CSRC + "structured_matmul.cu",
      "src/repro/kernels/structured_matmul.py:244"),
+    ("K2", "condensed_matmul_scaled", CSRC + "condensed_matmul.cu",
+     "src/repro/kernels/condensed_matmul.py:254"),
+    ("K2-coa", "condensed_over_active_matmul_scaled", CSRC + "structured_matmul.cu",
+     "src/repro/kernels/structured_matmul.py:297"),
 )
+QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
+QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
 ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
 # the port's kernels as the profiler names them: K1 and K4 share
 # gather_rows_kernel, K5 and K6 structured_kernel
@@ -396,6 +417,139 @@ def ablation_kernel_phase(device):
     return cases
 
 
+def quant_kernel_phase(device):
+    """K2 at K1's main-path shapes and K2-coa at K4's (half of each stack's
+    neurons ablated), int8 and fp8 codes, bf16 and f32 x; returns the
+    per-case records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(3)
+    shapes = {}
+    for s in REG.build_registry(cfg):  # w_up has w_gate's shape
+        shapes.setdefault((s.d_in, s.d_out), (s.path[-1], D.fan_in_from_density(s.d_in, s.density)))
+    cases = []
+
+    def same(kernel, a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{kernel} {what} is not bitwise")
+
+    for (d_in, d_out), (name, k) in shapes.items():
+        mask = topology.random_constant_fan_in_mask(gen, d_in, d_out, k)
+        w = torch.randn((d_in, d_out), generator=gen, device=device) / k ** 0.5
+        ablated = _ablated(mask, ABLATION)
+        for qdt in QUANT:
+            full = F.Condensed.export_from_dense(w, mask, quantize_spec=qdt)
+            coa = F.CondensedOverActive.export_from_dense(w, ablated, quantize_spec=qdt)
+            if full.values.shape[-1] != k or coa.values.shape[0] != d_out // 2:
+                raise AssertionError(f"{name} {qdt}: k {full.values.shape[-1]}, a "
+                                     f"{coa.values.shape[0]}")
+            oi = coa.out_index
+            for dtype_name in ("bfloat16", "float32"):
+                dtype = getattr(torch, dtype_name)
+                isz = torch.empty((), dtype=dtype).element_size()
+                kernels = {  # key: (codes, indices, scales, out_index or None)
+                    "K2": (full.values, full.indices, full.scales, None),
+                    "K2-coa": (coa.values, coa.indices, coa.scales, oi),
+                }
+                for key, (q, idx, sc, out_index) in kernels.items():
+                    rows = q.shape[0]
+                    deq = topology.condensed_to_dense(F.dequantize_values(q, sc), idx, d_in)
+                    if out_index is not None:  # rows to their dense columns
+                        deq = ref._scatter_columns(deq, out_index, d_out)
+                    deq = deq.to(dtype).contiguous()
+                    meta_bytes = rows * 4 + (rows * 4 if out_index is not None else 0)
+                    weight_bytes = q.numel() * 5 + meta_bytes  # codes + int32 indices
+                    sets = [(q.clone(), idx.clone(), sc.clone())
+                            for _ in range(_copies(weight_bytes))]
+                    dense_sets = [deq.clone() for _ in range(_copies(deq.numel() * isz))]
+                    if out_index is None:
+                        fn = cm.condensed_matmul_scaled
+                        plain = ref.condensed_matmul_scaled_ref
+                    else:
+                        def fn(x_, q_, i_, s_, block_b=None):
+                            return sm.condensed_over_active_matmul_scaled(
+                                x_, q_, i_, out_index, s_, d_out, block_b=block_b)
+
+                        def plain(x_, q_, i_, s_):
+                            return ref.condensed_over_active_matmul_scaled_ref(
+                                x_, q_, i_, out_index, s_, d_out)
+                    for b, launch in ((BATCH, "decode"), (BATCH * PROMPT, "tiled")):
+                        x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+                        what = f"{name} {qdt} {dtype_name} B={b}"
+                        y = fn(x, q, idx, sc)
+                        want = plain(x, q, idx, sc)
+                        torch.cuda.synchronize()
+                        torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name],
+                                                   msg=lambda m: f"{key} {what}: {m}")
+                        err = (y.float() - want.float()).abs().max().item()
+                        pairs = ["decode == tiled(8)" if launch == "decode"
+                                 else "tiled(8) == tiled(2)"]
+                        same(key, y, fn(x, q, idx, sc, block_b=8 if launch == "decode" else 2),
+                             f"{what}: {pairs[0]}")
+                        if out_index is None and dtype_name == "float32":
+                            same(key, y, cm.condensed_matmul(x, q.float(), idx) * sc,
+                                 f"{what}: K2 == K1(f32(q)) * s")
+                            pairs.append("K2 == K1(f32(q)) * s")
+                        if out_index is not None:
+                            rows_y = cm.condensed_matmul_scaled(x, q, idx, sc)
+                            same(key, y, ref._scatter_columns(rows_y, out_index, d_out),
+                                 f"{what}: K2-coa == K2 rows then scatter")
+                            pairs.append("K2-coa == K2 rows then scatter")
+                        ms = _time_ms(fn, [(x, *c) for c in sets])
+                        plain_ms = _time_ms(plain, [(x, *c) for c in sets], iters=10)
+                        library_ms = _time_ms(torch.matmul, [(x, dd) for dd in dense_sets])
+                        nbytes = weight_bytes + b * d_in * isz + b * d_out * isz
+                        ops = 2 * b * q.numel() + b * rows  # the FMAs and the scale multiply
+                        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                        t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                        rec = dict(kernel=key, stack=name, d_in=d_in, d_out=d_out, rows=rows,
+                                   k=k, codes=qdt, dtype=dtype_name, batch=b, launch=launch,
+                                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=max(t_bytes, t_ops),
+                                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                   bytes=nbytes, ops=ops, max_abs_err=err,
+                                   bitwise=", ".join(pairs))
+                        cases.append(rec)
+                        print(f"[kernel] {key:6s} {name:6s} {d_in}->{d_out} rows={rows} k={k} "
+                              f"{qdt:4s} {dtype_name:8s} B={b:3d} {launch:6s}: ms {ms:.5f} | "
+                              f"plain {plain_ms:.5f} | torch.matmul (dequantized) "
+                              f"{library_ms:.5f} | bound {rec['bound_ms']:.5f} "
+                              f"({rec['bound_by']}) | max_abs_err {err:.3g} | "
+                              f"{rec['bitwise']}: bitwise")
+                    del sets, dense_sets, deq
+    torch.cuda.empty_cache()
+    return cases
+
+
+def k3_bound() -> None:
+    """K3 (the values gradient, not ported yet) at qwen3-1.7b's full-width
+    stacks for B*T = 128, float32: its byte bound (dy + x + idx + dw, each
+    once) and its operation bound, computed from the shapes, not run."""
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.sparse import registry as REG
+    b, total = BATCH * PROMPT, 0.0
+    for s in REG.build_registry(configs.get_config(ARCH)):
+        k = D.fan_in_from_density(s.d_in, s.density)
+        nbytes = 4 * (b * s.d_out + b * s.d_in + 2 * s.d_out * k)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * b * s.d_out * k / PEAK_OPS_PER_S["float32"] * 1e3
+        total += max(t_bytes, t_ops)
+        print(f"[bound] K3 {s.path[-1]:6s} {s.d_in}->{s.d_out} k={k} B*T={b} float32: "
+              f"{nbytes} bytes, byte bound {t_bytes:.5f} ms, operation bound {t_ops:.5f} ms "
+              f"(computed, not run)")
+    print(f"[bound] K3 one layer (wo + w_gate + w_up + w_down): {total:.5f} ms")
+
+
 def _device_profile(fn, label: str) -> None:
     """Device busy share and the kernels that take the device time of one
     generate call, from torch.profiler (wall time from an unprofiled call)."""
@@ -472,7 +626,13 @@ def _kernel_functions() -> dict:
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.kernels import structured_matmul as sm
     return {"K1": cm.condensed_matmul, "K4": sm.condensed_over_active_matmul,
-            "K5": sm.structured_matmul, "K6": sm.structured_matmul_prefetch}
+            "K5": sm.structured_matmul, "K6": sm.structured_matmul_prefetch,
+            "K2": cm.condensed_matmul_scaled, "K2-coa": sm.condensed_over_active_matmul_scaled}
+
+
+def _none() -> dict:
+    """Every kernel's count at 0 (an expected-launches dict to fill in)."""
+    return {name: 0 for name in _kernel_functions()}
 
 
 def _zero_counts() -> None:
@@ -484,11 +644,12 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in _kernel_functions().items()}
 
 
-def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None) -> int:
-    """Tokens of a path against the masked path's on the same masks: they
-    may part only where the masked top-2 logit gap is a tie (below ``tie``,
-    by default TIE_GAP at this dtype). Returns the number of streams that
-    agree in full."""
+def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None,
+                against: str = "masked") -> int:
+    """Tokens of a path against the masked path's on the same masks (or
+    another path's, named by ``against``): they may part only where that
+    path's top-2 logit gap is a tie (below ``tie``, by default TIE_GAP at
+    this dtype). Returns the number of streams that agree in full."""
     dtype_name = cfg.dtype
     tie = TIE_GAP[dtype_name] if tie is None else tie
     if out.shape != (BATCH, PROMPT + GEN) or not bool(
@@ -499,10 +660,10 @@ def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None) ->
         if j is None:
             continue
         gap = gaps[b, j].item()
-        print(f"[{label}] stream {b}: parts from masked at generated token {j}, masked "
+        print(f"[{label}] stream {b}: parts from {against} at generated token {j}, {against} "
               f"top-2 gap {gap:.3g} (tie below {tie:.3g})")
         if gap >= tie:
-            raise AssertionError(f"{label}: tokens differ from masked at a gap of {gap}")
+            raise AssertionError(f"{label}: tokens differ from {against} at a gap of {gap}")
     return sum(j is None for j in div)
 
 
@@ -562,7 +723,7 @@ def slice_phase(setup: dict, card: str):
         _zero_counts()
         out_c, tok_s_c = cond_model.serve_once(prompts, GEN, "condensed")
         n = cm.condensed_matmul.launches
-        if _counts() != {"K1": expected, "K4": 0, "K5": 0, "K6": 0}:
+        if _counts() != {**_none(), "K1": expected}:
             raise AssertionError(f"condensed path launched {_counts()}, expected K1 "
                                  f"{expected} and nothing else")
         out_m, tok_s_m = masked_model.serve_once(prompts, GEN, "masked")
@@ -593,9 +754,11 @@ def slice_phase(setup: dict, card: str):
     return launches
 
 
-def _tie_threshold(label: str, cfg, model, masked_model, prompts) -> float:
+def _tie_threshold(label: str, cfg, model, masked_model, prompts,
+                   against: str = "masked") -> float:
     """max(TIE_GAP, 2 * d), d the largest |logit difference| between a path
-    and masked on the same prefill; d must stay below LOGIT_NOISE_BOUND."""
+    and masked (or the path ``against`` names) on the same prefill; d must
+    stay below LOGIT_NOISE_BOUND."""
     import torch
     from repro_torch.models import model as M
     logits = []
@@ -606,10 +769,11 @@ def _tie_threshold(label: str, cfg, model, masked_model, prompts) -> float:
             logits.append(lg[:, :cfg.vocab_size])
         d = (logits[0] - logits[1]).abs().max().item()
     if not d <= LOGIT_NOISE_BOUND[cfg.dtype]:
-        raise AssertionError(f"{label}: prefill logits differ from masked by {d}, above "
+        raise AssertionError(f"{label}: prefill logits differ from {against} by {d}, above "
                              f"{LOGIT_NOISE_BOUND[cfg.dtype]}")
     tie = max(TIE_GAP[cfg.dtype], 2 * d)
-    print(f"[{label}] prefill logits differ from masked by at most {d:.4g}: tie below {tie:.4g}")
+    print(f"[{label}] prefill logits differ from {against} by at most {d:.4g}: tie below "
+          f"{tie:.4g}")
     return tie
 
 
@@ -627,9 +791,9 @@ def _prefetch_gather(on: bool):
             os.environ["REPRO_PREFETCH_GATHER"] = old
 
 
-def _serve_counted(label: str, model, prompts, expected: dict):
+def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = REPEATS):
     """A warm-up, then one run with the launch counts zeroed just before and
-    read just after (they must equal ``expected``), then REPEATS - 1 more
+    read just after (they must equal ``expected``), then ``repeats`` - 1 more
     timed runs that must give the same tokens. Returns (tokens, tok/s list,
     the counted run's launch counts)."""
     import torch
@@ -640,7 +804,7 @@ def _serve_counted(label: str, model, prompts, expected: dict):
     if counts != expected:
         raise AssertionError(f"{label}: launched {counts}, expected {expected}")
     rates = [rate]
-    for _ in range(1, REPEATS):
+    for _ in range(1, repeats):
         again, rate = model.serve_once(prompts, GEN, label, quiet=True)
         if not torch.equal(again, out):
             raise AssertionError(f"{label}: a repeated run gave other tokens")
@@ -662,7 +826,7 @@ def ablation_phase(setup: dict, card: str) -> dict:
     per_pass = 4 * base.n_layers  # sparse linears per forward pass
     sets = {"ablated": _ablate_masks(reg, setup["masks"], ABLATION),
             "ablation-only": _ablation_only(reg, setup["masks"], ABLATION)}
-    none = {"K1": 0, "K4": 0, "K5": 0, "K6": 0}
+    none = _none()
     runs = (  # label, mask set, path, prefetch_gather, expected launches
         ("condensed_over_active", "ablated", "condensed_over_active", False,
          {**none, "K4": per_pass * (1 + GEN)}),
@@ -729,7 +893,7 @@ def auto_phase(setup: dict) -> None:
     if plan.batch_size != 8:
         raise AssertionError(f"B={BATCH} planned at bucket {plan.batch_size}, not 8")
     kernel_of = {"condensed": "K1", "condensed_over_active": "K4", "structured": "K5"}
-    expected = {"K1": 0, "K4": 0, "K5": 0, "K6": 0}
+    expected = _none()
     for s in reg:
         rep = plan.representation_of(s.name)
         if rep in kernel_of:
@@ -741,6 +905,145 @@ def auto_phase(setup: dict) -> None:
     agree = _check_ties("auto", cfg, out, *_masked_gaps(cfg, masked, prompts, GEN), tie)
     print(f"[auto] launches {expected} as the decisions imply; streams agreeing with "
           f"masked in full {agree}/{BATCH}; decode {_rates({'auto': rates})}")
+
+
+def _dequantized_twin(plan, dtype) -> dict:
+    """The plan's serving tree with every quantized leaf's codes and scales
+    dequantized (at ``dtype``) into a float leaf of the same format: the
+    float path (K1, K4, K5) over the same numbers."""
+    import dataclasses
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+    out: dict = {}
+    for s in plan.registry:
+        leaf = REG.get_path(plan.serving_tree, s.path)
+        axis = -2 if isinstance(leaf, F.StructuredFanIn) else -1
+        REG.set_path(out, s.path, dataclasses.replace(
+            leaf, values=F.dequantize_values(leaf.values, leaf.scales, axis=axis, dtype=dtype),
+            scales=None, values_dtype=None))
+    return out
+
+
+def quant_phase(setup: dict, card: str) -> dict:
+    """--values-dtype int8 / fp8 on full-width qwen3-1.7b: condensed (K2) on
+    the 90% masks and condensed_over_active (K2-coa) on the ablated masks,
+    bf16 and f32, each held to its dequantized twin (K1 / K4); structured
+    int8 on ablation-only masks (K5) once. Returns the bf16 int8 runs'
+    launch counts."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ServingModel
+
+    base, reg, params, prompts = setup["base"], setup["reg"], setup["params"], setup["prompts"]
+    per_request = 4 * base.n_layers * (1 + GEN)
+    sets = {"90%": setup["masks"], "ablated": _ablate_masks(reg, setup["masks"], ABLATION),
+            "ablation-only": _ablation_only(reg, setup["masks"], ABLATION)}
+    runs = [  # path, mask set, kernel, the twin's kernel, compute dtypes, codes
+        ("condensed", "90%", "K2", "K1", ("bfloat16", "float32"), QUANT),
+        ("condensed_over_active", "ablated", "K2-coa", "K4", ("bfloat16", "float32"), QUANT),
+        ("structured", "ablation-only", "K5", "K5", ("bfloat16",), ("int8",)),
+    ]
+    launches = {}
+    for path, set_name, key, twin_key, dtypes, codes in runs:
+        for dtype_name in dtypes:
+            cfg = base.replace(dtype=dtype_name)
+            for qdt in codes:
+                label = f"quant:{dtype_name}:{path}:{qdt}"
+                t0 = time.perf_counter()
+                plan = serve.build_plan(cfg, reg, params, sets[set_name], path,
+                                        batch_size=BATCH, values_dtype=qdt)
+                torch.cuda.synchronize()
+                export_s = time.perf_counter() - t0
+                weight_bytes, masked_ref = plan.weight_bytes()
+                model = ServingModel(cfg, params, plan)
+                if model.values_dtype != qdt:
+                    raise AssertionError(f"{label}: the model keeps values_dtype "
+                                         f"{model.values_dtype}")
+                with _prefetch_gather(False):
+                    out, rates, counts = _serve_counted(label, model, prompts,
+                                                        {**_none(), key: per_request},
+                                                        repeats=QUANT_REPEATS)
+                    if dtype_name == "bfloat16" and qdt == "int8":
+                        launches[key] = counts[key]
+                        if key != "K5":
+                            _device_profile(lambda: model.generate(prompts, GEN), label)
+                    twin = ServingModel(cfg, params, _dequantized_twin(plan, getattr(torch,
+                                                                                     dtype_name)))
+                    out_t, _, _ = _serve_counted(f"{label}:twin", twin, prompts,
+                                                 {**_none(), twin_key: per_request}, repeats=1)
+                    toks_t, gaps = _masked_gaps(cfg, twin, prompts, GEN)
+                    if not torch.equal(toks_t, out_t[:, PROMPT:]):
+                        raise AssertionError(f"{label}: the twin's step-by-step run differs")
+                    if key == "K5":  # the same panel reaches the same kernel: exact
+                        if not torch.equal(out, out_t):
+                            raise AssertionError(f"{label}: tokens differ from the twin's")
+                        agree = BATCH
+                    else:
+                        tie = (_tie_threshold(label, cfg, model, twin, prompts, "the twin")
+                               if dtype_name == "bfloat16" else TIE_GAP[dtype_name])
+                        agree = _check_ties(label, cfg, out, toks_t, gaps, tie, "the twin")
+                print(f"[{label}] {card}: export {export_s:.1f}s, serving weight bytes "
+                      f"{weight_bytes} ({weight_bytes / masked_ref:.3f}x of masked), launches "
+                      f"{key} {counts[key]}, streams agreeing with the dequantized twin "
+                      f"({twin_key}) in full {agree}/{BATCH}; decode {_rates({path: rates})}; "
+                      f"first stream {out[0, PROMPT:].tolist()}")
+                del model, twin, plan
+                torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_phase(setup: dict) -> None:
+    """The int8 condensed serving tree through the port's checkpoint: saved,
+    restored into a fresh template of the same shapes on the card, served."""
+    import dataclasses
+    import tempfile
+    import typing
+    import torch
+    from repro_torch import bridge
+    from repro_torch.launch.engine import ServingModel
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.train import checkpoint as CKPT
+
+    class State(typing.NamedTuple):
+        step: torch.Tensor
+        serve: dict
+
+    base, reg, params, prompts = setup["base"], setup["reg"], setup["params"], setup["prompts"]
+    cfg = base.replace(dtype="bfloat16")
+    tree = COND.export_condensed(cfg, reg, params, setup["masks"], quantize_spec="int8")
+    # a fresh template: zero codes and indices, unit scales, same dtypes and device
+    template = _map_leaves(tree, lambda leaf: dataclasses.replace(
+        leaf, values=torch.zeros_like(leaf.values), indices=torch.zeros_like(leaf.indices),
+        scales=torch.ones_like(leaf.scales)))
+    out_dir = REPO / "build"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as d:
+        t0 = time.perf_counter()
+        path = CKPT.save(d, State(step=torch.tensor(7), serve=tree))
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        got = CKPT.restore(d, CKPT.latest_step(d), State(step=torch.tensor(0), serve=template))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    want, have = bridge.flatten(tree), bridge.flatten(got.serve)
+    if int(got.step) != 7 or want.keys() != have.keys():
+        raise AssertionError(f"restored step {int(got.step)}, keys {sorted(have)[:4]}...")
+    for k in want:
+        if have[k].device != want[k].device or not torch.equal(have[k], want[k]):
+            raise AssertionError(f"checkpoint: {k} differs after the round trip")
+    out = ServingModel(cfg, params, tree).generate(prompts, GEN)
+    out_r = ServingModel(cfg, params, got.serve).generate(prompts, GEN)
+    if not torch.equal(out, out_r):
+        raise AssertionError("checkpoint: the restored tree serves other tokens")
+    print(f"[checkpoint] int8 condensed tree, {len(want)} arrays, {size} bytes: save "
+          f"{save_s:.1f}s, restore onto {got.serve['blocks']['wo'].values.device} "
+          f"{restore_s:.1f}s; every array bitwise equal, tokens equal: "
+          f"{out_r[0, PROMPT:].tolist()}")
+
+
+def _map_leaves(tree: dict, fn) -> dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def reference_phase(device):
@@ -800,7 +1103,8 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     build_phase()
-    cases = kernel_phase(device) + ablation_kernel_phase(device)
+    cases = kernel_phase(device) + ablation_kernel_phase(device) + quant_kernel_phase(device)
+    k3_bound()
     setup = model_setup(device)
     launches = {"K1": slice_phase(setup, card)}
     ablation = ablation_phase(setup, card)
@@ -808,6 +1112,9 @@ def main() -> int:
                     K5=ablation["structured"]["K5"],
                     K6=ablation["structured+prefetch"]["K6"])
     auto_phase(setup)
+    quant = quant_phase(setup, card)
+    launches.update({"K2": quant["K2"], "K2-coa": quant["K2-coa"]})
+    checkpoint_phase(setup)
     del setup
     reference_phase(device)
 
@@ -819,7 +1126,7 @@ def main() -> int:
     kernels = []
     for key, name, source, replaces in KERNELS:
         layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
-                 and c["launch"] == "decode"]
+                 and c["launch"] == "decode" and c.get("codes", "int8") == "int8"]
         total = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
                  for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append({
@@ -836,7 +1143,9 @@ def main() -> int:
                          else "operations"),
             "library_ms": total["library_ms"],
             "shape": "one decode layer: wo + w_gate + w_up + w_down, B=4, bfloat16"
-                     + (", 50% of each stack's neurons ablated" if key != "K1" else ""),
+                     + (", int8 codes" if key.startswith("K2") else "")
+                     + (", 50% of each stack's neurons ablated"
+                        if key not in ("K1", "K2") else ""),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

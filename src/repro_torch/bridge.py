@@ -42,10 +42,18 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
+# the float types numpy lacks, with the unsigned numpy type of their width:
+# an ml_dtypes array of one (by the same name) or a raw-bytes array of that
+# width (npz's |V2, |V1) holds its bits
+RAW_BITS = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8}
+_BY_NAME = {str(dt).removeprefix("torch."): dt for dt in RAW_BITS}
+
+
 def _to_tensor(arr, device) -> torch.Tensor:
     arr = np.array(arr)  # a writable copy (JAX hands out read-only views)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: reinterpret the bits
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    if arr.dtype.name in _BY_NAME:  # ml_dtypes' bf16 / fp8: reinterpret the bits
+        dtype = _BY_NAME[arr.dtype.name]
+        return torch.from_numpy(arr.view(RAW_BITS[dtype])).view(dtype).to(device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -58,9 +66,10 @@ def from_jax_numpy(tree: dict, device="cpu") -> dict:
 def to_jax_numpy(tree: dict) -> dict:
     """The port's tree as nested numpy arrays under the reference's paths.
 
-    bfloat16 tensors come back as float32 (exact); numpy has no bf16.
+    bfloat16 and float8_e4m3fn tensors come back as float32 (exact);
+    numpy has neither type.
     """
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return (t.float() if t.dtype in RAW_BITS else t).numpy()
     return unflatten({k: arr(v) for k, v in flatten(tree).items()})

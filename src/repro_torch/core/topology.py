@@ -43,13 +43,16 @@ def dense_to_condensed(weight: torch.Tensor, mask: torch.Tensor, k: int):
     Each column may hold at most k True. Rows are ranked active-first by a
     STABLE sort (ascending row order within each class), as in the
     reference, so slots past a column's nnz land on mask-False rows with
-    value 0.
+    value +0 (a select, not a product with the mask, which would give -0
+    under a negative weight: the reference's compiled product is a select
+    too, and quantized codes keep the sign of a zero).
     """
     inactive = (~mask).to(torch.uint8)
     order = torch.argsort(inactive, dim=-2, stable=True)        # active rows first
     top_idx = order[..., :k, :].transpose(-1, -2)               # (*lead, d_out, k)
     gathered_mask = torch.take_along_dim(mask.transpose(-1, -2), top_idx, dim=-1)
-    values = torch.take_along_dim(weight.transpose(-1, -2), top_idx, dim=-1) * gathered_mask
+    gathered = torch.take_along_dim(weight.transpose(-1, -2), top_idx, dim=-1)
+    values = torch.where(gathered_mask, gathered, torch.zeros_like(gathered))
     return values, top_idx.to(torch.int32).contiguous()
 
 

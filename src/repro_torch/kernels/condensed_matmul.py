@@ -1,9 +1,13 @@
-"""Condensed constant fan-in matmul: wrapper of the Hopper kernel K1.
+"""Condensed constant fan-in matmul: wrappers of the Hopper kernels K1 and K2.
 
-``y[b, n] = sum_k f32(x[b, indices[n, k]]) * f32(values[n, k])``, cast to
+K1: ``y[b, n] = sum_k f32(x[b, indices[n, k]]) * f32(values[n, k])``, cast to
 ``x.dtype``: the function of ``repro/kernels/condensed_matmul.py::_fwd_kernel``.
-The CUDA kernel is ``csrc/condensed_matmul.cu`` (its header note gives its
-byte bound and design); ``ref.condensed_matmul_ref`` is its plain version.
+K2 (``scales=`` given): ``values`` are int8 or float8_e4m3fn codes and the
+per-neuron float32 scale multiplies each neuron's k-sum before the cast, the
+function of ``_fwd_scaled_kernel``. The CUDA source is
+``csrc/condensed_matmul.cu`` (its header note gives the byte bound and the
+design); ``ref.condensed_matmul_ref`` and ``ref.condensed_matmul_scaled_ref``
+are the plain versions.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback. As in the reference,
@@ -11,8 +15,9 @@ launches the kernel or raises — there is no fallback. As in the reference,
 block row) and larger batches the tiled launch (8-row batch tiles); a
 caller-given ``block_b`` forces the tiled launch. The two are bitwise equal.
 
-``condensed_matmul.launches`` counts kernel launches (never plain-version
-calls), so a run can show that its sparse linears went through the kernel.
+``condensed_matmul.launches`` counts K1's launches and
+``condensed_matmul_scaled.launches`` K2's (never plain-version calls), so a
+run can show that its sparse linears went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ BLOCK_ROWS = (1, 2, 4, 8)
 # dynamic shared memory a Hopper block may opt into (227 KB)
 SMEM_BYTES = 232_448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the stored-code types K2 reads (1-byte), with a float32 scale per row
+_VALUE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _WARPS_PER_BLOCK = 8  # kWarps in csrc/condensed_matmul.cu
 
 
@@ -37,6 +44,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("condensed_matmul")
     fn = lib.condensed_matmul_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.condensed_matmul_scaled_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.condensed_matmul_error_string.argtypes = [ctypes.c_int]
     lib.condensed_matmul_error_string.restype = ctypes.c_char_p
@@ -48,14 +58,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor) -> None:
+def _check(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+           scales: torch.Tensor | None = None) -> None:
     if x.ndim != 2 or values.ndim != 2 or indices.shape != values.shape:
         raise ValueError(f"need x (B, d_in) and values/indices (n_out, k); got "
                          f"{tuple(x.shape)}, {tuple(values.shape)}, "
                          f"{tuple(indices.shape)}")
-    if x.dtype not in _DTYPE_CODES or values.dtype != x.dtype:
-        raise TypeError(f"x and values must both be float32 or bfloat16; got "
-                        f"{x.dtype}, {values.dtype}")
+    if scales is None:
+        if x.dtype not in _DTYPE_CODES or values.dtype != x.dtype:
+            raise TypeError(f"x and values must both be float32 or bfloat16; got "
+                            f"{x.dtype}, {values.dtype}")
+    else:
+        if x.dtype not in _DTYPE_CODES or values.dtype not in _VALUE_CODES:
+            raise TypeError(f"with scales, x must be float32 or bfloat16 and values int8 "
+                            f"or float8_e4m3fn codes; got {x.dtype}, {values.dtype}")
+        if scales.dtype != torch.float32 or scales.shape != values.shape[:1]:
+            raise TypeError(f"scales must be float32 of shape {tuple(values.shape[:1])}; got "
+                            f"{scales.dtype} {tuple(scales.shape)}")
+        if scales.device != x.device or not scales.is_contiguous():
+            raise ValueError("scales must be contiguous and on x's device")
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if not (x.device == values.device == indices.device):
@@ -73,8 +94,14 @@ def _fit_rows(rows: int, d_in: int, itemsize: int) -> int:
                      f"shared memory ({SMEM_BYTES} bytes)")
 
 
+def _plain(x, values, indices, scales):
+    if scales is None:
+        return ref.condensed_matmul_ref(x, values, indices)
+    return ref.condensed_matmul_scaled_ref(x, values, indices, scales)
+
+
 def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-            block_rows: int) -> torch.Tensor:
+            scales: torch.Tensor | None, block_rows: int) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul kernel runs on CUDA tensors, "
                          f"not {x.device}")
@@ -89,53 +116,73 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     per_warp = max(1, min(8, n_out * grid_rows
                           // (_WARPS_PER_BLOCK * 2 * _sm_count(x.device.index or 0))))
     lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.condensed_matmul_fwd(
-            x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-            b, d_in, n_out, k, _DTYPE_CODES[x.dtype], block_rows, per_warp,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if scales is None:
+            err = lib.condensed_matmul_fwd(
+                x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+                b, d_in, n_out, k, _DTYPE_CODES[x.dtype], block_rows, per_warp, stream)
+        else:
+            err = lib.condensed_matmul_scaled_fwd(
+                x.data_ptr(), values.data_ptr(), indices.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), b, d_in, n_out, k, _DTYPE_CODES[x.dtype],
+                _VALUE_CODES[values.dtype], block_rows, per_warp, stream)
     if err:
         raise RuntimeError("condensed_matmul kernel launch failed: "
                            + lib.condensed_matmul_error_string(err).decode())
-    condensed_matmul.launches += 1
+    (condensed_matmul if scales is None else condensed_matmul_scaled).launches += 1
     return y
 
 
 def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-                     *, block_b: int | None = None) -> torch.Tensor:
+                     *, scales: torch.Tensor | None = None,
+                     block_b: int | None = None) -> torch.Tensor:
     """Forward condensed matmul. x (B, d_in); values, indices (n_out, k) -> (B, n_out).
 
     Every index must lie in [0, d_in); the kernel does not check it (the
-    condensed export guarantees it).
+    condensed export guarantees it). ``scales`` (n_out,) float32 marks
+    ``values`` as int8/fp8 codes and runs K2 (``condensed_matmul_scaled``).
 
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
     batches to the tiled launch with 8-row tiles. An explicit ``block_b``
     (1, 2, 4 or 8) forces the tiled launch at that tile (shrunk where the
     x tile would not fit shared memory).
     """
-    _check(x, values, indices)
+    _check(x, values, indices, scales)
     if block_b is not None and block_b not in BLOCK_ROWS:
         raise ValueError(f"block_b must be one of {BLOCK_ROWS}, got {block_b}")
     if x.device.type == "cpu":
-        return ref.condensed_matmul_ref(x, values, indices)
+        return _plain(x, values, indices, scales)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
-        return condensed_matmul_decode(x, values, indices)
+        return condensed_matmul_decode(x, values, indices, scales=scales)
     rows = SMALL_BATCH_MAX if block_b is None else block_b
-    return _launch(x, values, indices, _fit_rows(rows, x.shape[1], x.element_size()))
+    return _launch(x, values, indices, scales, _fit_rows(rows, x.shape[1], x.element_size()))
 
 
 condensed_matmul.launches = 0
 
 
+def condensed_matmul_scaled(x: torch.Tensor, codes: torch.Tensor, indices: torch.Tensor,
+                            scales: torch.Tensor, *, block_b: int | None = None) -> torch.Tensor:
+    """K2: the condensed matmul over int8/fp8 ``codes`` (n_out, k) with a
+    float32 scale per neuron, applied after the k-sum. Dispatch as in
+    ``condensed_matmul``; the decode launch is bitwise equal to the tiled one."""
+    return condensed_matmul(x, codes, indices, scales=scales, block_b=block_b)
+
+
+condensed_matmul_scaled.launches = 0
+
+
 def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
-                            indices: torch.Tensor) -> torch.Tensor:
+                            indices: torch.Tensor, *,
+                            scales: torch.Tensor | None = None) -> torch.Tensor:
     """Decode launch: the whole batch (rounded up to a power of two, at most
     8 rows) in one block row, the grid over neuron tiles only. Bitwise equal
     to the tiled launch: each row's reduction order is independent of the
-    batch tiling."""
-    _check(x, values, indices)
+    batch tiling. ``scales`` runs K2's decode launch."""
+    _check(x, values, indices, scales)
     if x.device.type == "cpu":
-        return ref.condensed_matmul_ref(x, values, indices)
+        return _plain(x, values, indices, scales)
     b = x.shape[0]
     rows = next(r for r in BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
-    return _launch(x, values, indices, _fit_rows(rows, x.shape[1], x.element_size()))
+    return _launch(x, values, indices, scales, _fit_rows(rows, x.shape[1], x.element_size()))

@@ -1,4 +1,5 @@
-// Ablation-aware matmuls for Hopper (sm_90a), forward only: K4, K5 and K6.
+// Ablation-aware matmuls for Hopper (sm_90a), forward only: K4 (with its
+// dequant-fused form K2-coa), K5 and K6.
 //
 // K4, condensed over active rows (replaces the TPU kernel
 // repro/kernels/structured_matmul.py::_coa_kernel, launched by _coa_tiled
@@ -11,6 +12,11 @@
 // K1's gather-reduce (condensed_rows.cuh) with the store addressed through
 // out_index, so its output at column out_index[r] is bitwise K1's output
 // for row r. Bound: bytes (values + indices + out_index + x + out over HBM).
+//
+// K2-coa (replaces _coa_kernel with scaled=True): K4 over int8 or
+// float8_e4m3 codes with one float32 scale per surviving row, multiplied
+// after the k-sum, before the cast and the store (condensed_rows.cuh): its
+// output at column out_index[r] is bitwise K2's output for row r.
 //
 // K5, structured (replaces _structured_kernel, launched by
 // _structured_tiled and _structured_decode):
@@ -239,8 +245,26 @@ int coa_matmul_fwd(const void* x, const void* values, const void* indices, const
   cudaError_t err =
       cudaMemsetAsync(out, 0, static_cast<size_t>(batch) * d_out * dtype_size(dtype), s);
   if (err != cudaSuccess) return err;
-  return condensed_rows::dispatch(dtype, block_rows, x, values, indices, out_index, out, batch,
-                                  d_in, a, k, d_out, rows_per_warp, s);
+  return condensed_rows::dispatch(dtype, 0, block_rows, x, values, indices, nullptr, out_index,
+                                  out, batch, d_in, a, k, d_out, rows_per_warp, s);
+}
+
+// K2-coa. As coa_matmul_fwd, with int8 (vtype 1) or float8_e4m3 (vtype 2)
+// codes and a float32 scale per row (scales: a floats).
+int coa_matmul_scaled_fwd(const void* x, const void* codes, const void* indices,
+                          const void* out_index, const void* scales, void* out, int batch,
+                          int d_in, int a, int k, int d_out, int dtype, int vtype,
+                          int block_rows, int rows_per_warp, void* stream) {
+  if (batch <= 0 || a <= 0 || d_in <= 0 || d_out <= 0 || k < 0 || rows_per_warp <= 0 ||
+      (dtype != 0 && dtype != 1) || (vtype != 1 && vtype != 2) || scales == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, static_cast<size_t>(batch) * d_out * dtype_size(dtype), s);
+  if (err != cudaSuccess) return err;
+  return condensed_rows::dispatch(dtype, vtype, block_rows, x, codes, indices,
+                                  static_cast<const float*>(scales), out_index, out, batch, d_in,
+                                  a, k, d_out, rows_per_warp, s);
 }
 
 // K5 (gather = 0: w is the (d_in, a_pad) panel, ld_w = a_pad) and K6

@@ -23,9 +23,28 @@ def condensed_matmul_ref(x: torch.Tensor, values: torch.Tensor,
     ``repro/kernels/condensed_matmul.py::_fwd_kernel``. (The reference's
     ``condensed_matmul_ref`` multiplies in ``x.dtype`` instead.)
     """
+    return _gather_sum(x, values, indices).to(x.dtype)
+
+
+def _gather_sum(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """(B, n_out) float32: sum_k f32(x[b, indices[n, k]]) * f32(values[n, k])."""
     gathered = x[:, indices.long()].float()              # (B, n_out, k)
-    acc = (gathered * values.float()[None]).sum(dim=-1)  # f32 accumulate
-    return acc.to(x.dtype)
+    return (gathered * values.float()[None]).sum(dim=-1)  # f32 accumulate
+
+
+def condensed_matmul_scaled_ref(x: torch.Tensor, q: torch.Tensor, indices: torch.Tensor,
+                                scales: torch.Tensor) -> torch.Tensor:
+    """Condensed matmul over quantized values (the function of K2).
+
+    q       : (n_out, k)   int8 or float8_e4m3fn codes
+    scales  : (n_out,)     float32 per-neuron scale
+    returns : (B, n_out)   (sum_k f32(x[b, indices[n, k]]) * f32(q[n, k])) * scales[n]
+
+    The scale multiplies each neuron's float32 k-sum, and the product is
+    cast once to ``x.dtype`` — the order of
+    ``repro/kernels/condensed_matmul.py::_fwd_scaled_kernel``.
+    """
+    return (_gather_sum(x, q, indices) * scales.float()[None]).to(x.dtype)
 
 
 def condensed_over_active_matmul_ref(x: torch.Tensor, values: torch.Tensor,
@@ -44,6 +63,18 @@ def condensed_over_active_matmul_ref(x: torch.Tensor, values: torch.Tensor,
     """
     y = condensed_matmul_ref(x, values, indices)                     # (B, a)
     return _scatter_columns(y, out_index, d_out)
+
+
+def condensed_over_active_matmul_scaled_ref(x: torch.Tensor, q: torch.Tensor,
+                                            indices: torch.Tensor, out_index: torch.Tensor,
+                                            scales: torch.Tensor, d_out: int) -> torch.Tensor:
+    """``condensed_over_active_matmul_ref`` over quantized rows (K2-coa):
+    row r is ``condensed_matmul_scaled_ref``'s row r (its scale ``scales[r]``
+    applied after the k-sum), stored at column ``out_index[r]`` — the
+    ``scaled=True`` function of ``repro/kernels/structured_matmul.py::_coa_kernel``.
+    """
+    return _scatter_columns(condensed_matmul_scaled_ref(x, q, indices, scales), out_index,
+                            d_out)
 
 
 def structured_matmul_ref(x: torch.Tensor, panel: torch.Tensor,

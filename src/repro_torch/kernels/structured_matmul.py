@@ -1,9 +1,12 @@
-"""Ablation-aware matmuls: wrappers of the Hopper kernels K4, K5 and K6
-(port of ``repro/kernels/structured_matmul.py``).
+"""Ablation-aware matmuls: wrappers of the Hopper kernels K4, K2-coa, K5 and
+K6 (port of ``repro/kernels/structured_matmul.py``).
 
 * K4, ``condensed_over_active_matmul(_decode)``: K1's condensed gather over
   the ``a <= d_out`` surviving rows, each row stored at its dense column
   ``out_index[r]`` (the reference's ``_coa_kernel``).
+* K2-coa, the same with ``scales=`` (``condensed_over_active_matmul_scaled``):
+  int8/fp8 codes and a float32 scale per row, applied after the k-sum
+  (``_coa_kernel`` with ``scaled=True``).
 * K5, ``structured_matmul(_decode)`` and ``structured_matmul_pregathered``:
   ``x @ panel`` over the gathered surviving columns, each stored at
   ``active_index[j]`` (``_structured_kernel``). The panel comes from
@@ -15,7 +18,8 @@
   (``_structured_prefetch_kernel``); decode shapes only.
 
 The CUDA source is ``csrc/structured_matmul.cu`` (its header note gives the
-bounds and the design); ``ref.condensed_over_active_matmul_ref`` and
+bounds and the design); ``ref.condensed_over_active_matmul_ref``,
+``ref.condensed_over_active_matmul_scaled_ref`` and
 ``ref.structured_matmul_ref`` are the plain versions.
 
 Ablated columns are exact zeros: the kernels' C entry points clear the
@@ -36,6 +40,7 @@ None, as in the reference) has no memory budget to check.
 
 ``<kernel function>.launches`` counts kernel launches (never plain-version
 calls): ``condensed_over_active_matmul.launches`` (K4),
+``condensed_over_active_matmul_scaled.launches`` (K2-coa),
 ``structured_matmul.launches`` (K5) and ``structured_matmul_prefetch.launches``
 (K6).
 """
@@ -78,6 +83,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("structured_matmul")
     fn = lib.coa_matmul_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.coa_matmul_scaled_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.structured_matmul_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
@@ -254,7 +262,8 @@ def structured_matmul_pregathered(x: torch.Tensor, panel: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-                out_index: torch.Tensor, d_out: int, block_rows: int) -> torch.Tensor:
+                out_index: torch.Tensor, d_out: int, block_rows: int,
+                scales: torch.Tensor | None = None) -> torch.Tensor:
     _on_cuda(x, "condensed_over_active_matmul")
     b, d_in = x.shape
     a, k = values.shape
@@ -266,58 +275,92 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     grid_rows = -(-b // block_rows)
     per_warp = max(1, min(8, a * grid_rows
                           // (cm._WARPS_PER_BLOCK * 2 * cm._sm_count(x.device.index or 0))))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _lib().coa_matmul_fwd(
-            x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
-            out.data_ptr(), b, d_in, a, k, d_out, cm._DTYPE_CODES[x.dtype], block_rows,
-            per_warp, torch.cuda.current_stream(x.device).cuda_stream)
+        if scales is None:
+            err = _lib().coa_matmul_fwd(
+                x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
+                out.data_ptr(), b, d_in, a, k, d_out, cm._DTYPE_CODES[x.dtype], block_rows,
+                per_warp, stream)
+        else:
+            err = _lib().coa_matmul_scaled_fwd(
+                x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
+                scales.data_ptr(), out.data_ptr(), b, d_in, a, k, d_out,
+                cm._DTYPE_CODES[x.dtype], cm._VALUE_CODES[values.dtype], block_rows,
+                per_warp, stream)
     _raise_on(err, "condensed_over_active_matmul")
-    condensed_over_active_matmul.launches += 1
+    (condensed_over_active_matmul if scales is None
+     else condensed_over_active_matmul_scaled).launches += 1
     return out
 
 
-def _check_coa(x, values, indices, out_index) -> None:
-    cm._check(x, values, indices)
+def _check_coa(x, values, indices, out_index, scales=None) -> None:
+    cm._check(x, values, indices, scales)
     if out_index.shape != values.shape[:1]:
         raise ValueError(f"out_index must be (a,) = {tuple(values.shape[:1])}, got "
                          f"{tuple(out_index.shape)}")
     _check_index(out_index, x, "out_index")
 
 
+def _coa_plain(x, values, indices, out_index, d_out, scales):
+    if scales is None:
+        return ref.condensed_over_active_matmul_ref(x, values, indices, out_index, d_out)
+    return ref.condensed_over_active_matmul_scaled_ref(x, values, indices, out_index, scales,
+                                                       d_out)
+
+
 def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
                                  indices: torch.Tensor, out_index: torch.Tensor,
-                                 d_out: int, *, block_b: int | None = None) -> torch.Tensor:
+                                 d_out: int, *, scales: torch.Tensor | None = None,
+                                 block_b: int | None = None) -> torch.Tensor:
     """Condensed gather over the surviving rows, written through
     ``out_index`` into a (B, d_out) output. x (B, d_in); values, indices
-    (a, k); out_index (a,) int32, ``d_out`` marking padding rows.
+    (a, k); out_index (a,) int32, ``d_out`` marking padding rows. ``scales``
+    (a,) float32 marks ``values`` as int8/fp8 codes and runs K2-coa.
 
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
     batches to the tiled launch with 8-row tiles; an explicit ``block_b``
     (1, 2, 4 or 8) forces the tiled launch at that tile (shrunk where the x
     tile would not fit shared memory).
     """
-    _check_coa(x, values, indices, out_index)
+    _check_coa(x, values, indices, out_index, scales)
     if block_b is not None and block_b not in cm.BLOCK_ROWS:
         raise ValueError(f"block_b must be one of {cm.BLOCK_ROWS}, got {block_b}")
     if x.device.type == "cpu":
-        return ref.condensed_over_active_matmul_ref(x, values, indices, out_index, d_out)
+        return _coa_plain(x, values, indices, out_index, d_out, scales)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
-        return condensed_over_active_matmul_decode(x, values, indices, out_index, d_out)
+        return condensed_over_active_matmul_decode(x, values, indices, out_index, d_out,
+                                                   scales=scales)
     rows = SMALL_BATCH_MAX if block_b is None else block_b
     return _coa_launch(x, values, indices, out_index, d_out,
-                       cm._fit_rows(rows, x.shape[1], x.element_size()))
+                       cm._fit_rows(rows, x.shape[1], x.element_size()), scales)
 
 
 condensed_over_active_matmul.launches = 0
 
 
+def condensed_over_active_matmul_scaled(x: torch.Tensor, codes: torch.Tensor,
+                                        indices: torch.Tensor, out_index: torch.Tensor,
+                                        scales: torch.Tensor, d_out: int, *,
+                                        block_b: int | None = None) -> torch.Tensor:
+    """K2-coa: ``condensed_over_active_matmul`` over int8/fp8 ``codes`` with a
+    float32 scale per row. Row r's output is bitwise K2's row r."""
+    return condensed_over_active_matmul(x, codes, indices, out_index, d_out, scales=scales,
+                                        block_b=block_b)
+
+
+condensed_over_active_matmul_scaled.launches = 0
+
+
 def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
                                         indices: torch.Tensor, out_index: torch.Tensor,
-                                        d_out: int) -> torch.Tensor:
-    """Decode launch of K4 (the batch in one block row); bitwise equal to
-    the tiled launch."""
-    _check_coa(x, values, indices, out_index)
+                                        d_out: int, *,
+                                        scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode launch of K4 (K2-coa with ``scales``), the batch in one block
+    row; bitwise equal to the tiled launch."""
+    _check_coa(x, values, indices, out_index, scales)
     if x.device.type == "cpu":
-        return ref.condensed_over_active_matmul_ref(x, values, indices, out_index, d_out)
+        return _coa_plain(x, values, indices, out_index, d_out, scales)
     return _coa_launch(x, values, indices, out_index, d_out,
-                       cm._fit_rows(_decode_rows(x.shape[0]), x.shape[1], x.element_size()))
+                       cm._fit_rows(_decode_rows(x.shape[0]), x.shape[1], x.element_size()),
+                       scales)

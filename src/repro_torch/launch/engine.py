@@ -96,9 +96,10 @@ class ServingModel(nn.Module):
 
     ``serving`` is the masks slot of the model: the bool masks (masked
     path), an export's tree of ``formats`` leaves, or a ``sparse.plan.Plan``,
-    whose serving tree is used (``self.plan`` keeps the plan). The serving
-    copy of the params (``models.model.serving_params``) is made once here,
-    so no call casts weights.
+    whose serving tree is used (``self.plan`` keeps the plan, and
+    ``self.values_dtype`` its values' storage: None for float values). The
+    serving copy of the params (``models.model.serving_params``) is made
+    once here, so no call casts weights.
     """
 
     def __init__(self, cfg, params: dict, serving: dict | PLAN.Plan):
@@ -109,6 +110,7 @@ class ServingModel(nn.Module):
              for k, v in bridge.flatten(params).items()})
         self.plan = serving if isinstance(serving, PLAN.Plan) else None
         self.serving = self.plan.serving_tree if self.plan else serving
+        self.values_dtype = self.plan.values_dtype if self.plan else None
         self.compute = M.serving_params(cfg, params)
 
     def serve_once(self, prompts: torch.Tensor, gen_len: int, path_name: str,

@@ -21,6 +21,14 @@ one greedy prefill + decode pass:
   --path auto        per-stack cost model (``sparse.plan``) at the batch's
                      bucket; prints the plan
 
+  --values-dtype f32|bf16|int8|fp8
+                     stored width of the exported sparse values: int8 and
+                     fp8 quantize per output neuron (symmetric absmax scale)
+                     and the condensed paths run the dequant-fused kernel
+                     (K2; K2-coa over active rows), bf16 is a plain storage
+                     cast, f32 keeps the param dtype. Masked stacks read the
+                     live params and are unaffected.
+
 Every path but masked goes through ``sparse.plan.build_plan`` at the
 request's batch bucket. masked, condensed, condensed_over_active and auto
 evaluate the same masked weights, so their tokens agree (up to float ties).
@@ -44,20 +52,22 @@ PATHS = PLAN.PATHS
 
 
 def build_plan(cfg, registry, params, masks, path: str, *,
-               batch_size: int = 1) -> PLAN.Plan:
-    """The execution plan for ``path``, priced at ``batch_size``'s bucket."""
+               batch_size: int = 1, values_dtype: str | None = None) -> PLAN.Plan:
+    """The execution plan for ``path``, priced at ``batch_size``'s bucket,
+    its values stored at ``values_dtype``."""
     return PLAN.build_plan(cfg, registry, params, masks, path=path,
-                           batch_size=PLAN.batch_bucket(max(int(batch_size), 1)))
+                           batch_size=PLAN.batch_bucket(max(int(batch_size), 1)),
+                           values_dtype=values_dtype)
 
 
 def build_serving_masks(cfg, registry, params, masks, path: str,
-                        batch_size: int = 1) -> dict:
+                        batch_size: int = 1, values_dtype: str | None = None) -> dict:
     """The serving tree for ``path``: ``masks`` itself for masked, else the
     tree of the plan built at ``batch_size``'s bucket."""
     if path == "masked":
         return masks
-    return build_plan(cfg, registry, params, masks, path,
-                      batch_size=batch_size).serving_tree
+    return build_plan(cfg, registry, params, masks, path, batch_size=batch_size,
+                      values_dtype=values_dtype).serving_tree
 
 
 def main(argv=None):
@@ -70,6 +80,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--path", choices=PATHS, default="masked",
                     help="serving representation for sparse linears")
+    ap.add_argument("--values-dtype", choices=("f32", "bf16", "int8", "fp8"), default="f32",
+                    help="stored width of the exported sparse values: int8/fp8 quantize "
+                         "per output neuron (symmetric absmax scale, dequantized inside "
+                         "the kernels), bf16 is a plain storage cast, f32 keeps the param "
+                         "dtype; masked stacks read the live params and are unaffected")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -81,11 +96,21 @@ def main(argv=None):
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"] if reg else {}
     if args.path not in ("masked", "auto") and not reg:
         raise SystemExit(f"{args.arch} has no sparse stacks — only --path masked/auto")
+    if args.values_dtype != "f32" and args.path == "masked":
+        print("[serve] note: --path masked serves the live dense params; "
+              f"--values-dtype {args.values_dtype} only affects exported "
+              "value-storing formats (condensed/structured paths or auto)")
     serving = masks
     if args.path != "masked":
-        serving = build_plan(cfg, reg, params, masks, args.path, batch_size=args.batch)
+        serving = build_plan(cfg, reg, params, masks, args.path, batch_size=args.batch,
+                             values_dtype=args.values_dtype)
         if args.path == "auto":
             print(serving.describe(requested_batch=args.batch))
+        if args.values_dtype != "f32" and reg:
+            weight_bytes, masked_ref = serving.weight_bytes()
+            print(f"[serve] values_dtype={args.values_dtype}: serving weight bytes "
+                  f"{weight_bytes} ({weight_bytes / max(masked_ref, 1):.3f}x of the "
+                  f"masked-dense reference)")
     model = ServingModel(cfg, params, serving)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)

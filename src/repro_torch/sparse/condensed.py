@@ -6,7 +6,9 @@ structured or condensed-over-active (paper Sec. 4.4, Fig. 4). The exports
 here turn a (params, masks) pair into a serving tree whose sparse leaves
 are ``formats`` objects; the tree plugs into the masks slot of
 ``models.model.prefill_step``/``decode_step``. Values are stored once at
-the compute dtype ``cfg.dtype``, so serving casts nothing per call.
+the compute dtype ``cfg.dtype``, so serving casts nothing per call, unless
+``quantize_spec`` names a storage dtype: "int8"/"fp8" quantize the float32
+param values per neuron, "bf16" stores them at bf16.
 """
 from __future__ import annotations
 
@@ -42,38 +44,51 @@ def structured_stack_leaf(mask, *, weight_itemsize: int = 4,
 
 
 def export_condensed(cfg, registry, params: dict, masks: dict,
-                     stats: dict[str, F.ExportStats] | None = None) -> dict:
+                     stats: dict[str, F.ExportStats] | None = None, *,
+                     quantize_spec=None) -> dict:
     """Concrete export after training; k per stack = max realized fan-in.
     Leaves are ``formats.Condensed``."""
-    return _export_tree(cfg, F.Condensed, registry, params, masks, stats)
+    return _export_tree(cfg, F.Condensed, registry, params, masks, stats, quantize_spec)
 
 
 def export_condensed_over_active(cfg, registry, params: dict, masks: dict,
-                                 stats: dict[str, F.ExportStats] | None = None) -> dict:
+                                 stats: dict[str, F.ExportStats] | None = None, *,
+                                 quantize_spec=None) -> dict:
     """Ablated neurons dropped, survivors condensed: ``formats.CondensedOverActive``
     leaves (the paper's combined Fig. 4 point, exact for any mask)."""
-    return _export_tree(cfg, F.CondensedOverActive, registry, params, masks, stats)
+    return _export_tree(cfg, F.CondensedOverActive, registry, params, masks, stats,
+                        quantize_spec)
 
 
 def export_structured(cfg, registry, masks: dict,
-                      stats: dict[str, F.ExportStats] | None = None) -> dict:
+                      stats: dict[str, F.ExportStats] | None = None, *,
+                      params: dict | None = None, quantize_spec=None) -> dict:
     """Structured-only serving tree: ``formats.StructuredFanIn`` leaves, each
-    ``active_index`` sized at its stack's realized active count. The leaves
-    read the live dense weights, so there are no values to store."""
+    ``active_index`` sized at its stack's realized active count. Float
+    leaves read the live dense weights, so there are no values to store; an
+    int8/fp8 ``quantize_spec`` stores each quantized gathered panel, cut
+    from ``params``."""
     stats = stats if stats is not None else export_stats(registry, masks)
+    quantized = F.resolve_quantize_spec(quantize_spec) in F.QUANTIZED_DTYPES
+    if quantized and params is None:
+        raise ValueError("a quantized structured export needs the params")
     out: dict = {}
     for s in registry:
-        REG.set_path(out, s.path, structured_stack_leaf(REG.get_path(masks, s.path),
-                                                        stats=stats[s.name]))
+        m = REG.get_path(masks, s.path)
+        leaf = (F.StructuredFanIn.export_from_dense(REG.get_path(params, s.path), m,
+                                                    stats[s.name], quantize_spec=quantize_spec)
+                if quantized else structured_stack_leaf(m, stats=stats[s.name]))
+        REG.set_path(out, s.path, leaf)
     return out
 
 
-def _export_tree(cfg, cls, registry, params, masks, stats):
+def _export_tree(cfg, cls, registry, params, masks, stats, quantize_spec):
     stats = stats if stats is not None else export_stats(registry, masks)
     dtype = getattr(torch, cfg.dtype)
     out: dict = {}
     for s in registry:
         w = REG.get_path(params, s.path)
         m = REG.get_path(masks, s.path)
-        REG.set_path(out, s.path, cls.export_from_dense(w, m, stats[s.name], dtype=dtype))
+        REG.set_path(out, s.path, cls.export_from_dense(w, m, stats[s.name], dtype=dtype,
+                                                        quantize_spec=quantize_spec))
     return out

@@ -19,8 +19,14 @@ out of a stack; ``to(device)``; ``spec()`` gives the static ``FormatSpec``
 that ``estimate_cost`` / ``estimate_weight_bytes`` price (the plan's cost
 model, the same formulas as the reference so that plans agree).
 
-Float formats only so far: quantized values, tensor-parallel blocks and the
-donated refreshes come with later slices.
+Quantized values (``quantize_spec="int8"|"fp8"``): the value-storing
+formats keep 1-byte codes and a per-neuron float32 ``scales`` (symmetric,
+absmax / qmax); ``Condensed`` and ``CondensedOverActive`` hand the codes and
+scales to the dequant-fused kernel (K2), ``StructuredFanIn`` keeps the
+quantized gathered panel and dequantizes it before K5. ``"bf16"`` is a plain
+storage cast. ``restore_finalize`` reconciles a checkpoint's values with the
+template's declared storage. Tensor-parallel blocks and the donated
+refreshes come with later slices.
 """
 from __future__ import annotations
 
@@ -78,14 +84,112 @@ class FormatSpec:
     k: int                  # constant fan-in
     max_active: float       # exported row count (condensed-over-active, structured)
     active_fraction: float  # mean active-neuron fraction
+    values_dtype: str | None = None  # stored values' canonical name; None = itemsize's
 
 
-def spec_for_stack(stack, stats: ExportStats, itemsize: int) -> FormatSpec:
+# ---------------------------------------------------------------------------
+# quantized values: canonical dtype names and per-neuron symmetric scales
+# ---------------------------------------------------------------------------
+
+# the names --values-dtype takes; fp8 is OCP E4M3 (finite max 448)
+VALUES_DTYPES: dict[str, torch.dtype] = {
+    "f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+    "fp8": torch.float8_e4m3fn,
+}
+QUANTIZED_DTYPES = ("int8", "fp8")
+# a row's absmax maps onto the code's top value
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def resolve_quantize_spec(spec) -> str | None:
+    """A quantize spec (canonical name, torch dtype or None) as a canonical
+    name; ``"f32"`` and None mean no quantization (float values, no scales)."""
+    if spec is None or spec == "f32":
+        return None
+    if isinstance(spec, str):
+        name = spec
+    else:
+        by_dtype = {v: k for k, v in VALUES_DTYPES.items()}
+        name = by_dtype.get(spec, str(spec))
+    if name in ("f32", "float32"):
+        return None
+    if name not in VALUES_DTYPES:
+        raise ValueError(f"unknown values dtype {spec!r}; expected one of "
+                         f"{sorted(VALUES_DTYPES)}")
+    return name
+
+
+def values_itemsize(spec: FormatSpec) -> int:
+    """Bytes of one stored value under ``spec`` (the streamed width)."""
+    if spec.values_dtype is None:
+        return spec.itemsize
+    return VALUES_DTYPES[spec.values_dtype].itemsize
+
+
+def quantize_values(values: torch.Tensor, name: str, *, axis: int = -1):
+    """Per-neuron symmetric quantization of float values.
+
+    ``axis`` is the within-neuron axis the scale reduces (fan-in ``k`` for
+    the condensed layouts, ``d_in`` for the structured panel). Returns
+    ``(q, scales)``: ``scales = absmax / qmax`` in float32 (1 for an all-zero
+    row, whose codes are then exact zeros) and ``q`` the rounded
+    ``values / scales`` (int8: half to even, clipped to +-127; fp8: the cast's
+    round to nearest even). The same steps as the reference, so the codes
+    are its codes bit for bit.
+    """
+    name = resolve_quantize_spec(name)
+    if name not in QUANTIZED_DTYPES:
+        raise ValueError(f"quantize_values needs one of {QUANTIZED_DTYPES}, got {name!r}")
+    v = values.float()
+    amax = v.abs().amax(dim=axis, keepdim=True)
+    scales = torch.where(amax > 0, amax / _QMAX[name], torch.ones_like(amax))
+    scaled = v / scales
+    if name == "int8":
+        q = torch.clamp(torch.round(scaled), -127.0, 127.0).to(torch.int8)
+    else:
+        q = scaled.to(VALUES_DTYPES[name])
+    return q, scales.squeeze(axis)
+
+
+def dequantize_values(q: torch.Tensor, scales: torch.Tensor, *, axis: int = -1,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_values``: each code times its neuron's scale."""
+    return (q.float() * scales.float().unsqueeze(axis)).to(dtype)
+
+
+def is_quantized_storage(arr_or_dtype) -> bool:
+    """Is this tensor (or dtype) stored in a quantized values dtype?"""
+    dt = getattr(arr_or_dtype, "dtype", arr_or_dtype)
+    return any(VALUES_DTYPES[n] == dt for n in QUANTIZED_DTYPES)
+
+
+def _finalize_quantized_restore(fmt, *, axis: int = -1):
+    """Reconcile restored values/scales with the declared ``values_dtype``:
+    float values in a quantized template are quantized, codes with scales
+    in a float template are dequantized (to float32) and the scales
+    dropped. ``axis`` is the class's per-neuron reduction axis."""
+    vals = fmt.values
+    if vals is None:
+        return fmt
+    if fmt.values_dtype in QUANTIZED_DTYPES:
+        if vals.is_floating_point() and not is_quantized_storage(vals):
+            q, s = quantize_values(vals, fmt.values_dtype, axis=axis)
+            return dataclasses.replace(fmt, values=q, scales=s)
+        return fmt
+    if is_quantized_storage(vals) and fmt.scales is not None:
+        return dataclasses.replace(fmt, values=dequantize_values(vals, fmt.scales, axis=axis),
+                                   scales=None)
+    return fmt
+
+
+def spec_for_stack(stack, stats: ExportStats, itemsize: int,
+                   values_dtype: str | None = None) -> FormatSpec:
     """``stack``: a registry ``SparseStack`` or anything with d_in/d_out."""
     return FormatSpec(d_in=stack.d_in, d_out=stack.d_out,
                       n_replicas=getattr(stack, "n_replicas", 1), itemsize=itemsize,
                       k=max(stats.k, 1), max_active=max(stats.max_active, 1),
-                      active_fraction=min(max(stats.active_fraction, 0.0), 1.0))
+                      active_fraction=min(max(stats.active_fraction, 0.0), 1.0),
+                      values_dtype=resolve_quantize_spec(values_dtype))
 
 
 def active_index_from_bools(neuron_active: torch.Tensor, a_pad: int) -> torch.Tensor:
@@ -102,6 +206,19 @@ def active_index_from_bools(neuron_active: torch.Tensor, a_pad: int) -> torch.Te
 def active_index_from_mask(mask: torch.Tensor, a_pad: int) -> torch.Tensor:
     """``active_index_from_bools`` of the mask's column-activity bools."""
     return active_index_from_bools(mask.any(dim=-2), a_pad)
+
+
+def _gather_active_panel(weight: torch.Tensor, mask: torch.Tensor,
+                         active_index: torch.Tensor) -> torch.Tensor:
+    """(*lead, d_in, a_pad) surviving-column panel of ``weight * mask``
+    (masked-out entries +0, as in ``topology.dense_to_condensed``).
+    Sentinel slots are zero, so they quantize to exact zeros and never enter
+    a real column's scale."""
+    d_out = weight.shape[-1]
+    cols = active_index.clamp(max=d_out - 1).long()[..., None, :]
+    masked = torch.where(mask, weight, torch.zeros_like(weight))
+    g = torch.gather(masked, -1, cols.expand(*weight.shape[:-1], cols.shape[-1]))
+    return torch.where((active_index < d_out)[..., None, :], g, torch.zeros_like(g))
 
 
 def _condense_active_stack(weight: torch.Tensor, mask: torch.Tensor, k: int, a: int):
@@ -128,7 +245,9 @@ class SparseFormat:
     """Base of the serving formats (see the module docstring).
 
     Subclasses are frozen dataclasses naming their tensor fields in
-    ``_array_fields``; ``layer``, ``to`` and ``bridge.flatten`` walk those.
+    ``_array_fields``; ``layer``, ``to``, ``bridge.flatten`` and the
+    checkpoint walk those. An optional field may be None (``scales`` of a
+    float export); ``arrays`` leaves it out.
     """
 
     format_name: typing.ClassVar[str]
@@ -138,7 +257,8 @@ class SparseFormat:
         raise NotImplementedError
 
     def arrays(self) -> dict[str, torch.Tensor]:
-        return {f: getattr(self, f) for f in self._array_fields}
+        return {f: getattr(self, f) for f in self._array_fields
+                if getattr(self, f) is not None}
 
     def layer(self, i: int):
         """Layer ``i`` of a stacked instance (each tensor indexed on axis 0)."""
@@ -162,6 +282,23 @@ class SparseFormat:
     def estimate_weight_bytes(cls, spec: FormatSpec) -> int:
         """Per-step weight-side bytes this format reads."""
         raise NotImplementedError
+
+    @classmethod
+    def estimate_values_bytes(cls, spec: FormatSpec) -> int:
+        """The value stream alone (values and scales, without the index
+        arrays): the bytes quantization shrinks."""
+        return cls.estimate_weight_bytes(spec)
+
+    def rebuild_missing(self, missing: frozenset) -> "SparseFormat":
+        """Fix up array fields a checkpoint did not carry (``missing``
+        names them); by default the template's arrays stay."""
+        return self
+
+    def restore_finalize(self) -> "SparseFormat":
+        """Reconcile restored arrays with the declared storage dtype (a
+        checkpoint keeps each format array at the archive's dtype where
+        quantized and float storage differ); nothing to do by default."""
+        return self
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -209,22 +346,43 @@ class StructuredFanIn(SparseFormat):
     column ids padded with the sentinel ``d_out`` to ``padded_active_count``),
     so the weight bytes and flops scale with the active fraction. Exact only
     for ablation-only masks, where it equals ``ops.structured_dense``.
+
+    A quantized export stores the gathered (*lead, d_in, a_pad) panel as
+    codes with per-column float32 ``scales`` (reduced over ``d_in``) and
+    serves it instead of the live weight: ``apply`` dequantizes the panel in
+    plain torch and runs K5 on it, as the reference does in plain jnp.
+    ``values`` without ``scales`` (a quantized checkpoint restored into a
+    float template) is the dequantized float panel.
     """
 
     neuron_active: torch.Tensor          # (*lead, d_out) bool
     active_index: torch.Tensor           # (*lead, a_pad) int32, padding = d_out
     d_in: int = 0
     weight_itemsize: int = 4
+    values: torch.Tensor | None = None   # (*lead, d_in, a_pad) quantized panel
+    scales: torch.Tensor | None = None   # (*lead, a_pad) float32, per column
+    values_dtype: str | None = None      # canonical name when quantized
 
     format_name: typing.ClassVar[str] = "structured"
-    _array_fields: typing.ClassVar[tuple[str, ...]] = ("neuron_active", "active_index")
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("neuron_active", "active_index",
+                                                       "values", "scales")
 
     def apply(self, x, w=None):
+        if self.values is not None:
+            panel = (self.values if self.scales is None else
+                     dequantize_values(self.values, self.scales, axis=-2, dtype=x.dtype))
+            return ops.structured_gathered_linear_nd(x, panel, self.active_index,
+                                                     self.neuron_active.shape[-1])
         return ops.structured_linear_nd(x, w, self.active_index)
 
     @classmethod
-    def export_from_dense(cls, w, mask, stats=None):
-        return cls.from_mask(mask, stats, weight_itemsize=w.element_size())
+    def export_from_dense(cls, w, mask, stats=None, *, quantize_spec=None):
+        fmt = cls.from_mask(mask, stats, weight_itemsize=w.element_size())
+        qdt = resolve_quantize_spec(quantize_spec)
+        if qdt not in QUANTIZED_DTYPES:
+            return fmt  # a storage cast has nothing to store: the live weight is read
+        q, s = quantize_values(_gather_active_panel(w, mask, fmt.active_index), qdt, axis=-2)
+        return dataclasses.replace(fmt, values=q, scales=s, values_dtype=qdt)
 
     @classmethod
     def from_mask(cls, mask, stats=None, *, weight_itemsize: int = 4):
@@ -244,7 +402,8 @@ class StructuredFanIn(SparseFormat):
         return FormatSpec(d_in=self.d_in, d_out=d_out,
                           n_replicas=math.prod(self.neuron_active.shape[:-1]),
                           itemsize=self.weight_itemsize, k=self.d_in, max_active=a_pad,
-                          active_fraction=min(a_pad / max(d_out, 1), 1.0))
+                          active_fraction=min(a_pad / max(d_out, 1), 1.0),
+                          values_dtype=self.values_dtype)
 
     @classmethod
     def estimate_cost(cls, spec, batch, profile):
@@ -259,9 +418,47 @@ class StructuredFanIn(SparseFormat):
 
     @classmethod
     def estimate_weight_bytes(cls, spec):
-        # the gathered (d_in, a_pad) panel and the int32 active_index
+        # the gathered (d_in, a_pad) panel at its stored width (plus the
+        # per-column scales when quantized) and the int32 active_index
         a_pad = padded_active_count(spec.max_active, spec.d_out)
-        return spec.n_replicas * a_pad * (spec.d_in * spec.itemsize + 4)
+        return cls.estimate_values_bytes(spec) + spec.n_replicas * a_pad * 4
+
+    @classmethod
+    def estimate_values_bytes(cls, spec):
+        a_pad = padded_active_count(spec.max_active, spec.d_out)
+        vb = spec.n_replicas * spec.d_in * a_pad * values_itemsize(spec)
+        if spec.values_dtype in QUANTIZED_DTYPES:
+            vb += spec.n_replicas * a_pad * 4
+        return vb
+
+    def rebuild_missing(self, missing):
+        # an archive without the quantized panel cannot rebuild it (no live
+        # weight here): serve the live weight, as the reference does
+        if "values" in missing and self.values_dtype in QUANTIZED_DTYPES:
+            return dataclasses.replace(self, values=None, scales=None)
+        return self
+
+    def restore_finalize(self):
+        return _finalize_quantized_restore(self, axis=-2)
+
+
+def _store_values(values: torch.Tensor, qdt: str | None, dtype: torch.dtype | None):
+    """(values, scales) as a value-storing format keeps them: codes and
+    per-row scales when ``qdt`` quantizes, else the values cast to the
+    storage dtype ``qdt`` names, else to ``dtype`` (None keeps them)."""
+    if qdt in QUANTIZED_DTYPES:
+        return quantize_values(values, qdt)
+    if qdt is not None:
+        dtype = VALUES_DTYPES[qdt]
+    return (values if dtype is None else values.to(dtype)).contiguous(), None
+
+
+def _values_itemsize(fmt) -> int:
+    """What a quantized instance's spec prices: the scales' width, as the
+    reference's ``spec`` does; else the stored values' width."""
+    if fmt.values_dtype in QUANTIZED_DTYPES and fmt.scales is not None:
+        return fmt.scales.element_size()
+    return fmt.values.element_size()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -269,17 +466,23 @@ class Condensed(SparseFormat):
     """Fig. 4 "condensed": values and int32 indices at constant fan-in k.
 
     ``values`` and ``indices`` are (*lead, d_out, k); ``d_in`` is the dense
-    fan-in the indices address.
+    fan-in the indices address. A quantized export stores ``values`` as
+    int8/fp8 codes with a per-neuron float32 ``scales`` (*lead, d_out); the
+    kernel (K2) applies the scale once per output, after the k-sum.
     """
 
     values: torch.Tensor
     indices: torch.Tensor
     d_in: int = 0
+    scales: torch.Tensor | None = None
+    values_dtype: str | None = None      # canonical name when quantized
 
     format_name: typing.ClassVar[str] = "condensed"
-    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices")
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "scales")
 
     def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+        if self.scales is not None:  # codes and scales go to K2 untouched
+            return ops.condensed_linear_nd(x, self.values, self.indices, scales=self.scales)
         # the values' cast to the activation dtype is a no-op when the export
         # already stored them at the compute dtype (export_condensed does)
         return ops.condensed_linear_nd(x, self.values.to(x.dtype), self.indices)
@@ -287,26 +490,29 @@ class Condensed(SparseFormat):
     @classmethod
     def export_from_dense(cls, w: torch.Tensor, mask: torch.Tensor,
                           stats: ExportStats | None = None, *,
-                          dtype: torch.dtype | None = None) -> "Condensed":
+                          dtype: torch.dtype | None = None,
+                          quantize_spec=None) -> "Condensed":
         """Condense ``w * mask`` at the stack's realized fan-in.
 
-        ``dtype`` stores the values at that dtype (the serving copy's compute
-        dtype); None keeps the weight's dtype, as the reference does.
+        ``quantize_spec`` ("int8"/"fp8") quantizes the values from ``w``'s
+        float32 rows; "bf16" stores them at bf16. Otherwise ``dtype`` stores
+        the values at that dtype (the serving copy's compute dtype); None
+        keeps the weight's dtype, as the reference does.
         """
         stats = stats if stats is not None else realized_stats(mask)
         k = max(stats.k, 1)
         values, indices = topology.dense_to_condensed(w * mask, mask, k)
-        if dtype is not None:
-            values = values.to(dtype)
-        return cls(values=values.contiguous(), indices=indices,
-                   d_in=int(w.shape[-2]))
+        qdt = resolve_quantize_spec(quantize_spec)
+        values, scales = _store_values(values, qdt, dtype)
+        return cls(values=values, indices=indices, d_in=int(w.shape[-2]), scales=scales,
+                   values_dtype=qdt if scales is not None else None)
 
     def spec(self):
         d_out, k = self.values.shape[-2:]
         return FormatSpec(d_in=self.d_in, d_out=d_out,
                           n_replicas=math.prod(self.values.shape[:-2]),
-                          itemsize=self.values.element_size(), k=k, max_active=d_out,
-                          active_fraction=1.0)
+                          itemsize=_values_itemsize(self), k=k, max_active=d_out,
+                          active_fraction=1.0, values_dtype=self.values_dtype)
 
     @classmethod
     def estimate_cost(cls, spec, batch, profile):
@@ -317,8 +523,19 @@ class Condensed(SparseFormat):
 
     @classmethod
     def estimate_weight_bytes(cls, spec):
-        # values + int32 indices
-        return spec.n_replicas * spec.d_out * spec.k * (spec.itemsize + 4)
+        # values at their stored width (plus the scales when quantized) and
+        # the int32 indices
+        return cls.estimate_values_bytes(spec) + spec.n_replicas * spec.d_out * spec.k * 4
+
+    @classmethod
+    def estimate_values_bytes(cls, spec):
+        vb = spec.n_replicas * spec.d_out * spec.k * values_itemsize(spec)
+        if spec.values_dtype in QUANTIZED_DTYPES:
+            vb += spec.n_replicas * spec.d_out * 4  # one float32 scale per neuron
+        return vb
+
+    def restore_finalize(self):
+        return _finalize_quantized_restore(self)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -327,7 +544,8 @@ class CondensedOverActive(SparseFormat):
 
     ``values``/``indices`` (*lead, a, k) cover the ``a <= d_out`` surviving
     rows; ``out_index`` (*lead, a) int32 is each row's dense output column,
-    ``d_out`` marking a padding row. Exact for any mask.
+    ``d_out`` marking a padding row. Exact for any mask. Quantized as
+    ``Condensed`` is, with one scale per surviving row (*lead, a).
     """
 
     values: torch.Tensor
@@ -335,31 +553,40 @@ class CondensedOverActive(SparseFormat):
     out_index: torch.Tensor
     d_in: int = 0
     d_out: int = 0
+    scales: torch.Tensor | None = None
+    values_dtype: str | None = None      # canonical name when quantized
 
     format_name: typing.ClassVar[str] = "condensed_over_active"
-    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "out_index")
+    _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "out_index",
+                                                       "scales")
 
     def apply(self, x, w=None):
+        if self.scales is not None:
+            return ops.condensed_over_active_linear_nd(x, self.values, self.indices,
+                                                       self.out_index, self.d_out,
+                                                       scales=self.scales)
         return ops.condensed_over_active_linear_nd(x, self.values.to(x.dtype), self.indices,
                                                    self.out_index, self.d_out)
 
     @classmethod
-    def export_from_dense(cls, w, mask, stats=None, *, dtype=None):
-        """``dtype`` stores the values at that dtype, as ``Condensed`` does."""
+    def export_from_dense(cls, w, mask, stats=None, *, dtype=None, quantize_spec=None):
+        """``dtype`` and ``quantize_spec`` store the values as ``Condensed`` does."""
         stats = stats if stats is not None else realized_stats(mask)
         values, indices, out_index = _condense_active_stack(
             w, mask, max(stats.k, 1), max(stats.max_active, 1))
-        if dtype is not None:
-            values = values.to(dtype)
-        return cls(values=values.contiguous(), indices=indices, out_index=out_index,
-                   d_in=int(w.shape[-2]), d_out=int(w.shape[-1]))
+        qdt = resolve_quantize_spec(quantize_spec)
+        values, scales = _store_values(values, qdt, dtype)
+        return cls(values=values, indices=indices, out_index=out_index,
+                   d_in=int(w.shape[-2]), d_out=int(w.shape[-1]), scales=scales,
+                   values_dtype=qdt if scales is not None else None)
 
     def spec(self):
         a, k = self.values.shape[-2:]
         return FormatSpec(d_in=self.d_in, d_out=self.d_out,
                           n_replicas=math.prod(self.values.shape[:-2]),
-                          itemsize=self.values.element_size(), k=k, max_active=a,
-                          active_fraction=a / max(self.d_out, 1))
+                          itemsize=_values_itemsize(self), k=k, max_active=a,
+                          active_fraction=a / max(self.d_out, 1),
+                          values_dtype=self.values_dtype)
 
     @classmethod
     def estimate_cost(cls, spec, batch, profile):
@@ -373,9 +600,20 @@ class CondensedOverActive(SparseFormat):
 
     @classmethod
     def estimate_weight_bytes(cls, spec):
-        # max_active rows of k values and k int32 indices, plus out_index
-        return (spec.n_replicas * spec.max_active * spec.k * spec.itemsize
+        # max_active rows of k values at their stored width (plus a scale
+        # per row when quantized), k int32 indices and an out_index each
+        return (cls.estimate_values_bytes(spec)
                 + spec.n_replicas * spec.max_active * (spec.k * 4 + 4))
+
+    @classmethod
+    def estimate_values_bytes(cls, spec):
+        vb = spec.n_replicas * spec.max_active * spec.k * values_itemsize(spec)
+        if spec.values_dtype in QUANTIZED_DTYPES:
+            vb += spec.n_replicas * spec.max_active * 4
+        return vb
+
+    def restore_finalize(self):
+        return _finalize_quantized_restore(self)
 
 
 FORMATS: dict[str, type[SparseFormat]] = {

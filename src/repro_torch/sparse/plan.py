@@ -12,10 +12,13 @@ serving tree of format objects that plugs into the masks slot of
 Plans are priced at a batch *bucket* (``batch_bucket``), as the reference's
 engine keys them, so ``--path auto`` decides at the same batch as there.
 
-Ported so far for one device (``tp=1``) and float values. Queued:
-``HardwareProfile.measure`` (CUDA events on the card), ``Plan.refresh`` (it
-needs the trainer's mask versions), quantized values, tensor parallelism
-and the speculative-draft helpers.
+``values_dtype`` ("bf16", "int8", "fp8"; None keeps the param dtype) is
+part of the plan: every value-storing leaf is exported at that storage
+width and the cost model prices that width, as in the reference.
+
+Ported so far for one device (``tp=1``). Queued: ``HardwareProfile.measure``
+(CUDA events on the card), ``Plan.refresh`` (it needs the trainer's mask
+versions), tensor parallelism and the speculative-draft helpers.
 """
 from __future__ import annotations
 
@@ -113,19 +116,22 @@ class StackDecision:
 
 def stack_costs(stack, *, batch_size: int, itemsize: int, k: int,
                 active_fraction: float, profile: HardwareProfile = DEFAULT_PROFILE,
-                max_active_fraction: float | None = None) -> dict[str, float]:
+                max_active_fraction: float | None = None,
+                values_dtype: str | None = None) -> dict[str, float]:
     """Estimated seconds per serving step for each representation.
 
     ``max_active_fraction`` is the exported row fraction that prices
     condensed_over_active (the leaf carries max_active rows per layer);
-    the mean ``active_fraction`` is the fallback.
+    the mean ``active_fraction`` is the fallback. ``values_dtype`` prices
+    the value-storing formats at their stored width.
     """
     b = max(int(batch_size), 1)
     act = min(max(active_fraction, 0.0), 1.0)
     row_frac = act if max_active_fraction is None else min(max(max_active_fraction, 0.0), 1.0)
     spec = F.FormatSpec(d_in=stack.d_in, d_out=stack.d_out, n_replicas=stack.n_replicas,
                         itemsize=itemsize, k=max(k, 1), max_active=row_frac * stack.d_out,
-                        active_fraction=act)
+                        active_fraction=act,
+                        values_dtype=F.resolve_quantize_spec(values_dtype))
     return {name: cls.estimate_cost(spec, b, profile) for name, cls in F.FORMATS.items()}
 
 
@@ -135,14 +141,16 @@ def _max_active_fraction(stack, stats: F.ExportStats) -> float:
 
 
 def _costs(stack, batch_size: int, itemsize: int, stats: F.ExportStats,
-           profile: HardwareProfile) -> dict[str, float]:
+           profile: HardwareProfile, values_dtype: str | None) -> dict[str, float]:
     return stack_costs(stack, batch_size=batch_size, itemsize=itemsize, k=max(stats.k, 1),
                        active_fraction=stats.active_fraction, profile=profile,
-                       max_active_fraction=_max_active_fraction(stack, stats))
+                       max_active_fraction=_max_active_fraction(stack, stats),
+                       values_dtype=values_dtype)
 
 
 def select_representation(stack, *, batch_size: int, itemsize: int, stats: F.ExportStats,
-                          profile: HardwareProfile = DEFAULT_PROFILE) -> StackDecision:
+                          profile: HardwareProfile = DEFAULT_PROFILE,
+                          values_dtype: str | None = None) -> StackDecision:
     """Cost-model choice among the representations exact for this stack.
 
     Masked and condensed are always exact; condensed_over_active joins once
@@ -150,7 +158,7 @@ def select_representation(stack, *, batch_size: int, itemsize: int, stats: F.Exp
     ablation-only stacks (every surviving column fully dense,
     ``stats.min_fan_in >= d_in``).
     """
-    costs = _costs(stack, batch_size, itemsize, stats, profile)
+    costs = _costs(stack, batch_size, itemsize, stats, profile, values_dtype)
     cands = ("masked", "condensed")
     if stats.active_fraction < 1.0 - _ABLATION_EPS:
         cands += ("condensed_over_active",)
@@ -161,26 +169,35 @@ def select_representation(stack, *, batch_size: int, itemsize: int, stats: F.Exp
 
 
 def _build_leaf(rep: str, weight: torch.Tensor, mask: torch.Tensor, stats: F.ExportStats,
-                dtype: torch.dtype | None = None) -> F.SparseFormat:
-    """The format object of one stack; the value-storing formats store their
-    values at ``dtype`` (the compute dtype), the others read the live weight."""
+                dtype: torch.dtype | None = None,
+                values_dtype: str | None = None) -> F.SparseFormat:
+    """The format object of one stack. ``weight`` is the float32 param (the
+    quantized codes are cut from it). ``values_dtype`` is the storage of the
+    value-storing formats (quantized structured leaves keep their panel);
+    without it the condensed formats store their values at ``dtype`` (the
+    compute dtype). Masked reads the live weight and ignores both, as the
+    reference does."""
     try:
         cls = F.FORMATS[rep]
     except KeyError:
         raise ValueError(f"unknown representation {rep!r}") from None
     if rep in ("condensed", "condensed_over_active"):
-        return cls.export_from_dense(weight, mask, stats, dtype=dtype)
+        return cls.export_from_dense(weight, mask, stats, dtype=dtype,
+                                     quantize_spec=values_dtype)
+    if rep == "structured":
+        return cls.export_from_dense(weight, mask, stats, quantize_spec=values_dtype)
     return cls.export_from_dense(weight, mask, stats)
 
 
 def _decide(stack, path: str, *, batch_size: int, itemsize: int, stats: F.ExportStats,
-            profile: HardwareProfile) -> StackDecision:
+            profile: HardwareProfile, values_dtype: str | None = None) -> StackDecision:
     """One stack's decision: the cost model's for "auto", forced otherwise."""
     if path == "auto":
         return select_representation(stack, batch_size=batch_size, itemsize=itemsize,
-                                     stats=stats, profile=profile)
+                                     stats=stats, profile=profile, values_dtype=values_dtype)
     return StackDecision(name=stack.name, representation=path,
-                         est_s=_costs(stack, batch_size, itemsize, stats, profile),
+                         est_s=_costs(stack, batch_size, itemsize, stats, profile,
+                                      values_dtype),
                          stats=stats)
 
 
@@ -200,6 +217,7 @@ class Plan:
     profile: HardwareProfile
     decisions: dict[str, StackDecision]
     serving_tree: dict
+    values_dtype: str | None = None  # storage of the exported values (None: param dtype)
 
     def representation_of(self, name: str) -> str:
         return self.decisions[name].representation
@@ -211,7 +229,7 @@ class Plan:
         masked_ref = serving = 0
         for s in self.registry:
             dec = self.decisions[s.name]
-            spec = F.spec_for_stack(s, dec.stats, itemsize)
+            spec = F.spec_for_stack(s, dec.stats, itemsize, self.values_dtype)
             serving += F.FORMATS[dec.representation].estimate_weight_bytes(spec)
             masked_ref += F.MaskedDense.estimate_weight_bytes(spec)
         return serving, masked_ref
@@ -222,7 +240,8 @@ class Plan:
         batch_s = f"batch={self.batch_size}"
         if requested_batch is not None and int(requested_batch) != self.batch_size:
             batch_s = f"batch={int(requested_batch)} (bucket {self.batch_size})"
-        lines = [f"[plan] path={self.path} {batch_s} profile={self.profile.name}"]
+        vd = f" values_dtype={self.values_dtype}" if self.values_dtype else ""
+        lines = [f"[plan] path={self.path} {batch_s} profile={self.profile.name}{vd}"]
         for name, dec in self.decisions.items():
             lines.append(
                 f"[plan]   {name:24s} -> {dec.representation:22s} "
@@ -232,15 +251,20 @@ class Plan:
 
 
 def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
-               path: str = "auto", profile: HardwareProfile = DEFAULT_PROFILE) -> Plan:
+               path: str = "auto", profile: HardwareProfile = DEFAULT_PROFILE,
+               values_dtype: str | None = None) -> Plan:
     """The per-stack execution plan for a request of ``batch_size`` rows.
 
     ``path="auto"`` chooses per stack by the cost model, a representation
     name forces it everywhere. Costs are priced at the param dtype's width,
-    as in the reference; condensed values are stored at ``cfg.dtype``.
+    as in the reference, or at ``values_dtype``'s ("bf16", "int8", "fp8";
+    None or "f32" keep the param dtype) for the value-storing formats, whose
+    leaves then store their values at that width, quantized from the float32
+    ``params``. Without it condensed values are stored at ``cfg.dtype``.
     """
     if path not in PATHS:
         raise ValueError(f"unknown serving path {path!r}; expected one of {PATHS}")
+    vd = F.resolve_quantize_spec(values_dtype)
     registry = list(registry or [])
     itemsize = getattr(torch, cfg.param_dtype).itemsize
     dtype = getattr(torch, cfg.dtype)
@@ -249,11 +273,11 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
     tree: dict = {}
     for s in registry:
         dec = _decide(s, path, batch_size=batch_size, itemsize=itemsize,
-                      stats=stats[s.name], profile=profile)
+                      stats=stats[s.name], profile=profile, values_dtype=vd)
         decisions[s.name] = dec
         REG.set_path(tree, s.path, _build_leaf(dec.representation,
                                                REG.get_path(params, s.path),
                                                REG.get_path(masks, s.path),
-                                               stats[s.name], dtype))
+                                               stats[s.name], dtype, vd))
     return Plan(cfg=cfg, registry=registry, path=path, batch_size=batch_size,
-                profile=profile, decisions=decisions, serving_tree=tree)
+                profile=profile, decisions=decisions, serving_tree=tree, values_dtype=vd)
