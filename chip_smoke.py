@@ -42,13 +42,16 @@ Phases, each of which raises (exit code != 0) on any failed check:
    their tokens agree, except at near-ties, with a twin that serves the
    same codes and scales dequantized into a float export through K1 (K4);
    structured int8 on ablation-only masks (K5 4 * 28 * 17 times) gives its
-   dequantized twin's tokens exactly.
+   dequantized twin's tokens exactly (the twin dequantizes the panel as the
+   format does, so this checks the launch counts; phase 8 holds the path to
+   the CPU).
 7. checkpoint: the int8 condensed serving tree saved with
    repro_torch.train.checkpoint.save and restored into a fresh template on
    the card gives identical arrays and identical tokens.
 8. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
-   condensed, condensed_over_active and structured paths.
+   condensed, condensed_over_active and structured paths, each with float,
+   int8 and fp8 values: identical tokens, and the path's kernel launched.
 
 Imports only torch, numpy, the standard library and repro_torch. Prints
 the card's name and power limit, a JSON line describing each kernel, and
@@ -89,7 +92,7 @@ TIE_GAP = {"bfloat16": 0.05, "float32": 1e-3}
 # and d itself must stay below this bound.
 LOGIT_NOISE_BOUND = {"bfloat16": 0.25, "float32": 5e-4}
 CSRC = "src/repro_torch/kernels/csrc/"
-KERNELS = (  # key, wrapper, CUDA source, the TPU kernel it replaces
+KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
     ("K1", "condensed_matmul", CSRC + "condensed_matmul.cu",
      "src/repro/kernels/condensed_matmul.py:235"),
     ("K4", "condensed_over_active_matmul", CSRC + "structured_matmul.cu",
@@ -98,9 +101,9 @@ KERNELS = (  # key, wrapper, CUDA source, the TPU kernel it replaces
      "src/repro/kernels/structured_matmul.py:217"),
     ("K6", "structured_matmul_prefetch", CSRC + "structured_matmul.cu",
      "src/repro/kernels/structured_matmul.py:244"),
-    ("K2", "condensed_matmul_scaled", CSRC + "condensed_matmul.cu",
+    ("K2", "condensed_matmul(scales=)", CSRC + "condensed_matmul.cu",
      "src/repro/kernels/condensed_matmul.py:254"),
-    ("K2-coa", "condensed_over_active_matmul_scaled", CSRC + "structured_matmul.cu",
+    ("K2-coa", "condensed_over_active_matmul(scales=)", CSRC + "structured_matmul.cu",
      "src/repro/kernels/structured_matmul.py:297"),
 )
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
@@ -472,12 +475,13 @@ def quant_kernel_phase(device):
                             for _ in range(_copies(weight_bytes))]
                     dense_sets = [deq.clone() for _ in range(_copies(deq.numel() * isz))]
                     if out_index is None:
-                        fn = cm.condensed_matmul_scaled
+                        def fn(x_, q_, i_, s_, block_b=None):
+                            return cm.condensed_matmul(x_, q_, i_, scales=s_, block_b=block_b)
                         plain = ref.condensed_matmul_scaled_ref
                     else:
                         def fn(x_, q_, i_, s_, block_b=None):
-                            return sm.condensed_over_active_matmul_scaled(
-                                x_, q_, i_, out_index, s_, d_out, block_b=block_b)
+                            return sm.condensed_over_active_matmul(
+                                x_, q_, i_, out_index, d_out, scales=s_, block_b=block_b)
 
                         def plain(x_, q_, i_, s_):
                             return ref.condensed_over_active_matmul_scaled_ref(
@@ -500,7 +504,7 @@ def quant_kernel_phase(device):
                                  f"{what}: K2 == K1(f32(q)) * s")
                             pairs.append("K2 == K1(f32(q)) * s")
                         if out_index is not None:
-                            rows_y = cm.condensed_matmul_scaled(x, q, idx, sc)
+                            rows_y = cm.condensed_matmul(x, q, idx, scales=sc)
                             same(key, y, ref._scatter_columns(rows_y, out_index, d_out),
                                  f"{what}: K2-coa == K2 rows then scatter")
                             pairs.append("K2-coa == K2 rows then scatter")
@@ -621,27 +625,31 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
         return torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
-def _kernel_functions() -> dict:
-    """Each kernel's wrapper function, which carries its launch count."""
+def _kernel_counters() -> dict:
+    """Each kernel's launch counter: its wrapper function and the attribute
+    the wrapper adds to (K2 and K2-coa count on K1's and K4's wrappers)."""
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.kernels import structured_matmul as sm
-    return {"K1": cm.condensed_matmul, "K4": sm.condensed_over_active_matmul,
-            "K5": sm.structured_matmul, "K6": sm.structured_matmul_prefetch,
-            "K2": cm.condensed_matmul_scaled, "K2-coa": sm.condensed_over_active_matmul_scaled}
+    return {"K1": (cm.condensed_matmul, "launches"),
+            "K4": (sm.condensed_over_active_matmul, "launches"),
+            "K5": (sm.structured_matmul, "launches"),
+            "K6": (sm.structured_matmul_prefetch, "launches"),
+            "K2": (cm.condensed_matmul, "scaled_launches"),
+            "K2-coa": (sm.condensed_over_active_matmul, "scaled_launches")}
 
 
 def _none() -> dict:
     """Every kernel's count at 0 (an expected-launches dict to fill in)."""
-    return {name: 0 for name in _kernel_functions()}
+    return {name: 0 for name in _kernel_counters()}
 
 
 def _zero_counts() -> None:
-    for fn in _kernel_functions().values():
-        fn.launches = 0
+    for fn, attr in _kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def _counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_functions().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_counters().items()}
 
 
 def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None,
@@ -974,7 +982,10 @@ def quant_phase(setup: dict, card: str) -> dict:
                     toks_t, gaps = _masked_gaps(cfg, twin, prompts, GEN)
                     if not torch.equal(toks_t, out_t[:, PROMPT:]):
                         raise AssertionError(f"{label}: the twin's step-by-step run differs")
-                    if key == "K5":  # the same panel reaches the same kernel: exact
+                    if key == "K5":
+                        # the twin dequantizes as StructuredFanIn.apply does and runs
+                        # the same K5, so this holds by construction: it checks the
+                        # launch counts; [reference] holds this path to the CPU
                         if not torch.equal(out, out_t):
                             raise AssertionError(f"{label}: tokens differ from the twin's")
                         agree = BATCH
@@ -1047,7 +1058,9 @@ def _map_leaves(tree: dict, fn) -> dict:
 
 
 def reference_phase(device):
-    """The smoke config on the card against the port's CPU path."""
+    """The smoke config on the card against the port's CPU path (which the
+    CPU tests hold to the JAX package), float and int8/fp8 trees alike; each
+    card run must launch the kernel its path names."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import engine as E
@@ -1061,24 +1074,37 @@ def reference_phase(device):
     params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
     prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen, dtype=torch.int32)
-    trees = {  # each path on masks where it is exact
-        "condensed": COND.export_condensed(cfg, reg, params, masks),
-        "condensed_over_active": COND.export_condensed_over_active(
-            cfg, reg, params, _ablate_masks(reg, masks, ABLATION)),
-        "structured": COND.export_structured(cfg, reg, _ablation_only(reg, masks, ABLATION)),
+    ablated = _ablate_masks(reg, masks, ABLATION)
+    only = _ablation_only(reg, masks, ABLATION)
+    trees = {  # label: (each path on masks where it is exact, the kernel it runs)
+        "condensed": (COND.export_condensed(cfg, reg, params, masks), "K1"),
+        "condensed_over_active": (COND.export_condensed_over_active(cfg, reg, params, ablated),
+                                  "K4"),
+        "structured": (COND.export_structured(cfg, reg, only), "K5"),
     }
+    for qdt in QUANT:
+        trees[f"condensed {qdt}"] = (COND.export_condensed(
+            cfg, reg, params, masks, quantize_spec=qdt), "K2")
+        trees[f"condensed_over_active {qdt}"] = (COND.export_condensed_over_active(
+            cfg, reg, params, ablated, quantize_spec=qdt), "K2-coa")
+        trees[f"structured {qdt}"] = (COND.export_structured(
+            cfg, reg, only, params=params, quantize_spec=qdt), "K5")
 
     def to_dev(tree):  # tensors and format leaves alike
         return {k: to_dev(v) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
-    for path, tree in trees.items():
+    for path, (tree, key) in trees.items():
         cpu = E.generate(cfg, params, tree, prompts, 10)
+        _zero_counts()
         gpu = E.generate(cfg, to_dev(params), to_dev(tree), prompts.to(device), 10)
+        launched = _counts()[key]
+        if not launched:
+            raise AssertionError(f"smoke {path}: no {key} launch on the card")
         if not torch.equal(gpu.cpu(), cpu):
             raise AssertionError(f"smoke {path} tokens differ: card {gpu.tolist()} "
                                  f"cpu {cpu.tolist()}")
-        print(f"[reference] smoke {ARCH} {path} on the card == CPU plain path: "
-              f"{cpu[0, 8:].tolist()}")
+        print(f"[reference] smoke {ARCH} {path} on the card ({key} x {launched}) == CPU "
+              f"plain path: {cpu[0, 8:].tolist()}")
 
 
 def main() -> int:

@@ -16,7 +16,7 @@ block row) and larger batches the tiled launch (8-row batch tiles); a
 caller-given ``block_b`` forces the tiled launch. The two are bitwise equal.
 
 ``condensed_matmul.launches`` counts K1's launches and
-``condensed_matmul_scaled.launches`` K2's (never plain-version calls), so a
+``condensed_matmul.scaled_launches`` K2's (never plain-version calls), so a
 run can show that its sparse linears went through the kernel it expects.
 """
 from __future__ import annotations
@@ -130,7 +130,10 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     if err:
         raise RuntimeError("condensed_matmul kernel launch failed: "
                            + lib.condensed_matmul_error_string(err).decode())
-    (condensed_matmul if scales is None else condensed_matmul_scaled).launches += 1
+    if scales is None:
+        condensed_matmul.launches += 1
+    else:
+        condensed_matmul.scaled_launches += 1
     return y
 
 
@@ -141,7 +144,7 @@ def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tenso
 
     Every index must lie in [0, d_in); the kernel does not check it (the
     condensed export guarantees it). ``scales`` (n_out,) float32 marks
-    ``values`` as int8/fp8 codes and runs K2 (``condensed_matmul_scaled``).
+    ``values`` as int8/fp8 codes and runs K2.
 
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
     batches to the tiled launch with 8-row tiles. An explicit ``block_b``
@@ -160,17 +163,9 @@ def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tenso
 
 
 condensed_matmul.launches = 0
+condensed_matmul.scaled_launches = 0
 
 
-def condensed_matmul_scaled(x: torch.Tensor, codes: torch.Tensor, indices: torch.Tensor,
-                            scales: torch.Tensor, *, block_b: int | None = None) -> torch.Tensor:
-    """K2: the condensed matmul over int8/fp8 ``codes`` (n_out, k) with a
-    float32 scale per neuron, applied after the k-sum. Dispatch as in
-    ``condensed_matmul``; the decode launch is bitwise equal to the tiled one."""
-    return condensed_matmul(x, codes, indices, scales=scales, block_b=block_b)
-
-
-condensed_matmul_scaled.launches = 0
 
 
 def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,

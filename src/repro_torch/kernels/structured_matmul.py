@@ -4,7 +4,7 @@ K6 (port of ``repro/kernels/structured_matmul.py``).
 * K4, ``condensed_over_active_matmul(_decode)``: K1's condensed gather over
   the ``a <= d_out`` surviving rows, each row stored at its dense column
   ``out_index[r]`` (the reference's ``_coa_kernel``).
-* K2-coa, the same with ``scales=`` (``condensed_over_active_matmul_scaled``):
+* K2-coa, ``condensed_over_active_matmul(..., scales=)``:
   int8/fp8 codes and a float32 scale per row, applied after the k-sum
   (``_coa_kernel`` with ``scaled=True``).
 * K5, ``structured_matmul(_decode)`` and ``structured_matmul_pregathered``:
@@ -40,7 +40,7 @@ None, as in the reference) has no memory budget to check.
 
 ``<kernel function>.launches`` counts kernel launches (never plain-version
 calls): ``condensed_over_active_matmul.launches`` (K4),
-``condensed_over_active_matmul_scaled.launches`` (K2-coa),
+``condensed_over_active_matmul.scaled_launches`` (K2-coa),
 ``structured_matmul.launches`` (K5) and ``structured_matmul_prefetch.launches``
 (K6).
 """
@@ -289,8 +289,10 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                 cm._DTYPE_CODES[x.dtype], cm._VALUE_CODES[values.dtype], block_rows,
                 per_warp, stream)
     _raise_on(err, "condensed_over_active_matmul")
-    (condensed_over_active_matmul if scales is None
-     else condensed_over_active_matmul_scaled).launches += 1
+    if scales is None:
+        condensed_over_active_matmul.launches += 1
+    else:
+        condensed_over_active_matmul.scaled_launches += 1
     return out
 
 
@@ -337,19 +339,9 @@ def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
 
 
 condensed_over_active_matmul.launches = 0
+condensed_over_active_matmul.scaled_launches = 0
 
 
-def condensed_over_active_matmul_scaled(x: torch.Tensor, codes: torch.Tensor,
-                                        indices: torch.Tensor, out_index: torch.Tensor,
-                                        scales: torch.Tensor, d_out: int, *,
-                                        block_b: int | None = None) -> torch.Tensor:
-    """K2-coa: ``condensed_over_active_matmul`` over int8/fp8 ``codes`` with a
-    float32 scale per row. Row r's output is bitwise K2's row r."""
-    return condensed_over_active_matmul(x, codes, indices, out_index, d_out, scales=scales,
-                                        block_b=block_b)
-
-
-condensed_over_active_matmul_scaled.launches = 0
 
 
 def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,

@@ -61,13 +61,13 @@ def build_plan(cfg, registry, params, masks, path: str, *,
 
 
 def build_serving_masks(cfg, registry, params, masks, path: str,
-                        batch_size: int = 1, values_dtype: str | None = None) -> dict:
+                        batch_size: int = 1) -> dict:
     """The serving tree for ``path``: ``masks`` itself for masked, else the
     tree of the plan built at ``batch_size``'s bucket."""
     if path == "masked":
         return masks
-    return build_plan(cfg, registry, params, masks, path, batch_size=batch_size,
-                      values_dtype=values_dtype).serving_tree
+    return build_plan(cfg, registry, params, masks, path,
+                      batch_size=batch_size).serving_tree
 
 
 def main(argv=None):

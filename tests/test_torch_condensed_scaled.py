@@ -98,7 +98,7 @@ def test_k2_coa_plain_version_matches_reference_kernel(b, dtype, name):
 def test_k2_in_float32_is_k1_on_float_codes_times_the_scales(name):
     x, q, idx, s, _ = _inputs(6, name, seed=21)
     tx, tq, ti, ts = torch.from_numpy(x), _t(q), torch.from_numpy(idx), _t(s)
-    k2 = TCM.condensed_matmul_scaled(tx, tq, ti, ts)
+    k2 = TCM.condensed_matmul(tx, tq, ti, scales=ts)
     k1 = TCM.condensed_matmul(tx, tq.float(), ti) * ts
     assert torch.equal(k2, k1)
 
@@ -112,7 +112,7 @@ def test_launch_forms_and_nd_ops_agree_on_the_cpu(name):
     assert torch.equal(TCM.condensed_matmul_decode(tx, tq, ti, scales=ts), tiled)
     y3 = TOPS.condensed_linear_nd(tx.reshape(3, 4, D_IN), tq, ti, scales=ts)
     assert torch.equal(y3.reshape(12, N_OUT), tiled)
-    coa = TSM.condensed_over_active_matmul_scaled(tx, tq, ti, toi, ts, D_OUT)
+    coa = TSM.condensed_over_active_matmul(tx, tq, ti, toi, D_OUT, scales=ts)
     assert torch.equal(TSM.condensed_over_active_matmul_decode(tx, tq, ti, toi, D_OUT,
                                                                scales=ts), coa)
     c3 = TOPS.condensed_over_active_linear_nd(tx.reshape(2, 6, D_IN), tq, ti, toi, D_OUT,
@@ -145,23 +145,23 @@ def test_scaled_wrappers_take_the_plain_version_only_on_the_cpu():
     idx = torch.zeros((3, 2), dtype=torch.int32, **meta)
     s = torch.zeros((3,), **meta)
     oi = torch.zeros((3,), dtype=torch.int32, **meta)
-    before = (TCM.condensed_matmul_scaled.launches,
-              TSM.condensed_over_active_matmul_scaled.launches, TCM.condensed_matmul.launches)
-    for call in (lambda: TCM.condensed_matmul_scaled(x, q, idx, s),
+    before = (TCM.condensed_matmul.scaled_launches,
+              TSM.condensed_over_active_matmul.scaled_launches, TCM.condensed_matmul.launches)
+    for call in (lambda: TCM.condensed_matmul(x, q, idx, scales=s),
                  lambda: TCM.condensed_matmul(x, q, idx, scales=s, block_b=4),
                  lambda: TCM.condensed_matmul_decode(x, q, idx, scales=s),
-                 lambda: TSM.condensed_over_active_matmul_scaled(x, q, idx, oi, s, 5),
+                 lambda: TSM.condensed_over_active_matmul(x, q, idx, oi, 5, scales=s),
                  lambda: TSM.condensed_over_active_matmul(x, q, idx, oi, 5, scales=s,
                                                           block_b=2)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
-    assert (TCM.condensed_matmul_scaled.launches,
-            TSM.condensed_over_active_matmul_scaled.launches,
+    assert (TCM.condensed_matmul.scaled_launches,
+            TSM.condensed_over_active_matmul.scaled_launches,
             TCM.condensed_matmul.launches) == before
     # on the CPU the plain version runs and nothing is counted either
-    TCM.condensed_matmul_scaled(torch.zeros((2, 8)), torch.zeros((3, 2), dtype=torch.int8),
-                                torch.zeros((3, 2), dtype=torch.int32), torch.ones(3))
-    assert TCM.condensed_matmul_scaled.launches == before[0]
+    TCM.condensed_matmul(torch.zeros((2, 8)), torch.zeros((3, 2), dtype=torch.int8),
+                         torch.zeros((3, 2), dtype=torch.int32), scales=torch.ones(3))
+    assert TCM.condensed_matmul.scaled_launches == before[0]
 
 
 @pytest.mark.parametrize("name", ["int8", "fp8"])

@@ -17,18 +17,15 @@ import dataclasses  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from repro import configs as jconfigs  # noqa: E402
-from repro.models import model as JM  # noqa: E402
+from _torch_smoke_model import smoke_masks, smoke_model  # noqa: E402
 from repro.sparse import formats as JF  # noqa: E402
 from repro.sparse import plan as JP  # noqa: E402
 from repro.sparse import registry as JR  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.sparse import formats as TF  # noqa: E402
 from repro_torch.sparse import plan as TP  # noqa: E402
 from repro_torch.sparse import registry as TR  # noqa: E402
 
-ARCH = "qwen3-1.7b"
 VALUE_DTYPES = ("bf16", "int8", "fp8")
 FORMATS = ("condensed", "condensed_over_active", "structured")
 LEAD, D_IN, D_OUT, K = 2, 40, 72, 9
@@ -118,19 +115,10 @@ def test_quantized_stores_fewer_value_bytes_than_float():
 
 @pytest.fixture(scope="module")
 def smoke():
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    key = jax.random.PRNGKey(0)
-    jreg = JR.build_registry(jcfg)
-    jparams = JM.init_params(jcfg, key, JR.k_fan_map(jcfg, jreg))
-    base = JR.init_sparsity_state(jcfg, key, jreg)["masks"]
-    jmasks = {}
-    for s in jreg:  # the last quarter of each stack's neurons ablated
-        col = (jnp.arange(s.d_out) < s.d_out - s.d_out // 4)[None, :]
-        JR._set_path(jmasks, s.path, JR.get_path(base, s.path) & col)
-    tcfg = tconfigs.get_smoke_config(ARCH)
-    return dict(jcfg=jcfg, jreg=jreg, jparams=jparams, jmasks=jmasks, tcfg=tcfg,
-                treg=TR.build_registry(tcfg),
-                tparams=bridge.from_jax_numpy(jax.tree.map(np.asarray, jparams)),
+    # the JAX init and the masks with half of each stack's neurons ablated,
+    # shared with the other quantized test files
+    jmasks = smoke_masks()["ablated"]
+    return dict(smoke_model(), jmasks=jmasks,
                 tmasks=bridge.from_jax_numpy(jax.tree.map(np.asarray, jmasks)))
 
 

@@ -24,9 +24,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.train.checkpoint\n"
-        "from repro_torch.kernels.condensed_matmul import condensed_matmul_scaled\n"
-        "from repro_torch.kernels.structured_matmul import (\n"
-        "    condensed_over_active_matmul_scaled)\n"
+        "from repro_torch.kernels.condensed_matmul import condensed_matmul\n"
+        "from repro_torch.kernels.structured_matmul import condensed_over_active_matmul\n"
+        "assert condensed_matmul.scaled_launches == 0\n"
+        "assert condensed_over_active_matmul.scaled_launches == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

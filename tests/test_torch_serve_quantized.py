@@ -20,12 +20,11 @@ import io  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from repro import configs as jconfigs  # noqa: E402
+from _torch_smoke_model import ARCH, smoke_masks, smoke_model  # noqa: E402
 from repro.launch import engine as JE  # noqa: E402
 from repro.launch import serve as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.sparse import plan as JP  # noqa: E402
-from repro.sparse import registry as JR  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.launch import engine as TE  # noqa: E402
@@ -35,10 +34,8 @@ from repro_torch.sparse import formats as TF  # noqa: E402
 from repro_torch.sparse import plan as TP  # noqa: E402
 from repro_torch.sparse import registry as TR  # noqa: E402
 
-ARCH = "qwen3-1.7b"
 GEN = 10
 LOGIT_ATOL = 1e-4
-ABLATION = 0.5
 PATH_MASKS = {"condensed": "plain", "condensed_over_active": "ablated",
               "structured": "ablation_only", "auto": "ablated"}
 CASES = [(p, q) for p in PATH_MASKS for q in ("int8", "fp8")]
@@ -46,31 +43,16 @@ PROFILE = TP.HardwareProfile(**{f.name: getattr(JP.DEFAULT_PROFILE, f.name)
                                 for f in dataclasses.fields(TP.HardwareProfile)})
 
 
-def _ablate(reg, masks, only):
-    out = {}
-    for s in reg:
-        m = JR.get_path(masks, s.path)
-        cut = s.d_out - max(1, int(s.d_out * ABLATION))
-        col = (jnp.arange(s.d_out) < cut)[None, :]
-        JR._set_path(out, s.path, jnp.broadcast_to(col, m.shape) if only else m & col)
-    return out
-
-
 @pytest.fixture(scope="module")
 def run():
-    """One JAX init, plan and generate per (path, values dtype)."""
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    key = jax.random.PRNGKey(0)
-    jreg = JR.build_registry(jcfg)
-    jparams = JM.init_params(jcfg, key, JR.k_fan_map(jcfg, jreg))
-    base = JR.init_sparsity_state(jcfg, key, jreg)["masks"]
-    jmasks = {"plain": base, "ablated": _ablate(jreg, base, False),
-              "ablation_only": _ablate(jreg, base, True)}
+    """One JAX init (shared with the other quantized test files), then one
+    plan and generate per (path, values dtype)."""
+    m = smoke_model()
+    jcfg, jreg, jparams = m["jcfg"], m["jreg"], m["jparams"]
+    tcfg, treg, tparams = m["tcfg"], m["treg"], m["tparams"]
+    jmasks = smoke_masks()
     prompts = np.random.default_rng(0).integers(0, jcfg.vocab_size, (3, 8)).astype(np.int32)
     bucket = TP.batch_bucket(prompts.shape[0])
-    tcfg = tconfigs.get_smoke_config(ARCH)
-    treg = TR.build_registry(tcfg)
-    tparams = bridge.from_jax_numpy(jax.tree.map(np.asarray, jparams))
     tmasks = {k: bridge.from_jax_numpy(jax.tree.map(np.asarray, m)) for k, m in jmasks.items()}
     jplan, tplan, jtok, ttok = {}, {}, {}, {}
     for path, qdt in CASES:
@@ -108,11 +90,14 @@ def test_tokens_equal_the_reference(run, path, qdt):
 def test_prefill_logits_agree(run, path, qdt):
     r = run
     b, t = r["prompts"].shape
-    jl, _ = JM.prefill_step(r["jcfg"], r["jparams"], r["jplan"][path, qdt].serving_tree,
-                            {"tokens": jnp.asarray(r["prompts"])}, JM.init_cache(r["jcfg"], b, t))
+    # the reference's jitted prefill at generate's cache length: the program
+    # the fixture's generate already compiled
+    jl, _ = JE._prefill(r["jcfg"], r["jparams"], r["jplan"][path, qdt].serving_tree,
+                        {"tokens": jnp.asarray(r["prompts"])},
+                        JM.init_cache(r["jcfg"], b, t + GEN))
     tl, _ = TM.prefill_step(r["tcfg"], r["tparams"], r["tplan"][path, qdt].serving_tree,
                             {"tokens": torch.from_numpy(r["prompts"])},
-                            TM.init_cache(r["tcfg"], b, t, device="cpu"))
+                            TM.init_cache(r["tcfg"], b, t + GEN, device="cpu"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL, rtol=0)
 
 
