@@ -22,7 +22,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    K2-coa == K2 on the same rows then a scatter bitwise, and in f32
    K2 == K1(f32(codes)) * scales bitwise. Times are CUDA-event medians over
    replays of a CUDA graph of launches that cycle through enough copies of
-   the weights to keep L2 cold.
+   the weights to keep L2 cold. Last K3 (the values gradient) at the
+   training shapes of those stacks, full and half of their rows, B*T = 128
+   and 512, bf16 and f32: against its plain version, two launches bitwise
+   equal, duplicate indices giving equal columns.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -48,10 +51,29 @@ Phases, each of which raises (exit code != 0) on any failed check:
 7. checkpoint: the int8 condensed serving tree saved with
    repro_torch.train.checkpoint.save and restored into a fresh template on
    the card gives identical arrays and identical tokens.
-8. reference: the smoke config on the card against the port's CPU path
+8. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
+   masks, a train batch of 8 x 64 tokens) backpropagated into the values,
+   float32 and bfloat16, then condensed_over_active on the ablated masks:
+   K3 launches exactly 4 * 28 times per backward and K1 (K4) 2 * 4 * 28
+   (the forward, and again when each checkpointed block is recomputed), and
+   in float32 the values gradient equals the masked loss's dense gradient
+   gathered at the condensed indices within GRAD_F32_BOUND. The bf16
+   gradients of both paths are reported against the float32 one, and the
+   condensed one again with the backward's dx accumulated in float32.
+9. train: full-width qwen3-1.7b from a seeded random init: the train CLI
+   for 3 steps (8 x 64 tokens), then the Trainer with delta_t=2 for 4 steps
+   (two SRigL updates): every loss and grad norm finite, after each update
+   every active neuron's fan-in equal to its layer's new k', nnz <= k0 *
+   d_out, grown weights 0 and mask_versions moved where the masks did;
+   after a plain step AdamW's moments 0 off the mask. A step is timed and
+   profiled.
+10. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
-   int8 and fp8 values: identical tokens, and the path's kernel launched.
+   int8 and fp8 values: identical tokens, and the path's kernel launched;
+   the smoke trainer (6 steps, delta_t=3) card vs CPU, a TrainState
+   checkpoint round trip on the card, and the condensed loss's values
+   gradient (K3) card vs CPU.
 
 Imports only torch, numpy, the standard library and repro_torch. Prints
 the card's name and power limit, a JSON line describing each kernel, and
@@ -61,6 +83,7 @@ build/chip_smoke_kernels.json.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -105,13 +128,19 @@ KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
      "src/repro/kernels/condensed_matmul.py:254"),
     ("K2-coa", "condensed_over_active_matmul(scales=)", CSRC + "structured_matmul.cu",
      "src/repro/kernels/structured_matmul.py:297"),
+    ("K3", "condensed_matmul_dw", CSRC + "condensed_dw.cu",
+     "src/repro/kernels/condensed_matmul.py:271"),
 )
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
 QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
 ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
 # the port's kernels as the profiler names them: K1 and K4 share
-# gather_rows_kernel, K5 and K6 structured_kernel
-PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_kernel")
+# gather_rows_kernel, K5 and K6 structured_kernel, K3 is dw_kernel
+PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_kernel", "dw_kernel")
+# the training phases: qwen3-1.7b at the train CLI's default batch and
+# sequence (8 x 64 tokens per step)
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 
 
 def _time_ms(fn, arg_sets, reps: int = 5, iters: int = 30) -> float:
@@ -534,29 +563,93 @@ def quant_kernel_phase(device):
     return cases
 
 
-def k3_bound() -> None:
-    """K3 (the values gradient, not ported yet) at qwen3-1.7b's full-width
-    stacks for B*T = 128, float32: its byte bound (dy + x + idx + dw, each
-    once) and its operation bound, computed from the shapes, not run."""
+def _k3_tol(want):
+    """K3 vs its plain version: the batch is summed in another order in
+    float32 (bf16 products are exact in float32), so rtol 1e-5 and an atol
+    of 1e-5 of the largest |dw| (a few float32 ulps of the large sums)."""
+    return dict(rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+def dw_kernel_phase(device):
+    """K3 at every main-path stack of full-width qwen3-1.7b (wo, w_gate/w_up,
+    w_down) and at the 50%-ablated row counts the condensed_over_active
+    backward sees, B*T = 128 and 512, bf16 and f32: against its plain
+    version, two launches bitwise equal, duplicate indices giving equal
+    columns; returns the per-case records."""
+    import torch
     from repro_torch import configs
     from repro_torch.core import distributions as D
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
     from repro_torch.sparse import registry as REG
-    b, total = BATCH * PROMPT, 0.0
-    for s in REG.build_registry(configs.get_config(ARCH)):
-        k = D.fan_in_from_density(s.d_in, s.density)
-        nbytes = 4 * (b * s.d_out + b * s.d_in + 2 * s.d_out * k)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * b * s.d_out * k / PEAK_OPS_PER_S["float32"] * 1e3
-        total += max(t_bytes, t_ops)
-        print(f"[bound] K3 {s.path[-1]:6s} {s.d_in}->{s.d_out} k={k} B*T={b} float32: "
-              f"{nbytes} bytes, byte bound {t_bytes:.5f} ms, operation bound {t_ops:.5f} ms "
-              f"(computed, not run)")
-    print(f"[bound] K3 one layer (wo + w_gate + w_up + w_down): {total:.5f} ms")
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(4)
+    shapes = {}
+    for s in REG.build_registry(cfg):  # w_up has w_gate's shape
+        shapes.setdefault((s.d_in, s.d_out), (s.path[-1], D.fan_in_from_density(s.d_in, s.density)))
+    cases = []
+    for (d_in, d_out), (name, k) in shapes.items():
+        for rows in (d_out, d_out - max(1, int(d_out * ABLATION))):
+            mask = topology.random_constant_fan_in_mask(gen, d_in, rows, k)
+            _, idx = topology.dense_to_condensed(mask.float(), mask, k)
+            dup = idx.clone()
+            dup[:, 1] = dup[:, 0]  # duplicate indices: each slot gets its own entry
+            for dtype_name in ("bfloat16", "float32"):
+                dtype = getattr(torch, dtype_name)
+                isz = torch.empty((), dtype=dtype).element_size()
+                for b in (BATCH * PROMPT, TRAIN_TOKENS):
+                    dy = torch.randn((b, rows), generator=gen, device=device).to(dtype)
+                    x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+                    what = f"K3 {name} rows={rows} {dtype_name} B*T={b}"
+                    dw = cm.condensed_matmul_dw(dy, x, idx)
+                    want = ref.condensed_matmul_dw_ref(dy, x, idx)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(dw, want, **_k3_tol(want),
+                                               msg=lambda m: f"{what}: {m}")
+                    err = (dw - want).abs().max().item()
+                    if not torch.equal(dw, cm.condensed_matmul_dw(dy, x, idx)):
+                        raise AssertionError(f"{what}: two launches are not bitwise equal")
+                    dd = cm.condensed_matmul_dw(dy, x, dup)
+                    if not torch.equal(dd[:, 0], dd[:, 1]):
+                        raise AssertionError(f"{what}: duplicate indices gave unequal columns")
+                    nbytes = b * (rows + d_in) * isz + 2 * rows * k * 4
+                    sets = [(dy.clone(), x.clone(), idx.clone())
+                            for _ in range(_copies(nbytes))]
+                    ms = _time_ms(cm.condensed_matmul_dw, sets)
+                    plain_ms = _time_ms(ref.condensed_matmul_dw_ref, sets, iters=10)
+                    idx_t = [(dy_, x_, i_.long().T.contiguous()) for dy_, x_, i_ in sets]
+
+                    def library(dy_, x_, it_):  # the dense weight gradient, then the gather
+                        return torch.gather(torch.matmul(x_.T, dy_), 0, it_)
+                    library_ms = _time_ms(library, idx_t)
+                    ops = 2 * b * rows * k
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                    rec = dict(kernel="K3", stack=name, d_in=d_in, d_out=d_out, rows=rows, k=k,
+                               dtype=dtype_name, batch=b, launch="train", ms=ms,
+                               plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations",
+                               bytes=nbytes, ops=ops, max_abs_err=err,
+                               bitwise="two launches, duplicate columns")
+                    cases.append(rec)
+                    print(f"[kernel] K3  {name:6s} {d_in}->{d_out} rows={rows} k={k} "
+                          f"{dtype_name:8s} B*T={b:3d}: ms {ms:.5f} | plain {plain_ms:.5f} | "
+                          f"matmul(x.T, dy) + gather {library_ms:.5f} | bound "
+                          f"{rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g} "
+                          f"(max |dw| {want.abs().max().item():.3g}) | two launches, "
+                          f"duplicate columns: bitwise")
+                    del sets, idx_t
+    torch.cuda.empty_cache()
+    return cases
 
 
-def _device_profile(fn, label: str) -> None:
+def _device_profile(fn, label: str, what: str = f"generate {BATCH}x{PROMPT}+{GEN}") -> None:
     """Device busy share and the kernels that take the device time of one
-    generate call, from torch.profiler (wall time from an unprofiled call)."""
+    call of ``fn`` (``what`` names it), from torch.profiler (wall time from
+    an unprofiled call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -580,7 +673,7 @@ def _device_profile(fn, label: str) -> None:
     device_ms = sum(r[1] for r in rows)
     ours = [r for r in rows if any(k in r[0] for k in PORT_KERNEL_NAMES)]
     ours_ms = sum(r[1] for r in ours)
-    print(f"[profile:{label}] generate {BATCH}x{PROMPT}+{GEN}: wall {wall_ms:.2f} ms, "
+    print(f"[profile:{label}] {what}: wall {wall_ms:.2f} ms, "
           f"device busy {device_ms:.3f} ms ({device_ms / wall_ms:.1%}), idle "
           f"{1 - device_ms / wall_ms:.1%}; port kernels {ours_ms:.3f} ms in "
           f"{sum(r[2] for r in ours)} launches ({ours_ms / device_ms:.1%} of device time)")
@@ -627,7 +720,8 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
 
 def _kernel_counters() -> dict:
     """Each kernel's launch counter: its wrapper function and the attribute
-    the wrapper adds to (K2 and K2-coa count on K1's and K4's wrappers)."""
+    the wrapper adds to (K2 and K2-coa count on K1's and K4's wrappers, K3
+    on condensed_matmul_dw)."""
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.kernels import structured_matmul as sm
     return {"K1": (cm.condensed_matmul, "launches"),
@@ -635,7 +729,8 @@ def _kernel_counters() -> dict:
             "K5": (sm.structured_matmul, "launches"),
             "K6": (sm.structured_matmul_prefetch, "launches"),
             "K2": (cm.condensed_matmul, "scaled_launches"),
-            "K2-coa": (sm.condensed_over_active_matmul, "scaled_launches")}
+            "K2-coa": (sm.condensed_over_active_matmul, "scaled_launches"),
+            "K3": (cm.condensed_matmul_dw, "launches")}
 
 
 def _none() -> dict:
@@ -1057,6 +1152,392 @@ def _map_leaves(tree: dict, fn) -> dict:
     return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+# [grad]: the values gradient against the masked loss's dense gradient at
+# the condensed indices, as max |difference| / max |dense gradient|; in
+# float32 the two differ only by summation order (forward and backward)
+GRAD_F32_BOUND = 1e-4
+# [reference] trainer: card vs CPU losses (float32 sums in other orders,
+# over six AdamW steps) and the smoke values gradient card vs CPU
+TRAIN_LOSS_TOL = 1e-4
+SMOKE_GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _train_batch(cfg, device, step: int = 0, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
+    """Step ``step`` of the train CLI's synthetic stream (seed 0) on ``device``."""
+    from repro_torch.data.pipeline import SyntheticLM, to_tensors
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=0)
+    return {k: v.to(device) for k, v in to_tensors(data.batch(step)).items()}
+
+
+def _sparse_grads(cfg, reg, params, masks, batch):
+    """loss_fn over bool masks and its dense gradient at each sparse stack."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+    leaves = [REG.get_path(params, s.path) for s in reg]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = M.loss_fn(cfg, params, masks, batch)[0]
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), {s.name: g for s, g in zip(reg, grads)}
+
+
+def _gathered(dense, leaf, d_out: int):
+    """The dense gradient (L, d_in, d_out) at a condensed leaf's slots:
+    [l, r, j] = dense[l, indices[l, r, j], column of row r] (0 for a padding row)."""
+    import torch
+    g_t = dense.transpose(1, 2)                                   # (L, d_out, d_in)
+    out_index = getattr(leaf, "out_index", None)
+    if out_index is not None:
+        rows = out_index.long().clamp(max=d_out - 1)
+        g_t = torch.gather(g_t, 1, rows[..., None].expand(*rows.shape, g_t.shape[-1]))
+    got = torch.gather(g_t, 2, leaf.indices.long())
+    if out_index is not None:
+        got = got * (out_index < d_out)[..., None]
+    return got
+
+
+def _values_grad_check(label: str, cfg, reg, params, masks, tree, batch, kernel: str,
+                       bound: float | None) -> tuple[dict, dict]:
+    """Backpropagate loss_fn over ``tree`` (values requiring grad) with the
+    counts zeroed just before and read just after, then hold each stack's
+    values gradient to the masked loss's gathered dense gradient. Returns
+    the counts and, per stack, (values gradient, gathered dense gradient)
+    in float32."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+    leaves = {s.name: REG.get_path(tree, s.path) for s in reg}
+    for leaf in leaves.values():
+        leaf.values.requires_grad_(True)
+    per_pass = 4 * cfg.n_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero_counts()
+    loss = M.loss_fn(cfg, params, tree, batch)[0]
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = _counts()
+    step_s = time.perf_counter() - t0
+    # forward 112, then 112 again when each checkpointed block is recomputed
+    expected = {**_none(), kernel: 2 * per_pass, "K3": per_pass}
+    if counts != expected:
+        raise AssertionError(f"{label}: launched {counts}, expected {expected}")
+    mloss, dense = _sparse_grads(cfg, reg, params, masks, batch)
+    if not math.isfinite(loss.item()) or (
+            bound is not None and abs(loss.item() - mloss.item()) > bound * abs(mloss.item())):
+        raise AssertionError(f"{label}: loss {loss.item()} vs masked {mloss.item()}")
+    worst = 0.0
+    grads = {}
+    for s in reg:
+        leaf = leaves[s.name]
+        got = leaf.values.grad.float()
+        want = _gathered(dense[s.name], leaf, s.d_out).float()
+        grads[s.name] = (got, want)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label} {s.name}: non-finite values gradient")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, rel)
+        print(f"[grad:{label}] {s.name}: max |values grad - gathered dense grad| / max |dense "
+              f"grad| = {rel:.3g} (max |dense grad| {want.abs().max().item():.3g})")
+        if bound is not None and not rel <= bound:
+            raise AssertionError(f"{label} {s.name}: {rel} above the bound {bound}")
+        leaf.values.grad = None
+        leaf.values.requires_grad_(False)
+    print(f"[grad:{label}] loss {loss.item():.6f} (masked {mloss.item():.6f}); forward + "
+          f"backward {step_s:.2f}s; launches {counts}; worst relative difference {worst:.3g}"
+          + (f" (bound {bound:g})" if bound is not None else " (reported, not bounded)"))
+    return counts, grads
+
+
+def _bf16_gap(reg, found: dict) -> None:
+    """Where the bf16 values gradient's distance from the masked path's
+    comes from: each bf16 gradient against the float32 one (which the two
+    paths agree on within GRAD_F32_BOUND), as max |difference| / max |f32
+    dense gradient|, and the condensed bf16 gradient again with dx
+    accumulated in float32."""
+    for s in reg:
+        got32, want32 = found["condensed f32"][s.name]
+        got16, want16 = found["condensed bf16"][s.name]
+        dx32 = found["condensed bf16, dx accumulated in f32"][s.name][0]
+        scale = want32.abs().max()
+
+        def rel(a, b):
+            return ((a - b).abs().max() / scale).item()
+        print(f"[grad:bf16] {s.name}: from the f32 gradient: condensed bf16 "
+              f"{rel(got16, got32):.3g}, masked bf16 {rel(want16, want32):.3g}, condensed "
+              f"bf16 with dx accumulated in f32 {rel(dx32, got32):.3g}; condensed vs masked "
+              f"bf16 {rel(got16, want16):.3g}")
+
+
+def grad_phase(setup: dict) -> int:
+    """loss_fn over the condensed serving tree of full-width qwen3-1.7b (90%
+    masks), backpropagated into the values, float32 and bfloat16 (and bf16
+    again with the backward's dx scatter-add in float32, to place the bf16
+    gap); then condensed_over_active on the ablated masks (K4 forward, K3
+    backward). Returns K3's launches per backward."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import condensed as COND
+
+    base, reg, params = setup["base"], setup["reg"], setup["params"]
+    batch = _train_batch(base, params["embed"].device)
+    ablated = _ablate_masks(reg, setup["masks"], ABLATION)
+    runs = (("condensed f32", "float32", COND.export_condensed, setup["masks"], "K1",
+             GRAD_F32_BOUND),
+            ("condensed bf16", "bfloat16", COND.export_condensed, setup["masks"], "K1", None),
+            ("condensed bf16, dx accumulated in f32", "bfloat16", COND.export_condensed,
+             setup["masks"], "K1", None),
+            ("condensed_over_active f32", "float32", COND.export_condensed_over_active,
+             ablated, "K4", GRAD_F32_BOUND))
+    plain_dx = ref.condensed_matmul_dx_ref
+    k3, found = None, {}
+    for label, dtype_name, export, masks, kernel, bound in runs:
+        cfg = base.replace(dtype=dtype_name)
+        tree = export(cfg, reg, params, masks)
+        if "dx accumulated in f32" in label:
+            ref.condensed_matmul_dx_ref = (
+                lambda dy, v, i, d_in: plain_dx(dy.float(), v, i, d_in).to(dy.dtype))
+        try:
+            counts, grads = _values_grad_check(label, cfg, reg, params, masks, tree, batch,
+                                               kernel, bound)
+        finally:
+            ref.condensed_matmul_dx_ref = plain_dx
+        if kernel == "K1":
+            found[label] = grads
+        k3 = counts["K3"] if k3 is None else k3
+        del tree, grads
+        torch.cuda.empty_cache()
+        if len(found) == 3:
+            _bf16_gap(reg, found)
+            found.clear()
+    return k3
+
+
+def _check_dst(cfg, reg, state, old_masks: dict, old_versions: dict) -> None:
+    """The SRigL invariants after a DST update on the full-width state."""
+    import torch
+    from repro_torch.sparse import registry as REG
+    for s in reg:
+        spec = s.srigl_spec(cfg)
+        new, old = REG.get_path(state.masks, s.path), REG.get_path(old_masks, s.path)
+        act = REG.get_path(state.neuron_active, s.path)                  # (L, d_out)
+        fan = new.sum(dim=-2)                                            # (L, d_out)
+        k_new = torch.clamp(spec.target_nnz // act.sum(-1).clamp(min=1), 1, s.d_in)
+        if not bool(torch.where(act, fan == k_new[:, None], fan == 0).all()):
+            raise AssertionError(f"{s.name}: an active neuron's fan-in is not its layer's k'")
+        if not bool((new.sum(dim=(-2, -1)) <= spec.k0 * s.d_out).all()):
+            raise AssertionError(f"{s.name}: nnz above k0 * d_out")
+        grown = new & ~old
+        w = REG.get_path(state.params, s.path)
+        if bool(w.masked_select(grown).any()):
+            raise AssertionError(f"{s.name}: a grown weight is not 0")
+        changed = not torch.equal(new, old)
+        if int(state.mask_versions[s.name]) != old_versions[s.name] + int(changed):
+            raise AssertionError(f"{s.name}: mask_versions did not follow the mask")
+        print(f"[train] DST {s.name}: k' {int(k_new.min())}..{int(k_new.max())} (k0 "
+              f"{spec.k0}), active neurons {act.float().mean().item():.4f}, grown "
+              f"{int(grown.sum())}, pruned {int((old & ~new).sum())}, mask_versions "
+              f"{int(state.mask_versions[s.name])}")
+
+
+def train_phase(device, card: str) -> None:
+    """Full-width qwen3-1.7b training from a seeded random init: the CLI for
+    3 steps, then the Trainer with delta_t=2 for 4 steps (two DST updates),
+    each step and update checked; one more step timed and profiled."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    state = TL.main(["--arch", ARCH, "--steps", "3", "--batch", str(TRAIN_BATCH),
+                     "--seq", str(TRAIN_SEQ)])
+    torch.cuda.synchronize()
+    if int(state.step) != 3 or _counts() != _none():
+        raise AssertionError(f"CLI: step {int(state.step)}, launches {_counts()}")
+    for name, t in (("params", state.params), ("mu", state.opt_state["mu"])):
+        if not all(bool(torch.isfinite(v).all()) for v in _leaf_list(t)):
+            raise AssertionError(f"CLI: non-finite {name}")
+    print(f"[train] CLI --arch {ARCH} --steps 3 --batch {TRAIN_BATCH} --seq {TRAIN_SEQ}: "
+          f"{time.perf_counter() - t0:.1f}s with init; params and moments finite; masked-dense "
+          f"path, no port kernel launched")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    base = configs.get_config(ARCH)
+    cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=2))
+    trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 6), log_every=1)
+    reg = trainer.registry
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                       seed=0)
+    batches = Prefetcher(data.iterate(), depth=2, pin=True)
+    logs: list = []
+    try:
+        for i in range(4):
+            old_masks, old_versions = state.masks, {k: int(v) for k, v in
+                                                    state.mask_versions.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, batches, 1, log_fn=logs.append)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            m = trainer.last_metrics
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"step {i}: loss {loss}, grad norm {gnorm}")
+            dst = (i + 1) % 2 == 0
+            print(f"[train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, lr "
+                  f"{float(m['lr']):.3g}, {dt:.3f}s" + (" with the DST update" if dst else ""))
+            if dst:
+                _check_dst(cfg, reg, state, old_masks, old_versions)
+            else:
+                for s in reg:  # the optimizer re-masked the moments
+                    mask = REG.get_path(state.masks, s.path)
+                    for moment in ("mu", "nu"):
+                        mom = REG.get_path(state.opt_state[moment], s.path)
+                        if bool(mom.masked_fill(mask, 0.0).any()):
+                            raise AssertionError(f"step {i} {s.name}: {moment} is not 0 "
+                                                 f"off the mask")
+            del old_masks
+        if _counts() != _none():
+            raise AssertionError(f"the masked-dense trainer launched {_counts()}")
+        batch = {k: v.to(device) for k, v in next(batches).items()}
+    finally:
+        batches.close()
+    step_fn = trainer._step_fn
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] {card}: init {init_s:.1f}s; train step ({TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+          f"no DST) {min(times) * 1e3:.1f} ms (of {[round(t * 1e3, 1) for t in times]}); "
+          f"{TRAIN_TOKENS / min(times):.0f} tokens/s; peak device memory {peak:.1f} GiB; "
+          f"every loss and grad norm finite, DST invariants held, moments 0 off the mask")
+    _device_profile(lambda: step_fn(state, batch), "train",
+                    f"train step {TRAIN_BATCH}x{TRAIN_SEQ}")
+    del state, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_list(tree) -> list:
+    return [x for v in tree.values() for x in (_leaf_list(v) if isinstance(v, dict) else [v])]
+
+
+def train_reference_phase(device) -> None:
+    """The smoke config (float32) on the card against the port's CPU path:
+    the trainer for 6 steps with delta_t=3 from the same state (losses within
+    TRAIN_LOSS_TOL, masks and neuron_active equal after each DST update), a
+    TrainState checkpoint round trip on the card, and the condensed loss's
+    values gradient (K3 on the card) against the CPU's."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.state import init_train_state, state_to
+    from repro_torch.train.trainer import Trainer
+
+    base = configs.get_smoke_config(ARCH)
+    cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=3))
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
+    gpu = state_to(cpu, device)
+    runs = {}
+    for name, st in (("card", gpu), ("cpu", cpu)):
+        trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 6), log_every=100)
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4, seed=0)
+        it = data.iterate()
+        losses, masks = [], []
+        for i in range(6):
+            st = trainer.fit(st, it, 1, log_fn=lambda line: None)
+            losses.append(float(trainer.last_metrics["loss"]))
+            if (i + 1) % 3 == 0:
+                masks.append(bridge.flatten({"m": st.masks, "a": st.neuron_active}))
+        runs[name] = (st, losses, masks)
+    (gpu, g_loss, g_masks), (cpu, c_loss, c_masks) = runs["card"], runs["cpu"]
+    diff = max(abs(a - b) for a, b in zip(g_loss, c_loss))
+    if not diff <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"trainer: card losses {g_loss} vs cpu {c_loss}")
+    for n, (gm, cm_) in enumerate(zip(g_masks, c_masks)):
+        for k in gm:
+            if not torch.equal(gm[k].cpu(), cm_[k]):
+                raise AssertionError(f"trainer: {k} differs after DST update {n + 1}")
+    print(f"[reference] smoke trainer, 6 steps, delta_t=3: card == CPU plain path, losses "
+          f"within {diff:.3g} (tolerance {TRAIN_LOSS_TOL:g}), masks and neuron_active equal "
+          f"after both DST updates; losses {[round(x, 5) for x in g_loss]}")
+
+    template = state_to(init_train_state(cfg, torch.Generator().manual_seed(1)), device)
+    out_dir = REPO / "build"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as d:
+        CKPT.save(d, gpu)
+        got = CKPT.restore(d, CKPT.latest_step(d), template)
+    want_np = bridge.flatten(bridge.train_state_to_jax_numpy(gpu))
+    got_np = bridge.flatten(bridge.train_state_to_jax_numpy(got))
+    if want_np.keys() != got_np.keys() or got.params["embed"].device != gpu.params["embed"].device:
+        raise AssertionError("TrainState checkpoint: keys or device differ")
+    for k in want_np:
+        if want_np[k].dtype != got_np[k].dtype or not np.array_equal(want_np[k], got_np[k]):
+            raise AssertionError(f"TrainState checkpoint: {k} differs after the round trip")
+    print(f"[reference] TrainState checkpoint on the card: {len(want_np)} arrays (params, "
+          f"AdamW mu/nu/count, masks, neuron_active, mask_versions, rng) bitwise equal after "
+          f"save and restore")
+
+    # the condensed loss's values gradient: K3 (and K1) on the card vs the CPU
+    params = cpu.params
+    reg = REG.build_registry(cfg)
+    batch = _train_batch(cfg, "cpu", batch=2, seq=12)
+    grads = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        p = {k: (v.to(dev) if not isinstance(v, dict) else {kk: vv.to(dev) for kk, vv
+                                                           in v.items()})
+             for k, v in params.items()}
+        tree = COND.export_condensed(cfg, reg, p, {"blocks": {k: v.to(dev) for k, v in
+                                                             cpu.masks["blocks"].items()}})
+        for s in reg:
+            REG.get_path(tree, s.path).values.requires_grad_(True)
+        _zero_counts()
+        M.loss_fn(cfg, p, tree, {k: v.to(dev) for k, v in batch.items()})[0].backward()
+        grads[name] = ({s.name: REG.get_path(tree, s.path).values.grad.cpu() for s in reg},
+                       _counts()["K3"])
+    for s in reg:
+        torch.testing.assert_close(grads["card"][0][s.name], grads["cpu"][0][s.name],
+                                   **SMOKE_GRAD_TOL)
+    if grads["card"][1] != 4 * cfg.n_layers or grads["cpu"][1] != 0:
+        raise AssertionError(f"smoke values gradient: K3 launches {grads['card'][1]} on the "
+                             f"card, {grads['cpu'][1]} on the CPU")
+    print(f"[reference] smoke condensed loss, values gradient on the card (K3 x "
+          f"{grads['card'][1]}) == CPU plain path within {SMOKE_GRAD_TOL}")
+
+
 def reference_phase(device):
     """The smoke config on the card against the port's CPU path (which the
     CPU tests hold to the JAX package), float and int8/fp8 trees alike; each
@@ -1129,8 +1610,8 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     build_phase()
-    cases = kernel_phase(device) + ablation_kernel_phase(device) + quant_kernel_phase(device)
-    k3_bound()
+    cases = (kernel_phase(device) + ablation_kernel_phase(device) + quant_kernel_phase(device)
+             + dw_kernel_phase(device))
     setup = model_setup(device)
     launches = {"K1": slice_phase(setup, card)}
     ablation = ablation_phase(setup, card)
@@ -1141,8 +1622,13 @@ def main() -> int:
     quant = quant_phase(setup, card)
     launches.update({"K2": quant["K2"], "K2-coa": quant["K2-coa"]})
     checkpoint_phase(setup)
+    launches["K3"] = grad_phase(setup)
     del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(device, card)
     reference_phase(device)
+    train_reference_phase(device)
 
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1151,8 +1637,18 @@ def main() -> int:
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:
-        layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
-                 and c["launch"] == "decode" and c.get("codes", "int8") == "int8"]
+        if key == "K3":  # the training layer: every stack's full row count
+            layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
+                     and c["batch"] == TRAIN_TOKENS and c["rows"] == c["d_out"]]
+            shape = (f"one training layer: wo + w_gate + w_up + w_down, B*T={TRAIN_TOKENS}, "
+                     f"bfloat16 dy and x")
+        else:
+            layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
+                     and c["launch"] == "decode" and c.get("codes", "int8") == "int8"]
+            shape = ("one decode layer: wo + w_gate + w_up + w_down, B=4, bfloat16"
+                     + (", int8 codes" if key.startswith("K2") else "")
+                     + (", 50% of each stack's neurons ablated"
+                        if key not in ("K1", "K2") else ""))
         total = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
                  for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append({
@@ -1168,10 +1664,7 @@ def main() -> int:
             "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in layer)
                          else "operations"),
             "library_ms": total["library_ms"],
-            "shape": "one decode layer: wo + w_gate + w_up + w_down, B=4, bfloat16"
-                     + (", int8 codes" if key.startswith("K2") else "")
-                     + (", 50% of each stack's neurons ablated"
-                        if key not in ("K1", "K2") else ""),
+            "shape": shape,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -73,3 +73,37 @@ def to_jax_numpy(tree: dict) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype in RAW_BITS else t).numpy()
     return unflatten({k: arr(v) for k, v in flatten(tree).items()})
+
+
+def _tensors(tree, device):
+    """Nested numpy -> tensors: 0-dim counters on the CPU, the rest on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return _to_tensor(tree, "cpu" if np.ndim(tree) == 0 else device)
+
+
+def train_state_from_jax_numpy(state, device="cpu"):
+    """The reference's ``TrainState`` (numpy leaves, e.g. after
+    ``jax.tree.map(np.asarray, state)``) as the port's, tensors on
+    ``device``; ``step``, ``opt_state/count`` and ``mask_versions`` as CPU
+    int32 tensors and the ``rng`` key as a uint32 numpy array."""
+    from repro_torch.train.state import TrainState
+    d = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    trees = {k: from_jax_numpy(d[k], device) if d[k] else {}
+             for k in ("params", "masks", "neuron_active", "grad_accum")}
+    return TrainState(step=_to_tensor(d["step"], "cpu"), opt_state=_tensors(d["opt_state"], device),
+                      mask_versions={k: _to_tensor(v, "cpu") for k, v in d["mask_versions"].items()},
+                      rng=np.array(d["rng"], dtype=np.uint32), **trees)
+
+
+def train_state_to_jax_numpy(state) -> dict:
+    """The port's ``TrainState`` as the reference's fields, nested numpy
+    (``TrainState(**jax.tree.map(jnp.asarray, out))`` on that side)."""
+    def arr(t):
+        if isinstance(t, dict):
+            return {k: arr(v) for k, v in t.items()}
+        if isinstance(t, np.ndarray):
+            return t.copy()
+        t = t.detach().cpu()
+        return (t.float() if t.dtype in RAW_BITS else t).numpy()
+    return {k: arr(v) for k, v in state._asdict().items()}

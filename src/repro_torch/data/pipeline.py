@@ -1,0 +1,101 @@
+"""Deterministic, restart-safe synthetic data pipeline (port of
+``repro/data/pipeline.py``).
+
+Batches are seeded by (run seed, step), so a restarted job regenerates
+exactly the batch it would have seen. The token stream is the reference's
+order-2 Markov chain over the vocab, drawn with numpy from the same seeds,
+so ``SyntheticLM.batch`` gives the reference's arrays bit for bit. A
+background thread (``Prefetcher``) keeps ``depth`` batches ahead of the
+training loop as pinned CPU tensors; the copy to the card is the caller's,
+explicit and non-blocking.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Markov-chain token stream with per-(seed, step) determinism (the
+    dense family's batches: ``tokens`` and ``targets``, (B, T) int32)."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    family: str = "dense"
+
+    def __post_init__(self):
+        if self.family != "dense":
+            raise NotImplementedError(f"family {self.family!r} batches are not ported yet")
+        rng = np.random.default_rng(self.seed)
+        v = self.vocab_size
+        succ = min(8, v)  # each token has ~8 successors
+        self._succ_idx = rng.integers(0, v, size=(v, succ))
+        self._succ_p = rng.dirichlet(np.ones(succ), size=v)
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed * 1_000_003 + step) % (2**63))
+        b, t, v = self.batch_size, self.seq_len, self.vocab_size
+        toks = np.empty((b, t + 1), np.int32)
+        toks[:, 0] = rng.integers(0, v, size=b)
+        for i in range(t):
+            cur = toks[:, i]
+            choice = (rng.random(b)[:, None] < np.cumsum(self._succ_p[cur], -1)).argmax(-1)
+            toks[:, i + 1] = self._succ_idx[cur, choice]
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def iterate(self, start_step: int = 0) -> Iterator[dict]:
+        step = start_step
+        while True:
+            yield self.batch(step)
+            step += 1
+
+
+def to_tensors(batch: dict, pin: bool = False) -> dict:
+    """A numpy batch as CPU tensors, in pinned memory if ``pin``."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    return {k: v.pin_memory() for k, v in out.items()} if pin else out
+
+
+class Prefetcher:
+    """Background-thread prefetch of ``depth`` batches, each turned into CPU
+    tensors (pinned when ``pin``) off the training loop's thread."""
+
+    def __init__(self, it: Iterator[dict], depth: int = 2, pin: bool = False):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._pin = pin
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for item in self._it:
+            if self._stop.is_set():
+                return
+            item = to_tensors(item, self._pin)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        """Stop the thread and wait for it (it never blocks longer than a
+        tenth of a second on a full queue)."""
+        self._stop.set()
+        self._thread.join(timeout=10)

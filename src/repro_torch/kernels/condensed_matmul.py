@@ -1,4 +1,4 @@
-"""Condensed constant fan-in matmul: wrappers of the Hopper kernels K1 and K2.
+"""Condensed constant fan-in matmul: wrappers of the Hopper kernels K1, K2 and K3.
 
 K1: ``y[b, n] = sum_k f32(x[b, indices[n, k]]) * f32(values[n, k])``, cast to
 ``x.dtype``: the function of ``repro/kernels/condensed_matmul.py::_fwd_kernel``.
@@ -8,6 +8,10 @@ function of ``_fwd_scaled_kernel``. The CUDA source is
 ``csrc/condensed_matmul.cu`` (its header note gives the byte bound and the
 design); ``ref.condensed_matmul_ref`` and ``ref.condensed_matmul_scaled_ref``
 are the plain versions.
+K3 (``condensed_matmul_dw``): the values gradient,
+``dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, indices[n, k]])`` in float32,
+the function of ``_dw_kernel``; its source is ``csrc/condensed_dw.cu`` and
+``ref.condensed_matmul_dw_ref`` its plain version.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback. As in the reference,
@@ -15,9 +19,10 @@ launches the kernel or raises — there is no fallback. As in the reference,
 block row) and larger batches the tiled launch (8-row batch tiles); a
 caller-given ``block_b`` forces the tiled launch. The two are bitwise equal.
 
-``condensed_matmul.launches`` counts K1's launches and
-``condensed_matmul.scaled_launches`` K2's (never plain-version calls), so a
-run can show that its sparse linears went through the kernel it expects.
+``condensed_matmul.launches`` counts K1's launches,
+``condensed_matmul.scaled_launches`` K2's and ``condensed_matmul_dw.launches``
+K3's (never plain-version calls), so a run can show that its sparse linears
+went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -166,8 +171,6 @@ condensed_matmul.launches = 0
 condensed_matmul.scaled_launches = 0
 
 
-
-
 def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
                             indices: torch.Tensor, *,
                             scales: torch.Tensor | None = None) -> torch.Tensor:
@@ -181,3 +184,62 @@ def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
     b = x.shape[0]
     rows = next(r for r in BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
     return _launch(x, values, indices, scales, _fit_rows(rows, x.shape[1], x.element_size()))
+
+
+@functools.cache
+def _dw_lib() -> ctypes.CDLL:
+    lib = _build.load("condensed_dw")
+    fn = lib.condensed_matmul_dw
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.condensed_dw_error_string.argtypes = [ctypes.c_int]
+    lib.condensed_dw_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
+                        indices: torch.Tensor) -> torch.Tensor:
+    """Values gradient (K3). dy (B, n_out), x (B, d_in), indices (n_out, k)
+    int32 -> dw (n_out, k) float32.
+
+    dy and x are both float32 or both bfloat16. Every index must lie in
+    [0, d_in); the kernel does not check it. Each batch row is added in
+    order, whatever the tile, so two launches are bitwise equal.
+    """
+    if dy.ndim != 2 or x.ndim != 2 or indices.ndim != 2 or dy.shape != (
+            x.shape[0], indices.shape[0]):
+        raise ValueError(f"need dy (B, n_out), x (B, d_in), indices (n_out, k); got "
+                         f"{tuple(dy.shape)}, {tuple(x.shape)}, {tuple(indices.shape)}")
+    if dy.dtype not in _DTYPE_CODES or x.dtype != dy.dtype:
+        raise TypeError(f"dy and x must both be float32 or bfloat16; got {dy.dtype}, {x.dtype}")
+    if indices.dtype != torch.int32:
+        raise TypeError(f"indices must be int32, got {indices.dtype}")
+    if not (dy.device == x.device == indices.device):
+        raise ValueError("dy, x and indices must be on one device")
+    if not (dy.is_contiguous() and x.is_contiguous() and indices.is_contiguous()):
+        raise ValueError("dy, x and indices must be contiguous")
+    if x.device.type == "cpu":
+        return ref.condensed_matmul_dw_ref(dy, x, indices)
+    if x.device.type != "cuda":
+        raise ValueError(f"the condensed_matmul_dw kernel runs on CUDA tensors, not {x.device}")
+    b, d_in = x.shape
+    n_out, k = indices.shape
+    dw = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return dw.zero_()
+    if n_out == 0 or k == 0:
+        return dw
+    lib = _dw_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.condensed_matmul_dw(dy.data_ptr(), x.data_ptr(), indices.data_ptr(),
+                                      dw.data_ptr(), b, d_in, n_out, k, _DTYPE_CODES[x.dtype],
+                                      _fit_rows(8, d_in, x.element_size()), stream)
+    if err:
+        raise RuntimeError("condensed_matmul_dw kernel launch failed: "
+                           + lib.condensed_dw_error_string(err).decode())
+    condensed_matmul_dw.launches += 1
+    return dw
+
+
+condensed_matmul_dw.launches = 0

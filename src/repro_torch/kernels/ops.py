@@ -1,24 +1,34 @@
 """Layer-level wrappers of the sparse kernels (port of ``repro/kernels/ops.py``).
 
-Forward only so far; each flattens the leading dims of x to the batch axis:
+``condensed_linear`` and ``condensed_over_active_linear`` are
+``torch.autograd.Function``s, the reference's custom VJPs: the forward runs
+K1 / K4; the backward computes
 
-* ``condensed_linear_nd`` — the condensed gather (K1; K2 with ``scales=``);
+  dx = scatter-add of dy * values, in dy's dtype (``ref.condensed_matmul_dx_ref``)
+  dw = the values-gradient kernel K3 (``condensed_matmul.condensed_matmul_dw``),
+
+returned at x's and values' dtypes. The rest are forward only. The ``_nd``
+wrappers flatten the leading dims of x to the batch axis:
+
+* ``condensed_linear_nd`` — the condensed gather (K1; K2 with ``scales=``,
+  inference only);
 * ``condensed_over_active_linear_nd`` — the gather over surviving rows,
-  written through ``out_index`` (K4; K2-coa with ``scales=``);
+  written through ``out_index`` (K4; K2-coa with ``scales=``, inference
+  only);
 * ``structured_linear_nd`` — the column-gathered matmul over the live dense
   weight (K5, or K6 with ``REPRO_PREFETCH_GATHER=1`` at decode shapes);
 * ``structured_gathered_linear_nd`` — the same kernel over a caller-supplied
   panel of gathered columns;
 * ``structured_dense`` — the formula the structured kernel is held to.
 
-Their ``torch.autograd.Function``s (dx by scatter-add, dw by the K3 kernel)
-come with the training slice.
+The structured linear's backward is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import condensed_matmul as cm
+from repro_torch.kernels import ref
 from repro_torch.kernels import structured_matmul as sm
 from repro_torch.kernels.ref import structured_dense  # noqa: F401  (the reference's ops name)
 
@@ -27,12 +37,92 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
+def _needs_graph(x: torch.Tensor, values: torch.Tensor) -> bool:
+    """Whether autograd records this call; serving calls the kernel directly
+    and skips the Function's per-call cost."""
+    return torch.is_grad_enabled() and (x.requires_grad or values.requires_grad)
+
+
+class _CondensedLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, values, indices):
+        ctx.save_for_backward(x, values, indices)
+        return cm.condensed_matmul(x, values, indices)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ref.condensed_matmul_dx_ref(dy, values, indices, x.shape[-1]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = cm.condensed_matmul_dw(dy, x, indices).to(values.dtype)
+        return dx, dw, None
+
+
+def condensed_linear(x: torch.Tensor, values: torch.Tensor,
+                     indices: torch.Tensor) -> torch.Tensor:
+    """y[b, n] = sum_k x[b, indices[n, k]] * values[n, k]; differentiable in
+    x and values. x (B, d_in); values, indices (n_out, k)."""
+    if _needs_graph(x, values):
+        return _CondensedLinear.apply(x, values, indices)
+    return cm.condensed_matmul(x, values, indices)
+
+
+def _dy_active(dy: torch.Tensor, out_index: torch.Tensor, d_out: int) -> torch.Tensor:
+    """dy at the surviving rows' dense columns; padding rows
+    (out_index == d_out) get exact-zero cotangents."""
+    sel = dy[:, out_index.clamp(max=d_out - 1).long()]
+    return (sel * (out_index < d_out)[None, :].to(sel.dtype)).contiguous()
+
+
+class _CondensedOverActiveLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, values, indices, out_index, d_out):
+        ctx.save_for_backward(x, values, indices, out_index)
+        ctx.d_out = d_out
+        return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, out_index = ctx.saved_tensors
+        dy_act = _dy_active(dy, out_index, ctx.d_out)                 # (B, a)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ref.condensed_matmul_dx_ref(dy_act, values, indices, x.shape[-1]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = cm.condensed_matmul_dw(dy_act, x, indices).to(values.dtype)
+        return dx, dw, None, None, None
+
+
+def condensed_over_active_linear(x: torch.Tensor, values: torch.Tensor,
+                                 indices: torch.Tensor, out_index: torch.Tensor,
+                                 d_out: int) -> torch.Tensor:
+    """The condensed gather over the ``a`` surviving rows, row r stored at
+    column ``out_index[r]`` of the (B, d_out) output (``d_out`` marks a
+    padding row); differentiable in x and values."""
+    if _needs_graph(x, values):
+        return _CondensedOverActiveLinear.apply(x, values, indices, out_index, d_out)
+    return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out)
+
+
+def _inference_only(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("quantized values (scales=) are inference-only: no gradient "
+                           "flows through them")
+
+
 def condensed_linear_nd(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
                         scales: torch.Tensor | None = None) -> torch.Tensor:
     """y[..., n] = sum_k x[..., indices[n, k]] * values[n, k]. ``scales``
     marks ``values`` as int8/fp8 codes: y[..., n] is then that sum times
     scales[n] (the dequant-fused kernel K2; inference only)."""
-    y = cm.condensed_matmul(_rows(x), values, indices, scales=scales)
+    if scales is None:
+        y = condensed_linear(_rows(x), values, indices)
+    else:
+        _inference_only(x)
+        y = cm.condensed_matmul(_rows(x), values, indices, scales=scales)
     return y.reshape(*x.shape[:-1], values.shape[0])
 
 
@@ -43,8 +133,12 @@ def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,
     """y[..., out_index[r]] = sum_k x[..., indices[r, k]] * values[r, k] over
     the surviving rows r; every other output column is exactly zero.
     ``scales`` marks ``values`` as codes, as in ``condensed_linear_nd`` (K2-coa)."""
-    y = sm.condensed_over_active_matmul(_rows(x), values, indices, out_index, d_out,
-                                        scales=scales)
+    if scales is None:
+        y = condensed_over_active_linear(_rows(x), values, indices, out_index, d_out)
+    else:
+        _inference_only(x)
+        y = sm.condensed_over_active_matmul(_rows(x), values, indices, out_index, d_out,
+                                            scales=scales)
     return y.reshape(*x.shape[:-1], d_out)
 
 

@@ -112,3 +112,35 @@ def structured_dense(x: torch.Tensor, weight: torch.Tensor,
     structured kernel (K5) is held to it with a tolerance.
     """
     return x @ (weight * neuron_active[None, :].to(weight.dtype))
+
+
+def condensed_matmul_dx_ref(dy: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                            d_in: int) -> torch.Tensor:
+    """Gradient wrt x: scatter-add of dy * values back to the input features,
+    in ``dy.dtype`` — ``repro/kernels/ref.py::condensed_matmul_dx_ref``.
+
+    dy (B, n_out), values/indices (n_out, k) -> (B, d_in). Neurons go in
+    chunks so the (B, chunk, k) products stay near 2**26 elements. On the
+    card ``index_add_`` adds with atomics, in an order that varies.
+    """
+    b = dy.shape[0]
+    n_out, k = values.shape
+    dx = torch.zeros((b, d_in), dtype=dy.dtype, device=dy.device)
+    step = max(1, (1 << 26) // max(b * k, 1))
+    for n0 in range(0, n_out, step):
+        contrib = dy[:, n0:n0 + step, None] * values[None, n0:n0 + step].to(dy.dtype)
+        dx.index_add_(1, indices[n0:n0 + step].reshape(-1).long(), contrib.reshape(b, -1))
+    return dx
+
+
+def condensed_matmul_dw_ref(dy: torch.Tensor, x: torch.Tensor,
+                            indices: torch.Tensor) -> torch.Tensor:
+    """Gradient wrt values: dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, indices[n, k]]).
+
+    dy (B, n_out), x (B, d_in), indices (n_out, k) -> (n_out, k), float32
+    for 16-bit inputs, else the inputs' dtype: the function and output type
+    of ``repro/kernels/condensed_matmul.py::_dw_kernel`` (the kernel K3).
+    """
+    out = torch.float32 if dy.dtype in (torch.bfloat16, torch.float16) else dy.dtype
+    gathered = x[:, indices.long()].float()                        # (B, n_out, k)
+    return torch.einsum("bn,bnk->nk", dy.float(), gathered).to(out)

@@ -8,13 +8,17 @@ or a ``formats.SparseFormat``) from the ``masks`` tree, whose paths mirror
 the params.
 
 Ported so far: the dense family (qwen3-style GQA with qk-norm, RoPE, SwiGLU)
-without sliding windows, for serving: ``init_params``, ``prefill_step``,
-``decode_step`` and their pieces. The loss, the other families and the paged
-KV pool come with later slices.
+without sliding windows: ``init_params``, ``prefill_step``, ``decode_step``
+and their pieces for serving, and ``backbone``, ``cross_entropy_chunked``
+and ``loss_fn`` for training. ``remat="block"`` recomputes each block and
+each cross-entropy chunk in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+The other families and the paged KV pool come with later slices.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -124,10 +128,14 @@ def _heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked params or serving tree."""
-    return {k: v.layer(i) if isinstance(v, F.SparseFormat) else v[i]
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked params or serving tree, each tensor
+    split once by ``unbind``. Its backward stacks the layers' gradients in
+    one op, where indexing layer by layer would add a zero tensor the size
+    of the whole stack into the gradient once per layer."""
+    cols = {k: v.unstack() if isinstance(v, F.SparseFormat) else v.unbind(0)
             for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: int,
@@ -187,6 +195,41 @@ def attn_mlp_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
 
 
 # ===========================================================================
+# forward (training / scoring): final hidden states
+# ===========================================================================
+
+def _maybe_remat(cfg, fn):
+    """``fn`` recomputed in the backward pass when ``cfg.remat == "block"``:
+    only its inputs are kept, so its forward runs twice per step."""
+    if cfg.remat != "block":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
+def _train_block(cfg, p, m, x, positions):
+    return attn_mlp_block(cfg, p, m, x, positions=positions, window=cfg.sliding_window)[0]
+
+
+def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
+             positions) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the block stack. x: (B, T, d). Returns (hidden, aux_loss).
+
+    Sparse leaves of ``masks`` are bool masks (the straight-through masked
+    matmul, whose weight gradient is dense) or serving formats (which
+    differentiate through their values where those require grad).
+    """
+    check_supported(cfg)
+    masks = masks or {}
+    stack_p, stack_m = params["blocks"], masks.get("blocks", {})
+    block = _maybe_remat(cfg, _train_block)
+    for p_i, m_i in zip(_unstack(stack_p, cfg.n_layers), _unstack(stack_m, cfg.n_layers)):
+        x = block(cfg, p_i, m_i, x, positions)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ===========================================================================
 # embedding / head
 # ===========================================================================
 
@@ -199,6 +242,64 @@ def embed_inputs(cfg, params: Params, batch: dict):
     if positions is None:
         positions = torch.arange(t, device=toks.device)[None].expand(bsz, t)
     return x, positions
+
+
+def _ce_chunk(h_i, t_i, m_i, lm_head, n_valid: int):
+    logits = torch.matmul(h_i, lm_head.to(h_i.dtype)).float()
+    v_total = lm_head.shape[-1]
+    if n_valid != v_total:  # padded vocab columns
+        valid = torch.arange(v_total, device=logits.device) < n_valid
+        logits = torch.where(valid, logits, torch.full((), -1e30, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, t_i[..., None].long(), dim=-1)[..., 0]
+    nll = (lse - gold) * m_i
+    return nll.sum(), m_i.sum()
+
+
+def cross_entropy_chunked(hidden: torch.Tensor, lm_head: torch.Tensor,
+                          targets: torch.Tensor, chunk: int,
+                          loss_mask: torch.Tensor | None = None,
+                          valid_vocab: int = 0) -> torch.Tensor:
+    """Mean token cross-entropy without materializing (B, T, V) logits.
+
+    hidden: (B, T, d); lm_head: (d, V); targets: (B, T) int. T goes in
+    chunks of ``chunk``; each chunk's (B, Tc, V) float32 logits are
+    recomputed in the backward pass instead of kept.
+    """
+    b, t, _ = hidden.shape
+    chunk = min(chunk, t)
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    lm = (loss_mask.float() if loss_mask is not None
+          else torch.ones((b, t), dtype=torch.float32, device=hidden.device))
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        lm = torch.nn.functional.pad(lm, (0, pad))
+    n_valid = valid_vocab if valid_vocab else lm_head.shape[-1]
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        n_i, c_i = checkpoint(_ce_chunk, hidden[:, sl], targets[:, sl], lm[:, sl], lm_head,
+                              n_valid, use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + n_i, cnt + c_i
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg, params: Params, masks: Masks, batch: dict):
+    """Training loss: next-token cross-entropy of the (tied) head.
+
+    Returns (total, {"loss": ..., "aux_loss": ...}); the dense family's aux
+    loss is 0, so total == loss.
+    """
+    x, positions = embed_inputs(cfg, params, batch)
+    hidden, aux = backbone(cfg, params, masks, x, positions=positions)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    loss = cross_entropy_chunked(hidden, head, batch["targets"], cfg.ce_chunk,
+                                 batch.get("loss_mask"), valid_vocab=cfg.vocab_size)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux}
 
 
 def _lm_logits(cfg, params: Params, last: torch.Tensor) -> torch.Tensor:
@@ -233,10 +334,11 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
 
 
 def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
-    stack_p, stack_m = params["blocks"], masks.get("blocks", {})
+    layers_p = _unstack(params["blocks"], cfg.n_layers)
+    layers_m = _unstack(masks.get("blocks", {}), cfg.n_layers)
     kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
     for i in range(cfg.n_layers):
-        x, _ = attn_mlp_block(cfg, _layer(stack_p, i), _layer(stack_m, i), x,
+        x, _ = attn_mlp_block(cfg, layers_p[i], layers_m[i], x,
                               positions=positions, window=cfg.sliding_window,
                               cache=(kc[i], vc[i], cache["len"]), decode=decode)
     return x

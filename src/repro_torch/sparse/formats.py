@@ -245,8 +245,8 @@ class SparseFormat:
     """Base of the serving formats (see the module docstring).
 
     Subclasses are frozen dataclasses naming their tensor fields in
-    ``_array_fields``; ``layer``, ``to``, ``bridge.flatten`` and the
-    checkpoint walk those. An optional field may be None (``scales`` of a
+    ``_array_fields``; ``unstack``, ``layer``, ``to``, ``bridge.flatten``
+    and the checkpoint walk those. An optional field may be None (``scales`` of a
     float export); ``arrays`` leaves it out.
     """
 
@@ -260,9 +260,17 @@ class SparseFormat:
         return {f: getattr(self, f) for f in self._array_fields
                 if getattr(self, f) is not None}
 
+    def unstack(self) -> list:
+        """The layers of a stacked instance, each tensor split once on axis 0
+        by ``unbind`` (whose backward stacks the layers' gradients in one op)."""
+        parts = {f: t.unbind(0) for f, t in self.arrays().items()}
+        n = len(next(iter(parts.values())))
+        return [dataclasses.replace(self, **{f: p[i] for f, p in parts.items()})
+                for i in range(n)]
+
     def layer(self, i: int):
-        """Layer ``i`` of a stacked instance (each tensor indexed on axis 0)."""
-        return dataclasses.replace(self, **{f: t[i] for f, t in self.arrays().items()})
+        """Layer ``i`` of a stacked instance."""
+        return self.unstack()[i]
 
     def to(self, device):
         return dataclasses.replace(self, **{f: t.to(device) for f, t in self.arrays().items()})

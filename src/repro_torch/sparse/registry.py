@@ -7,8 +7,9 @@ over the stacks. Paper defaults: MLP and attention-output projections are
 sparse; QKV input projections, norms and embeddings stay dense.
 
 Ported so far: the dense family's enumeration, ``k_fan_map``, the tree path
-helpers and SRigL mask initialization. The DST update waits for the
-training slice.
+helpers, SRigL mask initialization, the SRigL topology update over every
+stack (``dst_update``) and ``sparsity_summary``. The RigL and SET updates
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import distributions as D
+from repro_torch.core import srigl as S
 from repro_torch.core import topology
 
 
@@ -37,6 +39,12 @@ class SparseStack:
     @property
     def name(self) -> str:
         return "/".join(self.path)
+
+    def srigl_spec(self, cfg) -> S.SRigLSpec:
+        sp = cfg.sparsity
+        return S.SRigLSpec(
+            name=self.name, d_in=self.d_in, d_out=self.d_out,
+            density=self.density, gamma_sal=sp.gamma_sal, ablation=sp.ablation)
 
 
 def _attn_stacks(cfg, prefix: tuple, lead: tuple, with_mlp=True) -> list[SparseStack]:
@@ -111,3 +119,58 @@ def init_sparsity_state(cfg, generator: torch.Generator,
         set_path(active, s.path, torch.ones((*s.lead, s.d_out), dtype=torch.bool,
                                             device=generator.device))
     return {"masks": masks, "neuron_active": active}
+
+
+def _map_over_lead(fn, n_lead: int, *args):
+    """``fn`` on one layer slab at a time along the FIRST leading axis (the
+    reference's ``lax.map``), its (LayerState, UpdateStats) stacked; inner
+    leading axes go to ``fn`` whole. Selection temporaries then stay at one
+    slab's size."""
+    if n_lead == 0:
+        return fn(*args)
+    outs = [fn(*xs) for xs in zip(*args)]
+    return (S.LayerState(*(torch.stack(t) for t in zip(*(o[0] for o in outs)))),
+            S.UpdateStats(*(torch.stack(t) for t in zip(*(o[1] for o in outs)))))
+
+
+def dst_update(cfg, registry: Sequence[SparseStack], params: dict, grads: dict,
+               state: dict, drop_fraction, rng=None):
+    """One topology update across every sparse stack.
+
+    Run on its own every delta_t steps (not inside the train step), one
+    layer slab at a time, with the float32 casts made per slab. ``rng`` is
+    the reference's key argument, which only its SET update reads.
+    Returns (new_state, stats keyed by stack name: each an ``UpdateStats``
+    field as an int32 tensor over the stack's leading dims).
+    """
+    method = cfg.sparsity.method
+    if method != "srigl":
+        raise NotImplementedError(f"the {method!r} topology update is not ported yet")
+    new_masks, new_active, stats = {}, {}, {}
+    for s in registry:
+        spec = s.srigl_spec(cfg)
+
+        def fn(w_, g_, m_, a_, spec=spec):
+            return S.srigl_update(spec, w_.float(), g_.float(), S.LayerState(m_, a_),
+                                  drop_fraction)
+        st, sts = _map_over_lead(fn, len(s.lead), get_path(params, s.path),
+                                 get_path(grads, s.path), get_path(state["masks"], s.path),
+                                 get_path(state["neuron_active"], s.path))
+        set_path(new_masks, s.path, st.mask)
+        set_path(new_active, s.path, st.neuron_active)
+        stats[s.name] = dict(sts._asdict())
+    return {"masks": new_masks, "neuron_active": new_active}, stats
+
+
+def sparsity_summary(registry: Sequence[SparseStack], state: dict) -> dict:
+    """Host-side summary: realized density and active-neuron fraction per stack."""
+    out = {}
+    for s in registry:
+        m = get_path(state["masks"], s.path)
+        a = get_path(state["neuron_active"], s.path)
+        out[s.name] = {
+            "density": float(m.float().mean()),
+            "target_density": s.density,
+            "active_neurons": float(a.float().mean()),
+        }
+    return out

@@ -5,7 +5,10 @@ ten digits. ``<dir>/step_<N>.tmp`` is written first and renamed, so a crash
 mid-save never leaves a half-written checkpoint; ``keep`` bounds how many
 stay. Arrays are keyed by the ``"/"``-joined paths of the state (a format
 leaf's arrays under their field names, ``…/values``, ``…/scales``…), the
-layout the JAX package writes, so each side restores the other's files.
+layout the JAX package writes, so each side restores the other's files,
+a whole ``train.state.TrainState`` included (``opt_state/mu/…``,
+``opt_state/count``, ``mask_versions/…`` and the uint32 ``rng`` key, which
+restores as a numpy array where the template holds one).
 
 numpy has no bfloat16 or float8: the reference's ``np.savez`` writes those
 arrays as raw bytes (``|V2``, ``|V1``), and so does ``save`` here. ``restore``
@@ -120,8 +123,11 @@ def _archive_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _like(t: torch.Tensor, template, *, keep_dtype: bool = False) -> torch.Tensor:
-    """``t`` on the template leaf's device, at its dtype unless ``keep_dtype``."""
+def _like(t: torch.Tensor, template, *, keep_dtype: bool = False):
+    """``t`` on the template leaf's device, at its dtype unless ``keep_dtype``;
+    a numpy template leaf (a ``TrainState``'s ``rng`` key) gets a numpy array."""
+    if isinstance(template, np.ndarray):
+        return t.numpy().astype(template.dtype)
     if not isinstance(template, torch.Tensor):
         return t
     return t.to(device=template.device, dtype=None if keep_dtype else template.dtype)

@@ -24,11 +24,15 @@ import typing  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from repro import configs as JCfg  # noqa: E402
 from repro.sparse import formats as JF  # noqa: E402
 from repro.train import checkpoint as JCK  # noqa: E402
+from repro.train import state as JSt  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as TCfg  # noqa: E402
 from repro_torch.sparse import formats as TF  # noqa: E402
 from repro_torch.train import checkpoint as TCK  # noqa: E402
+from repro_torch.train import state as TSt  # noqa: E402
 
 D_IN, D_OUT, K = 48, 40, 7
 # leaf name -> (format, values dtype)
@@ -228,3 +232,43 @@ def test_steps_keep_and_atomic_rename(tmp_path):
                                          "new": extra})
     assert int(got["step"]) == 4 and got["new"] is extra
     assert torch.equal(got["serve"]["stack"].values, tree["stack"].values)
+
+
+def _jstate_numpy(state) -> dict:
+    """The reference's TrainState as {"a/b": numpy}."""
+    return bridge.flatten(jax.tree.map(np.asarray, state)._asdict())
+
+
+def test_train_state_round_trips_across_frameworks(tmp_path):
+    """A whole smoke TrainState (params, AdamW mu/nu/count, masks,
+    neuron_active, mask_versions, the uint32 rng key): the reference's save
+    restores into a port-initialized template bitwise, and the port's save
+    of it restores through the reference's restore bitwise."""
+    jcfg = JCfg.get_smoke_config("qwen3-1.7b")
+    js = JSt.init_train_state(jcfg, jax.random.PRNGKey(0))
+    js = js._replace(
+        step=jnp.int32(3),
+        opt_state={"mu": jax.tree.map(lambda t: t + 0.5, js.opt_state["mu"]),
+                   "nu": js.opt_state["nu"], "count": jnp.int32(3)},
+        mask_versions={k: jnp.int32(i + 1) for i, k in enumerate(sorted(js.mask_versions))})
+    want = _jstate_numpy(js)
+    template = TSt.init_train_state(TCfg.get_smoke_config("qwen3-1.7b"),
+                                    torch.Generator().manual_seed(1))
+    assert sorted(bridge.flatten(bridge.train_state_to_jax_numpy(template))) == sorted(want)
+    JCK.save(str(tmp_path / "jax"), js)
+    got = TCK.restore(str(tmp_path / "jax"), 3, template)
+    assert isinstance(got.rng, np.ndarray) and got.rng.dtype == np.uint32
+    assert got.step.dtype == torch.int32 and got.opt_state["count"].dtype == torch.int32
+    have = bridge.flatten(bridge.train_state_to_jax_numpy(got))
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(have[k], want[k], err_msg=k)
+
+    TCK.save(str(tmp_path / "torch"), got)
+    back = JCK.restore(str(tmp_path / "torch"), 3, JSt.init_train_state(jcfg,
+                                                                      jax.random.PRNGKey(1)))
+    again = _jstate_numpy(back)
+    assert sorted(again) == sorted(want)
+    for k in want:
+        assert again[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(again[k], want[k], err_msg=k)

@@ -12,6 +12,7 @@ from pathlib import Path  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.kernels import condensed_matmul as cm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -52,6 +53,31 @@ def test_importing_the_ablation_kernels_and_the_plan_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_importing_the_training_path_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.train, repro_torch.train.trainer, repro_torch.train.state\n"
+        "import repro_torch.core.saliency, repro_torch.core.schedule, repro_torch.core.srigl\n"
+        "import repro_torch.optim, repro_torch.data.pipeline, repro_torch.kernels.ops\n"
+        "from repro_torch.kernels.condensed_matmul import condensed_matmul_dw\n"
+        "assert condensed_matmul_dw.launches == 0\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_train_cli_refuses_to_drop_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1"])
 
 
 @pytest.mark.parametrize("path", sorted(
