@@ -24,7 +24,8 @@ Phases, each of which raises (exit code != 0) on any failed check:
    replays of a CUDA graph of launches that cycle through enough copies of
    the weights to keep L2 cold. Last K3 (the values gradient) at the
    training shapes of those stacks, full and half of their rows, B*T = 128
-   and 512, bf16 and f32: against its plain version, two launches bitwise
+   and 512, bf16 and f32, and at ragged shapes with each row's indices
+   shuffled (RAGGED_K3): against its plain version, two launches bitwise
    equal, duplicate indices giving equal columns.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
@@ -88,6 +89,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -189,6 +191,31 @@ def _copies(nbytes: int) -> int:
     return max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
 
+def _ptxas_kernels(log: str) -> list[tuple[str, str]]:
+    """(kernel, what ptxas -v said it uses) for each entry function in a log,
+    names demangled where c++filt is at hand."""
+    found, name, spills = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), "0 bytes spill stores, 0 bytes spill loads"
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)", line)
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+ registers.*)", line)
+        if m and name:
+            found.append((name, f"{m.group(1)}; {spills}"))
+            name = None
+    filt = shutil.which("c++filt")
+    if found and filt:
+        names = subprocess.run([filt], input="\n".join(n for n, _ in found), text=True,
+                               capture_output=True).stdout.splitlines()
+        if len(names) == len(found):
+            found = [(n.replace("(anonymous namespace)::", ""), u)
+                     for n, (_, u) in zip(names, found)]
+    return found
+
+
 def build_phase():
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -197,14 +224,17 @@ def build_phase():
     print(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in names:
-        if name in _build.build_logs:  # what ptxas said of the source's kernels
-            log = _build.build_logs[name]
-            regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-            spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
-            smem = [int(r) for r in re.findall(r"(\d+) bytes smem", log)] or [0]
-            print(f"[build] {name}: {_build.build_seconds[name]:.1f}s, {len(regs)} kernels, "
+        found = _ptxas_kernels(_build.build_logs.get(name, ""))
+        if found:  # what ptxas said of the source's kernels
+            regs = [int(re.match(r"\d+", u).group()) for _, u in found]
+            spills = [int(re.search(r"(\d+) bytes spill stores", u).group(1)) for _, u in found]
+            smem = [int(m.group(1)) for _, u in found for m in [re.search(r"(\d+) bytes smem", u)]
+                    if m] or [0]
+            print(f"[build] {name}: {_build.build_seconds[name]:.1f}s, {len(found)} kernels, "
                   f"registers {min(regs)}-{max(regs)}, static smem up to {max(smem)} bytes, "
                   f"spill stores up to {max(spills)} bytes")
+            for fn, used in found:
+                print(f"[build] {name}: {fn}: {used}")
 
 
 def kernel_phase(device):
@@ -570,12 +600,50 @@ def _k3_tol(want):
     return dict(rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
+def _k3_check(what: str, dy, x, idx) -> tuple[float, float]:
+    """K3 against its plain version within _k3_tol, two launches bitwise
+    equal, and duplicate indices (slot 1 := slot 0) giving equal columns;
+    returns the largest |difference| from the plain version and max |dw|."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    dw = cm.condensed_matmul_dw(dy, x, idx)
+    want = ref.condensed_matmul_dw_ref(dy, x, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dw, want, **_k3_tol(want), msg=lambda m: f"{what}: {m}")
+    if not torch.equal(dw, cm.condensed_matmul_dw(dy, x, idx)):
+        raise AssertionError(f"{what}: two launches are not bitwise equal")
+    dup = idx.clone()
+    dup[:, 1] = dup[:, 0]  # duplicate indices: each slot gets its own entry
+    dd = cm.condensed_matmul_dw(dy, x, dup)
+    if not torch.equal(dd[:, 0], dd[:, 1]):
+        raise AssertionError(f"{what}: duplicate indices gave unequal columns")
+    return (dw - want).abs().max().item(), want.abs().max().item()
+
+
+def _k3_plan(x, idx) -> str:
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    p = cm.dw_plan(x.shape[1], idx.shape[0], x.dtype,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    return f"{p.route} grid {p.grid[0]}x{p.grid[1]}" + (f", {p.stages} stages" if p.stages else "")
+
+
+# ragged K3 cases (B, d_in, rows, k, index range): no dimension a multiple
+# of a tile or chunk (rows % 8 != 0: element loads of dy); d_in 1000 gives
+# 56 tiles (one block per SM, the 4-stage ring), 6102 gives 336 (two per
+# SM; d_in % 8 != 0: element loads of x), and indices confined to [0, 256)
+# give rows whose slots all lie in two tiles
+RAGGED_K3 = ((100, 1000, 777, 97, None), (100, 6102, 777, 97, None), (100, 6102, 777, 97, 256))
+
+
 def dw_kernel_phase(device):
     """K3 at every main-path stack of full-width qwen3-1.7b (wo, w_gate/w_up,
     w_down) and at the 50%-ablated row counts the condensed_over_active
-    backward sees, B*T = 128 and 512, bf16 and f32: against its plain
-    version, two launches bitwise equal, duplicate indices giving equal
-    columns; returns the per-case records."""
+    backward sees, B*T = 128 and 512, bf16 and f32, then at RAGGED_K3 with
+    each row's indices shuffled: against its plain version, two launches
+    bitwise equal, duplicate indices giving equal columns; returns the
+    per-case records of the main-path shapes."""
     import torch
     from repro_torch import configs
     from repro_torch.core import distributions as D
@@ -594,8 +662,6 @@ def dw_kernel_phase(device):
         for rows in (d_out, d_out - max(1, int(d_out * ABLATION))):
             mask = topology.random_constant_fan_in_mask(gen, d_in, rows, k)
             _, idx = topology.dense_to_condensed(mask.float(), mask, k)
-            dup = idx.clone()
-            dup[:, 1] = dup[:, 0]  # duplicate indices: each slot gets its own entry
             for dtype_name in ("bfloat16", "float32"):
                 dtype = getattr(torch, dtype_name)
                 isz = torch.empty((), dtype=dtype).element_size()
@@ -603,17 +669,7 @@ def dw_kernel_phase(device):
                     dy = torch.randn((b, rows), generator=gen, device=device).to(dtype)
                     x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
                     what = f"K3 {name} rows={rows} {dtype_name} B*T={b}"
-                    dw = cm.condensed_matmul_dw(dy, x, idx)
-                    want = ref.condensed_matmul_dw_ref(dy, x, idx)
-                    torch.cuda.synchronize()
-                    torch.testing.assert_close(dw, want, **_k3_tol(want),
-                                               msg=lambda m: f"{what}: {m}")
-                    err = (dw - want).abs().max().item()
-                    if not torch.equal(dw, cm.condensed_matmul_dw(dy, x, idx)):
-                        raise AssertionError(f"{what}: two launches are not bitwise equal")
-                    dd = cm.condensed_matmul_dw(dy, x, dup)
-                    if not torch.equal(dd[:, 0], dd[:, 1]):
-                        raise AssertionError(f"{what}: duplicate indices gave unequal columns")
+                    err, max_dw = _k3_check(what, dy, x, idx)
                     nbytes = b * (rows + d_in) * isz + 2 * rows * k * 4
                     sets = [(dy.clone(), x.clone(), idx.clone())
                             for _ in range(_copies(nbytes))]
@@ -633,15 +689,35 @@ def dw_kernel_phase(device):
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops else "operations",
                                bytes=nbytes, ops=ops, max_abs_err=err,
+                               plan=_k3_plan(x, idx),
                                bitwise="two launches, duplicate columns")
                     cases.append(rec)
                     print(f"[kernel] K3  {name:6s} {d_in}->{d_out} rows={rows} k={k} "
                           f"{dtype_name:8s} B*T={b:3d}: ms {ms:.5f} | plain {plain_ms:.5f} | "
                           f"matmul(x.T, dy) + gather {library_ms:.5f} | bound "
                           f"{rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g} "
-                          f"(max |dw| {want.abs().max().item():.3g}) | two launches, "
+                          f"(max |dw| {max_dw:.3g}) | {rec['plan']} | two launches, "
                           f"duplicate columns: bitwise")
                     del sets, idx_t
+    for b, d_in, rows, k, span in RAGGED_K3:
+        if span is None:
+            mask = topology.random_constant_fan_in_mask(gen, d_in, rows, k)
+            _, idx = topology.dense_to_condensed(mask.float(), mask, k)
+        else:
+            idx = torch.randint(0, span, (rows, k), generator=gen, device=device,
+                                dtype=torch.int32)
+        shuffle = torch.argsort(torch.rand((rows, k), generator=gen, device=device), dim=1)
+        idx = torch.gather(idx, 1, shuffle).contiguous()
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            dy = torch.randn((b, rows), generator=gen, device=device).to(dtype)
+            x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+            what = (f"K3 ragged B={b} d_in={d_in} rows={rows} k={k} indices in "
+                    f"[0, {span or d_in}) shuffled {dtype_name}")
+            err, max_dw = _k3_check(what, dy, x, idx)
+            print(f"[kernel] {what}: max_abs_err {err:.3g} (max |dw| {max_dw:.3g}) | "
+                  f"{_k3_plan(x, idx)} | plain version within tolerance, two launches, "
+                  f"duplicate columns: bitwise")
     torch.cuda.empty_cache()
     return cases
 

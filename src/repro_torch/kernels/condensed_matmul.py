@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -189,12 +190,39 @@ def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
 @functools.cache
 def _dw_lib() -> ctypes.CDLL:
     lib = _build.load("condensed_dw")
-    fn = lib.condensed_matmul_dw
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.condensed_matmul_dw.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.condensed_matmul_dw.restype = ctypes.c_int
+    lib.condensed_matmul_dw_workspace.argtypes = [ctypes.c_int] * 3
+    lib.condensed_matmul_dw_workspace.restype = ctypes.c_longlong
     lib.condensed_dw_error_string.argtypes = [ctypes.c_int]
     lib.condensed_dw_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_DW_TILE = 128  # K3's tiles: 128 d_in inputs by 128 neurons, a block each
+
+
+class DwPlan(NamedTuple):
+    """How ``condensed_matmul_dw`` launches K3 at one shape: ``grid`` =
+    (neuron tiles, d_in tiles), a block per 128 x 128 tile in either route
+    (``"mma"`` for bfloat16, ``"f32"`` for float32); bfloat16 brings the
+    batch through a ring of ``stages`` chunks (None for float32)."""
+    route: str
+    grid: tuple[int, int]
+    stages: int | None = None
+
+
+def dw_plan(d_in: int, n_out: int, dtype: torch.dtype, sm_count: int) -> DwPlan:
+    """K3's launch at these shapes on a card with ``sm_count`` SMs."""
+    grid = (-(-n_out // _DW_TILE), -(-d_in // _DW_TILE))
+    if dtype != torch.bfloat16:
+        return DwPlan("f32", grid)
+    # a tile per block: the card's scheduler balances the tiles over the
+    # SMs, and no tile waits for another's epilogue. Two blocks share an SM
+    # through rings of 3 stages; where the tiles leave each SM one block at
+    # most, a ring of 4 loads two chunks ahead instead of one
+    return DwPlan("mma", grid, stages=4 if grid[0] * grid[1] <= sm_count else 3)
 
 
 def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
@@ -203,8 +231,13 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
     int32 -> dw (n_out, k) float32.
 
     dy and x are both float32 or both bfloat16. Every index must lie in
-    [0, d_in); the kernel does not check it. Each batch row is added in
-    order, whatever the tile, so two launches are bitwise equal.
+    [0, d_in); the kernel does not check it. A first kernel groups each
+    row's slots by the 128-input tile of their index; then a block per 128 x
+    128 tile of (inputs, neurons) computes the slots whose index it holds:
+    bfloat16 as a tensor-core tile product read at those slots, float32 on
+    the CUDA cores, each slot adding the batch rows in order (``dw_plan``
+    picks the launch). Either way two launches are bitwise equal and
+    duplicate indices give equal columns; ``launches`` counts one per call.
     """
     if dy.ndim != 2 or x.ndim != 2 or indices.ndim != 2 or dy.shape != (
             x.shape[0], indices.shape[0]):
@@ -229,12 +262,17 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
         return dw.zero_()
     if n_out == 0 or k == 0:
         return dw
+    plan = dw_plan(d_in, n_out, x.dtype, _sm_count(x.device.index or 0))
     lib = _dw_lib()
+    ws_ints = lib.condensed_matmul_dw_workspace(d_in, n_out, k)
+    if ws_ints == 0:
+        raise ValueError(f"d_in={d_in}, k={k}: too large for the condensed_matmul_dw kernel")
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.condensed_matmul_dw(dy.data_ptr(), x.data_ptr(), indices.data_ptr(),
-                                      dw.data_ptr(), b, d_in, n_out, k, _DTYPE_CODES[x.dtype],
-                                      _fit_rows(8, d_in, x.element_size()), stream)
+                                      dw.data_ptr(), ws.data_ptr(), ws_ints, b, d_in, n_out, k,
+                                      _DTYPE_CODES[x.dtype], plan.stages or 0, stream)
     if err:
         raise RuntimeError("condensed_matmul_dw kernel launch failed: "
                            + lib.condensed_dw_error_string(err).decode())

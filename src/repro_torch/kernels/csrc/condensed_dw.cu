@@ -4,43 +4,74 @@
 //   dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, idx[n, k]])   (f32 accumulator, f32 out)
 //
 // dy: (B, n_out), x: (B, d_in), both float32 or both bfloat16; idx:
-// (n_out, k) int32; dw: (n_out, k) float32. A duplicate index gets its own
-// entry (the kernel gathers and never scatters). Every index must lie in
-// [0, d_in): the kernel does not check (an export's indices always do).
+// (n_out, k) int32 in any order, duplicates allowed; dw: (n_out, k)
+// float32. A duplicate index gets its own entry (the kernels gather and
+// never scatter). Every index must lie in [0, d_in): the kernels do not
+// check (an export's indices always do).
 //
 // Replaces the TPU kernel repro/kernels/condensed_matmul.py::_dw_kernel
-// (launched by _dw_tiled through condensed_matmul_dw), the values gradient
-// of the condensed linears' custom VJPs in repro/kernels/ops.py.
+// (launched by _dw_tiled, its pallas_call at :453, through
+// condensed_matmul_dw), the values gradient of the condensed linears'
+// custom VJPs in repro/kernels/ops.py.
 //
 // Bound: dy, x, idx and dw each once is (B * (n_out + d_in)) * sizeof(T) +
 // 8 * n_out * k bytes; the work is 2 * B * n_out * k operations on inputs of
 // type T, at the card's peak for T (989 TFLOP/s for bfloat16 with float32
 // accumulation, 67 TFLOP/s for float32). At the training shapes of
-// qwen3-1.7b (B*T = 512, k = 195..585) that is about 68 flops per byte in
-// bfloat16, below the ~295 at which its rate meets HBM's 3.35 TB/s, so the
-// bytes bound it; in float32 about 46, above the ~20 of the float32 rate,
-// so the operations do. What this simple kernel pays beyond either is
-// staging and its serial batch loop: every block reads the whole of x once
-// (idx may address any input feature), so x crosses L2 n_out / kWarps
-// times, and the CUDA cores do every multiply-add in float32.
-// Design:
-//   * One warp per neuron row, kWarps rows per block; lane l holds the k
-//     slots l, l + 32, ... of its row (up to kSlots = 20 per lane, so a
-//     640-wide chunk of k; wider k takes more chunks on grid.y) with their
-//     indices and float32 accumulators in registers.
-//   * The block loops over ALL batch tiles in order. A tile of BT rows of x
-//     is staged in shared memory transposed, the BT values of one feature
-//     side by side (as K1 stages it, condensed_rows.cuh), so one gather is
-//     one vector load that feeds BT multiply-adds. BT * d_in * sizeof(T)
-//     fits the 227 KB a block may opt into: the wrapper picks the largest
-//     BT of 8, 4, 2, 1 that does.
-//   * Each accumulator adds its batch rows strictly in order b = 0, 1, ...,
-//     B - 1 (one fmaf each), whatever BT: no atomics and no split of the
-//     batch, so the result is deterministic and bitwise independent of the
-//     tiling.
-//   * The kernel allocates nothing and launches on the caller's stream.
-// wgmma and TMA are later work.
+// qwen3-1.7b (B*T = 512, k = 195..585) the bytes bound bfloat16 (about 19
+// µs per layer of wo + w_gate + w_up + w_down) and the operations bound
+// float32 (about 64 µs). Two paths, chosen by the dtype:
 //
+// bfloat16 -- a dense tile product on the tensor cores with a gather
+// epilogue. Its own floor is the dense product, 2 * B * d_in * n_out
+// operations (42.9 GFLOP per training layer, 43.4 µs at the bf16 peak, ten
+// times the kept products: at 9.5% density no tile is empty), and the
+// operands' traffic from L2, (kTI + kTJ) * B * 2 bytes per tile, which
+// bounds it in practice. Two kernels:
+//   * dw_kernel_bucket groups each 16 rows' slots into cells (the
+//     128-input d_in tile of their index, row) in an int32 workspace (per
+//     group: its slots f | (index % 128) << 25, cell by cell, tile-major,
+//     then the cells' offsets), for both paths. It lets dw_kernel_mma start
+//     at once (a programmatic dependent launch).
+//   * dw_kernel_mma: a block owns one 128 x 128 tile of (d_in, neurons) and
+//     computes G = x[:, I]^T dy[:, N] over the whole batch with
+//     wgmma.m64n128k16 (bf16 in, f32 accumulators), a warpgroup per 64 d_in
+//     rows, both operands read from shared memory MN-major (the batch is
+//     the reduction axis) with the 128-byte swizzle. cp.async brings the
+//     batch in chunks of kBK = 64 rows through a ring (zero-filled past B,
+//     d_in and n_out), kStages - 2 chunks ahead, one chunk's product left
+//     running while the next is awaited. Three stages let two blocks share
+//     an SM; where the tiles leave one block per SM, four stages keep more
+//     bytes in flight. Then G goes to shared memory, the block waits for the
+//     workspace, and each warp takes its group's segment for this tile:
+//     dw[n, s] = G[idx - i0, n - n0].
+//   Every slot is written once, by the one block whose tile holds its index:
+//   no atomics on dw and no pass over it but this one, so two launches are
+//   bitwise equal (the order inside a segment, set by shared-memory atomics
+//   in the bucket kernel, changes no value) and duplicate indices read one
+//   entry of G. wgmma is taken over mma.sync: with ldmatrix.trans and
+//   mma.sync the same tiles ran no faster, and wgmma reads both operands
+//   from shared memory without staging fragments in registers. The products
+//   are exact in f32; only the order of the f32 additions differs from the
+//   plain version.
+//
+// float32 -- dw_kernel_f32: CUDA cores in full float32 (no TF32), on the
+// same bucket workspace and the same grid of 128 x 128 tiles. A block
+// stages chunks of kF32BK = 32 batch rows of x[:, I] and dy[:, N] in shared
+// memory transposed (16-byte loads and stores, a column's rows side by
+// side). Each lane holds an equal, contiguous run of its warp's segment
+// (ordered by row) with the accumulators in registers; per four batch rows
+// it reads each entry's x with one 16-byte load and its row's dy only where
+// the row changes. Each slot adds the batch rows in order, in one thread,
+// so the result is deterministic and duplicate indices give equal columns.
+// A block holds only the slots whose index lies in its tile, so it covers
+// 128 rows at a few entries per lane, and each staged value of x feeds
+// about 128 * k / d_in slots (a block that holds all k slots of its rows
+// stages all of x per 16 or 32 rows). The time follows the total work over
+// the card, bound by the random 16-byte reads of x from shared memory; a
+// run longer than kF32Entries takes more passes.
+//
+// The kernels allocate nothing and launch on the caller's stream.
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
 #include <cuda_bf16.h>
@@ -50,122 +81,510 @@
 namespace condensed_dw {
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kSlots = 20;           // k slots per lane
-constexpr int kChunk = 32 * kSlots;  // k columns per block (grid.y chunks)
+// ---------------------------------------------------------------- bfloat16
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kTI = 128;                 // d_in inputs of a tile (MMA M, 64 per warpgroup)
+constexpr int kTJ = 128;                 // neurons of a tile (MMA N)
+constexpr int kBK = 64;                  // batch rows per ring stage (MMA K)
+constexpr int kInflight = 1;             // products left running while the next chunk is awaited
+constexpr int kMmaThreads = 256;         // two warpgroups
+constexpr int kGStride = kTJ + 4;        // f32 row stride of the staged tile G
+constexpr int kGroupRows = kTJ / 8;      // rows of a workspace group: one warp's share of a tile
+constexpr int kSlotBits = 25;            // a workspace entry: slot in its group, then index % kTI
+constexpr int kMaxBucketSmem = 227 * 1024;  // shared memory a block may opt into
+constexpr int kEpilogueLoads = 4;        // workspace entries a lane loads at once in the epilogue
+static_assert(kMmaThreads / 32 * kGroupRows == kTJ, "a warp per group of rows");
+// A stage operand (kBK batch rows x 128 columns) as wgmma reads it with the
+// 128-byte swizzle, MN-major: two blocks of 64 columns kHalfBytes apart,
+// each kBK rows of 128 bytes (8-row atoms of 1024 bytes), the 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8).
+constexpr int kHalfBytes = kBK * 128;
+constexpr int kOperandBytes = 2 * kHalfBytes;
+constexpr int kStageBytes = 2 * kOperandBytes;  // x's columns of the tile, then dy's
+constexpr int kGBytes = kTI * kGStride * 4;
 
-template <typename T, int BT>
-struct alignas(sizeof(T) * BT < 16 ? sizeof(T) * BT : 16) Column {
-  T v[BT];
-};
+// Dynamic shared memory of dw_kernel_mma<kStages>: the ring of kStages
+// stages, which G reuses, and room to align the ring to 1024 bytes. Three
+// stages let two blocks share an SM; four serve one block alone.
+template <int kStages>
+__host__ __device__ constexpr int mma_smem() {
+  return (kStages * kStageBytes > kGBytes ? kStages * kStageBytes : kGBytes) + 1024;
+}
 
-// grid: (ceil(n_out / kWarps), ceil(k / kChunk)); block: kThreads.
-// Dynamic shared memory: d_in Columns (BT * d_in elements of T).
-template <typename T, int BT>
-__global__ void __launch_bounds__(kThreads, 1)
-dw_kernel(const T* __restrict__ dy, const T* __restrict__ x, const int32_t* __restrict__ idx,
-          float* __restrict__ dw, int batch, int d_in, int n_out, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Column<T, BT>* cols = reinterpret_cast<Column<T, BT>*>(smem_raw);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
-  const int k0 = blockIdx.y * kChunk;
-  // slots of this warp's row in this chunk (0 for a row past n_out)
-  const int kc = n < n_out ? min(kChunk, k - k0) : 0;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
 
-  int ii[kSlots];
-  float acc[kSlots];
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The shared-memory descriptor of an operand block at addr (see kHalfBytes).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(kHalfBytes >> 4) << 16 |  // leading: the next 64 columns
+         static_cast<uint64_t>(1024 >> 4) << 32 |        // stride: the next 8 rows
+         1ull << 62;                                     // 128-byte swizzle
+}
+
+// d += A^T B over 16 batch rows: A the 64 x 16 block of x at da, B the
+// 16 x 128 block of dy at db, both MN-major (the trans bits), f32 sums.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving the accumulators across the async product
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
 #pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int s = lane + 32 * j;
-    ii[j] = s < kc ? __ldg(idx + static_cast<size_t>(n) * k + k0 + s) : 0;
-    acc[j] = 0.f;
-  }
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int b0 = 0; b0 < batch; b0 += BT) {
-    const int nb = min(BT, batch - b0);
-    __syncthreads();  // every warp is done with the previous tile
-    // Stage rows b0 .. b0 + nb - 1 of x, one Column per input feature;
-    // neighbouring threads read neighbouring features (coalesced).
-    const T* xsrc = x + static_cast<size_t>(b0) * d_in;
-    for (int i = threadIdx.x; i < d_in; i += kThreads) {
-      Column<T, BT> c;
+// One chunk of kBK batch rows of src[:, c0 : c0 + 128] (row stride ld,
+// `limit` valid columns, `batch` valid rows) into a stage operand at dst.
+// kVec: cp.async of 16 bytes (ld % 8 == 0 and src 16-byte aligned); else
+// element loads through registers, zeros past the edges.
+template <bool kVec>
+__device__ __forceinline__ void load_operand(uint32_t dst, const __nv_bfloat16* __restrict__ src,
+                                             int b0, int batch, int c0, int limit, int ld) {
+  for (int item = threadIdx.x; item < kBK * 16; item += kMmaThreads) {
+    const int row = item >> 4;
+    const int chunk = item & 15;
+    const int b = b0 + row;
+    const int col = c0 + chunk * 8;
+    const uint32_t to =
+        dst + (chunk >> 3) * kHalfBytes + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+    if (kVec) {
+      const bool valid = b < batch && col < limit;
+      cp_async16(to, valid ? src + static_cast<size_t>(b) * ld + col : src, valid);
+    } else {
+      uint16_t v[8];
 #pragma unroll
-      for (int b = 0; b < BT; ++b)
-        c.v[b] = b < nb ? xsrc[static_cast<size_t>(b) * d_in + i] : xsrc[i];
-      cols[i] = c;
+      for (int e = 0; e < 8; ++e) {
+        v[e] = b < batch && col + e < limit
+                   ? __bfloat16_as_ushort(src[static_cast<size_t>(b) * ld + col + e])
+                   : 0;
+      }
+      const uint4 packed = make_uint4(v[0] | (uint32_t(v[1]) << 16), v[2] | (uint32_t(v[3]) << 16),
+                                      v[4] | (uint32_t(v[5]) << 16), v[6] | (uint32_t(v[7]) << 16));
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(to), "r"(packed.x),
+                   "r"(packed.y), "r"(packed.z), "r"(packed.w));
     }
-    __syncthreads();
-    if (kc == 0) continue;  // uniform across the warp
+  }
+}
 
-    float d[BT];
-#pragma unroll
-    for (int b = 0; b < BT; ++b)  // one address per warp: a broadcast load
-      d[b] = b < nb ? to_f32(dy[static_cast<size_t>(b0 + b) * n_out + n]) : 0.f;
+// The row f / k of slot f of a group (f < kGroupRows * k), from a float
+// reciprocal of k and one correction: the estimate is off by less than one.
+__device__ __forceinline__ int row_of(int f, int k, float rk) {
+  const int r = __float2int_rz(__int2float_rn(f) * rk);
+  const int rest = f - r * k;
+  return r + (rest >= k) - (rest < 0);
+}
 
+// Calls visit(index, f) for every slot f < slots of src, kBucketLoads
+// 16-byte loads in flight per thread where src is 16-byte aligned.
+constexpr int kBucketLoads = 8;
+
+template <typename Visit>
+__device__ __forceinline__ void for_each_slot(const int32_t* __restrict__ src, int slots,
+                                              Visit visit) {
+  const int step = 4 * blockDim.x;
+  const int f0 = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? slots & ~3 : 0;
+  for (int base = 4 * threadIdx.x; base < f0; base += step * kBucketLoads) {
+    int4 v[kBucketLoads];
 #pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      if (32 * j >= kc) break;  // uniform across the warp
-      if (lane + 32 * j < kc) {
-        const Column<T, BT> c = cols[ii[j]];
-        float a = acc[j];
-        if (nb == BT) {
+    for (int u = 0; u < kBucketLoads; ++u) {
+      const int f = base + step * u;
+      if (f < f0) v[u] = __ldg(reinterpret_cast<const int4*>(src + f));
+    }
 #pragma unroll
-          for (int b = 0; b < BT; ++b) a = fmaf(d[b], to_f32(c.v[b]), a);
-        } else {  // the last, partial tile: rows past the batch add nothing
-#pragma unroll
-          for (int b = 0; b < BT; ++b)
-            if (b < nb) a = fmaf(d[b], to_f32(c.v[b]), a);
-        }
-        acc[j] = a;
+    for (int u = 0; u < kBucketLoads; ++u) {
+      const int f = base + step * u;
+      if (f < f0) {
+        visit(v[u].x, f);
+        visit(v[u].y, f + 1);
+        visit(v[u].z, f + 2);
+        visit(v[u].w, f + 3);
       }
     }
   }
+  for (int f = f0 + threadIdx.x; f < slots; f += blockDim.x) visit(__ldg(src + f), f);
+}
+
+// grid: ceil(n_out / kGroupRows); block: 256; dynamic shared memory:
+// tiles * kGroupRows ints. Group g of kGroupRows rows (their slots f = row *
+// k + s, contiguous in idx) gets ws[g] (stride kGroupRows * k + tiles *
+// kGroupRows + 1): its slots f | (index % kTI) << kSlotBits grouped into
+// cells (tile index / kTI, row), tile-major, then the cells' start offsets
+// and the group's slot count. A tile's cells are contiguous: its segment.
+// The order inside a cell follows shared-memory atomics and may vary.
+__global__ void __launch_bounds__(256)
+dw_kernel_bucket(const int32_t* __restrict__ idx, int32_t* __restrict__ ws, int n_out, int k,
+                 int tiles) {
+  extern __shared__ int cursor[];
+  // dw_kernel_mma may start now: it reads ws only after griddepcontrol.wait
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int lane = threadIdx.x & 31;
+  const int cells = tiles * kGroupRows;
+  const int r0 = blockIdx.x * kGroupRows;
+  const int slots = min(kGroupRows, n_out - r0) * k;
+  const float rk = 1.f / k;
+  const int32_t* src = idx + static_cast<size_t>(r0) * k;
+  int32_t* out = ws + static_cast<size_t>(blockIdx.x) * (kGroupRows * k + cells + 1);
+  int32_t* starts = out + kGroupRows * k;
+  auto cell = [&](int v, int f) { return v / kTI * kGroupRows + row_of(f, k, rk); };
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) cursor[c] = 0;
+  __syncthreads();
+  for_each_slot(src, slots, [&](int v, int f) { atomicAdd(cursor + cell(v, f), 1); });
+  __syncthreads();
+  if (threadIdx.x < 32) {  // exclusive prefix sum over the cells, 32 at a time
+    int carry = 0;
+    for (int c0 = 0; c0 < cells; c0 += 32) {
+      const int c = c0 + lane;
+      const int n = c < cells ? cursor[c] : 0;
+      int incl = n;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int m = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += m;
+      }
+      if (c < cells) cursor[c] = starts[c] = carry + incl - n;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) starts[cells] = slots;
+  }
+  __syncthreads();
+  for_each_slot(src, slots, [&](int v, int f) {
+    const uint32_t entry = static_cast<uint32_t>(f) | static_cast<uint32_t>(v % kTI) << kSlotBits;
+    out[atomicAdd(cursor + cell(v, f), 1)] = static_cast<int32_t>(entry);
+  });
+}
+
+// grid: (ceil(n_out / kTJ), ceil(d_in / kTI)); block: kMmaThreads; dynamic
+// shared memory mma_smem<kStages>(). Block (bj, t) owns the tile of neurons
+// [bj * kTJ, +kTJ) and inputs [t * kTI, +kTI); ws is dw_kernel_bucket's
+// workspace. Warpgroup w computes rows [64 w, +64) of G.
+template <int kStages, bool kVecX, bool kVecD>
+__global__ void __launch_bounds__(kMmaThreads, kStages <= 3 ? 2 : 1)
+dw_kernel_mma(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
+              const int32_t* __restrict__ ws, float* __restrict__ dw, int batch, int d_in,
+              int n_out, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t ring = (base + 1023) & ~1023u;  // the swizzle atoms' alignment
+  float* g = reinterpret_cast<float*>(smem_raw + (ring - base));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int n0 = blockIdx.x * kTJ;
+  const int t = blockIdx.y;
+  const int i0 = t * kTI;
+  const int tiles = gridDim.y;
+  const int chunks = (batch + kBK - 1) / kBK;
+  const int rows = min(kTJ, n_out - n0);
+  const int ws_stride = kGroupRows * k + tiles * kGroupRows + 1;
+  const float rk = 1.f / k;
+  constexpr int kAhead = kStages - 1 - kInflight;  // chunks loaded ahead of the one computed
+
+  auto load_chunk = [&](int c) {
+    const uint32_t stage = ring + (c % kStages) * kStageBytes;
+    load_operand<kVecX>(stage, x, c * kBK, batch, i0, d_in, d_in);
+    load_operand<kVecD>(stage + kOperandBytes, dy, c * kBK, batch, n0, n_out, n_out);
+  };
 
 #pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int s = lane + 32 * j;
-    if (s < kc) dw[static_cast<size_t>(n) * k + k0 + s] = acc[j];
+  for (int c = 0; c < kAhead; ++c) {
+    if (c < chunks) load_chunk(c);
+    cp_async_commit();
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kAhead - 1>();
+    // this thread's copies of chunk c are done: make them visible to the
+    // tensor cores' (async proxy) reads, then wait for every thread's.
+    // Past the barrier every warpgroup has also waited for the product
+    // of chunk c - 1 - kInflight, whose stage the next load reuses.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (c + kAhead < chunks) load_chunk(c + kAhead);
+    cp_async_commit();
+    const uint32_t sx = ring + (c % kStages) * kStageBytes + wg * kHalfBytes;
+    const uint32_t sd = ring + (c % kStages) * kStageBytes + kOperandBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks)  // 16 batch rows: two 8-row atoms
+      wgmma_m64n128k16(acc, wgmma_desc(sx + ks * 2048), wgmma_desc(sd + ks * 2048));
+    wgmma_commit();
+    wgmma_wait<kInflight>();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // Warp w takes the slots of rows [n0 + 16 w, +16) whose index lies in
+  // this tile: their group's segment t of ws, contiguous. ws comes from
+  // dw_kernel_bucket, launched just before this kernel, which may still run
+  // (a programmatic dependent launch): wait until it is complete, then
+  // fetch the segment's bounds while G is stored.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const bool has_group = warp * kGroupRows < rows;
+  const int32_t* wgp = ws + static_cast<size_t>(n0 / kGroupRows + warp) * ws_stride;
+  // ld.global.cg, never the read-only path: ws was written while this
+  // kernel ran
+  const int32_t* cell_starts = wgp + kGroupRows * k + t * kGroupRows;
+  const int q0 = has_group ? __ldcg(cell_starts) : 0;
+  const int end = has_group ? __ldcg(cell_starts + kGroupRows) : 0;
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: G takes its place
+
+  // the accumulators: row 64 wg + 16 (warp % 4) + lane / 4 (and + 8),
+  // columns 8 j + 2 (lane % 4) + {0, 1} for j = 0 .. 15
+  {
+    const int i = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(g + i * kGStride + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(g + (i + 8) * kGStride + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+
+  float* dg = dw + static_cast<size_t>(n0 + warp * kGroupRows) * k;
+  for (int q = q0 + lane; q < end; q += 32 * kEpilogueLoads) {
+    uint32_t e[kEpilogueLoads];  // every load issued before the first store
+#pragma unroll
+    for (int u = 0; u < kEpilogueLoads; ++u)
+      e[u] = q + 32 * u < end ? static_cast<uint32_t>(__ldcg(wgp + q + 32 * u)) : 0u;
+#pragma unroll
+    for (int u = 0; u < kEpilogueLoads; ++u) {
+      if (q + 32 * u < end) {
+        const int f = static_cast<int>(e[u] & ((1u << kSlotBits) - 1));
+        dg[f] = g[(e[u] >> kSlotBits) * kGStride + warp * kGroupRows + row_of(f, k, rk)];
+      }
+    }
   }
 }
 
-template <typename T, int BT>
-cudaError_t launch(const void* dy, const void* x, const void* idx, float* dw, int batch,
-                   int d_in, int n_out, int k, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(BT) * d_in * sizeof(T);
-  auto kernel = dw_kernel<T, BT>;
-  // Opt in above the 48 KB default once per instantiation and size.
+// ----------------------------------------------------------------- float32
+
+constexpr int kF32Threads = 256;       // a warp per group of kGroupRows rows
+constexpr int kF32BK = 32;             // batch rows per staged chunk
+constexpr int kF32Stride = kF32BK + 4; // f32 stride of a staged column: its 16-byte groups
+                                       // fall on all eight 16-byte bank groups
+constexpr int kF32Entries = 12;        // workspace entries per lane and pass
+static_assert(kF32Threads / 32 * kGroupRows == kTJ, "a warp per group of rows");
+static_assert(kTI * kF32Stride < (1 << 15) && kTJ * kF32Stride < (1 << 15), "offsets in 15 bits");
+static_assert(kTI * kF32BK == 16 * kF32Threads && kTJ * kF32BK == 16 * kF32Threads,
+              "a 4 x 4 block of each operand per thread and chunk");
+
+// Rows [b0, b0 + kF32BK) of src[:, c0 : c0 + 128] (row stride ld, `limit`
+// valid columns, `batch` valid rows) into dst transposed: column c at dst +
+// c * kF32Stride, its kF32BK rows side by side, zeros past the edges. A
+// thread moves one 4 x 4 block: four 16-byte loads where the columns allow
+// (vec: ld % 4 == 0 and src 16-byte aligned), four 16-byte stores.
+__device__ __forceinline__ void stage_f32(float* __restrict__ dst, const float* __restrict__ src,
+                                          int b0, int batch, int c0, int limit, int ld, bool vec) {
+  const int rb = threadIdx.x & 7;   // rows 4 rb .. 4 rb + 3
+  const int cb = threadIdx.x >> 3;  // columns 4 cb .. 4 cb + 3
+  const int col = c0 + 4 * cb;
+  float v[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int b = b0 + 4 * rb + r;
+    const float* row = src + static_cast<size_t>(b) * ld + col;
+    if (b < batch && vec && col + 4 <= limit) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(row));
+      v[r][0] = q.x;
+      v[r][1] = q.y;
+      v[r][2] = q.z;
+      v[r][3] = q.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[r][c] = b < batch && col + c < limit ? __ldg(row + c) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    *reinterpret_cast<float4*>(dst + (4 * cb + c) * kF32Stride + 4 * rb) =
+        make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
+}
+
+// grid: (ceil(n_out / kTJ), ceil(d_in / kTI)); block: kF32Threads. Block
+// (bj, t) owns the tile of neurons [bj * kTJ, +kTJ) and inputs [t * kTI,
+// +kTI), as dw_kernel_mma, and ws is dw_kernel_bucket's workspace, complete
+// before this kernel starts (an ordinary launch). Warp w takes group w's
+// segment for tile t, its entries ordered by row: lane l a contiguous run of
+// ceil(entries / 32), up to kF32Entries of them per pass (more passes where
+// the segment is longer), adding every batch row into each in order.
+__global__ void __launch_bounds__(kF32Threads, 3)
+dw_kernel_f32(const float* __restrict__ dy, const float* __restrict__ x,
+              const int32_t* __restrict__ ws, float* __restrict__ dw, int batch, int d_in,
+              int n_out, int k) {
+  __shared__ __align__(16) float xs[kTI * kF32Stride];
+  __shared__ __align__(16) float ds[kTJ * kF32Stride];
+  __shared__ int passes;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kTJ;
+  const int t = blockIdx.y;
+  const int i0 = t * kTI;
+  const int ws_stride = kGroupRows * k + gridDim.y * kGroupRows + 1;
+  const float rk = 1.f / k;
+  const bool has_group = warp * kGroupRows < min(kTJ, n_out - n0);
+  const int32_t* wgp = ws + static_cast<size_t>(n0 / kGroupRows + warp) * ws_stride;
+  const int32_t* seg = wgp + kGroupRows * k + t * kGroupRows;  // the tile's first cell
+  const int s0 = has_group ? __ldg(seg) : 0;
+  const int s1 = has_group ? __ldg(seg + kGroupRows) : 0;
+  const int run = (s1 - s0 + 31) / 32;  // entries per lane
+  const int q0 = s0 + lane * run;
+  const int end = min(s1, q0 + run);
+  const bool vx = d_in % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vd = n_out % 4 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  float* dg = dw + static_cast<size_t>(n0 + warp * kGroupRows) * k;
+
+  if (threadIdx.x == 0) passes = 0;
+  __syncthreads();
+  if (lane == 0 && run > 0) atomicMax(&passes, (run + kF32Entries - 1) / kF32Entries);
+  __syncthreads();
+  const int count = passes;
+
+  for (int p = 0; p < count; ++p) {
+    const int qp = q0 + kF32Entries * p;
+    // an entry's columns of x and dy in shared memory (f32 offsets below
+    // 2^15): x's | dy's << 16; -1 past the run, and then for every later entry
+    int code[kF32Entries];
+    float acc[kF32Entries];
+#pragma unroll
+    for (int j = 0; j < kF32Entries; ++j) {
+      const int q = qp + j;
+      code[j] = -1;
+      if (q < end) {
+        const uint32_t e = static_cast<uint32_t>(__ldg(wgp + q));
+        const int f = static_cast<int>(e & ((1u << kSlotBits) - 1));
+        code[j] = static_cast<int>(e >> kSlotBits) * kF32Stride |
+                  ((warp * kGroupRows + row_of(f, k, rk)) * kF32Stride) << 16;
+      }
+      acc[j] = 0.f;
+    }
+    for (int b0 = 0; b0 < batch; b0 += kF32BK) {
+      __syncthreads();  // every warp is done with the previous chunk
+      stage_f32(xs, x, b0, batch, i0, d_in, d_in, vx);
+      stage_f32(ds, dy, b0, batch, n0, n_out, n_out, vd);
+      __syncthreads();
+#pragma unroll
+      for (int b = 0; b < kF32BK; b += 4) {  // rows past the batch are zeros: add 0
+        float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < kF32Entries; ++j) {
+          const int c = code[j];
+          if (c >= 0) {
+            // a run holds few rows, in order: dy is read where the row changes
+            if (j == 0 || (c >> 16) != (code[j > 0 ? j - 1 : 0] >> 16))
+              dv = *reinterpret_cast<const float4*>(ds + (c >> 16) + b);
+            const float4 xv = *reinterpret_cast<const float4*>(xs + (c & 0xffff) + b);
+            float a = acc[j];
+            a = fmaf(dv.x, xv.x, a);
+            a = fmaf(dv.y, xv.y, a);
+            a = fmaf(dv.z, xv.z, a);
+            a = fmaf(dv.w, xv.w, a);
+            acc[j] = a;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kF32Entries; ++j) {
+      const int q = qp + j;
+      if (q < end) dg[__ldg(wgp + q) & ((1 << kSlotBits) - 1)] = acc[j];
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted_in) {
+  // above the 48 KB default once per instantiation and size
+  if (smem <= opted_in) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) opted_in = smem;
+  return err;
+}
+
+template <int kStages, bool kVecX, bool kVecD>
+cudaError_t launch_mma(const void* dy, const void* x, const int32_t* ws, float* dw, int batch,
+                       int d_in, int n_out, int k, cudaStream_t stream) {
+  auto kernel = dw_kernel_mma<kStages, kVecX, kVecD>;
+  constexpr int smem = mma_smem<kStages>();
   static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  const dim3 grid((n_out + kWarps - 1) / kWarps, (k + kChunk - 1) / kChunk);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(dy), static_cast<const T*>(x),
-                                           static_cast<const int32_t*>(idx), dw, batch, d_in,
-                                           n_out, k);
-  return cudaGetLastError();
+  cudaError_t err = opt_in(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  // a programmatic dependent launch: the tile products overlap
+  // dw_kernel_bucket, and each epilogue waits for its workspace
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((n_out + kTJ - 1) / kTJ, (d_in + kTI - 1) / kTI);
+  config.blockDim = dim3(kMmaThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const __nv_bfloat16*>(dy),
+                            static_cast<const __nv_bfloat16*>(x), ws, dw, batch, d_in, n_out, k);
 }
 
-template <typename T>
-cudaError_t dispatch_rows(int block_rows, const void* dy, const void* x, const void* idx,
-                          float* dw, int batch, int d_in, int n_out, int k,
-                          cudaStream_t stream) {
-  switch (block_rows) {
-    case 1: return launch<T, 1>(dy, x, idx, dw, batch, d_in, n_out, k, stream);
-    case 2: return launch<T, 2>(dy, x, idx, dw, batch, d_in, n_out, k, stream);
-    case 4: return launch<T, 4>(dy, x, idx, dw, batch, d_in, n_out, k, stream);
-    case 8: return launch<T, 8>(dy, x, idx, dw, batch, d_in, n_out, k, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int kStages>
+cudaError_t dispatch_mma(bool vx, bool vd, const void* dy, const void* x, const int32_t* ws,
+                         float* dw, int batch, int d_in, int n_out, int k, cudaStream_t s) {
+  if (vx && vd) return launch_mma<kStages, true, true>(dy, x, ws, dw, batch, d_in, n_out, k, s);
+  if (vx) return launch_mma<kStages, true, false>(dy, x, ws, dw, batch, d_in, n_out, k, s);
+  if (vd) return launch_mma<kStages, false, true>(dy, x, ws, dw, batch, d_in, n_out, k, s);
+  return launch_mma<kStages, false, false>(dy, x, ws, dw, batch, d_in, n_out, k, s);
 }
 
 }  // namespace
@@ -173,22 +592,62 @@ cudaError_t dispatch_rows(int block_rows, const void* dy, const void* x, const v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (dy and x). block_rows: 1, 2, 4 or 8 rows
-// of x per staged tile. dw: n_out * k float32. Returns the cudaError_t of
-// the launch (0 = success).
+// The int32 workspace condensed_matmul_dw needs at these shapes: for each
+// group of 16 rows, its 16 * k slots grouped by (d_in tile, row), then the
+// 16 T + 1 cells' offsets (T = ceil(d_in / 128)). 0 where the kernels do
+// not take the shapes: an entry holds a slot of its group in 25 bits (k <
+// 2^21), and the bucket kernel counts the cells in shared memory (T <= 3632).
+long long condensed_matmul_dw_workspace(int d_in, int n_out, int k) {
+  using namespace condensed_dw;
+  if (d_in <= 0 || n_out <= 0 || k <= 0 || k >= (1 << kSlotBits) / kGroupRows) return 0;
+  const long long tiles = (d_in + kTI - 1) / kTI;
+  if (tiles * kGroupRows * sizeof(int) > kMaxBucketSmem) return 0;
+  return static_cast<long long>((n_out + kGroupRows - 1) / kGroupRows) *
+         (kGroupRows * k + tiles * kGroupRows + 1);
+}
+
+// dtype: 0 = float32 (the CUDA-core path), 1 = bfloat16 (the tensor-core
+// path, with stages 3 for two blocks per SM or 4 for one). Both launch
+// dw_kernel_bucket into workspace (workspace_ints of int32, at least
+// condensed_matmul_dw_workspace's), then a block per 128 x 128 tile. dw:
+// n_out * k float32. Returns the cudaError_t of the launches (0 = success).
 int condensed_matmul_dw(const void* dy, const void* x, const void* indices, void* dw,
-                        int batch, int d_in, int n_out, int k, int dtype, int block_rows,
-                        void* stream) {
-  if (batch <= 0 || n_out <= 0 || d_in <= 0 || k <= 0) return cudaErrorInvalidValue;
+                        void* workspace, long long workspace_ints, int batch, int d_in,
+                        int n_out, int k, int dtype, int stages, void* stream) {
+  using namespace condensed_dw;
+  const long long need = condensed_matmul_dw_workspace(d_in, n_out, k);
+  if (batch <= 0 || need == 0 || workspace == nullptr || workspace_ints < need ||
+      (dtype == 1 && stages != 3 && stages != 4) || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const int tiles = (d_in + kTI - 1) / kTI;
   auto s = static_cast<cudaStream_t>(stream);
+  auto ws = static_cast<int32_t*>(workspace);
+  const size_t bucket_smem = static_cast<size_t>(tiles) * kGroupRows * sizeof(int);
+  static size_t bucket_opted_in = 48 * 1024;
+  cudaError_t err = opt_in(dw_kernel_bucket, bucket_smem, bucket_opted_in);
+  // the bucket kernel needs little shared memory; asking for the most keeps
+  // the SMs it runs on ready for dw_kernel_mma's blocks beside it
+  static const cudaError_t carved =
+      cudaFuncSetAttribute(dw_kernel_bucket, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = carved;
+  if (err != cudaSuccess) return err;
+  dw_kernel_bucket<<<(n_out + kGroupRows - 1) / kGroupRows, 256, bucket_smem, s>>>(
+      static_cast<const int32_t*>(indices), ws, n_out, k, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   auto out = static_cast<float*>(dw);
-  if (dtype == 0)
-    return condensed_dw::dispatch_rows<float>(block_rows, dy, x, indices, out, batch, d_in,
-                                              n_out, k, s);
-  if (dtype == 1)
-    return condensed_dw::dispatch_rows<__nv_bfloat16>(block_rows, dy, x, indices, out, batch,
-                                                      d_in, n_out, k, s);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const dim3 grid((n_out + kTJ - 1) / kTJ, tiles);
+    dw_kernel_f32<<<grid, kF32Threads, 0, s>>>(static_cast<const float*>(dy),
+                                                static_cast<const float*>(x), ws, out, batch,
+                                                d_in, n_out, k);
+    return cudaGetLastError();
+  }
+  const bool vx = d_in % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vd = n_out % 8 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  if (stages == 4) return dispatch_mma<4>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, s);
+  return dispatch_mma<3>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, s);
 }
 
 const char* condensed_dw_error_string(int err) {

@@ -87,6 +87,99 @@ def test_dw_wrapper_refuses_what_the_kernel_does_not_take():
         tcm.condensed_matmul_dw(dy.to("meta"), x.to("meta"), idx.to("meta"))
 
 
+# K3's launch plan (``dw_plan``) on a 132-SM card at qwen3-1.7b's training
+# stacks (wo, w_gate/w_up, w_down), full rows and the 50%-ablated rows:
+# (d_in, rows) -> bf16 ring stages
+_K3_PLANS = [
+    ((2048, 2048), 3), ((2048, 1024), 4), ((2048, 6144), 3), ((2048, 3072), 3),
+    ((6144, 2048), 3), ((6144, 1024), 3),
+]
+
+
+@pytest.mark.parametrize("shape,stages", _K3_PLANS, ids=lambda v: str(v))
+def test_dw_plan_at_the_training_stacks(shape, stages):
+    d_in, n_out = shape
+    tiles_i, tiles_j = -(-d_in // 128), -(-n_out // 128)
+    # a block per 128 x 128 tile in both routes; four stages where the tiles
+    # leave an SM one block at most
+    p = tcm.dw_plan(d_in, n_out, torch.bfloat16, 132)
+    assert (p.route, p.grid, p.stages) == ("mma", (tiles_j, tiles_i), stages)
+    assert (stages == 4) == (tiles_i * tiles_j <= 132)
+    assert tcm.dw_plan(d_in, n_out, torch.float32, 132) == ("f32", (tiles_j, tiles_i), None)
+
+
+@pytest.mark.parametrize("sm_count", [1, 8, 66, 132, 264, 100_000])
+@pytest.mark.parametrize("d_in,n_out", [(1000, 777), (6102, 777), (64, 9), (6144, 2048),
+                                        (2048, 6144), (300, 256), (50_000, 4096), (129, 1)])
+def test_dw_plan_covers_the_batch_and_the_tiles(sm_count, d_in, n_out):
+    """Every input and neuron lies in one tile of the grid; the 4-stage ring
+    only where the tiles leave each SM one block at most."""
+    p = tcm.dw_plan(d_in, n_out, torch.bfloat16, sm_count)
+    tiles_j, tiles_i = p.grid
+    assert (tiles_i - 1) * 128 < d_in <= tiles_i * 128
+    assert (tiles_j - 1) * 128 < n_out <= tiles_j * 128
+    assert p.stages == (4 if tiles_i * tiles_j <= sm_count else 3)
+    q = tcm.dw_plan(d_in, n_out, torch.float32, sm_count)
+    assert (q.route, q.grid, q.stages) == ("f32", p.grid, None)
+
+
+def _fan_in_indices(rng, d_in, n_out, k, shuffled=True):
+    """Constant fan-in indices, k distinct of d_in per row (k <= d_in), each
+    row's order random (or ascending)."""
+    idx = np.argsort(rng.random((n_out, d_in)), axis=1)[:, :k]
+    return (idx if shuffled else np.sort(idx, axis=1)).astype(np.int32)
+
+
+def _dw_tile_emulation(dy, x, idx, plan):
+    """K3 as its tile kernels compute it: block (bj, t) of plan.grid owns
+    neurons N = [128 bj, +128) and inputs I = [128 t, +128) and writes the
+    slots of N's rows whose index lies in I, dw[n, s] = G[index - 128 t, n -
+    128 bj]. bfloat16 (dw_kernel_mma): G = x[:, I]^T dy[:, N] in float32.
+    float32 (dw_kernel_f32): G summed a batch row at a time, in order.
+    Returns dw and how often each slot was written."""
+    n_out, k = idx.shape
+    dw = torch.full((n_out, k), float("nan"))
+    writes = torch.zeros((n_out, k), dtype=torch.int64)
+    tile = idx.long() // 128
+    for bj in range(plan.grid[0]):
+        rows = slice(bj * 128, (bj + 1) * 128)
+        for t in range(plan.grid[1]):
+            xi, dn = x[:, t * 128:(t + 1) * 128].float(), dy[:, rows].float()
+            if plan.route == "mma":
+                g = xi.T @ dn
+            else:
+                g = torch.zeros((xi.shape[1], dn.shape[1]))
+                for b in range(x.shape[0]):
+                    g += xi[b][:, None] * dn[b][None, :]
+            n, s = torch.nonzero(tile[rows] == t, as_tuple=True)
+            dw[rows][n, s] = g[idx[rows][n, s].long() - t * 128, n]
+            writes[rows][n, s] += 1
+    return dw, writes
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("b,d_in,n_out,k,shuffled", [
+    (100, 1000, 777, 97, True), (37, 300, 130, 50, True), (64, 520, 256, 9, False),
+    (100, 6102, 777, 97, True)])
+def test_dw_kernel_orders_match_the_plain_version(b, d_in, n_out, k, shuffled, sm_count):
+    """The tile-and-gather order of both K3 routes, emulated at the wrapper's
+    plan, against ref.condensed_matmul_dw_ref with duplicate and shuffled
+    indices: every slot written once, within rtol 1e-5 and 1e-5 of max |dw|
+    (the same products, summed in another order in float32)."""
+    rng = np.random.default_rng(b + d_in + sm_count)
+    idx = torch.from_numpy(_fan_in_indices(rng, d_in, n_out, k, shuffled))
+    idx[:, 1] = idx[:, 0]  # duplicate indices: each slot gets its own entry
+    for dtype in (torch.bfloat16, torch.float32):
+        dy = torch.from_numpy(rng.standard_normal((b, n_out)).astype(np.float32)).to(dtype)
+        x = torch.from_numpy(rng.standard_normal((b, d_in)).astype(np.float32)).to(dtype)
+        want = tcm.condensed_matmul_dw(dy, x, idx)  # the CPU: the plain version
+        got, writes = _dw_tile_emulation(dy, x, idx, tcm.dw_plan(d_in, n_out, dtype, sm_count))
+        assert bool((writes == 1).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        assert torch.equal(got[:, 0], got[:, 1])
+    assert tcm.condensed_matmul_dw.launches == 0
+
+
 def _jgrad_and_tgrad(jfn, tfn, x, values, cot):
     """(y, dx, dvalues) of sum(f(x, values) * cot) in both frameworks."""
     jy, jvjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(values))
