@@ -15,7 +15,15 @@ Phases, each of which raises (exit code != 0) on any failed check:
    Each is held to its plain version within the stated tolerance, with
    the decode launch bitwise equal to the tiled launch, K6 bitwise equal
    to K5 and K4 bitwise equal to K1 on the same rows followed by a
-   scatter. Then K2 (the condensed gather over int8 / fp8 codes with a
+   scatter; K6 also reports its sector bound (the 32-byte sectors of W
+   that hold an active column). Then K5's decode launch and K6 with half
+   of each stack's neurons ablated at random (random_ablation_phase: K6's
+   element path), timed beside the library call and both bounds, with a
+   per-layer line. Then K5 and K6 at ragged shapes
+   (RAGGED_STRUCT: B 100 and 3, d_in 1000 and 1001, 777 of 1536 columns
+   active at random, sentinels up to a_pad 896), bf16 and f32: plain
+   version, sentinels dropped and ablated columns 0, the bitwise pairs.
+   Then K2 (the condensed gather over int8 / fp8 codes with a
    float32 scale per neuron) at K1's shapes and K2-coa (the same over the
    surviving rows, stored through out_index) at K4's, each with int8 and
    fp8 codes, bf16 and f32 x, B=4 and B*T=128: decode == tiled bitwise,
@@ -26,7 +34,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    training shapes of those stacks, full and half of their rows, B*T = 128
    and 512, bf16 and f32, and at ragged shapes with each row's indices
    shuffled (RAGGED_K3): against its plain version, two launches bitwise
-   equal, duplicate indices giving equal columns.
+   equal, duplicate indices giving equal columns; the first of them again
+   in forced pieces (slices of the slots, chunks of d_in) bitwise equal to
+   one launch.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -137,8 +147,11 @@ QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
 QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
 ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
 # the port's kernels as the profiler names them: K1 and K4 share
-# gather_rows_kernel, K5 and K6 structured_kernel, K3 is dw_kernel
-PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_kernel", "dw_kernel")
+# gather_rows_kernel; K5 and K6 run structured_mma in bfloat16 and
+# structured_kernel (decode, K6) or structured_f32_tiled in float32; K3 is
+# dw_kernel
+PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_mma", "structured_kernel",
+                     "structured_f32_tiled", "dw_kernel")
 # the training phases: qwen3-1.7b at the train CLI's default batch and
 # sequence (8 x 64 tokens per step)
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
@@ -441,12 +454,14 @@ def ablation_kernel_phase(device):
                 y = sm.structured_matmul_pregathered(x, panel, ai, d_out)
                 want = ref.structured_matmul_ref(x, panel, ai, d_out)
                 err = check("K5", y, want, dtype_name, f"{name} B={b}")
+                tiled = sm.TILED_ROWS[dtype]
                 if launch == "decode":
-                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=16)
-                    pair = "decode == tiled(16)"
+                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=tiled)
+                    pair = f"decode == tiled({tiled})"
                 else:
-                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=2)
-                    pair = "tiled(16) == tiled(2)"
+                    least = sm.STRUCTURED_ROWS[dtype][0]  # the smallest batch tile
+                    other = sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=least)
+                    pair = f"tiled({tiled}) == tiled({least})"
                 same("K5", y, other, f"{name} {dtype_name} B={b}: {pair}")
                 same("K5", y, sm.structured_matmul(x, dense, ai),
                      f"{name} {dtype_name} B={b}: pregathered == gathered by the wrapper")
@@ -474,9 +489,182 @@ def ablation_kernel_phase(device):
                            .index_copy_(1, ai_long, torch.matmul(x_, p_)),
                            [(x, p) for p in panel_sets], struct_bytes, struct_ops, err,
                            "K6 == K5 decode")
+                    sectors = _sector_bytes(ai, d_in, d_out, isz)
+                    cases[-1]["sector_bytes"] = sectors + struct_bytes - panel.numel() * isz
+                    cases[-1]["sector_bound_ms"] = (cases[-1]["sector_bytes"]
+                                                    / HBM_BYTES_PER_S * 1e3)
+                    print(f"[kernel] K6  {name:6s} sector bound: {sectors} bytes of W in the "
+                          f"32-byte sectors that hold an active column, "
+                          f"{cases[-1]['sector_bound_ms']:.5f} ms")
             del coa_sets, masked_sets, panel_sets, dense_sets
     torch.cuda.empty_cache()
     return cases
+
+
+def _sector_bytes(active_index, d_in: int, d_out: int, elem: int) -> int:
+    """Bytes of the dense (d_in, d_out) weight in the 32-byte sectors that
+    hold an active column (sentinel slots excluded): the least K6 can read
+    from HBM, since a sector moves whole."""
+    import torch
+    cols = active_index[active_index < d_out].long()
+    if (d_out * elem) % 32 == 0:  # every row starts a sector
+        return d_in * torch.unique(cols * elem // 32).numel() * 32
+    rows = torch.arange(d_in, device=cols.device)
+    return torch.unique((rows[:, None] * d_out + cols[None, :]) * elem // 32).numel() * 32
+
+
+def random_ablation_phase(device) -> list:
+    """K5's decode launch and K6 at every main-path shape with half of the
+    neurons ablated at random (as SRigL ablates them), not in one block as
+    the main path's masks do: K6 then takes its element path. bf16 and f32,
+    B=4: within TOL of the plain version, ablated columns 0, K6 == K5
+    bitwise; times, bound, sector bound and the library call as
+    ablation_kernel_phase records them. Uses only wrapper calls that older
+    trees of the port have too, so their kernels can be timed by the same
+    function. Returns the per-case records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(7)
+    shapes = {}
+    for s in REG.build_registry(cfg):  # w_up has w_gate's shape
+        shapes.setdefault((s.d_in, s.d_out), s.path[-1])
+    per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}
+    cases, layer = [], {}
+    for (d_in, d_out), name in shapes.items():
+        n_active = d_out - max(1, int(d_out * ABLATION))
+        act = torch.zeros(d_out, dtype=torch.bool, device=device)
+        act[torch.randperm(d_out, generator=gen, device=device)[:n_active]] = True
+        ai = F.active_index_from_bools(act, sm.padded_active_count(n_active, d_out))
+        ai_long = ai.long()
+        w = torch.randn((d_in, d_out), generator=gen, device=device) / d_in ** 0.5
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            isz = torch.empty((), dtype=dtype).element_size()
+            dense = w.to(dtype).contiguous()
+            panel = sm._gather_columns(dense, ai)
+            x = torch.randn((BATCH, d_in), generator=gen, device=device).to(dtype)
+            want = ref.structured_matmul_ref(x, panel, ai, d_out)
+            y5 = sm.structured_matmul_pregathered(x, panel, ai, d_out)
+            y6 = sm.structured_matmul_prefetch(x, dense, ai)
+            torch.cuda.synchronize()
+            what = f"{name} {d_in}->{d_out} {dtype_name} B={BATCH} random ablation"
+            for kernel, y in (("K5", y5), ("K6", y6)):
+                torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name],
+                                           msg=lambda m: f"{kernel} {what}: {m}")
+                if not torch.all(y[:, ~act] == 0):
+                    raise AssertionError(f"{kernel} {what}: an ablated column is not 0")
+            if not torch.equal(y5, y6):
+                raise AssertionError(f"K6 {what}: not bitwise K5 decode")
+            err = max((y.float() - want.float()).abs().max().item() for y in (y5, y6))
+            panel_sets = [panel.clone() for _ in range(_copies(panel.numel() * isz))]
+            dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * isz))]
+            nbytes = panel.numel() * isz + ai.numel() * 4 + BATCH * (d_in + d_out) * isz
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        2 * BATCH * panel.numel() / PEAK_OPS_PER_S[dtype_name]) * 1e3
+            sector = (_sector_bytes(ai, d_in, d_out, isz) + nbytes
+                      - panel.numel() * isz) / HBM_BYTES_PER_S * 1e3
+            library_ms = _time_ms(
+                lambda x_, p_: torch.zeros((BATCH, d_out), dtype=dtype, device=device)
+                .index_copy_(1, ai_long, torch.matmul(x_, p_)), [(x, p) for p in panel_sets])
+            times = {
+                "K5": _time_ms(lambda x_, p_: sm.structured_matmul_pregathered(x_, p_, ai, d_out),
+                               [(x, p) for p in panel_sets]),
+                "K6": _time_ms(lambda x_, w_: sm.structured_matmul_prefetch(x_, w_, ai),
+                               [(x, d) for d in dense_sets])}
+            del panel_sets, dense_sets
+            for kernel, ms in times.items():
+                cases.append(dict(kernel=kernel, stack=name, d_in=d_in, d_out=d_out,
+                                  dtype=dtype_name, batch=BATCH, launch="decode, random ablation",
+                                  ms=ms, library_ms=library_ms, bound_ms=bound,
+                                  sector_bound_ms=sector, max_abs_err=err))
+                acc = layer.setdefault((kernel, dtype_name), [0.0, 0.0, 0.0, 0.0])
+                for q, v in enumerate((ms, library_ms, bound, sector)):
+                    acc[q] += v * per_layer[name]
+            print(f"[kernel] {what}: K5 ms {times['K5']:.5f} | K6 ms {times['K6']:.5f} | "
+                  f"library {library_ms:.5f} | bound {bound:.5f} | K6 sector bound {sector:.5f} | "
+                  f"max_abs_err {err:.3g} | K6 == K5 decode: bitwise, ablated columns 0")
+    for (kernel, dtype_name), (ms, lib, bound, sector) in layer.items():
+        print(f"[kernel] {kernel} {dtype_name} one decode layer (wo + w_gate + w_up + w_down), "
+              f"B={BATCH}, half the neurons ablated at random: {ms * 1e3:.2f} us | library "
+              f"{lib * 1e3:.2f} | bound {bound * 1e3:.2f} | K6 sector bound {sector * 1e3:.2f}")
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ragged K5/K6 cases (B, d_in): d_out RAGGED_D_OUT with RAGGED_ACTIVE active
+# columns drawn at random, so active_index carries d_out sentinels up to its
+# 128-lane padding (a_pad 896); d_in 1000 takes 16-byte copies of x, 1001
+# element loads; B 100 the tiled launch, B 3 the decode launch and K6
+RAGGED_STRUCT = ((100, 1000), (3, 1000), (100, 1001), (3, 1001))
+RAGGED_D_OUT, RAGGED_ACTIVE = 1536, 777
+
+
+def ragged_structured_phase(device) -> None:
+    """K5 and K6 at RAGGED_STRUCT, bf16 and f32: within TOL of the plain
+    version; sentinel slots dropped and ablated columns exactly 0; the
+    launch equal bitwise to the smallest batch tile (``STRUCTURED_ROWS``,
+    1), and where B <= 8 also to the tiled launch and to K6; and K5 on the
+    panel cut to the 777 active columns (no padding: the element path)
+    bitwise equal to K5 on all 896."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    d_out = RAGGED_D_OUT
+    act = torch.zeros(d_out, dtype=torch.bool, device=device)
+    act[torch.randperm(d_out, generator=gen, device=device)[:RAGGED_ACTIVE]] = True
+    ai = F.active_index_from_bools(act, sm.padded_active_count(RAGGED_ACTIVE, d_out))
+    sentinels = int((ai == d_out).sum())
+    if ai.shape[0] != 896 or sentinels != 896 - RAGGED_ACTIVE:
+        raise AssertionError(f"ragged active_index: a_pad {ai.shape[0]}, {sentinels} sentinels")
+    ai_active = ai[:RAGGED_ACTIVE].contiguous()
+
+    def same(a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} is not bitwise")
+
+    for b, d_in in RAGGED_STRUCT:
+        # scaled as the main path's weights are, so outputs are O(1)
+        w32 = torch.randn((d_in, d_out), generator=gen, device=device) / d_in ** 0.5
+        x32 = torch.randn((b, d_in), generator=gen, device=device)
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            w, x = w32.to(dtype).contiguous(), x32.to(dtype).contiguous()
+            panel = sm._gather_columns(w, ai)
+            what = (f"K5 ragged B={b} d_in={d_in} d_out={d_out} a={RAGGED_ACTIVE} "
+                    f"a_pad={ai.shape[0]} {dtype_name}")
+            y = sm.structured_matmul_pregathered(x, panel, ai, d_out)
+            want = ref.structured_matmul_ref(x, panel, ai, d_out)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name],
+                                       msg=lambda m: f"{what}: {m}")
+            err = (y.float() - want.float()).abs().max().item()
+            if not torch.all(y[:, ~act] == 0):
+                raise AssertionError(f"{what}: an ablated column is not 0")
+            tiled, least = sm.TILED_ROWS[dtype], sm.STRUCTURED_ROWS[dtype][0]
+            pairs = [f"== tiled({least})"]
+            same(y, sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=least),
+                 f"{what}: launch == tiled({least})")
+            if b <= sm.SMALL_BATCH_MAX:
+                same(y, sm.structured_matmul_pregathered(x, panel, ai, d_out, block_b=tiled),
+                     f"{what}: decode == tiled({tiled})")
+                y6 = sm.structured_matmul_prefetch(x, w, ai)
+                same(y6, y, f"{what}: K6 == K5 decode")
+                pairs += [f"decode == tiled({tiled})", "K6 == K5 decode"]
+            cut = sm.structured_matmul_pregathered(
+                x, panel[:, :RAGGED_ACTIVE].contiguous(), ai_active, d_out)
+            same(cut, y, f"{what}: K5 on the {RAGGED_ACTIVE}-column panel == on the padded one")
+            pairs.append(f"{RAGGED_ACTIVE}-column panel == padded")
+            print(f"[kernel] {what}: max_abs_err {err:.3g} | {sentinels} sentinel slots dropped, "
+                  f"ablated columns 0 | {', '.join(pairs)}: bitwise")
 
 
 def quant_kernel_phase(device):
@@ -635,6 +823,8 @@ def _k3_plan(x, idx) -> str:
 # SM; d_in % 8 != 0: element loads of x), and indices confined to [0, 256)
 # give rows whose slots all lie in two tiles
 RAGGED_K3 = ((100, 1000, 777, 97, None), (100, 6102, 777, 97, None), (100, 6102, 777, 97, 256))
+# the first case again in pieces of at most 40 slots and 256 inputs
+K3_PIECE_LIMITS = (40, 256)
 
 
 def dw_kernel_phase(device):
@@ -642,8 +832,9 @@ def dw_kernel_phase(device):
     w_down) and at the 50%-ablated row counts the condensed_over_active
     backward sees, B*T = 128 and 512, bf16 and f32, then at RAGGED_K3 with
     each row's indices shuffled: against its plain version, two launches
-    bitwise equal, duplicate indices giving equal columns; returns the
-    per-case records of the main-path shapes."""
+    bitwise equal, duplicate indices giving equal columns, and the first
+    again in forced pieces (K3_PIECE_LIMITS) bitwise equal to one launch;
+    returns the per-case records of the main-path shapes."""
     import torch
     from repro_torch import configs
     from repro_torch.core import distributions as D
@@ -718,6 +909,20 @@ def dw_kernel_phase(device):
             print(f"[kernel] {what}: max_abs_err {err:.3g} (max |dw| {max_dw:.3g}) | "
                   f"{_k3_plan(x, idx)} | plain version within tolerance, two launches, "
                   f"duplicate columns: bitwise")
+            if span is None and d_in == RAGGED_K3[0][1]:
+                # the pieces a shape past one launch's limits runs in, forced
+                # small: bitwise one launch, and one count per call
+                pieces = cm.dw_pieces(d_in, k, K3_PIECE_LIMITS)
+                before = cm.condensed_matmul_dw.launches
+                dp = cm.condensed_matmul_dw(dy, x, idx, limits=K3_PIECE_LIMITS)
+                if cm.condensed_matmul_dw.launches != before + 1:
+                    raise AssertionError(f"{what}: pieces counted "
+                                         f"{cm.condensed_matmul_dw.launches - before} launches")
+                if not torch.equal(dp, cm.condensed_matmul_dw(dy, x, idx)):
+                    raise AssertionError(f"{what}: in pieces is not bitwise one launch")
+                print(f"[kernel] {what} in {len(pieces.slots)} slot slices x "
+                      f"{len(pieces.inputs)} d_in chunks (limits {K3_PIECE_LIMITS}): bitwise "
+                      f"one launch, 1 launch counted")
     torch.cuda.empty_cache()
     return cases
 
@@ -1686,8 +1891,9 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     build_phase()
-    cases = (kernel_phase(device) + ablation_kernel_phase(device) + quant_kernel_phase(device)
-             + dw_kernel_phase(device))
+    cases = kernel_phase(device) + ablation_kernel_phase(device) + random_ablation_phase(device)
+    ragged_structured_phase(device)
+    cases += quant_kernel_phase(device) + dw_kernel_phase(device)
     setup = model_setup(device)
     launches = {"K1": slice_phase(setup, card)}
     ablation = ablation_phase(setup, card)

@@ -154,13 +154,13 @@ def srigl_update(spec: SRigLSpec, weight: torch.Tensor, dense_grad: torch.Tensor
 
 
 class _StraightThroughMask(torch.autograd.Function):
-    """forward: the select ``where(mask, w, +0)``; backward: the gradient
-    passed through unmasked."""
+    """forward: the select ``where(mask & (w != 0), w, +0)``; backward: the
+    gradient passed through unmasked."""
 
     @staticmethod
     def forward(ctx, weight, mask):
-        return torch.where(mask, weight, torch.zeros((), dtype=weight.dtype,
-                                                     device=weight.device))
+        return torch.where(mask & (weight != 0), weight,
+                           torch.zeros((), dtype=weight.dtype, device=weight.device))
 
     @staticmethod
     def backward(ctx, grad):
@@ -170,10 +170,10 @@ class _StraightThroughMask(torch.autograd.Function):
 def apply_mask_for_forward(weight: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked weight whose *gradient is dense* (straight-through on the mask).
 
-    forward:  w * mask, with +0 at masked positions (one select, where the
-              reference's ``w - stop_gradient(w * (1 - m))`` runs three
-              full-size passes; the two differ only at an unmasked weight
-              of exactly -0.0, which the reference's form turns into +0)
+    forward:  w * mask, with +0 at masked positions and for an unmasked
+              -0.0, as the reference's ``w - stop_gradient(w * (1 - m))``
+              gives (one select, where the reference runs three full-size
+              passes)
     backward: dL/dw = dL/d(w * mask), unmasked — the dense gradient the
               SRigL grow criterion needs. The optimizer re-masks.
     """

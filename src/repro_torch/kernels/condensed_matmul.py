@@ -195,12 +195,43 @@ def _dw_lib() -> ctypes.CDLL:
     lib.condensed_matmul_dw.restype = ctypes.c_int
     lib.condensed_matmul_dw_workspace.argtypes = [ctypes.c_int] * 3
     lib.condensed_matmul_dw_workspace.restype = ctypes.c_longlong
+    lib.condensed_matmul_dw_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.condensed_matmul_dw_limits.restype = None
     lib.condensed_dw_error_string.argtypes = [ctypes.c_int]
     lib.condensed_dw_error_string.restype = ctypes.c_char_p
     return lib
 
 
 _DW_TILE = 128  # K3's tiles: 128 d_in inputs by 128 neurons, a block each
+
+
+@functools.cache
+def dw_limits() -> tuple[int, int]:
+    """(most slots a row, most d_in inputs) that one launch of K3 takes, as
+    its source states them (``condensed_matmul_dw_limits``)."""
+    slots, inputs = ctypes.c_int(), ctypes.c_int()
+    _dw_lib().condensed_matmul_dw_limits(ctypes.byref(slots), ctypes.byref(inputs))
+    return slots.value, inputs.value
+
+
+class DwPieces(NamedTuple):
+    """The launches of K3 that one ``condensed_matmul_dw`` call makes: one
+    per (slot slice, d_in chunk), as [start, stop) ranges."""
+    slots: tuple[tuple[int, int], ...]
+    inputs: tuple[tuple[int, int], ...]
+
+
+def dw_pieces(d_in: int, k: int, limits: tuple[int, int]) -> DwPieces:
+    """Cut K3's work into launches it takes: slices of at most ``limits[0]``
+    slots and d_in chunks of at most ``limits[1]`` inputs, each chunk on a
+    multiple of the 128-input tile. A slot's value comes from the tile that
+    holds its index, which a chunk keeps whole, so the pieces together are
+    bitwise one launch over the whole shape."""
+    max_slots, max_inputs = limits
+    step = max(_DW_TILE, max_inputs // _DW_TILE * _DW_TILE)
+    slots = tuple((s, min(k, s + max_slots)) for s in range(0, max(k, 1), max(max_slots, 1)))
+    inputs = tuple((c, min(d_in, c + step)) for c in range(0, max(d_in, 1), step))
+    return DwPieces(slots, inputs)
 
 
 class DwPlan(NamedTuple):
@@ -225,8 +256,8 @@ def dw_plan(d_in: int, n_out: int, dtype: torch.dtype, sm_count: int) -> DwPlan:
     return DwPlan("mma", grid, stages=4 if grid[0] * grid[1] <= sm_count else 3)
 
 
-def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
-                        indices: torch.Tensor) -> torch.Tensor:
+def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor, *,
+                        limits: tuple[int, int] | None = None) -> torch.Tensor:
     """Values gradient (K3). dy (B, n_out), x (B, d_in), indices (n_out, k)
     int32 -> dw (n_out, k) float32.
 
@@ -238,6 +269,8 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
     the CUDA cores, each slot adding the batch rows in order (``dw_plan``
     picks the launch). Either way two launches are bitwise equal and
     duplicate indices give equal columns; ``launches`` counts one per call.
+    A shape past what one launch takes (``dw_limits()``, or ``limits``)
+    runs in pieces (``dw_pieces``), bitwise as one launch.
     """
     if dy.ndim != 2 or x.ndim != 2 or indices.ndim != 2 or dy.shape != (
             x.shape[0], indices.shape[0]):
@@ -257,16 +290,46 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"the condensed_matmul_dw kernel runs on CUDA tensors, not {x.device}")
     b, d_in = x.shape
     n_out, k = indices.shape
-    dw = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
     if b == 0:
-        return dw.zero_()
+        return torch.zeros((n_out, k), dtype=torch.float32, device=x.device)
     if n_out == 0 or k == 0:
-        return dw
+        return torch.empty((n_out, k), dtype=torch.float32, device=x.device)
+    dw = _dw_in_pieces(dy, x, indices, dw_pieces(d_in, k, limits or dw_limits()), _dw_launch)
+    condensed_matmul_dw.launches += 1
+    return dw
+
+
+def _dw_in_pieces(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor,
+                  pieces: DwPieces, launch) -> torch.Tensor:
+    """``launch(dy, x, indices)`` (K3, or its plain version) over each
+    piece, every slot kept from the one d_in chunk that holds its index."""
+    if len(pieces.slots) == len(pieces.inputs) == 1:
+        return launch(dy, x, indices)
+    dw = torch.empty(indices.shape, dtype=torch.float32, device=x.device)
+    for s0, s1 in pieces.slots:
+        idx = indices[:, s0:s1]
+        part = None
+        for c0, c1 in pieces.inputs:
+            # slots whose index lies elsewhere read input 0 of the chunk and
+            # are not kept
+            inside = (idx >= c0) & (idx < c1)
+            got = launch(dy, x[:, c0:c1].contiguous(),
+                         torch.where(inside, idx - c0, 0).to(torch.int32).contiguous())
+            part = got if part is None else torch.where(inside, got, part)
+        dw[:, s0:s1] = part
+    return dw
+
+
+def _dw_launch(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """One launch of K3 (the bucket kernel, then the tile kernel)."""
+    b, d_in = x.shape
+    n_out, k = indices.shape
+    dw = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
     plan = dw_plan(d_in, n_out, x.dtype, _sm_count(x.device.index or 0))
     lib = _dw_lib()
     ws_ints = lib.condensed_matmul_dw_workspace(d_in, n_out, k)
     if ws_ints == 0:
-        raise ValueError(f"d_in={d_in}, k={k}: too large for the condensed_matmul_dw kernel")
+        raise ValueError(f"d_in={d_in}, k={k}: too large for one condensed_matmul_dw launch")
     ws = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -276,7 +339,6 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor,
     if err:
         raise RuntimeError("condensed_matmul_dw kernel launch failed: "
                            + lib.condensed_dw_error_string(err).decode())
-    condensed_matmul_dw.launches += 1
     return dw
 
 

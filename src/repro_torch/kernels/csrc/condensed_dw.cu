@@ -71,12 +71,11 @@
 // the card, bound by the random 16-byte reads of x from shared memory; a
 // run longer than kF32Entries takes more passes.
 //
-// The kernels allocate nothing and launch on the caller's stream.
+// The kernels allocate nothing and launch on the caller's stream. The
+// cp.async, wgmma and fence helpers are in hopper.cuh.
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace condensed_dw {
 namespace {
@@ -111,70 +110,20 @@ __host__ __device__ constexpr int mma_smem() {
   return (kStages * kStageBytes > kGBytes ? kStages * kStageBytes : kGBytes) + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::fence_operands;
+using hopper::fence_proxy_async;
+using hopper::smem_addr;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_m64n128k16;
+using hopper::wgmma_wait;
 
 // The shared-memory descriptor of an operand block at addr (see kHalfBytes).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(kHalfBytes >> 4) << 16 |  // leading: the next 64 columns
-         static_cast<uint64_t>(1024 >> 4) << 32 |        // stride: the next 8 rows
-         1ull << 62;                                     // 128-byte swizzle
-}
-
-// d += A^T B over 16 batch rows: A the 64 x 16 block of x at da, B the
-// 16 x 128 block of dy at db, both MN-major (the trans bits), f32 sums.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving the accumulators across the async product
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  return hopper::wgmma_desc(addr, kHalfBytes);
 }
 
 // One chunk of kBK batch rows of src[:, c0 : c0 + 128] (row stride ld,
@@ -345,7 +294,7 @@ dw_kernel_mma(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restr
     // tensor cores' (async proxy) reads, then wait for every thread's.
     // Past the barrier every warpgroup has also waited for the product
     // of chunk c - 1 - kInflight, whose stage the next load reuses.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     if (c + kAhead < chunks) load_chunk(c + kAhead);
     cp_async_commit();
@@ -604,6 +553,14 @@ long long condensed_matmul_dw_workspace(int d_in, int n_out, int k) {
   if (tiles * kGroupRows * sizeof(int) > kMaxBucketSmem) return 0;
   return static_cast<long long>((n_out + kGroupRows - 1) / kGroupRows) *
          (kGroupRows * k + tiles * kGroupRows + 1);
+}
+
+// What one launch takes, as condensed_matmul_dw_workspace checks it: at
+// most *max_slots slots a row and *max_inputs d_in inputs.
+void condensed_matmul_dw_limits(int* max_slots, int* max_inputs) {
+  using namespace condensed_dw;
+  *max_slots = (1 << kSlotBits) / kGroupRows - 1;
+  *max_inputs = static_cast<int>(kMaxBucketSmem / (kGroupRows * sizeof(int))) * kTI;
 }
 
 // dtype: 0 = float32 (the CUDA-core path), 1 = bfloat16 (the tensor-core

@@ -25,18 +25,21 @@ bounds and the design); ``ref.condensed_over_active_matmul_ref``,
 Ablated columns are exact zeros: the kernels' C entry points clear the
 output with ``cudaMemsetAsync`` before the launch, so the wrappers allocate
 it with ``torch.empty``, and one call is one memset plus one kernel launch
-(K5/K6 keep their tickets right after the output, in the same buffer). Sentinel slots
-(``out_index`` or ``active_index`` equal to ``d_out``) are dropped.
+(the float32 K5/K6 keep their tickets right after the output, in the same
+buffer). Sentinel slots (``out_index`` or ``active_index`` equal to
+``d_out``) are dropped.
 
 Dispatch is as for K1 (``condensed_matmul``): a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. ``B <= SMALL_BATCH_MAX``
 takes the decode launch (the batch in one block row, padded to a power of
-two), larger batches the tiled launch; the two are bitwise equal, and K6 is
-bitwise equal to K5's decode launch. The working set need not fit shared
-memory: K4 stages x as K1 does (``_fit_rows`` shrinks the block's rows), and
-K5/K6 stage only 256 input features of x per block and read the weight
-from global memory, so ``prefetch_gather`` (``REPRO_PREFETCH_GATHER=1`` when
-None, as in the reference) has no memory budget to check.
+two), larger batches the tiled launch (``TILED_ROWS`` batch rows a block);
+the two are bitwise equal, and K6 is bitwise equal to K5's decode launch,
+because the d_in splits (``split_geometry``) depend on d_in and the dtype
+only. The working set need not fit shared memory: K4 stages x as K1 does
+(``_fit_rows`` shrinks the block's rows), and K5/K6 bring the weight and x
+through shared memory a split at a time, so ``prefetch_gather``
+(``REPRO_PREFETCH_GATHER=1`` when None, as in the reference) has no memory
+budget to check.
 
 ``<kernel function>.launches`` counts kernel launches (never plain-version
 calls): ``condensed_over_active_matmul.launches`` (K4),
@@ -60,9 +63,39 @@ SMALL_BATCH_MAX = cm.SMALL_BATCH_MAX
 # the reference pads active_index to its 128-lane tile; the port keeps that
 # padding so that its exports equal the reference's exactly
 LANE = 128
-SPLIT_ROWS = 256       # kSplitRows in csrc/structured_matmul.cu
-TILED_ROWS = 16        # batch rows per block of K5's tiled launch
-STRUCTURED_ROWS = (1, 2, 4, 8, 16)
+# K5/K6's d_in splits (csrc/structured_matmul.cu): bfloat16 at most
+# MAX_SPLITS of them (one cluster of blocks adds them), each a multiple of
+# CHUNK_ROWS rows; float32 F32_SPLIT_ROWS rows each (kSplitRows)
+MAX_SPLITS = 8
+CHUNK_ROWS = 64
+F32_SPLIT_ROWS = 256
+# the batch rows of a block K5 takes (``block_b``) and those of its tiled
+# launch: bfloat16 any power of two up to 128 (the panel read once per 128
+# rows); float32 the decode tiles or the 32-row tiled kernel
+STRUCTURED_ROWS = {torch.bfloat16: (1, 2, 4, 8, 16, 32, 64, 128),
+                   torch.float32: (1, 2, 4, 8, 32)}
+TILED_ROWS = {torch.bfloat16: 128, torch.float32: 32}
+
+
+def split_geometry(d_in: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(rows per split, splits) of K5/K6's d_in reduction. It depends on
+    d_in and the dtype only, never on the batch or the launch, which is what
+    keeps every launch bitwise equal: bfloat16 ``64 * ceil(d_in / 512)``
+    rows, so at most 8 splits; float32 256 rows."""
+    if dtype == torch.bfloat16:
+        rows = -(-d_in // (MAX_SPLITS * CHUNK_ROWS)) * CHUNK_ROWS
+    else:
+        rows = F32_SPLIT_ROWS
+    return rows, -(-d_in // rows)
+
+
+def workspace_floats(b: int, d_in: int, a_pad: int, dtype: torch.dtype) -> int:
+    """float32 elements of K5/K6's split partials: none in bfloat16 (the
+    cluster adds them in shared memory), one (B, a_pad) slab per split in
+    float32."""
+    if dtype == torch.bfloat16:
+        return 0
+    return split_geometry(d_in, dtype)[1] * b * a_pad
 
 
 def padded_active_count(a, d_out: int) -> int:
@@ -89,7 +122,7 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.structured_matmul_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
-                                            ctypes.c_longlong] + [ctypes.c_int] * 8
+                                            ctypes.c_longlong] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.structured_matmul_out_bytes
@@ -153,16 +186,20 @@ def _structured_launch(x: torch.Tensor, w: torch.Tensor, active_index: torch.Ten
     if b == 0 or a_pad == 0:
         return torch.zeros((b, d_out), dtype=x.dtype, device=x.device)
     lib, dtype = _lib(), cm._DTYPE_CODES[x.dtype]
-    # the output and, after it, the kernel's tickets: one buffer, one memset
+    # the output and, after it, the float32 kernels' tickets: one buffer, one
+    # memset
     region = torch.empty(lib.structured_matmul_out_bytes(b, d_out, a_pad, dtype, block_rows),
                          dtype=torch.uint8, device=x.device)
     out = region[:b * d_out * x.element_size()].view(x.dtype).view(b, d_out)
-    ws = torch.empty(-(-d_in // SPLIT_ROWS) * b * a_pad, dtype=torch.float32, device=x.device)
+    ws = torch.empty(workspace_floats(b, d_in, a_pad, x.dtype), dtype=torch.float32,
+                     device=x.device)
+    split_rows = split_geometry(d_in, x.dtype)[0]
     with torch.cuda.device(x.device):
         err = lib.structured_matmul_fwd(
             x.data_ptr(), w.data_ptr(), active_index.data_ptr(), region.data_ptr(),
             region.numel(), ws.data_ptr(), ws.numel(), b, d_in, a_pad, d_out, w.shape[1],
-            int(gather), dtype, block_rows, torch.cuda.current_stream(x.device).cuda_stream)
+            int(gather), dtype, block_rows, split_rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "structured_matmul")
     if gather:
         structured_matmul_prefetch.launches += 1
@@ -175,14 +212,15 @@ def _panel_matmul(x: torch.Tensor, panel: torch.Tensor, active_index: torch.Tens
                   d_out: int, block_b: int | None) -> torch.Tensor:
     """K5 on a gathered (d_in, a_pad) panel: the plain version on the CPU,
     else the decode launch (B <= 8, ``block_b`` None) or the tiled one."""
-    if block_b is not None and block_b not in STRUCTURED_ROWS:
-        raise ValueError(f"block_b must be one of {STRUCTURED_ROWS}, got {block_b}")
+    if block_b is not None and block_b not in STRUCTURED_ROWS[x.dtype]:
+        raise ValueError(f"block_b must be one of {STRUCTURED_ROWS[x.dtype]} for {x.dtype}, "
+                         f"got {block_b}")
     if x.device.type == "cpu":
         return ref.structured_matmul_ref(x, panel, active_index, d_out)
     _on_cuda(x, "structured_matmul")
     if block_b is None:
         block_b = (_decode_rows(x.shape[0]) if x.shape[0] <= SMALL_BATCH_MAX
-                   else TILED_ROWS)
+                   else TILED_ROWS[x.dtype])
     return _structured_launch(x, panel, active_index, d_out, block_b, gather=False)
 
 
@@ -195,7 +233,8 @@ def structured_matmul(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tens
 
     ``block_b=None`` routes decode shapes (B <= SMALL_BATCH_MAX) to
     ``structured_matmul_decode``; otherwise the tiled launch runs with
-    ``block_b`` batch rows per block (16 by default).
+    ``block_b`` batch rows per block (``TILED_ROWS`` by default: 128 in
+    bfloat16, 32 in float32; ``STRUCTURED_ROWS`` lists what each takes).
     """
     _check_structured(x, w, active_index)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:

@@ -180,6 +180,55 @@ def test_dw_kernel_orders_match_the_plain_version(b, d_in, n_out, k, shuffled, s
     assert tcm.condensed_matmul_dw.launches == 0
 
 
+# what one launch of K3 takes on the card (tcm.dw_limits(), which asks the
+# compiled kernel): fewer than 2**21 slots a row, at most 3632 d_in tiles
+CARD_LIMITS = ((1 << 21) - 1, 3632 * 128)
+
+
+@pytest.mark.parametrize("d_in,k,limits,n_pieces", [
+    (2048, 293, CARD_LIMITS, (1, 1)), (6144, 585, CARD_LIMITS, (1, 1)),
+    (28672, 2048, CARD_LIMITS, (1, 1)), (500_000, 5, CARD_LIMITS, (1, 2)),
+    (64, 1 << 21, CARD_LIMITS, (2, 1)), (1000, 97, (40, 256), (3, 4)),
+    (1000, 97, (40, 100), (3, 8))])
+def test_dw_pieces_cover_the_shape_within_the_limits(d_in, k, limits, n_pieces):
+    """K3's piece planner: slot slices and d_in chunks that cover the shape,
+    each within one launch's limits, every chunk on a whole 128-input tile
+    (a limit below one tile still takes a tile); one piece at the shapes of
+    the configs."""
+    pieces = tcm.dw_pieces(d_in, k, limits)
+    assert (len(pieces.slots), len(pieces.inputs)) == n_pieces
+    for ranges, total, most in ((pieces.slots, k, limits[0]),
+                                (pieces.inputs, d_in, max(128, limits[1] // 128 * 128))):
+        assert ranges[0][0] == 0 and ranges[-1][1] == total
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(0 < stop - start <= most for start, stop in ranges)
+    assert all(start % 128 == 0 for start, _ in pieces.inputs)
+
+
+@pytest.mark.parametrize("limits", [(40, 256), (97, 300), (13, 1000)])
+def test_dw_in_pieces_is_bitwise_one_launch(limits):
+    """K3 run on pieces (``_dw_in_pieces``, each piece emulated as its tile
+    kernel computes it) equals one launch over the whole shape bitwise, in
+    both routes, with duplicate and shuffled indices; on the CPU the wrapper
+    takes the plain version whatever the limits."""
+    b, d_in, n_out, k = 37, 1000, 130, 97
+    rng = np.random.default_rng(limits[0])
+    idx = torch.from_numpy(_fan_in_indices(rng, d_in, n_out, k))
+    idx[:, 1] = idx[:, 0]
+    pieces = tcm.dw_pieces(d_in, k, limits)
+    for dtype in (torch.bfloat16, torch.float32):
+        dy = torch.from_numpy(rng.standard_normal((b, n_out)).astype(np.float32)).to(dtype)
+        x = torch.from_numpy(rng.standard_normal((b, d_in)).astype(np.float32)).to(dtype)
+
+        def launch(dy_, x_, idx_):
+            plan = tcm.dw_plan(x_.shape[1], idx_.shape[0], dtype, 132)
+            return _dw_tile_emulation(dy_, x_, idx_, plan)[0]
+        assert torch.equal(tcm._dw_in_pieces(dy, x, idx, pieces, launch), launch(dy, x, idx))
+        assert torch.equal(tcm.condensed_matmul_dw(dy, x, idx, limits=limits),
+                           tcm.condensed_matmul_dw(dy, x, idx))
+    assert tcm.condensed_matmul_dw.launches == 0
+
+
 def _jgrad_and_tgrad(jfn, tfn, x, values, cot):
     """(y, dx, dvalues) of sum(f(x, values) * cot) in both frameworks."""
     jy, jvjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(values))

@@ -178,3 +178,32 @@ def test_dst_update_refuses_the_methods_not_ported():
     cfg = m["tcfg"].replace(sparsity=dataclasses.replace(m["tcfg"].sparsity, method="rigl"))
     with pytest.raises(NotImplementedError, match="rigl"):
         TR.dst_update(cfg, m["treg"], m["tparams"], {}, {}, np.float32(0.1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mask_for_forward_gives_the_references_signed_zeros(dtype):
+    """An unmasked -0.0 comes out +0, as the reference's straight-through
+    form gives; a masked -0.0 too. Values, sign bits and the dense gradient
+    equal the reference's."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((6, 5)).astype(np.float32)
+    mask = rng.random((6, 5)) < 0.5
+    mask[0, :2] = True
+    mask[1, :2] = False
+    w[0, :2] = -0.0  # kept
+    w[1, :2] = -0.0  # dropped
+    g = rng.standard_normal((6, 5)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jw = jnp.asarray(w).astype(jdt)
+    want, vjp = jax.vjp(lambda w_: JS.apply_mask_for_forward(w_, jnp.asarray(mask)), jw)
+    (want_grad,) = vjp(jnp.asarray(g).astype(jdt))
+    tw = torch.from_numpy(w).to(tdt).requires_grad_(True)
+    got = TS.apply_mask_for_forward(tw, torch.from_numpy(mask))
+    got.backward(torch.from_numpy(g).to(tdt))
+    want_f32 = np.asarray(want.astype(jnp.float32))
+    got_f32 = got.detach().float().numpy()
+    np.testing.assert_array_equal(got_f32, want_f32)
+    np.testing.assert_array_equal(np.signbit(got_f32), np.signbit(want_f32))
+    assert not np.signbit(got_f32[:2, :2]).any()
+    np.testing.assert_array_equal(tw.grad.float().numpy(),
+                                  np.asarray(want_grad.astype(jnp.float32)))

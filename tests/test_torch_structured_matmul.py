@@ -286,6 +286,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         TSM.structured_matmul(torch.zeros((9, D_IN)), w, ai, block_b=3)
 
 
+@pytest.mark.parametrize("d_in", [1, 63, 64, 65, 512, 513, 1000, 1001, 2048, 6144, 28672])
+def test_split_geometry_depends_on_d_in_and_the_dtype_only(d_in):
+    """K5/K6's d_in splits: bfloat16 at most MAX_SPLITS of them (one cluster
+    adds them), each a multiple of 64 rows; float32 256 rows each. They
+    cover d_in with no empty split, and the wrapper's workspace follows
+    from them: none in bfloat16 at any batch, one (B, a_pad) slab per split
+    in float32. No batch enters the geometry, so every launch (decode,
+    tiled at any tile, K6) sums each output in one order."""
+    for dtype in (torch.bfloat16, torch.float32):
+        rows, splits = TSM.split_geometry(d_in, dtype)
+        assert (splits - 1) * rows < d_in <= splits * rows
+        if dtype == torch.bfloat16:
+            assert rows % TSM.CHUNK_ROWS == 0 and splits <= TSM.MAX_SPLITS
+        else:
+            assert rows == TSM.F32_SPLIT_ROWS
+        for b in (1, 4, 8, 100, 128, 4096):
+            want = 0 if dtype == torch.bfloat16 else splits * b * 896
+            assert TSM.workspace_floats(b, d_in, 896, dtype) == want
+    assert TSM.split_geometry(2048, torch.bfloat16) == (256, 8)
+    assert TSM.split_geometry(6144, torch.bfloat16) == (768, 8)
+
+
+def test_block_b_is_what_each_dtype_takes():
+    """bfloat16 takes batch tiles of 1 to 128 rows, float32 the decode
+    tiles and its 32-row tiled launch; each refuses the others, on any
+    device, and on the CPU every tile gives the plain version."""
+    rng = np.random.default_rng(11)
+    w = _t(rng.standard_normal((D_IN, D_OUT)).astype(np.float32))
+    act = _t(_mask(rng).any(axis=0))
+    ai = TF.active_index_from_bools(act, TSM.padded_active_count(int(act.sum()), D_OUT))
+    x = _t(rng.standard_normal((9, D_IN)).astype(np.float32))
+    for dtype, takes, refuses in ((torch.bfloat16, (2, 16, 128), (3, 256)),
+                                  (torch.float32, (2, 8, 32), (3, 16, 64, 128))):
+        assert TSM.TILED_ROWS[dtype] in TSM.STRUCTURED_ROWS[dtype]
+        xd, wd = x.to(dtype), w.to(dtype)
+        want = TSM.structured_matmul(xd, wd, ai)
+        for tile in takes:
+            assert torch.equal(TSM.structured_matmul(xd, wd, ai, block_b=tile), want)
+        for tile in refuses:
+            with pytest.raises(ValueError, match="block_b"):
+                TSM.structured_matmul(xd, wd, ai, block_b=tile)
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU launches its kernel or raises; no
     launch is counted for a refused call."""
