@@ -6,7 +6,9 @@
 Phases, each of which raises (exit code != 0) on any failed check:
 
 1. build: every CUDA source under src/repro_torch/kernels/csrc, compiled
-   with nvcc for sm_90a, all at once.
+   with nvcc for sm_90a, all at once; then the shared memory the C side
+   sizes each bfloat16 gather block with (condensed_matmul_smem_bytes)
+   must equal condensed_matmul.gather_geometry's at GEOMETRY_D_IN.
 2. kernels: the condensed gather kernel (K1) at every shape the serving
    path of full-width qwen3-1.7b gives it (wo, w_gate/w_up, w_down; decode
    B=4 and prefill B*T=128; bfloat16 and float32), then K4 (condensed over
@@ -26,17 +28,28 @@ Phases, each of which raises (exit code != 0) on any failed check:
    Then K2 (the condensed gather over int8 / fp8 codes with a
    float32 scale per neuron) at K1's shapes and K2-coa (the same over the
    surviving rows, stored through out_index) at K4's, each with int8 and
-   fp8 codes, bf16 and f32 x, B=4 and B*T=128: decode == tiled bitwise,
-   K2-coa == K2 on the same rows then a scatter bitwise, and in f32
+   fp8 codes, bf16 and f32 x, B=4 and B*T=128: decode == tiled bitwise
+   (and, since K1's redesign, the default tiled launch == the smallest batch
+   tile for K1, K4, K2 and K2-coa), K2-coa == K2 on the same rows then a scatter bitwise, and in f32
    K2 == K1(f32(codes)) * scales bitwise. Times are CUDA-event medians over
    replays of a CUDA graph of launches that cycle through enough copies of
-   the weights to keep L2 cold. Last K3 (the values gradient) at the
+   the weights to keep L2 cold. Then K3 (the values gradient) at the
    training shapes of those stacks, full and half of their rows, B*T = 128
    and 512, bf16 and f32, and at ragged shapes with each row's indices
    shuffled (RAGGED_K3): against its plain version, two launches bitwise
    equal, duplicate indices giving equal columns; the first of them again
    in forced pieces (slices of the slots, chunks of d_in) bitwise equal to
-   one launch.
+   one launch. Then K1, K2 (int8 and fp8 codes) and K4 at ragged shapes
+   (RAGGED_GATHER: B 100 and 3, d_in 1000 and 1001, and d_in 40000 and
+   40001, past what one bf16 panel holds, k 1 and 195, 777 rows with each
+   row's indices shuffled, K4's last 77 of them sentinel rows), bf16 and
+   f32: plain version, the bitwise pairs, K4 == K1 rows then a scatter; and
+   K1 with duplicate indices (plain version, two launches bitwise). Last
+   gather_layer_phase: K1 and K4 per layer at B*T = 512 (the [grad]
+   forward), bf16 and f32, beside the library call and the bound. With its
+   defaults it takes K1, K2, K4 and K2-coa at B = 4, 128 and 512; it calls
+   only wrappers that older trees have too, so it times their kernels the
+   same way in one call.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -146,12 +159,12 @@ KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
 QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
 ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
-# the port's kernels as the profiler names them: K1 and K4 share
-# gather_rows_kernel; K5 and K6 run structured_mma in bfloat16 and
-# structured_kernel (decode, K6) or structured_f32_tiled in float32; K3 is
-# dw_kernel
-PORT_KERNEL_NAMES = ("gather_rows_kernel", "structured_mma", "structured_kernel",
-                     "structured_f32_tiled", "dw_kernel")
+# the port's kernels as the profiler names them: K1, K2, K4 and K2-coa run
+# gather_mma in bfloat16 and gather_rows_kernel in float32; K5 and K6 run
+# structured_mma in bfloat16 and structured_kernel (decode, K6) or
+# structured_f32_tiled in float32; K3 is dw_kernel
+PORT_KERNEL_NAMES = ("gather_mma", "gather_rows_kernel", "structured_mma",
+                     "structured_kernel", "structured_f32_tiled", "dw_kernel")
 # the training phases: qwen3-1.7b at the train CLI's default batch and
 # sequence (8 x 64 tokens per step)
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
@@ -248,6 +261,43 @@ def build_phase():
                   f"spill stores up to {max(spills)} bytes")
             for fn, used in found:
                 print(f"[build] {name}: {fn}: {used}")
+    gather_geometry_check()
+
+
+# the d_in at which the C side's shared memory must equal the wrapper's
+# geometry: the CPU tests' values (tests/test_torch_condensed_matmul.py)
+GEOMETRY_D_IN = (1, 63, 64, 65, 511, 512, 513, 1000, 1001, 2048, 6144, 8192, 14336,
+                 40_000, 40_001, 116_224, 1_000_000)
+
+
+def gather_geometry_check() -> None:
+    """The dynamic shared memory the C side sizes each bfloat16 block of
+    K1/K2/K4/K2-coa with (``condensed_matmul_smem_bytes``) equals what
+    ``gather_geometry`` computes, at every batch tile and GEOMETRY_D_IN, so
+    the one Python geometry and the kernels' layout cannot drift apart."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+
+    c_bytes = cm._lib().condensed_matmul_smem_bytes
+    checked = 0
+    for d_in in GEOMETRY_D_IN:
+        geo = cm.gather_geometry(d_in, torch.bfloat16)
+        for tile in cm.GATHER_ROWS[torch.bfloat16]:
+            want = cm.mma_smem_bytes(tile, geo.block_neurons, geo.pass_rows, geo.passes)
+            got = c_bytes(0, tile, geo.block_neurons, geo.pass_rows, geo.passes)
+            if got != want:
+                raise AssertionError(f"gather_mma at d_in={d_in}, {tile} rows: the C side "
+                                     f"sizes {got} bytes, gather_geometry {want}")
+            checked += 1
+        if geo.decode_smem_bytes is not None:
+            got = c_bytes(1, 0, 0, geo.split_rows, geo.splits)
+            if got != geo.decode_smem_bytes:
+                raise AssertionError(f"gather_mma_decode at d_in={d_in}: the C side sizes "
+                                     f"{got} bytes, gather_geometry {geo.decode_smem_bytes}")
+            checked += 1
+    print(f"[build] gather geometry: the C side's shared memory == gather_geometry's in "
+          f"{checked} cases ({len(GEOMETRY_D_IN)} d_in from 1 to {max(GEOMETRY_D_IN)}, every "
+          f"batch tile)")
 
 
 def kernel_phase(device):
@@ -285,13 +335,14 @@ def kernel_phase(device):
                 torch.cuda.synchronize()
                 torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype_name])
                 err = (y.float() - y_ref.float()).abs().max().item()
+                tiled, least = cm.TILED_ROWS[dtype], cm.GATHER_ROWS[dtype][0]
                 if launch == "decode":
-                    other = cm.condensed_matmul(x, vals, idx, block_b=8)  # tiled launch
+                    other = cm.condensed_matmul(x, vals, idx, block_b=tiled)  # tiled launch
                     same = torch.equal(cm.condensed_matmul_decode(x, vals, idx), other)
-                    pair = "decode == tiled(8)"
+                    pair = f"decode == tiled({tiled})"
                 else:
-                    same = torch.equal(y, cm.condensed_matmul(x, vals, idx, block_b=2))
-                    pair = "tiled(8) == tiled(2)"
+                    same = torch.equal(y, cm.condensed_matmul(x, vals, idx, block_b=least))
+                    pair = f"tiled({tiled}) == tiled({least})"
                 if not same:
                     raise AssertionError(f"K1 {name} {dtype_name} B={b}: {pair} is not bitwise")
                 ms = _time_ms(cm.condensed_matmul, [(x, v, i) for v, i in weight_sets])
@@ -430,10 +481,11 @@ def ablation_kernel_phase(device):
                 y = sm.condensed_over_active_matmul(x, vals, idx, oi, d_out)
                 err = check("K4", y, ref.condensed_over_active_matmul_ref(x, vals, idx, oi, d_out),
                             dtype_name, f"{name} B={b}")
-                other = (sm.condensed_over_active_matmul(x, vals, idx, oi, d_out, block_b=8)
-                         if launch == "decode" else
-                         sm.condensed_over_active_matmul(x, vals, idx, oi, d_out, block_b=2))
-                pair = "decode == tiled(8)" if launch == "decode" else "tiled(8) == tiled(2)"
+                tiled, least = cm.TILED_ROWS[dtype], cm.GATHER_ROWS[dtype][0]
+                other = sm.condensed_over_active_matmul(
+                    x, vals, idx, oi, d_out, block_b=tiled if launch == "decode" else least)
+                pair = (f"decode == tiled({tiled})" if launch == "decode"
+                        else f"tiled({tiled}) == tiled({least})")
                 same("K4", y, other, f"{name} {dtype_name} B={b}: {pair}")
                 k1 = ref._scatter_columns(cm.condensed_matmul(x, vals, idx), oi, d_out)
                 same("K4", y, k1, f"{name} {dtype_name} B={b}: K4 == K1 then scatter")
@@ -667,6 +719,252 @@ def ragged_structured_phase(device) -> None:
                   f"ablated columns 0 | {', '.join(pairs)}: bitwise")
 
 
+# ragged K1/K2/K4 cases (B, d_in): no dimension a multiple of a tile, each
+# row's indices shuffled; k of 1 and 195; RAGGED_ROWS rows (not a multiple
+# of any neuron tile), K4's last RAGGED_PAD of them padding rows stored at
+# the sentinel d_out = RAGGED_D_OUT; B 100 the tiled launch, B 3 the decode.
+# d_in 40000 and 40001 lie past what one bf16 panel of 16 neurons holds:
+# gather_mma builds each split's panel in two passes, and decodes too
+RAGGED_GATHER = ((100, 1000), (3, 1000), (100, 1001), (3, 1001), (100, 40_000), (3, 40_001))
+RAGGED_K = (1, 195)
+RAGGED_ROWS, RAGGED_PAD = 777, 77
+
+
+def ragged_gather_phase(device) -> None:
+    """K1, K2 (int8 and fp8 codes) and K4 at RAGGED_GATHER x RAGGED_K, bf16
+    and f32, each row's indices in random order: within TOL of the plain
+    version; the launch bitwise equal to the smallest batch tile
+    (``GATHER_ROWS[dtype][0]``) and, where B <= 8, to the tiled launch; K4
+    bitwise K1's rows then a scatter, its sentinel rows dropped and its other
+    columns 0; in f32 K2 bitwise K1(f32(q)) * s. Then K1 with duplicate
+    indices (slot 1 := slot 0 in every row), at the first shape, k 195: within
+    TOL of the plain version (which adds them), two launches bitwise equal."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    d_out = RAGGED_D_OUT
+    live = RAGGED_ROWS - RAGGED_PAD
+    cols = torch.sort(torch.randperm(d_out, generator=gen, device=device)[:live]).values
+    oi = torch.cat([cols, torch.full((RAGGED_PAD,), d_out, device=device)]).to(torch.int32)
+    ablated = torch.ones(d_out, dtype=torch.bool, device=device)
+    ablated[cols] = False
+
+    def same(a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} is not bitwise")
+
+    def close(got, want, dtype_name, what):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype_name],
+                                   msg=lambda m: f"{what}: {m}")
+        return (got.float() - want.float()).abs().max().item()
+
+    for b, d_in in RAGGED_GATHER:
+        x32 = torch.randn((b, d_in), generator=gen, device=device)
+        for k in RAGGED_K:
+            mask = topology.random_constant_fan_in_mask(gen, d_in, RAGGED_ROWS, k)
+            w = torch.randn((d_in, RAGGED_ROWS), generator=gen, device=device) / k ** 0.5
+            v32, idx = topology.dense_to_condensed(w * mask, mask, k)
+            shuffle = torch.argsort(torch.rand((RAGGED_ROWS, k), generator=gen, device=device), 1)
+            idx = torch.gather(idx, 1, shuffle).contiguous()
+            v32 = torch.gather(v32, 1, shuffle).contiguous()
+            for dtype_name in ("bfloat16", "float32"):
+                dtype = getattr(torch, dtype_name)
+                x, vals = x32.to(dtype).contiguous(), v32.to(dtype).contiguous()
+                tiled, least = cm.TILED_ROWS[dtype], cm.GATHER_ROWS[dtype][0]
+                what = (f"ragged B={b} d_in={d_in} rows={RAGGED_ROWS} k={k} shuffled "
+                        f"{dtype_name}")
+
+                def pairs_of(fn, y, key):
+                    same(y, fn(block_b=least), f"{key} {what}: launch == tiled({least})")
+                    done = [f"== tiled({least})"]
+                    if b <= cm.SMALL_BATCH_MAX:
+                        same(y, fn(block_b=tiled), f"{key} {what}: decode == tiled({tiled})")
+                        done.append(f"decode == tiled({tiled})")
+                    return done
+
+                y1 = cm.condensed_matmul(x, vals, idx)
+                err = close(y1, ref.condensed_matmul_ref(x, vals, idx), dtype_name, f"K1 {what}")
+                done = pairs_of(lambda **kw: cm.condensed_matmul(x, vals, idx, **kw), y1, "K1")
+                print(f"[kernel] K1  {what}: max_abs_err {err:.3g} | {', '.join(done)}: bitwise")
+
+                y4 = sm.condensed_over_active_matmul(x, vals, idx, oi, d_out)
+                err = close(y4, ref.condensed_over_active_matmul_ref(x, vals, idx, oi, d_out),
+                            dtype_name, f"K4 {what}")
+                if not torch.all(y4[:, ablated] == 0):
+                    raise AssertionError(f"K4 {what}: an ablated column is not 0")
+                same(y4, ref._scatter_columns(y1, oi, d_out), f"K4 {what}: K1 rows then scatter")
+                done = pairs_of(lambda **kw: sm.condensed_over_active_matmul(
+                    x, vals, idx, oi, d_out, **kw), y4, "K4")
+                print(f"[kernel] K4  {what}, {RAGGED_PAD} sentinel rows to d_out={d_out}: "
+                      f"max_abs_err {err:.3g} | ablated columns 0, K4 == K1 rows then scatter, "
+                      f"{', '.join(done)}: bitwise")
+
+                for qdt in QUANT:
+                    q, sc = F.quantize_values(v32, qdt)
+                    y2 = cm.condensed_matmul(x, q, idx, scales=sc)
+                    err = close(y2, ref.condensed_matmul_scaled_ref(x, q, idx, sc), dtype_name,
+                                f"K2 {qdt} {what}")
+                    done = pairs_of(lambda **kw: cm.condensed_matmul(
+                        x, q, idx, scales=sc, **kw), y2, f"K2 {qdt}")
+                    if dtype_name == "float32":
+                        same(y2, cm.condensed_matmul(x, q.float(), idx) * sc,
+                             f"K2 {qdt} {what}: K2 == K1(f32(q)) * s")
+                        done.append("K2 == K1(f32(q)) * s")
+                    print(f"[kernel] K2  {qdt} {what}: max_abs_err {err:.3g} | "
+                          f"{', '.join(done)}: bitwise")
+
+    # duplicate indices: slot 1 := slot 0 in every row
+    b, d_in = RAGGED_GATHER[0]
+    k = RAGGED_K[-1]
+    mask = topology.random_constant_fan_in_mask(gen, d_in, RAGGED_ROWS, k)
+    w = torch.randn((d_in, RAGGED_ROWS), generator=gen, device=device) / k ** 0.5
+    v32, idx = topology.dense_to_condensed(w * mask, mask, k)
+    idx = idx.clone()
+    idx[:, 1] = idx[:, 0]
+    x32 = torch.randn((b, d_in), generator=gen, device=device)
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        x, vals = x32.to(dtype).contiguous(), v32.to(dtype).contiguous()
+        what = f"K1 duplicate indices B={b} d_in={d_in} rows={RAGGED_ROWS} k={k} {dtype_name}"
+        y = cm.condensed_matmul(x, vals, idx)
+        err = close(y, ref.condensed_matmul_ref(x, vals, idx), dtype_name, what)
+        same(y, cm.condensed_matmul(x, vals, idx), f"{what}: two launches")
+        least = cm.GATHER_ROWS[dtype][0]
+        same(y, cm.condensed_matmul(x, vals, idx, block_b=least), f"{what}: tiled({least})")
+        print(f"[kernel] {what}: max_abs_err {err:.3g} | two launches, == tiled({least}): "
+              f"bitwise")
+
+
+# the batches gather_layer_phase times: decode, prefill (tiled) and the
+# [grad] forward over a train batch
+LAYER_BATCHES = ((BATCH, "decode"), (BATCH * PROMPT, "tiled"), (TRAIN_TOKENS, "grad"))
+
+
+GATHER_KEYS = ("K1", "K2 int8", "K2 fp8", "K4", "K2-coa int8")
+
+
+def gather_layer_phase(device, batches=LAYER_BATCHES, keys=GATHER_KEYS,
+                       dtypes=("bfloat16", "float32")) -> list:
+    """K1, K2 (int8 and fp8 codes), K4 and K2-coa (int8 codes), or those of
+    ``keys``, at every main-path stack of full-width qwen3-1.7b (K4 and
+    K2-coa with half the neurons ablated), at ``batches``: B = 4 (decode),
+    128 (tiled) and 512 (the [grad] forward), in ``dtypes``: each within TOL
+    of its plain version, then timed beside its library call (torch.matmul
+    on the dense, masked or dequantized weight) and its bound, with one line
+    per layer (wo + w_gate + w_up + w_down). Uses only wrapper calls that
+    older trees of the port have too, so their kernels can be timed by the
+    same function in the same call. Returns the per-case records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(8)
+    shapes = {}
+    for s in REG.build_registry(cfg):  # w_up has w_gate's shape
+        shapes.setdefault((s.d_in, s.d_out), (s.path[-1], D.fan_in_from_density(s.d_in, s.density)))
+    per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}
+    cases, layer = [], {}
+    for (d_in, d_out), (name, k) in shapes.items():
+        mask = topology.random_constant_fan_in_mask(gen, d_in, d_out, k)
+        w = torch.randn((d_in, d_out), generator=gen, device=device) / k ** 0.5
+        ablated = _ablated(mask, ABLATION)
+        exports = {  # key: (export, out_index or None)
+            "K1": lambda: (F.Condensed.export_from_dense(w, mask), None),
+            "K2 int8": lambda: (F.Condensed.export_from_dense(w, mask, quantize_spec="int8"),
+                                None),
+            "K2 fp8": lambda: (F.Condensed.export_from_dense(w, mask, quantize_spec="fp8"),
+                               None),
+            "K4": lambda: (F.CondensedOverActive.export_from_dense(w, ablated), True),
+            "K2-coa int8": lambda: (F.CondensedOverActive.export_from_dense(
+                w, ablated, quantize_spec="int8"), True)}
+        exports = {key: make() for key, make in exports.items() if key in keys}
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+            isz = torch.empty((), dtype=dtype).element_size()
+            for key, (fmt, coa) in exports.items():
+                scales = getattr(fmt, "scales", None)
+                vals = fmt.values if scales is not None else fmt.values.to(dtype).contiguous()
+                idx = fmt.indices
+                oi = fmt.out_index if coa else None
+                deq = vals.float() if scales is None else F.dequantize_values(vals, scales)
+                dense = topology.condensed_to_dense(deq, idx, d_in)
+                if coa:
+                    dense = ref._scatter_columns(dense, oi, d_out)
+                dense = dense.to(dtype).contiguous()
+                slot_bytes = vals.numel() * (vals.element_size() + 4) + (
+                    0 if scales is None else scales.numel() * 4) + (0 if oi is None else
+                                                                    oi.numel() * 4)
+                sets = [(vals.clone(), idx.clone(), None if scales is None else scales.clone())
+                        for _ in range(_copies(slot_bytes))]
+                dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * isz))]
+                if coa:
+                    def fn(x_, v_, i_, s_):
+                        return sm.condensed_over_active_matmul(x_, v_, i_, oi, d_out, scales=s_)
+
+                    def plain(x_, v_, i_, s_):
+                        if s_ is None:
+                            return ref.condensed_over_active_matmul_ref(x_, v_, i_, oi, d_out)
+                        return ref.condensed_over_active_matmul_scaled_ref(x_, v_, i_, oi, s_,
+                                                                           d_out)
+                else:
+                    def fn(x_, v_, i_, s_):
+                        return cm.condensed_matmul(x_, v_, i_, scales=s_)
+
+                    def plain(x_, v_, i_, s_):
+                        if s_ is None:
+                            return ref.condensed_matmul_ref(x_, v_, i_)
+                        return ref.condensed_matmul_scaled_ref(x_, v_, i_, s_)
+                for b, launch in batches:
+                    x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+                    y = fn(x, vals, idx, scales)
+                    want = plain(x, vals, idx, scales)
+                    torch.cuda.synchronize()
+                    what = f"{key} {name} {dtype_name} B={b}"
+                    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name],
+                                               msg=lambda m: f"{what}: {m}")
+                    err = (y.float() - want.float()).abs().max().item()
+                    del want
+                    ms = _time_ms(fn, [(x, *c) for c in sets])
+                    library_ms = _time_ms(torch.matmul, [(x, dd) for dd in dense_sets])
+                    nbytes = slot_bytes + b * d_in * isz + b * d_out * isz
+                    ops = 2 * b * vals.numel()
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                    rec = dict(kernel=key, stack=name, d_in=d_in, d_out=d_out, k=k,
+                               dtype=dtype_name, batch=b, launch=launch, ms=ms,
+                               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations",
+                               bytes=nbytes, ops=ops, max_abs_err=err)
+                    cases.append(rec)
+                    acc = layer.setdefault((key, dtype_name, b), {})
+                    acc[name] = rec
+                    print(f"[layer] {what}: ms {ms:.5f} | library {library_ms:.5f} | bound "
+                          f"{rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g}")
+                del sets, dense_sets
+    for (key, dtype_name, b), recs in layer.items():
+        tot = {t: sum(r[t] * per_layer[n] for n, r in recs.items())
+               for t in ("ms", "library_ms", "bound_ms")}
+        stacks = ", ".join(f"{n} {r['ms'] * 1e3:.2f}" for n, r in recs.items())
+        print(f"[layer] {key} {dtype_name} B={b} one layer (wo + w_gate + w_up + w_down): "
+              f"{tot['ms'] * 1e3:.2f} us | library {tot['library_ms'] * 1e3:.2f} | bound "
+              f"{tot['bound_ms'] * 1e3:.2f} | per stack (us) {stacks}")
+    torch.cuda.empty_cache()
+    return cases
+
+
 def quant_kernel_phase(device):
     """K2 at K1's main-path shapes and K2-coa at K4's (half of each stack's
     neurons ablated), int8 and fp8 codes, bf16 and f32 x; returns the
@@ -742,9 +1040,11 @@ def quant_kernel_phase(device):
                         torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name],
                                                    msg=lambda m: f"{key} {what}: {m}")
                         err = (y.float() - want.float()).abs().max().item()
-                        pairs = ["decode == tiled(8)" if launch == "decode"
-                                 else "tiled(8) == tiled(2)"]
-                        same(key, y, fn(x, q, idx, sc, block_b=8 if launch == "decode" else 2),
+                        tiled, least = cm.TILED_ROWS[dtype], cm.GATHER_ROWS[dtype][0]
+                        pairs = [f"decode == tiled({tiled})" if launch == "decode"
+                                 else f"tiled({tiled}) == tiled({least})"]
+                        same(key, y, fn(x, q, idx, sc,
+                                        block_b=tiled if launch == "decode" else least),
                              f"{what}: {pairs[0]}")
                         if out_index is None and dtype_name == "float32":
                             same(key, y, cm.condensed_matmul(x, q.float(), idx) * sc,
@@ -1890,32 +2190,46 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
 
-    build_phase()
-    cases = kernel_phase(device) + ablation_kernel_phase(device) + random_ablation_phase(device)
-    ragged_structured_phase(device)
-    cases += quant_kernel_phase(device) + dw_kernel_phase(device)
-    setup = model_setup(device)
-    launches = {"K1": slice_phase(setup, card)}
-    ablation = ablation_phase(setup, card)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+        return out
+
+    timed("build", build_phase)
+    cases = timed("kernel", kernel_phase, device)
+    cases += timed("ablation_kernel", ablation_kernel_phase, device)
+    cases += timed("random_ablation", random_ablation_phase, device)
+    timed("ragged_structured", ragged_structured_phase, device)
+    cases += timed("quant_kernel", quant_kernel_phase, device)
+    cases += timed("dw_kernel", dw_kernel_phase, device)
+    timed("ragged_gather", ragged_gather_phase, device)
+    # B = 4 and 128 are kernel_phase's, ablation_kernel_phase's and
+    # quant_kernel_phase's; here the [grad] forward's K1 and K4 at B*T = 512
+    layer_cases = timed("gather_layer", gather_layer_phase, device,
+                        ((TRAIN_TOKENS, "grad"),), ("K1", "K4"))
+    setup = timed("model_setup", model_setup, device)
+    launches = {"K1": timed("slice", slice_phase, setup, card)}
+    ablation = timed("ablation", ablation_phase, setup, card)
     launches.update(K4=ablation["condensed_over_active"]["K4"],
                     K5=ablation["structured"]["K5"],
                     K6=ablation["structured+prefetch"]["K6"])
-    auto_phase(setup)
-    quant = quant_phase(setup, card)
+    timed("auto", auto_phase, setup)
+    quant = timed("quant", quant_phase, setup, card)
     launches.update({"K2": quant["K2"], "K2-coa": quant["K2-coa"]})
-    checkpoint_phase(setup)
-    launches["K3"] = grad_phase(setup)
+    timed("checkpoint", checkpoint_phase, setup)
+    launches["K3"] = timed("grad", grad_phase, setup)
     del setup
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(device, card)
-    reference_phase(device)
-    train_reference_phase(device)
+    timed("train", train_phase, device, card)
+    timed("reference", reference_phase, device)
+    timed("train_reference", train_reference_phase, device)
 
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
-        json.dumps({"card": smi, "cases": cases}, indent=1))
+        json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

@@ -5,9 +5,16 @@ K1: ``y[b, n] = sum_k f32(x[b, indices[n, k]]) * f32(values[n, k])``, cast to
 K2 (``scales=`` given): ``values`` are int8 or float8_e4m3fn codes and the
 per-neuron float32 scale multiplies each neuron's k-sum before the cast, the
 function of ``_fwd_scaled_kernel``. The CUDA source is
-``csrc/condensed_matmul.cu`` (its header note gives the byte bound and the
-design); ``ref.condensed_matmul_ref`` and ``ref.condensed_matmul_scaled_ref``
-are the plain versions.
+``csrc/condensed_matmul.cu`` over the body ``csrc/condensed_rows.cuh`` (its
+header note gives the byte bound and the design): in bfloat16 the slots
+are densified into bf16 panels in shared memory and multiplied on the
+tensor cores, one chain per d_in split added in split order
+(``gather_geometry``) -- a cluster of the splits' blocks at the tiled
+launch (past d_in about 36k with each split's panel built in passes, so
+any d_in runs), every split of 16 or 8 neurons in one block at decode up
+to d_in 6656; in float32 a warp per neuron gathers on the CUDA cores.
+``ref.condensed_matmul_ref`` and ``ref.condensed_matmul_scaled_ref`` are
+the plain versions.
 K3 (``condensed_matmul_dw``): the values gradient,
 ``dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, indices[n, k]])`` in float32,
 the function of ``_dw_kernel``; its source is ``csrc/condensed_dw.cu`` and
@@ -16,8 +23,11 @@ the function of ``_dw_kernel``; its source is ``csrc/condensed_dw.cu`` and
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback. As in the reference,
 ``B <= SMALL_BATCH_MAX`` takes the decode launch (the whole batch in one
-block row) and larger batches the tiled launch (8-row batch tiles); a
-caller-given ``block_b`` forces the tiled launch. The two are bitwise equal.
+block row) and larger batches the tiled launch; a caller-given ``block_b``
+(the batch rows of a block, one of ``GATHER_ROWS[dtype]``) forces the tiled
+launch. The tiled launch takes ``TILED_ROWS[dtype]`` rows a block: 128 in
+bfloat16 (the slots read once per call up to B = 128), 8 in float32. Every
+launch of one shape is bitwise equal to every other.
 
 ``condensed_matmul.launches`` counts K1's launches,
 ``condensed_matmul.scaled_launches`` K2's and ``condensed_matmul_dw.launches``
@@ -36,24 +46,153 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 SMALL_BATCH_MAX = 8
+# the decode launch's batch tiles (B rounded up to a power of two)
 BLOCK_ROWS = (1, 2, 4, 8)
+# the batch rows of a block each dtype takes (``block_b``), and those of the
+# tiled launch: bfloat16 any power of two up to 128 (one or sixteen n8
+# tiles of the tensor-core kernel), float32 the CUDA-core kernel's x tiles
+GATHER_ROWS = {torch.bfloat16: (1, 2, 4, 8, 16, 32, 64, 128), torch.float32: BLOCK_ROWS}
+TILED_ROWS = {torch.bfloat16: 128, torch.float32: 8}
 # dynamic shared memory a Hopper block may opt into (227 KB)
 SMEM_BYTES = 232_448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the stored-code types K2 reads (1-byte), with a float32 scale per row
 _VALUE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
-_WARPS_PER_BLOCK = 8  # kWarps in csrc/condensed_matmul.cu
+# The bfloat16 kernels' layout constants (csrc/condensed_rows.cuh, whose
+# mma_smem and decode_smem the two formulas below equal; chip_smoke.py
+# checks them against condensed_matmul_smem_bytes): blocks of _THREADS; d_in
+# splits of a multiple of CHUNK_ROWS inputs, at most MAX_SPLITS (one cluster
+# adds them); x through a ring of RING_STAGES chunks, X_ROW_BYTES a batch
+# row; an outbox of OUTBOX_ENTRIES slots (_THREADS x kBatch loads); a
+# gather_mma block holds one of NEURON_TILES neurons, a decode block
+# DECODE_NEURONS (or 8)
+_WARPS_PER_BLOCK = 8
+_THREADS = 32 * _WARPS_PER_BLOCK
+CHUNK_ROWS = 64
+MAX_SPLITS = 8
+RING_STAGES = 3
+X_ROW_BYTES = CHUNK_ROWS * 2 + 16
+NEURON_TILES = (64, 32, 16)
+DECODE_LOADS = 20  # kBatch: slot loads a thread keeps in flight
+OUTBOX_ENTRIES = _THREADS * DECODE_LOADS
+DECODE_NEURONS = 16
+# dynamic shared memory three blocks may hold together on an SM (228 KB an
+# SM, 1 KB of it reserved a block)
+THREE_BLOCKS_SMEM = 233_472 - 3 * 1024
+
+
+class GatherGeometry(NamedTuple):
+    """How K1, K2, K4 and K2-coa cut one shape, from d_in and the dtype only.
+
+    bfloat16: d_in in ``splits`` splits of ``split_rows`` inputs (a multiple
+    of 64, at most 8: each output sums its splits' tensor-core chains in
+    split order). gather_mma (the tiled launch) takes ``block_neurons``
+    neurons a block, a cluster of the splits' blocks, and ``smem_bytes`` of
+    dynamic shared memory at 128 batch rows; its panel holds ``pass_rows``
+    inputs of a split, in ``passes`` passes where that is less than the
+    split. ``decode_smem_bytes`` is that of the decode kernel, which runs
+    every split of 16 neurons in one block with ``decode_loads`` slot loads
+    a thread in flight (both None where it does not fit: the decode launch
+    then runs gather_mma too). float32: one chain over the row's slots
+    (``split_rows`` = d_in, one split), the neurons a block set per launch
+    (``block_neurons`` None), ``smem_bytes`` the tiled launch's x tile and
+    no decode kernel of its own."""
+    split_rows: int
+    splits: int
+    block_neurons: int | None
+    smem_bytes: int
+    pass_rows: int | None = None
+    passes: int = 1
+    decode_smem_bytes: int | None = None
+    decode_loads: int | None = None
+
+
+def mma_smem_bytes(tile_rows: int, block_neurons: int, pass_rows: int, passes: int = 1) -> int:
+    """Dynamic shared memory of a block of the bfloat16 tiled kernel
+    (``mma_smem`` in csrc/condensed_rows.cuh): the x ring, the bf16 panel of
+    ``pass_rows`` inputs (rows padded by 16 bytes), the outbox of slots
+    bucketed by split (OUTBOX_ENTRIES of 4 bytes, each bucket 16-byte
+    aligned), a duplicate bitmap a panel row, two flags a neuron, the bucket
+    counts and places (4 x 8 ints, then 8 ints and 2 packed counts a warp),
+    and where ``passes`` > 1 a stash of each thread's block_neurons / 2
+    accumulators."""
+    rows = -(-tile_rows // 8) * 8
+    stash = _THREADS * (block_neurons // 2) * 4 if passes > 1 else 0
+    return (RING_STAGES * rows * X_ROW_BYTES + block_neurons * (2 * pass_rows + 16)
+            + (OUTBOX_ENTRIES + 4 * MAX_SPLITS) * 4
+            + block_neurons * -(-pass_rows // 32) * 4 + block_neurons * 8
+            + 4 * MAX_SPLITS * 4 + _WARPS_PER_BLOCK * (MAX_SPLITS * 4 + 2 * 8) + stash)
+
+
+def decode_smem_bytes(split_rows: int, splits: int) -> int:
+    """Dynamic shared memory of the bfloat16 decode kernel (``decode_smem``
+    in csrc/condensed_rows.cuh): a panel of DECODE_NEURONS rows over every
+    split, a scratch that holds in turn the duplicate bitmaps, each warp's
+    x buffer (8 rows of a 64-input chunk) and the splits' partial tiles (8
+    batch rows), and a flag a neuron."""
+    width = split_rows * splits
+    scratch = max(DECODE_NEURONS * width // 32 * 4, 8 * 8 * CHUNK_ROWS * 2,
+                  MAX_SPLITS * 8 * DECODE_NEURONS * 4)
+    return DECODE_NEURONS * (2 * width + 16) + scratch + DECODE_NEURONS * 4
+
+
+def _outbox_fits(neurons: int, splits: int, pass_rows: int) -> bool:
+    """An outbox entry holds a block's local row (ceil(neurons / splits)
+    rows) in the 16 bits the value leaves beside the input in the pass."""
+    return -(-neurons // splits) <= 1 << (16 - (pass_rows - 1).bit_length())
+
+
+@functools.cache
+def gather_geometry(d_in: int, dtype: torch.dtype) -> GatherGeometry:
+    """The geometry of K1/K2/K4/K2-coa at ``d_in`` in ``dtype``. It depends
+    on nothing else (never the batch, the rows or the launch), which keeps
+    every launch of one shape bitwise equal. bfloat16: ``64 * ceil(d_in /
+    512)`` inputs a split, so at most 8 splits; gather_mma takes the most
+    neurons a block (64, 32 or 16) whose panel holds the whole split within
+    227 KB at 128 batch rows (64 at d_in 2048, two blocks an SM, and at
+    6144), else 16 neurons and the split in the fewest passes that fit
+    (past d_in about 36k; any d_in runs); the decode kernel holds every
+    split in one block up to d_in 6656, three blocks an SM up to 2048."""
+    if dtype == torch.float32:
+        return GatherGeometry(d_in, 1, None, _fit_rows(TILED_ROWS[dtype], d_in, 4) * d_in * 4)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the condensed kernels take float32 or bfloat16, not {dtype}")
+    split_rows = -(-d_in // (MAX_SPLITS * CHUNK_ROWS)) * CHUNK_ROWS
+    splits = -(-d_in // split_rows)
+    tile = TILED_ROWS[dtype]
+
+    def fits(neurons: int, pass_rows: int, passes: int) -> bool:
+        return (mma_smem_bytes(tile, neurons, pass_rows, passes) <= SMEM_BYTES
+                and _outbox_fits(neurons, splits, pass_rows))
+
+    one_pass = [n for n in NEURON_TILES if fits(n, split_rows, 1)]
+    neurons, pass_rows = (one_pass[0], split_rows) if one_pass else (NEURON_TILES[-1], None)
+    ask = 2
+    while pass_rows is None:  # 16 neurons, the split in passes of a multiple of 64 inputs
+        rows = -(-split_rows // (ask * CHUNK_ROWS)) * CHUNK_ROWS
+        if fits(neurons, rows, -(-split_rows // rows)):
+            pass_rows = rows
+        ask += 1
+    passes = -(-split_rows // pass_rows)
+    decode = decode_smem_bytes(split_rows, splits)
+    return GatherGeometry(split_rows, splits, neurons,
+                          mma_smem_bytes(tile, neurons, pass_rows, passes), pass_rows, passes,
+                          decode if decode <= SMEM_BYTES else None,
+                          (DECODE_LOADS if 3 * decode <= THREE_BLOCKS_SMEM else 2 * DECODE_LOADS)
+                          if decode <= SMEM_BYTES else None)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("condensed_matmul")
     fn = lib.condensed_matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.condensed_matmul_scaled_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.condensed_matmul_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.condensed_matmul_smem_bytes.restype = ctypes.c_longlong
     lib.condensed_matmul_error_string.argtypes = [ctypes.c_int]
     lib.condensed_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -92,7 +231,8 @@ def _check(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
 
 
 def _fit_rows(rows: int, d_in: int, itemsize: int) -> int:
-    """Largest block row count <= ``rows`` whose x tile fits shared memory."""
+    """Largest float32 block row count <= ``rows`` whose x tile fits shared
+    memory."""
     for r in reversed(BLOCK_ROWS):
         if r <= rows and r * d_in * itemsize <= SMEM_BYTES:
             return r
@@ -106,6 +246,32 @@ def _plain(x, values, indices, scales):
     return ref.condensed_matmul_scaled_ref(x, values, indices, scales)
 
 
+def launch_args(x: torch.Tensor, n_rows: int, block_rows: int,
+                sm_count: int) -> tuple[int, int, int, int, int, int]:
+    """(block_rows, rows_per_warp, split_rows, pass_rows, block_neurons,
+    decode_loads): one launch of the shared body (csrc/condensed_rows.cuh)
+    on x (B, d_in) over ``n_rows`` neurons, on a card of ``sm_count`` SMs;
+    the C side makes no choice of its own. bfloat16, from
+    ``gather_geometry``: a batch tile of at most 8 rows runs the decode
+    kernel where it fits (``decode_loads`` > 0), 8 neurons a block (the m16
+    tile's other rows zero) where the grid then still holds at most a block
+    an SM, so more SMs pull from HBM at once, else 16; any other tile runs
+    gather_mma (``decode_loads`` 0). float32: the x tile shrunk to fit
+    shared memory and neurons a warp for enough blocks to give two waves
+    over the SMs, more neurons a block (fewer x tiles staged) when there are
+    blocks to spare."""
+    b, d_in = x.shape
+    if x.dtype == torch.bfloat16:
+        geo = gather_geometry(d_in, x.dtype)
+        if block_rows <= SMALL_BATCH_MAX and geo.decode_loads:
+            neurons = 8 if -(-n_rows // 8) <= sm_count else DECODE_NEURONS
+            return block_rows, 0, geo.split_rows, 0, neurons, geo.decode_loads
+        return block_rows, 0, geo.split_rows, geo.pass_rows, geo.block_neurons, 0
+    rows = _fit_rows(block_rows, d_in, x.element_size())
+    per_warp = max(1, min(8, n_rows * -(-b // rows) // (_WARPS_PER_BLOCK * 2 * sm_count)))
+    return rows, per_warp, 0, 0, 0, 0
+
+
 def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
             scales: torch.Tensor | None, block_rows: int) -> torch.Tensor:
     if x.device.type != "cuda":
@@ -116,23 +282,19 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
     if b == 0 or n_out == 0:
         return y
-    grid_rows = -(-b // block_rows)
-    # neurons per warp: enough blocks for two waves over the SMs, more
-    # neurons per block (fewer x tiles staged) when there are blocks to spare
-    per_warp = max(1, min(8, n_out * grid_rows
-                          // (_WARPS_PER_BLOCK * 2 * _sm_count(x.device.index or 0))))
+    args = launch_args(x, n_out, block_rows, _sm_count(x.device.index or 0))
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if scales is None:
             err = lib.condensed_matmul_fwd(
                 x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-                b, d_in, n_out, k, _DTYPE_CODES[x.dtype], block_rows, per_warp, stream)
+                b, d_in, n_out, k, _DTYPE_CODES[x.dtype], *args, stream)
         else:
             err = lib.condensed_matmul_scaled_fwd(
                 x.data_ptr(), values.data_ptr(), indices.data_ptr(), scales.data_ptr(),
                 y.data_ptr(), b, d_in, n_out, k, _DTYPE_CODES[x.dtype],
-                _VALUE_CODES[values.dtype], block_rows, per_warp, stream)
+                _VALUE_CODES[values.dtype], *args, stream)
     if err:
         raise RuntimeError("condensed_matmul kernel launch failed: "
                            + lib.condensed_matmul_error_string(err).decode())
@@ -141,6 +303,17 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     else:
         condensed_matmul.scaled_launches += 1
     return y
+
+
+def check_block_b(block_b: int | None, dtype: torch.dtype) -> None:
+    if block_b is not None and block_b not in GATHER_ROWS[dtype]:
+        raise ValueError(f"block_b must be one of {GATHER_ROWS[dtype]} for {dtype}, "
+                         f"got {block_b}")
+
+
+def decode_rows(b: int) -> int:
+    """The decode launch's batch tile: B rounded up to a power of two."""
+    return next(r for r in BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
 
 
 def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
@@ -153,19 +326,20 @@ def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tenso
     ``values`` as int8/fp8 codes and runs K2.
 
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
-    batches to the tiled launch with 8-row tiles. An explicit ``block_b``
-    (1, 2, 4 or 8) forces the tiled launch at that tile (shrunk where the
-    x tile would not fit shared memory).
+    batches to the tiled launch with ``TILED_ROWS[dtype]`` batch rows a
+    block (128 in bfloat16, 8 in float32). An explicit ``block_b`` (one of
+    ``GATHER_ROWS[dtype]``: a power of two up to 128 in bfloat16, up to 8
+    in float32, where the x tile shrinks to fit shared memory) forces the
+    tiled launch at that tile.
     """
     _check(x, values, indices, scales)
-    if block_b is not None and block_b not in BLOCK_ROWS:
-        raise ValueError(f"block_b must be one of {BLOCK_ROWS}, got {block_b}")
+    check_block_b(block_b, x.dtype)
     if x.device.type == "cpu":
         return _plain(x, values, indices, scales)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
         return condensed_matmul_decode(x, values, indices, scales=scales)
-    rows = SMALL_BATCH_MAX if block_b is None else block_b
-    return _launch(x, values, indices, scales, _fit_rows(rows, x.shape[1], x.element_size()))
+    return _launch(x, values, indices, scales,
+                   TILED_ROWS[x.dtype] if block_b is None else block_b)
 
 
 condensed_matmul.launches = 0
@@ -176,15 +350,14 @@ def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
                             indices: torch.Tensor, *,
                             scales: torch.Tensor | None = None) -> torch.Tensor:
     """Decode launch: the whole batch (rounded up to a power of two, at most
-    8 rows) in one block row, the grid over neuron tiles only. Bitwise equal
-    to the tiled launch: each row's reduction order is independent of the
-    batch tiling. ``scales`` runs K2's decode launch."""
+    8 rows) in one block row, the grid over neuron tiles (and, in bfloat16,
+    d_in splits) only. Bitwise equal to the tiled launch: each output's
+    reduction order depends on d_in and the dtype alone. ``scales`` runs
+    K2's decode launch."""
     _check(x, values, indices, scales)
     if x.device.type == "cpu":
         return _plain(x, values, indices, scales)
-    b = x.shape[0]
-    rows = next(r for r in BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
-    return _launch(x, values, indices, scales, _fit_rows(rows, x.shape[1], x.element_size()))
+    return _launch(x, values, indices, scales, decode_rows(x.shape[0]))
 
 
 @functools.cache

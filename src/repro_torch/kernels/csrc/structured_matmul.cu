@@ -8,15 +8,24 @@
 //   out[b, out_index[r]] = sum_k f32(x[b, idx[r, k]]) * f32(values[r, k])
 //
 // over the a <= d_out surviving rows r, cast once to the dtype of x. Rows
-// whose out_index is the sentinel d_out are padding and are dropped. It is
-// K1's gather-reduce (condensed_rows.cuh) with the store addressed through
-// out_index, so its output at column out_index[r] is bitwise K1's output
-// for row r. Bound: bytes (values + indices + out_index + x + out over HBM).
+// whose out_index is the sentinel d_out are padding: their slots are never
+// stored and they are dropped. Bound: bytes (values + indices + out_index +
+// x + out over HBM). It is K1's body (condensed_rows.cuh) with the store
+// addressed through out_index: in bfloat16 one chain a row, fixed by d_in,
+// of mma.sync products over a dense bf16 panel of the slots, one chain per
+// d_in split, the splits added in order -- a cluster of the splits' blocks
+// at the tiled launch, one block for every split at decode (the cluster
+// past d_in 6656); in float32 a
+// warp per row gathering on the CUDA cores. So its output at column
+// out_index[r] is bitwise K1's output for row r, and the decode launch is
+// bitwise the tiled launch at any batch tile. Duplicates, non-finite x and
+// the geometry are as that note gives them.
 //
 // K2-coa (replaces _coa_kernel with scaled=True): K4 over int8 or
 // float8_e4m3 codes with one float32 scale per surviving row, multiplied
-// after the k-sum, before the cast and the store (condensed_rows.cuh): its
-// output at column out_index[r] is bitwise K2's output for row r.
+// after the k-sum, before the cast and the store (codes widen to bf16
+// exactly for the tensor cores): its output at column out_index[r] is
+// bitwise K2's output for row r.
 //
 // K5, structured (replaces _structured_kernel, launched by
 // _structured_tiled and _structured_decode):
@@ -751,38 +760,42 @@ bool is_tile(int rows, int most) {
 
 extern "C" {
 
-// K4. dtype: 0 = float32, 1 = bfloat16 (x, values and out). block_rows: 1,
-// 2, 4 or 8 rows of x per block. Returns the cudaError_t (0 = success).
+// K4. dtype: 0 = float32, 1 = bfloat16 (x, values and out). block_rows,
+// rows_per_warp, split_rows, pass_rows, block_neurons, decode_loads: the
+// launch, as condensed_matmul_fwd's. Returns the cudaError_t (0 = success).
 int coa_matmul_fwd(const void* x, const void* values, const void* indices, const void* out_index,
                    void* out, int batch, int d_in, int a, int k, int d_out, int dtype,
-                   int block_rows, int rows_per_warp, void* stream) {
-  if (batch <= 0 || a <= 0 || d_in <= 0 || d_out <= 0 || k < 0 || rows_per_warp <= 0 ||
-      (dtype != 0 && dtype != 1))
+                   int block_rows, int rows_per_warp, int split_rows, int pass_rows,
+                   int block_neurons, int decode_loads, void* stream) {
+  if (batch <= 0 || a <= 0 || d_in <= 0 || d_out <= 0 || k < 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(out, 0, static_cast<size_t>(batch) * d_out * dtype_size(dtype), s);
   if (err != cudaSuccess) return err;
-  return condensed_rows::dispatch(dtype, 0, block_rows, x, values, indices, nullptr, out_index,
-                                  out, batch, d_in, a, k, d_out, rows_per_warp, s);
+  return condensed_rows::dispatch(dtype, 0, block_rows, rows_per_warp, split_rows, pass_rows,
+                                  block_neurons, decode_loads, x, values, indices, nullptr,
+                                  out_index, out, batch, d_in, a, k, d_out, s);
 }
 
 // K2-coa. As coa_matmul_fwd, with int8 (vtype 1) or float8_e4m3 (vtype 2)
 // codes and a float32 scale per row (scales: a floats).
 int coa_matmul_scaled_fwd(const void* x, const void* codes, const void* indices,
                           const void* out_index, const void* scales, void* out, int batch,
-                          int d_in, int a, int k, int d_out, int dtype, int vtype,
-                          int block_rows, int rows_per_warp, void* stream) {
-  if (batch <= 0 || a <= 0 || d_in <= 0 || d_out <= 0 || k < 0 || rows_per_warp <= 0 ||
-      (dtype != 0 && dtype != 1) || (vtype != 1 && vtype != 2) || scales == nullptr)
+                          int d_in, int a, int k, int d_out, int dtype, int vtype, int block_rows,
+                          int rows_per_warp, int split_rows, int pass_rows, int block_neurons,
+                          int decode_loads, void* stream) {
+  if (batch <= 0 || a <= 0 || d_in <= 0 || d_out <= 0 || k < 0 || (dtype != 0 && dtype != 1) ||
+      (vtype != 1 && vtype != 2) || scales == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(out, 0, static_cast<size_t>(batch) * d_out * dtype_size(dtype), s);
   if (err != cudaSuccess) return err;
-  return condensed_rows::dispatch(dtype, vtype, block_rows, x, codes, indices,
+  return condensed_rows::dispatch(dtype, vtype, block_rows, rows_per_warp, split_rows, pass_rows,
+                                  block_neurons, decode_loads, x, codes, indices,
                                   static_cast<const float*>(scales), out_index, out, batch, d_in,
-                                  a, k, d_out, rows_per_warp, s);
+                                  a, k, d_out, s);
 }
 
 // K5 (gather = 0: w is the (d_in, a_pad) panel, ld_w = a_pad) and K6

@@ -34,12 +34,11 @@ version; a CUDA tensor launches the kernel or raises. ``B <= SMALL_BATCH_MAX``
 takes the decode launch (the batch in one block row, padded to a power of
 two), larger batches the tiled launch (``TILED_ROWS`` batch rows a block);
 the two are bitwise equal, and K6 is bitwise equal to K5's decode launch,
-because the d_in splits (``split_geometry``) depend on d_in and the dtype
-only. The working set need not fit shared memory: K4 stages x as K1 does
-(``_fit_rows`` shrinks the block's rows), and K5/K6 bring the weight and x
-through shared memory a split at a time, so ``prefetch_gather``
-(``REPRO_PREFETCH_GATHER=1`` when None, as in the reference) has no memory
-budget to check.
+because the d_in splits (``split_geometry``; K4's ``cm.gather_geometry``)
+depend on d_in and the dtype only. K4 runs K1's body
+(``cm.launch_args``); K5/K6 bring the weight and x through shared memory a
+split at a time, so ``prefetch_gather`` (``REPRO_PREFETCH_GATHER=1`` when
+None, as in the reference) has no memory budget to check.
 
 ``<kernel function>.launches`` counts kernel launches (never plain-version
 calls): ``condensed_over_active_matmul.launches`` (K4),
@@ -115,10 +114,10 @@ def _prefetch_default() -> bool:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("structured_matmul")
     fn = lib.coa_matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.coa_matmul_scaled_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.structured_matmul_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
@@ -165,8 +164,7 @@ def _on_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"the {what} kernel runs on CUDA tensors, not {x.device}")
 
 
-def _decode_rows(b: int) -> int:
-    return next(r for r in cm.BLOCK_ROWS if r >= min(max(b, 1), SMALL_BATCH_MAX))
+_decode_rows = cm.decode_rows
 
 
 # ---------------------------------------------------------------------------
@@ -311,22 +309,18 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
         return out
     if a == 0:
         return out.zero_()
-    grid_rows = -(-b // block_rows)
-    per_warp = max(1, min(8, a * grid_rows
-                          // (cm._WARPS_PER_BLOCK * 2 * cm._sm_count(x.device.index or 0))))
+    args = cm.launch_args(x, a, block_rows, cm._sm_count(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if scales is None:
             err = _lib().coa_matmul_fwd(
                 x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
-                out.data_ptr(), b, d_in, a, k, d_out, cm._DTYPE_CODES[x.dtype], block_rows,
-                per_warp, stream)
+                out.data_ptr(), b, d_in, a, k, d_out, cm._DTYPE_CODES[x.dtype], *args, stream)
         else:
             err = _lib().coa_matmul_scaled_fwd(
                 x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
                 scales.data_ptr(), out.data_ptr(), b, d_in, a, k, d_out,
-                cm._DTYPE_CODES[x.dtype], cm._VALUE_CODES[values.dtype], block_rows,
-                per_warp, stream)
+                cm._DTYPE_CODES[x.dtype], cm._VALUE_CODES[values.dtype], *args, stream)
     _raise_on(err, "condensed_over_active_matmul")
     if scales is None:
         condensed_over_active_matmul.launches += 1
@@ -360,27 +354,24 @@ def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
     (a,) float32 marks ``values`` as int8/fp8 codes and runs K2-coa.
 
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
-    batches to the tiled launch with 8-row tiles; an explicit ``block_b``
-    (1, 2, 4 or 8) forces the tiled launch at that tile (shrunk where the x
-    tile would not fit shared memory).
+    batches to the tiled launch with ``cm.TILED_ROWS[dtype]`` batch rows a
+    block (128 in bfloat16, 8 in float32); an explicit ``block_b`` (one of
+    ``cm.GATHER_ROWS[dtype]``) forces the tiled launch at that tile, as for
+    K1 (``condensed_matmul``).
     """
     _check_coa(x, values, indices, out_index, scales)
-    if block_b is not None and block_b not in cm.BLOCK_ROWS:
-        raise ValueError(f"block_b must be one of {cm.BLOCK_ROWS}, got {block_b}")
+    cm.check_block_b(block_b, x.dtype)
     if x.device.type == "cpu":
         return _coa_plain(x, values, indices, out_index, d_out, scales)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
         return condensed_over_active_matmul_decode(x, values, indices, out_index, d_out,
                                                    scales=scales)
-    rows = SMALL_BATCH_MAX if block_b is None else block_b
     return _coa_launch(x, values, indices, out_index, d_out,
-                       cm._fit_rows(rows, x.shape[1], x.element_size()), scales)
+                       cm.TILED_ROWS[x.dtype] if block_b is None else block_b, scales)
 
 
 condensed_over_active_matmul.launches = 0
 condensed_over_active_matmul.scaled_launches = 0
-
-
 
 
 def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
@@ -392,6 +383,4 @@ def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
     _check_coa(x, values, indices, out_index, scales)
     if x.device.type == "cpu":
         return _coa_plain(x, values, indices, out_index, d_out, scales)
-    return _coa_launch(x, values, indices, out_index, d_out,
-                       cm._fit_rows(_decode_rows(x.shape[0]), x.shape[1], x.element_size()),
-                       scales)
+    return _coa_launch(x, values, indices, out_index, d_out, _decode_rows(x.shape[0]), scales)

@@ -19,6 +19,7 @@ from repro.kernels import ops as JOPS  # noqa: E402
 from repro.kernels import structured_matmul as JSM  # noqa: E402
 from repro.sparse import condensed as JC  # noqa: E402
 from repro.sparse import formats as JF  # noqa: E402
+from repro_torch.kernels import condensed_matmul as TCM  # noqa: E402
 from repro_torch.kernels import ops as TOPS  # noqa: E402
 from repro_torch.kernels import ref as TREF  # noqa: E402
 from repro_torch.kernels import structured_matmul as TSM  # noqa: E402
@@ -129,8 +130,10 @@ def test_launch_forms_and_prefetch_agree_on_the_cpu(dtype):
         assert torch.equal(y, decode)
     xs, vals, idx, oi, _ = _coa_inputs(6, seed=8)
     args = (_t(xs, dtype), _t(vals, dtype), _t(idx), _t(oi), D_OUT)
-    assert torch.equal(TSM.condensed_over_active_matmul_decode(*args),
-                       TSM.condensed_over_active_matmul(*args, block_b=2))
+    tdt = getattr(torch, dtype)
+    for tile in (2, TCM.TILED_ROWS[tdt], TCM.GATHER_ROWS[tdt][0]):
+        assert torch.equal(TSM.condensed_over_active_matmul_decode(*args),
+                           TSM.condensed_over_active_matmul(*args, block_b=tile))
 
 
 def test_prefetch_gather_none_reads_the_environment(monkeypatch):
@@ -350,3 +353,25 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
     assert [f.launches for f in counters] == before
+
+
+def test_coa_block_b_is_what_each_dtype_takes():
+    """K4 and K2-coa take K1's batch tiles (``GATHER_ROWS``): bfloat16 1 to
+    128 rows, float32 1 to 8; each refuses the others, and on the CPU every
+    tile gives the plain version."""
+    xs, vals, idx, oi, _ = _coa_inputs(9, seed=12)
+    q = _t(np.clip(np.round(vals * 100), -127, 127).astype(np.int8))
+    s = torch.full((vals.shape[0],), 0.01)
+    for dtype, takes, refuses in ((torch.bfloat16, (1, 4, 32, 128), (3, 256)),
+                                  (torch.float32, (1, 4, 8), (3, 16, 128))):
+        args = (_t(xs).to(dtype), _t(vals).to(dtype), _t(idx), _t(oi), D_OUT)
+        qargs = (args[0], q, _t(idx), _t(oi), D_OUT)
+        want = TSM.condensed_over_active_matmul(*args)
+        want_q = TSM.condensed_over_active_matmul(*qargs, scales=s)
+        for tile in takes:
+            assert torch.equal(TSM.condensed_over_active_matmul(*args, block_b=tile), want)
+            assert torch.equal(TSM.condensed_over_active_matmul(*qargs, scales=s, block_b=tile),
+                               want_q)
+        for tile in refuses:
+            with pytest.raises(ValueError, match="block_b"):
+                TSM.condensed_over_active_matmul(*args, block_b=tile)
