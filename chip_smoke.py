@@ -56,6 +56,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    path, in bfloat16 and again in float32. The condensed run must launch
    K1 exactly 4 * 28 * (1 + 16) times; the two paths' tokens must agree
    except where the masked path's top-2 logit gap is a tie at that dtype.
+   Every generate in phases 3-7 decodes by replaying a captured CUDA graph
+   of one decode step (its launches counted once per replay); a
+   [walls:<path>] line puts its wall beside the eager decode loop's, whose
+   tokens must equal the replays' bitwise.
 4. ablation: the same model with half of every stack's neurons ablated:
    condensed_over_active on the ablated masks (K4 4 * 28 * 17 times),
    structured on ablation-only masks (K5 4 * 28 * 17 times) and again with
@@ -75,7 +79,19 @@ Phases, each of which raises (exit code != 0) on any failed check:
 7. checkpoint: the int8 condensed serving tree saved with
    repro_torch.train.checkpoint.save and restored into a fresh template on
    the card gives identical arrays and identical tokens.
-8. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
+8. engine: the paged ServingEngine (block_size 16, gen_chunk 16), bf16:
+   ENGINE_MIX (eight requests of batch 1-4, so groups at buckets 1 and 8,
+   prompts 20-120, 8-40 new tokens) submitted two at a time between
+   step(max_chunks=1) calls, then a second wave of the same shapes, on
+   condensed (K1) and on auto over the ablated masks (K4), and the first
+   four requests on int8 condensed (K2). A chunk replayed from a saved
+   state must equal the eager chunk bitwise (tokens and written pages);
+   live requests never share a page and every page comes back; the second
+   wave captures no graph, runs no new prefill shape, has no cold result
+   and launches each kernel as often as the plans' decisions imply; every
+   request's tokens equal a standalone generate's, or part only at a logit
+   near-tie (max(TIE_GAP, 2 x the bucket-padded prefill's logit noise)).
+9. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
    masks, a train batch of 8 x 64 tokens) backpropagated into the values,
    float32 and bfloat16, then condensed_over_active on the ablated masks:
    K3 launches exactly 4 * 28 times per backward and K1 (K4) 2 * 4 * 28
@@ -84,14 +100,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    gathered at the condensed indices within GRAD_F32_BOUND. The bf16
    gradients of both paths are reported against the float32 one, and the
    condensed one again with the backward's dx accumulated in float32.
-9. train: full-width qwen3-1.7b from a seeded random init: the train CLI
+10. train: full-width qwen3-1.7b from a seeded random init: the train CLI
    for 3 steps (8 x 64 tokens), then the Trainer with delta_t=2 for 4 steps
    (two SRigL updates): every loss and grad norm finite, after each update
    every active neuron's fan-in equal to its layer's new k', nnz <= k0 *
    d_out, grown weights 0 and mask_versions moved where the masks did;
    after a plain step AdamW's moments 0 off the mask. A step is timed and
    profiled.
-10. reference: the smoke config on the card against the port's CPU path
+11. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -169,6 +185,13 @@ PORT_KERNEL_NAMES = ("gather_mma", "gather_rows_kernel", "structured_mma",
 # sequence (8 x 64 tokens per step)
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+# the [engine] phase: pages of 16 tokens, 16 decode steps a chunk, and
+# eight requests (batch, prompt_len, gen_len): batches 1-4 (groups at
+# buckets 1 and 8), prompts 20-120 (prompt buckets 32, 64 and 128), 8-40
+# generated tokens
+ENGINE_BLOCK, ENGINE_CHUNK = 16, 16
+ENGINE_MIX = ((1, 20, 8), (2, 37, 40), (3, 64, 16), (4, 120, 24),
+              (1, 90, 33), (2, 50, 12), (3, 100, 8), (4, 25, 20))
 
 
 def _time_ms(fn, arg_sets, reps: int = 5, iters: int = 30) -> float:
@@ -1405,25 +1428,31 @@ def slice_phase(setup: dict, card: str):
         masked_model.generate(prompts, GEN)
 
         _zero_counts()
-        out_c, tok_s_c = cond_model.serve_once(prompts, GEN, "condensed")
+        out_c, tok_s_c, wall_c = _timed_generate(cond_model, prompts, "condensed")
         n = cm.condensed_matmul.launches
         if _counts() != {**_none(), "K1": expected}:
             raise AssertionError(f"condensed path launched {_counts()}, expected K1 "
                                  f"{expected} and nothing else")
-        out_m, tok_s_m = masked_model.serve_once(prompts, GEN, "masked")
+        out_m, tok_s_m, wall_m = _timed_generate(masked_model, prompts, "masked")
         if launches is None:
             launches = n
             _device_profile(lambda: cond_model.generate(prompts, GEN), "condensed")
             _device_profile(lambda: masked_model.generate(prompts, GEN), "masked")
         tok_s = {"condensed": [tok_s_c], "masked": [tok_s_m]}
+        walls = {"condensed": [wall_c], "masked": [wall_m]}
         for rep in range(1, REPEATS):  # alternate which path runs first
             for path in (("masked", "condensed") if rep % 2 else ("condensed", "masked")):
                 model, first = ((cond_model, out_c) if path == "condensed"
                                 else (masked_model, out_m))
-                out, rate = model.serve_once(prompts, GEN, path, quiet=True)
+                out, rate, wall = _timed_generate(model, prompts, path)
                 if not torch.equal(out, first):
                     raise AssertionError(f"{path}: a repeated run gave other tokens")
                 tok_s[path].append(rate)
+                walls[path].append(wall)
+        _eager_wall(f"slice:{dtype_name}:condensed", cond_model, prompts, out_c,
+                    walls["condensed"], tok_s["condensed"])
+        _eager_wall(f"slice:{dtype_name}:masked", masked_model, prompts, out_m,
+                    walls["masked"], tok_s["masked"])
         toks_m, gaps = _masked_gaps(cfg, masked_model, prompts, GEN)
         if not torch.equal(toks_m, out_m[:, PROMPT:]):
             raise AssertionError("masked step-by-step run differs from generate")
@@ -1475,25 +1504,62 @@ def _prefetch_gather(on: bool):
             os.environ["REPRO_PREFETCH_GATHER"] = old
 
 
-def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = REPEATS):
-    """A warm-up, then one run with the launch counts zeroed just before and
-    read just after (they must equal ``expected``), then ``repeats`` - 1 more
-    timed runs that must give the same tokens. Returns (tokens, tok/s list,
-    the counted run's launch counts)."""
+def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = REPEATS,
+                   eager: bool = True):
+    """A warm-up (which captures the decode graph), then one run with the
+    launch counts zeroed just before and read just after (they must equal
+    ``expected``), then ``repeats`` - 1 more timed runs that must give the
+    same tokens; with ``eager``, the eager decode loop's wall beside them
+    (``_eager_wall``). Returns (tokens, tok/s list, the counted run's launch
+    counts)."""
     import torch
     model.generate(prompts, GEN)
     _zero_counts()
-    out, rate = model.serve_once(prompts, GEN, label, quiet=True)
+    out, rate, wall = _timed_generate(model, prompts, label)
     counts = _counts()
     if counts != expected:
         raise AssertionError(f"{label}: launched {counts}, expected {expected}")
-    rates = [rate]
+    rates, walls = [rate], [wall]
     for _ in range(1, repeats):
-        again, rate = model.serve_once(prompts, GEN, label, quiet=True)
+        again, rate, wall = _timed_generate(model, prompts, label)
         if not torch.equal(again, out):
             raise AssertionError(f"{label}: a repeated run gave other tokens")
         rates.append(rate)
+        walls.append(wall)
+    if eager:
+        _eager_wall(label, model, prompts, out, walls, rates)
     return out, rates, counts
+
+
+def _timed_generate(model, prompts, label: str):
+    """One serve_once (graph decode): (tokens, decode tok/s, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, rate = model.serve_once(prompts, GEN, label, quiet=True)
+    torch.cuda.synchronize()
+    return out, rate, time.perf_counter() - t0
+
+
+def _eager_wall(label: str, model, prompts, out, walls: list, rates: list) -> None:
+    """The same request with its decode steps run eagerly (the engine's
+    private ``_serve_eager``): its tokens must equal the graph replays'
+    bitwise; prints both walls, the host share the graph removes."""
+    import torch
+    from repro_torch.launch import engine as E
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _, t_dec, _ = E._serve_eager(model.cfg, model.compute, model.serving, prompts, GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.equal(got, out):
+        raise AssertionError(f"{label}: the eager decode loop gave other tokens than the "
+                             f"graph replays")
+    graph_dec = statistics.median([BATCH * GEN / r for r in rates])
+    print(f"[walls:{label}] generate {BATCH}x{PROMPT}+{GEN}: graph decode wall "
+          f"{statistics.median(walls) * 1e3:.2f} ms (median of {len(walls)}; decode "
+          f"{graph_dec * 1e3:.2f} ms), eager decode loop wall {wall * 1e3:.2f} ms (decode "
+          f"{t_dec * 1e3:.2f} ms); eager tokens == graph tokens")
 
 
 def ablation_phase(setup: dict, card: str) -> dict:
@@ -1654,7 +1720,8 @@ def quant_phase(setup: dict, card: str) -> dict:
                     twin = ServingModel(cfg, params, _dequantized_twin(plan, getattr(torch,
                                                                                      dtype_name)))
                     out_t, _, _ = _serve_counted(f"{label}:twin", twin, prompts,
-                                                 {**_none(), twin_key: per_request}, repeats=1)
+                                                 {**_none(), twin_key: per_request}, repeats=1,
+                                                 eager=False)
                     toks_t, gaps = _masked_gaps(cfg, twin, prompts, GEN)
                     if not torch.equal(toks_t, out_t[:, PROMPT:]):
                         raise AssertionError(f"{label}: the twin's step-by-step run differs")
@@ -1727,6 +1794,256 @@ def checkpoint_phase(setup: dict) -> None:
           f"{save_s:.1f}s, restore onto {got.serve['blocks']['wo'].values.device} "
           f"{restore_s:.1f}s; every array bitwise equal, tokens equal: "
           f"{out_r[0, PROMPT:].tolist()}")
+
+
+def _engine_pages_check(label: str, eng) -> None:
+    """Every runner's live requests hold disjoint pages, never page 0, each
+    request's table rows hold exactly its pages, and owned plus free pages
+    cover the pool (no page leaks)."""
+    for runner in eng._runners.values():
+        owned = [p for a in runner.active.values() for p in a.pages]
+        if 0 in owned or len(owned) != len(set(owned)):
+            raise AssertionError(f"{label}: live requests share pages or hold page 0")
+        if len(owned) + runner.alloc.available != runner.num_blocks - 1:
+            raise AssertionError(f"{label}: {len(owned)} owned + {runner.alloc.available} "
+                                 f"free pages of {runner.num_blocks - 1}: a page leaked")
+        for a in runner.active.values():
+            held = {int(p) for row in a.rows for p in runner.table[row] if p}
+            if held != set(a.pages):
+                raise AssertionError(f"{label}: request {a.req.id}'s table rows hold other "
+                                     f"pages than it owns")
+
+
+def _engine_replay_check(label: str, runner) -> None:
+    """One decode chunk from the runner's current state, run eagerly and
+    then replayed from the same saved state: the live rows' tokens and next
+    tokens and every page the live requests own must be bitwise equal. The
+    pool is put back afterwards, so serving goes on unchanged."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import engine as E
+    st, dec = runner.state, runner.decoder
+    chunk = min(runner.eng.gen_chunk, max(a.remaining for a in runner.active.values()))
+    rows = sorted(r for a in runner.active.values() for r in a.rows)
+    pages = torch.tensor(sorted(p for a in runner.active.values() for p in a.pages),
+                         device=st.cur.device)
+    lengths = runner.lengths.copy()
+    idle = np.ones(runner.bucket, bool)
+    idle[rows] = False
+    lengths[idle] = 0
+    saved = {k: v.clone() for k, v in st.pool.items()}
+
+    def load():
+        for k, v in saved.items():
+            st.pool[k].copy_(v)
+        st.table.copy_(torch.from_numpy(runner.table))
+        st.lengths.copy_(torch.from_numpy(lengths))
+        st.cur.copy_(torch.from_numpy(runner.cur))
+
+    def result():
+        torch.cuda.synchronize()
+        return ([st.toks[rows, :chunk].clone(), st.cur[rows].clone()]
+                + [v[:, pages].clone() for v in st.pool.values()])
+
+    load()
+    E._decode_chunk_eager(dec, chunk)
+    eager = result()
+    load()
+    dec.run(chunk)
+    replay = result()
+    load()
+    for name, a, b in zip(("tokens", "next tokens", "k pages", "v pages"), eager, replay):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: the graph replay's {name} differ from the eager "
+                                 f"chunk's from the same state")
+    print(f"[{label}] graph replay == eager chunk bitwise from a saved state: {chunk} steps, "
+          f"{len(rows)} live rows of {runner.bucket}, their tokens, next tokens and "
+          f"{len(pages)} pages of k and v")
+
+
+def _engine_wave(label: str, eng, mix, seed: int, replay_check: bool = False):
+    """One wave of requests (batch, prompt_len, gen_len) from ``seed``,
+    submitted two at a time between ``step(max_chunks=1)`` calls, served to
+    the end. Checks the pages after every step and the page count after the
+    wave; with ``replay_check``, holds a replay to the eager chunk once the
+    bucket-8 group has 4 live rows at a chunk boundary (ENGINE_MIX reaches
+    that after its third step). Returns ({id: (prompts,
+    gen_len, Result)}, wall seconds)."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    queue = [(torch.randint(0, eng.cfg.vocab_size, (b, t), generator=gen, dtype=torch.int32),
+              g) for b, t, g in mix]
+    reqs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while queue or eng._pending or any(r.active for r in eng._runners.values()):
+        for _ in range(2):
+            if queue:
+                p, g = queue.pop(0)
+                reqs[eng.submit(p, g)] = (p, g)
+        eng.step(max_chunks=1)
+        _engine_pages_check(label, eng)
+        runner = eng._runners.get(eng.plan_key(2))
+        if replay_check and runner is not None and sum(
+                len(a.rows) for a in runner.active.values()) >= 4:
+            _engine_replay_check(label, runner)
+            replay_check = False
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if replay_check:
+        raise AssertionError(f"{label}: the bucket-8 group never had 4 live rows at a chunk "
+                             f"boundary, so no replay was held to the eager chunk")
+    results = {r.id: r for r in eng.retire()}
+    if results.keys() != reqs.keys():
+        raise AssertionError(f"{label}: finished {sorted(results)}, submitted {sorted(reqs)}")
+    for runner in eng._runners.values():
+        if runner.active or runner.alloc.available != runner.num_blocks - 1:
+            raise AssertionError(f"{label}: {runner.num_blocks - 1 - runner.alloc.available} "
+                                 f"pages still held after the wave")
+    return {rid: (p, g, results[rid]) for rid, (p, g) in reqs.items()}, wall
+
+
+def _engine_noise(cfg, eng, key, tree, prompts) -> float:
+    """The largest |logit difference| between a request's standalone prefill
+    and the same prompts right-padded into its bucket's paged prefill (the
+    engine's): two correct bf16 runs of other shapes, whose top-2 may swap
+    only below twice this."""
+    import torch
+    from repro_torch.launch import engine as E
+    from repro_torch.models import model as M
+    from repro_torch.models import paged as PG
+    dev, bs = eng.device, eng.block_size
+    b, t = prompts.shape
+    tb = E._pow2_bucket(t)
+    nb = PG.pages_for(tb, bs)
+    tokens = torch.zeros((key.batch_bucket, tb), dtype=torch.int32, device=dev)
+    tokens[:b, :t] = prompts
+    table = torch.zeros((key.batch_bucket, nb), dtype=torch.int32, device=dev)
+    table[:b] = 1 + torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+    lens = torch.zeros((key.batch_bucket,), dtype=torch.int32, device=dev)
+    lens[:b] = t
+    with torch.no_grad():
+        pool = M.init_paged_pool(cfg, 1 + b * nb, bs, dev)
+        paged, _ = M.paged_prefill_step(cfg, eng.compute, tree, {"tokens": tokens}, pool,
+                                        table, lens)
+        cache = M.init_cache(cfg, b, t, dev)
+        alone, _ = M.prefill_step(cfg, eng.compute, tree, {"tokens": prompts}, cache)
+    v = cfg.vocab_size
+    return (paged[:b, :v] - alone[:, :v]).abs().max().item()
+
+
+def _engine_tokens(label: str, cfg, eng, reqs: dict) -> tuple[int, int]:
+    """Each request's tokens against a standalone ``generate`` of it on the
+    same serving tree: equal, or parting only at a logit near-tie of the
+    standalone run (its top-2 gap below max(TIE_GAP, 2 * the prefill noise
+    of ``_engine_noise``)). Returns (streams bitwise equal, streams)."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.launch import engine as E
+    equal = total = 0
+    for rid, (p, g, res) in reqs.items():
+        b, t = p.shape
+        tree = eng.serving_tree_for(res.plan_key)
+        prompts = p.to(eng.device)
+        ref = E.generate(cfg, eng.compute, tree, prompts, g)
+        got = res.tokens
+        if got.shape != (b, t + g) or not torch.equal(got[:, :t], prompts) or not bool(
+                ((got >= 0) & (got < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label}: request {rid} returned bad tokens "
+                                 f"{tuple(got.shape)}")
+        div = _first_divergence(got[:, t:], ref[:, t:])
+        total += b
+        equal += sum(j is None for j in div)
+        if all(j is None for j in div):
+            continue
+        model = SimpleNamespace(compute=eng.compute, serving=tree)
+        toks_e, gaps = _masked_gaps(cfg, model, prompts, g)
+        if not torch.equal(toks_e, ref[:, t:]):
+            raise AssertionError(f"{label}: request {rid}'s standalone generate differs from "
+                                 f"its eager step-by-step run")
+        tie = max(TIE_GAP[cfg.dtype], 2 * _engine_noise(cfg, eng, res.plan_key, tree, prompts))
+        for s_i, j in enumerate(div):
+            if j is None:
+                continue
+            gap = gaps[s_i, j].item()
+            print(f"[{label}] request {rid} stream {s_i}: parts from standalone generate at "
+                  f"generated token {j}, top-2 gap {gap:.3g} (tie below {tie:.3g})")
+            if gap >= tie:
+                raise AssertionError(f"{label}: request {rid} differs from standalone "
+                                     f"generate at a gap of {gap}")
+    return equal, total
+
+
+def _engine_expected(eng, dispatches: dict) -> dict:
+    """Kernel launches the plans' decisions imply for ``dispatches``
+    ({plan key: prefill dispatches + decode steps}): each stack's kernel
+    once per layer per dispatch."""
+    quant = eng.values_dtype is not None
+    kernel_of = {"condensed": "K2" if quant else "K1",
+                 "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
+    expected = _none()
+    for key, n in dispatches.items():
+        for _, rep in key.formats:
+            if rep in kernel_of:
+                expected[kernel_of[rep]] += eng.cfg.n_layers * n
+    return expected
+
+
+def engine_phase(setup: dict, card: str) -> None:
+    """The paged ServingEngine at full width, bf16, block_size 16, gen_chunk
+    16: ENGINE_MIX (two groups, buckets 1 and 8) submitted two at a time
+    between step(max_chunks=1) calls, then a second wave of the same shapes,
+    on --path condensed (K1) and on --path auto with half of every stack's
+    neurons ablated (K4 at bucket 8); then the first four requests on
+    condensed with int8 values (K2). Gates: replay == eager bitwise from a
+    saved state; pages disjoint and none leaked; the second wave captures
+    no graph, runs no new prefill shape, has no cold result and launches
+    each kernel as the plans' decisions imply; every request's tokens equal
+    a standalone generate's, except at near-ties."""
+    import torch
+    from repro_torch.launch import engine as E
+
+    base, reg, params, masks = setup["base"], setup["reg"], setup["params"], setup["masks"]
+    cfg = base.replace(dtype="bfloat16")
+    runs = (("condensed", masks, None, ENGINE_MIX),
+            ("auto", _ablate_masks(reg, masks, ABLATION), None, ENGINE_MIX),
+            ("condensed", masks, "int8", ENGINE_MIX[:4]))
+    for path, m, vd, mix in runs:
+        label = f"engine:{path}" + (f":{vd}" if vd else "")
+        eng = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
+                              gen_chunk=ENGINE_CHUNK, values_dtype=vd)
+        first, wall1 = _engine_wave(label, eng, mix, seed=1, replay_check=True)
+        programs = {k: eng.program_count(k) for k in ("prefill", "decode")}
+        before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
+        _zero_counts()
+        second, wall2 = _engine_wave(label, eng, mix, seed=2)
+        counts = _counts()
+        after = {k: eng.program_count(k) for k in ("prefill", "decode")}
+        if after != programs:
+            raise AssertionError(f"{label}: the second wave ran new signatures: {programs} -> "
+                                 f"{after}")
+        cold = sorted(rid for rid, (_, _, r) in second.items() if r.cold)
+        if cold:
+            raise AssertionError(f"{label}: second-wave requests {cold} are cold")
+        dispatches = {key: r.prefills + r.steps - before.get(key, 0)
+                      for key, r in eng._runners.items()}
+        expected = _engine_expected(eng, dispatches)
+        if counts != expected:
+            raise AssertionError(f"{label}: the second wave launched {counts}, its plans imply "
+                                 f"{expected}")
+        equal, total = (a + b for a, b in zip(_engine_tokens(label, cfg, eng, first),
+                                              _engine_tokens(label, cfg, eng, second)))
+        tokens = sum(b * g for b, _, g in mix)
+        groups = ", ".join(f"{k.describe()}: {r.prefills} prefills, {r.steps} decode steps"
+                           for k, r in eng._runners.items())
+        print(f"[{label}] {card}: {len(mix)} requests a wave ({tokens} generated tokens), "
+              f"waves {wall1:.3f}s and {wall2:.3f}s ({tokens / wall2:.1f} tok/s); {groups}; "
+              f"graphs captured {programs['decode']}, prefill shapes {programs['prefill']}, "
+              f"none new in the second wave, no cold result; second-wave launches {counts} "
+              f"as the plans imply; streams bitwise equal to standalone generate "
+              f"{equal}/{total}")
+        del eng, first, second
+        torch.cuda.empty_cache()
 
 
 def _map_leaves(tree: dict, fn) -> dict:
@@ -2218,6 +2535,7 @@ def main() -> int:
     quant = timed("quant", quant_phase, setup, card)
     launches.update({"K2": quant["K2"], "K2-coa": quant["K2-coa"]})
     timed("checkpoint", checkpoint_phase, setup)
+    timed("engine", engine_phase, setup, card)
     launches["K3"] = timed("grad", grad_phase, setup)
     del setup
     gc.collect()

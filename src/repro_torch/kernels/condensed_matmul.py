@@ -32,7 +32,8 @@ launch of one shape is bitwise equal to every other.
 ``condensed_matmul.launches`` counts K1's launches,
 ``condensed_matmul.scaled_launches`` K2's and ``condensed_matmul_dw.launches``
 K3's (never plain-version calls), so a run can show that its sparse linears
-went through the kernel it expects.
+went through the kernel it expects; ``counters`` counts a launch captured in
+a CUDA graph once for each replay.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import counters
 from repro_torch.kernels import ref
 
 SMALL_BATCH_MAX = 8
@@ -298,10 +300,7 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     if err:
         raise RuntimeError("condensed_matmul kernel launch failed: "
                            + lib.condensed_matmul_error_string(err).decode())
-    if scales is None:
-        condensed_matmul.launches += 1
-    else:
-        condensed_matmul.scaled_launches += 1
+    counters.add(condensed_matmul, "launches" if scales is None else "scaled_launches")
     return y
 
 
@@ -468,7 +467,7 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor
     if n_out == 0 or k == 0:
         return torch.empty((n_out, k), dtype=torch.float32, device=x.device)
     dw = _dw_in_pieces(dy, x, indices, dw_pieces(d_in, k, limits or dw_limits()), _dw_launch)
-    condensed_matmul_dw.launches += 1
+    counters.add(condensed_matmul_dw)
     return dw
 
 

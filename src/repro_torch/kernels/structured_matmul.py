@@ -44,7 +44,8 @@ None, as in the reference) has no memory budget to check.
 calls): ``condensed_over_active_matmul.launches`` (K4),
 ``condensed_over_active_matmul.scaled_launches`` (K2-coa),
 ``structured_matmul.launches`` (K5) and ``structured_matmul_prefetch.launches``
-(K6).
+(K6), through ``counters`` (a launch captured in a CUDA graph counts once
+for each replay).
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import condensed_matmul as cm
+from repro_torch.kernels import counters
 from repro_torch.kernels import ref
 
 SMALL_BATCH_MAX = cm.SMALL_BATCH_MAX
@@ -199,10 +201,7 @@ def _structured_launch(x: torch.Tensor, w: torch.Tensor, active_index: torch.Ten
             int(gather), dtype, block_rows, split_rows,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "structured_matmul")
-    if gather:
-        structured_matmul_prefetch.launches += 1
-    else:
-        structured_matmul.launches += 1
+    counters.add(structured_matmul_prefetch if gather else structured_matmul)
     return out
 
 
@@ -322,10 +321,8 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                 scales.data_ptr(), out.data_ptr(), b, d_in, a, k, d_out,
                 cm._DTYPE_CODES[x.dtype], cm._VALUE_CODES[values.dtype], *args, stream)
     _raise_on(err, "condensed_over_active_matmul")
-    if scales is None:
-        condensed_over_active_matmul.launches += 1
-    else:
-        condensed_over_active_matmul.scaled_launches += 1
+    counters.add(condensed_over_active_matmul,
+                 "launches" if scales is None else "scaled_launches")
     return out
 
 

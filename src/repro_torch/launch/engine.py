@@ -1,28 +1,66 @@
-"""Serving execution primitives (port of the non-paged core of
-``repro/launch/engine.py``).
+"""Serving engine: execution primitives and a continuous-batching request
+scheduler (port of ``repro/launch/engine.py``).
 
-``generate`` and ``serve_once`` run one greedy prefill + decode pass over a
-params tree and a serving tree (bool masks or ``formats`` leaves), under
-``torch.inference_mode()``. The reference's donated cache becomes one
-preallocated cache written in place. ``ServingModel`` is the thin
-``nn.Module`` that owns the parameters under their reference paths, the
-serving copy at the compute dtype and the serving tree, which may come from
-a ``sparse.plan.Plan`` (planned at the request's batch bucket, as the
-reference's engine keys its plans).
+Execution primitives:
 
-The paged continuous-batching scheduler (``ServingEngine``), speculation and
-live sync come with later slices.
+* ``generate`` / ``serve_once`` run one greedy prefill + decode pass over a
+  params tree and a serving tree (bool masks or ``formats`` leaves) on a
+  contiguous KV cache; ``ServingModel`` is the ``nn.Module`` that owns the
+  parameters, their serving copy at the compute dtype and one serving tree.
+* Decode on the card is a captured CUDA graph, replayed: the reference runs
+  its decode as one jitted ``lax.scan`` program per shape, the port captures
+  one decode step per signature -- (serving tree, B, max_len) for the
+  contiguous cache, (serving tree, bucket, table width, pool pages, page
+  size) for the paged pool -- and replays it once per generated token. One
+  replay runs embed, the 28 blocks, the final norm, the logits and their
+  argmax, writes the emitted token into a (B, width) buffer at a device step
+  index, the next token into ``cur`` and, paged, adds 1 to ``lengths``: the
+  reference's emission order, ``gen_len`` steps for ``gen_len`` tokens. A
+  chunk is that many replays and one host sync. The graph bakes in the
+  addresses of what it reads, so the serving tree, the KV store and the
+  static ``cur``/``toks``/``table``/``lengths`` stay where they are while it
+  lives; the host fills them with ``copy_`` between chunks. On the CPU the
+  same step function runs eagerly (the caller asked for the CPU). A failed
+  capture or replay raises; nothing falls back to eager decode on the card.
+  Prefill stays eager: one dispatch per admission wave.
+* Kernel launch counters (``kernels/counters.py``) record each graph's
+  launches at capture and count them once per replay.
+
+``ServingEngine`` (``submit`` / ``step`` / ``retire``) groups requests by
+``PlanKey`` (batch bucket x per-stack format signature), builds one
+``sparse.plan.Plan`` per key lazily, and serves each group from a paged KV
+pool (``models/paged.py``): every dispatch is padded to the group's batch
+bucket and prompts to their power-of-two bucket, streams join at chunk
+boundaries into a running generation and leave when done, and pad rows
+point at the reserved garbage page 0, so a request's tokens do not depend
+on who it shares a dispatch with. With ``warm=True`` each new decode
+signature is captured (and each new prefill signature run once) on garbage
+state outside the timed window, as the reference pre-compiles; a result
+whose dispatch had to do so in-line is ``cold``. ``paged=False`` serves
+exact-shape slabs through ``generate``'s contiguous cache instead.
+
+Not ported in this slice: tensor parallelism (``mesh``), speculative
+decoding, live sync (subscribers), ``refresh``, ``autotune`` and
+``abstract_plan_key`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import bridge
+from repro_torch.kernels import counters
 from repro_torch.models import model as M
+from repro_torch.models import paged as PG
+from repro_torch.sparse import condensed as COND
+from repro_torch.sparse import formats as F
 from repro_torch.sparse import plan as PLAN
+from repro_torch.sparse import registry as REG
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -30,43 +68,167 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """(B, 1) int32: the first index of each row's maximum, as jnp.argmax."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# the decode step and its graph
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _DecodeState:
+    """What a decode step reads and writes in place. A captured graph holds
+    these tensors' addresses: they are filled with ``copy_``, never rebound,
+    while it lives."""
+
+    cur: torch.Tensor                   # (B, 1) int32: each row's next token to emit
+    toks: torch.Tensor                  # (B, width) int32: the tokens emitted
+    step: torch.Tensor                  # (1,) int64: the column of the next emission
+    cache: dict | None = None           # contiguous: ``M.init_cache``'s dict
+    pool: dict | None = None            # paged: {"pk", "pv"} page pool,
+    table: torch.Tensor | None = None   # (B, nb) int32 block tables,
+    lengths: torch.Tensor | None = None  # (B,) int32 tokens present per row
+
+
+def _new_state(b: int, width: int, device, **store) -> _DecodeState:
+    return _DecodeState(cur=torch.zeros((b, 1), dtype=torch.int32, device=device),
+                        toks=torch.zeros((b, width), dtype=torch.int32, device=device),
+                        step=torch.zeros((1,), dtype=torch.int64, device=device), **store)
+
+
+def _contiguous_step(cfg, params, tree, st: _DecodeState) -> None:
+    """One greedy step on the contiguous cache: emit ``cur``, decode it,
+    ``cur`` <- its argmax (the reference's ``_decode_loop`` body)."""
+    st.toks.index_copy_(1, st.step, st.cur)
+    logits, _ = M.decode_step(cfg, params, tree, {"tokens": st.cur}, st.cache)
+    st.cur.copy_(_greedy(logits))
+    st.step += 1
+
+
+def _paged_step(cfg, params, tree, st: _DecodeState) -> None:
+    """One greedy step on the paged pool (the reference's
+    ``_paged_decode_chunk`` body): every row advances its length by one."""
+    st.toks.index_copy_(1, st.step, st.cur)
+    logits, _ = M.paged_decode_step(cfg, params, tree, {"tokens": st.cur}, st.pool,
+                                    st.table, st.lengths)
+    st.cur.copy_(_greedy(logits))
+    st.lengths += 1
+    st.step += 1
+
+
+class _Decoder:
+    """A decode step over static state: on the card captured once in a CUDA
+    graph (``capture``) and replayed, on the CPU run eagerly."""
+
+    def __init__(self, step, state: _DecodeState):
+        self.step = step
+        self.state = state
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict = {}        # kernel launches one replay makes
+
+    @torch.no_grad()
+    def capture(self, pool=None) -> None:
+        """Capture the step (after one eager step on a side stream, which
+        sets up what the first call of each library and kernel sets up
+        lazily: cuBLAS workspaces, the kernels' shared-memory attributes).
+        The eager step runs on the state as it is: callers capture on
+        garbage state. ``pool`` is a graph pool handle shared by the
+        owner's graphs."""
+        dev = self.state.cur.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with counters.recording() as tally, torch.cuda.graph(graph, pool=pool):
+            self.step()
+        self.graph, self.launches = graph, tally
+
+    def run(self, n: int) -> None:
+        """``n`` decode steps from step index 0: ``n`` replays on the card,
+        the step run ``n`` times on the CPU."""
+        if self.graph is None:
+            if self.state.cur.device.type != "cpu":
+                raise RuntimeError("decode on the card replays a captured graph; "
+                                   "capture() first")
+            _decode_chunk_eager(self, n)
+            return
+        self.state.step.zero_()
+        for _ in range(n):
+            self.graph.replay()
+        counters.replayed(self.launches, n)
+
+
+@torch.no_grad()
+def _decode_chunk_eager(decoder: _Decoder, n: int) -> None:
+    """``n`` steps of ``decoder`` run eagerly from step index 0, on any
+    device: the CPU's decode, and on the card the eager twin of a replay
+    that checks hold replay == eager against (not a serving path)."""
+    decoder.state.step.zero_()
+    for _ in range(n):
+        decoder.step()
+
+
+def _contiguous_decoder(cfg, params, masks, b: int, max_len: int, device, *,
+                        decoders: dict | None = None, pool=None,
+                        eager: bool = False) -> _Decoder:
+    """The decoder of signature (B, max_len) for one serving tree, from
+    ``decoders`` (the owner's, keyed by that signature) or made and, on the
+    card, captured (unless ``eager``)."""
+    dec = None if decoders is None else decoders.get((b, max_len))
+    if dec is not None:
+        return dec
+    st = _new_state(b, max_len, device, cache=M.init_cache(cfg, b, max_len, device))
+    dec = _Decoder(functools.partial(_contiguous_step, cfg, params, masks, st), st)
+    if device.type == "cuda" and not eager:
+        dec.capture(pool)
+    if decoders is not None:
+        decoders[(b, max_len)] = dec
+    return dec
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache execution primitives
+# ---------------------------------------------------------------------------
+
+
 def _prefill(cfg, params, masks, batch, cache):
     return M.prefill_step(cfg, params, masks, batch, cache)
 
 
-def _decode_loop(cfg, params, masks, cache, first_tok: torch.Tensor, gen_len: int):
-    """Greedy decode of ``gen_len`` tokens: exactly ``gen_len`` decode steps.
-
-    first_tok: (B, 1) int32 — argmax of the prefill logits. Returns
-    ((B, gen_len) generated tokens with first_tok first, cache).
-    """
-    cur = first_tok
-    toks = []
-    for _ in range(gen_len):
-        toks.append(cur[:, 0])
-        logits, cache = M.decode_step(cfg, params, masks, {"tokens": cur}, cache)
-        # first index of the maximum, as jnp.argmax
-        cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    if not toks:
-        return first_tok[:, :0], cache
-    return torch.stack(toks, dim=1), cache
-
-
-@torch.inference_mode()
-def _timed_serve(cfg, params, masks, prompts: torch.Tensor, gen_len: int):
-    """One timed prefill+decode pass.
+@torch.no_grad()
+def _timed_serve(cfg, params, masks, prompts: torch.Tensor, gen_len: int, *,
+                 decoders: dict | None = None, pool=None, eager: bool = False):
+    """One timed prefill + decode pass on a contiguous cache: the prefill
+    eager, the decode ``gen_len`` replays of the signature's graph on the
+    card. ``decoders`` keeps the owner's graphs across calls (else one is
+    captured for this call); ``eager=True`` decodes by running the step
+    eagerly instead, which only ``_serve_eager`` asks for.
     Returns (tokens (B, T+gen_len), prefill_s, decode_s, decode_tok_per_s)."""
     b, t = prompts.shape
-    cache = M.init_cache(cfg, b, max_len=t + gen_len, device=prompts.device)
+    if gen_len == 0:
+        return prompts.clone(), 0.0, 0.0, 0.0
+    dec = _contiguous_decoder(cfg, params, masks, b, t + gen_len, prompts.device,
+                              decoders=decoders, pool=pool, eager=eager)
+    st = dec.state
+    st.cache["len"].zero_()
 
     t0 = time.perf_counter()
-    logits, cache = _prefill(cfg, params, masks, {"tokens": prompts}, cache)
+    logits, _ = _prefill(cfg, params, masks, {"tokens": prompts}, st.cache)
     _sync(logits)
     t_prefill = time.perf_counter() - t0
 
-    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     t0 = time.perf_counter()
-    toks, _ = _decode_loop(cfg, params, masks, cache, first, gen_len)
+    st.cur.copy_(_greedy(logits))
+    if eager:
+        _decode_chunk_eager(dec, gen_len)
+    else:
+        dec.run(gen_len)
+    toks = st.toks[:, :gen_len].clone()
     _sync(toks)
     t_decode = time.perf_counter() - t0
 
@@ -74,10 +236,18 @@ def _timed_serve(cfg, params, masks, prompts: torch.Tensor, gen_len: int):
     return torch.cat([prompts, toks], dim=1), t_prefill, t_decode, tok_s
 
 
+def _serve_eager(cfg, params, masks, prompts: torch.Tensor, gen_len: int):
+    """``_timed_serve`` with the decode step run eagerly on any device: the
+    eager loop a graph replay is held to (bitwise) and timed against."""
+    return _timed_serve(cfg, params, masks, prompts, gen_len, eager=True)
+
+
 def serve_once(cfg, params, masks, prompts: torch.Tensor, gen_len: int,
-               path_name: str, quiet: bool = False):
+               path_name: str, quiet: bool = False, *, decoders: dict | None = None,
+               pool=None):
     """One timed prefill+decode pass. Returns (tokens, decode_tok_per_s)."""
-    out, t_prefill, t_decode, tok_s = _timed_serve(cfg, params, masks, prompts, gen_len)
+    out, t_prefill, t_decode, tok_s = _timed_serve(cfg, params, masks, prompts, gen_len,
+                                                   decoders=decoders, pool=pool)
     if not quiet:
         b, t = prompts.shape
         print(f"[serve:{path_name}] prefill {b}x{t} in {t_prefill:.3f}s | "
@@ -91,6 +261,12 @@ def generate(cfg, params, masks, prompts: torch.Tensor, gen_len: int) -> torch.T
     return out
 
 
+def _graph_pool(device: torch.device):
+    """A graph pool handle for the graphs of one owner (a ``ServingModel``,
+    an engine) to share: on the card, else None."""
+    return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+
 class ServingModel(nn.Module):
     """Parameters under the reference's "/"-joined paths, plus one serving tree.
 
@@ -99,7 +275,8 @@ class ServingModel(nn.Module):
     whose serving tree is used (``self.plan`` keeps the plan, and
     ``self.values_dtype`` its values' storage: None for float values). The
     serving copy of the params (``models.model.serving_params``) is made
-    once here, so no call casts weights.
+    once here, so no call casts weights. Its decode graphs, one per (B,
+    max_len), are kept with it and share one graph pool.
     """
 
     def __init__(self, cfg, params: dict, serving: dict | PLAN.Plan):
@@ -112,11 +289,689 @@ class ServingModel(nn.Module):
         self.serving = self.plan.serving_tree if self.plan else serving
         self.values_dtype = self.plan.values_dtype if self.plan else None
         self.compute = M.serving_params(cfg, params)
+        self._decoders: dict = {}
+        self._graph_pool = _graph_pool(params["embed"].device)
 
     def serve_once(self, prompts: torch.Tensor, gen_len: int, path_name: str,
                    quiet: bool = False):
-        return serve_once(self.cfg, self.compute, self.serving, prompts, gen_len,
-                          path_name, quiet=quiet)
+        return serve_once(self.cfg, self.compute, self.serving, prompts, gen_len, path_name,
+                          quiet=quiet, decoders=self._decoders, pool=self._graph_pool)
 
     def generate(self, prompts: torch.Tensor, gen_len: int) -> torch.Tensor:
-        return generate(self.cfg, self.compute, self.serving, prompts, gen_len)
+        return self.serve_once(prompts, gen_len, "generate", quiet=True)[0]
+
+
+# ---------------------------------------------------------------------------
+# paged (continuous-batching) execution primitives
+# ---------------------------------------------------------------------------
+
+
+def _paged_prefill(cfg, params, masks, batch, pool, table, prompt_lens):
+    return M.paged_prefill_step(cfg, params, masks, batch, pool, table, prompt_lens)
+
+
+@torch.no_grad()
+def _paged_prefill_dispatch(cfg, params, tree, tokens, pool, table, prompt_lens,
+                            seen: set, sig):
+    """Timed prefill dispatch (eager), writing the pool in place. ``seen``
+    holds the prefill signatures already run; ``sig`` is this one's.
+    Returns (logits, seconds, cold)."""
+    cold = sig not in seen
+    seen.add(sig)
+    t0 = time.perf_counter()
+    logits, _ = _paged_prefill(cfg, params, tree, {"tokens": tokens}, pool, table,
+                               prompt_lens)
+    _sync(logits)
+    return logits, time.perf_counter() - t0, cold
+
+
+@torch.no_grad()
+def _paged_decode_dispatch(runner: "_PagedRunner", chunk: int):
+    """Timed decode-chunk dispatch: the runner's host table, lengths and
+    next tokens copied into its static buffers, ``chunk`` replays of its
+    graph (eager steps on the CPU), one host sync. Returns (toks (B, chunk),
+    cur (B, 1), seconds, cold): numpy, and cold when the graph had to be
+    captured in-line."""
+    t0 = time.perf_counter()
+    cold = runner._ensure_decoder()
+    st = runner.state
+    st.table.copy_(torch.from_numpy(runner.table))
+    st.lengths.copy_(torch.from_numpy(runner.lengths))
+    st.cur.copy_(torch.from_numpy(runner.cur))
+    runner.decoder.run(chunk)
+    out = torch.cat([st.toks[:, :chunk], st.cur], dim=1).cpu().numpy()
+    runner.steps += chunk
+    return out[:, :chunk], out[:, chunk:], time.perf_counter() - t0, cold
+
+
+def _pow2_bucket(n: int) -> int:
+    """Prompt-length bucket: next power of two (>= 1)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+# ---------------------------------------------------------------------------
+# requests / plan keys / results
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanKey:
+    """What makes two requests executable under one shared plan: the batch
+    bucket the request falls in (``plan.batch_bucket``) and the per-stack
+    format signature the cost model picks at that bucket (a fixed ``path``
+    forces it uniform). ``tp`` is the model-axis size, always 1 here."""
+
+    batch_bucket: int
+    formats: tuple[tuple[str, str], ...]
+    tp: int = 1
+
+    def describe(self) -> str:
+        reps = {r for _, r in self.formats}
+        rep = reps.pop() if len(reps) == 1 else "mixed"
+        tp_s = f"/tp{self.tp}" if self.tp > 1 else ""
+        return f"b<={self.batch_bucket}/{rep}{tp_s}"
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    prompts: torch.Tensor   # (B, T) int32, on the host
+    gen_len: int
+
+
+@dataclasses.dataclass
+class Result:
+    id: int
+    tokens: torch.Tensor    # (B, T + gen_len): prompt, then greedy tokens
+    plan_key: PlanKey
+    prefill_s: float
+    decode_s: float
+    tok_s: float            # decode throughput of the slab this request ran in
+    cold: bool = False      # a dispatch it rode captured a graph (or ran a new
+                            # prefill signature) in-line; never with warm=True
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupReport:
+    """What one ``step()`` did for one plan-key group."""
+    key: PlanKey
+    request_ids: tuple[int, ...]    # requests admitted during this step
+    n_slabs: int            # dispatches that admitted them (paged: bucket-padded
+                            # prefills; legacy: exact slabs)
+    total_batch: int
+
+
+# ---------------------------------------------------------------------------
+# paged runner: per-group scheduler state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Active:
+    """One in-flight request: the bucket rows it occupies, the pages it
+    owns and the tokens collected so far."""
+    req: Request
+    rows: list
+    pages: list
+    remaining: int
+    prefill_s: float
+    cold: bool
+    toks: list = dataclasses.field(default_factory=list)
+    decode_s: float = 0.0
+
+
+class _PagedRunner:
+    """Device and host state of one plan-key group.
+
+    Owns the page pool and the static buffers its decode graph reads
+    (``state``: pool, tables, lengths, next tokens, emitted tokens), the
+    host copies of the tables, lengths and next tokens, and the graph
+    (``decoder``). Rows are bucket slots: every dispatch runs at the full
+    ``key.batch_bucket``, idle rows with all-zero tables (the garbage page)
+    and length 0.
+    """
+
+    def __init__(self, eng: "ServingEngine", key: PlanKey):
+        self.eng = eng
+        self.key = key
+        self.bucket = key.batch_bucket
+        self.bs = eng.block_size
+        self.nb = 0                     # table width (pages per stream)
+        self.num_blocks = 1             # pool size incl. reserved page 0
+        self.alloc = PG.BlockAllocator(1)
+        self.table = np.zeros((self.bucket, 0), np.int32)
+        self.lengths = np.zeros((self.bucket,), np.int32)
+        self.cur = np.zeros((self.bucket, 1), np.int32)
+        self.free_rows = list(range(self.bucket))
+        self.active: dict[int, _Active] = {}
+        self.state: _DecodeState | None = None
+        self.decoder: _Decoder | None = None
+        self.prefills = 0               # prefill dispatches of requests
+        self.steps = 0                  # decode steps dispatched
+
+    # -- capacity -----------------------------------------------------------
+
+    def _ensure_capacity(self, nb_needed: int, pages_needed: int) -> None:
+        """Size (or grow) the pool so an admission of ``pages_needed`` fresh
+        pages with table width ``nb_needed`` fits. Growth moves the pool and
+        widens the tables, so the decode graph of the old shape is dropped
+        (and recaptured at the new one); existing pages keep their ids and
+        contents, so in-flight streams are unaffected."""
+        nb = max(self.nb, nb_needed)
+        blocks = self.num_blocks
+        if pages_needed > self.alloc.available or nb > self.nb or self.state is None:
+            blocks = max(self.num_blocks + max(pages_needed - self.alloc.available, 0),
+                         1 + self.bucket * nb)
+        if self.state is None:
+            self.nb, self.num_blocks = nb, blocks
+            self.alloc = PG.BlockAllocator(blocks)
+            self.table = np.zeros((self.bucket, nb), np.int32)
+            self._new_state(M.init_paged_pool(self.eng.cfg, blocks, self.bs, self.eng.device))
+            return
+        pool = self.state.pool
+        if blocks > self.num_blocks:
+            pad = blocks - self.num_blocks
+            pool = {name: torch.cat([a, a.new_zeros((a.shape[0], pad, *a.shape[2:]))], dim=1)
+                    for name, a in pool.items()}
+            self.alloc.grow(blocks)
+            self.num_blocks = blocks
+        if nb > self.nb:
+            self.table = np.concatenate(
+                [self.table, np.zeros((self.bucket, nb - self.nb), np.int32)], axis=1)
+            self.nb = nb
+        if pool is not self.state.pool or self.state.table.shape[1] != self.nb:
+            self._new_state(pool)
+
+    def _new_state(self, pool: dict) -> None:
+        dev = self.eng.device
+        self.state = _new_state(
+            self.bucket, self.eng.gen_chunk, dev, pool=pool,
+            table=torch.zeros((self.bucket, self.nb), dtype=torch.int32, device=dev),
+            lengths=torch.zeros((self.bucket,), dtype=torch.int32, device=dev))
+        self.decoder = None
+
+    # -- the decode graph ---------------------------------------------------
+
+    def _signature(self) -> tuple:
+        return (self.key, self.bucket, self.nb, self.num_blocks, self.bs)
+
+    def _ensure_decoder(self) -> bool:
+        """Make the decode step of the current signature if there is none,
+        capturing it on the card, on garbage state (every table row at page
+        0, lengths 0: the capture's eager warm-up step writes only the
+        garbage page; the host refills the buffers before each chunk).
+        Returns whether it had to."""
+        if self.decoder is not None:
+            return False
+        eng, st = self.eng, self.state
+        st.table.zero_()
+        st.lengths.zero_()
+        dec = _Decoder(functools.partial(_paged_step, eng.cfg, eng.compute,
+                                         eng.serving_tree_for(self.key), st), st)
+        if st.cur.device.type == "cuda":
+            dec.capture(eng._graph_pool)
+        eng._programs["decode"].add(self._signature())
+        self.decoder = dec
+        return True
+
+    def _warm(self, kind: str, t: int = 0) -> None:
+        """Make a new signature ready outside the timed window: capture the
+        decode graph, or run a prefill of prompt bucket ``t`` on garbage
+        (zero tokens, all-zero tables, so only page 0 is written). A
+        prefill's signature is its dispatch shape (bucket, prompt bucket):
+        it runs eagerly, so the pool's size does not key it."""
+        eng = self.eng
+        if kind == "decode":
+            self._ensure_decoder()
+            return
+        sig = (self.key, t)
+        if sig in eng._programs["prefill"]:
+            return
+        dev = eng.device
+        _paged_prefill_dispatch(
+            eng.cfg, eng.compute, eng.serving_tree_for(self.key),
+            torch.zeros((self.bucket, t), dtype=torch.int32, device=dev), self.state.pool,
+            torch.zeros((self.bucket, self.nb), dtype=torch.int32, device=dev),
+            torch.zeros((self.bucket,), dtype=torch.int32, device=dev),
+            eng._programs["prefill"], sig)
+
+    # -- admission ----------------------------------------------------------
+
+    def admit(self, pending: list[Request]) -> list[Request]:
+        """Admit a FIFO prefix of ``pending`` into free rows with one
+        bucket-padded prefill dispatch. Prompts are right-padded to the
+        admitted set's power-of-two prompt bucket; every other row (live
+        streams mid-decode included) gets an all-zero table so the prefill
+        cannot touch their pages. Returns the admitted requests (possibly
+        none); on a failed dispatch all bookkeeping is rolled back and
+        nothing is admitted."""
+        chosen, rows_needed = [], 0
+        for r in pending:
+            b = r.prompts.shape[0]
+            if rows_needed + b > len(self.free_rows):
+                break
+            chosen.append(r)
+            rows_needed += b
+        if not chosen:
+            return []
+
+        eng = self.eng
+        t_bucket = max(_pow2_bucket(r.prompts.shape[1]) for r in chosen)
+        # per-stream page budget: prompt bucket + generation, no chunk slack.
+        # A stream that finishes mid-chunk rides the chunk out writing
+        # garbage tokens; those positions clamp into its own last page, whose
+        # real slots it no longer needs, and its pages are released at chunk
+        # end. Tight capacity keeps the attention span (nb * bs) near the
+        # contiguous cache's.
+        per_row = {r.id: PG.pages_for(t_bucket + r.gen_len, self.bs) for r in chosen}
+        self._ensure_capacity(max(per_row.values()),
+                              sum(per_row[r.id] * r.prompts.shape[0] for r in chosen))
+        if eng.warm:
+            self._warm("prefill", t_bucket)
+
+        tokens = np.zeros((self.bucket, t_bucket), np.int32)
+        prefill_table = np.zeros((self.bucket, self.nb), np.int32)
+        prompt_lens = np.zeros((self.bucket,), np.int32)
+        admitted: list[_Active] = []
+        try:
+            for r in chosen:
+                b, t = r.prompts.shape
+                rows = [self.free_rows.pop(0) for _ in range(b)]
+                prompts_np = r.prompts.numpy()
+                pages_all: list[int] = []
+                for i, row in enumerate(rows):
+                    pages = self.alloc.alloc(per_row[r.id])
+                    pages_all.extend(pages)
+                    self.table[row, :] = 0
+                    self.table[row, :len(pages)] = pages
+                    prefill_table[row] = self.table[row]
+                    tokens[row, :t] = prompts_np[i]
+                    prompt_lens[row] = t
+                admitted.append(_Active(req=r, rows=rows, pages=pages_all,
+                                        remaining=r.gen_len, prefill_s=0.0, cold=False))
+            dev = eng.device
+            logits, dt, cold = _paged_prefill_dispatch(
+                eng.cfg, eng.compute, eng.serving_tree_for(self.key),
+                torch.from_numpy(tokens).to(dev), self.state.pool,
+                torch.from_numpy(prefill_table).to(dev),
+                torch.from_numpy(prompt_lens).to(dev), eng._programs["prefill"],
+                (self.key, t_bucket))
+        except Exception:
+            # roll back: nothing was admitted, the requests stay pending
+            for a in admitted:
+                self.alloc.release(a.pages)
+                for row in a.rows:
+                    self.table[row, :] = 0
+                    self.free_rows.append(row)
+            raise
+        self.prefills += 1
+        first = _greedy(logits).cpu().numpy()
+        for a in admitted:
+            a.prefill_s = dt
+            a.cold = cold
+            for row in a.rows:
+                self.cur[row, 0] = first[row, 0]
+                self.lengths[row] = prompt_lens[row]
+            self.active[a.req.id] = a
+        return [a.req for a in admitted]
+
+    # -- decode -------------------------------------------------------------
+
+    def decode_chunk(self) -> None:
+        """One decode chunk over the full bucket. The chunk is adaptive,
+        ``min(gen_chunk, longest remaining)``, so a nearly done group does
+        not pay for a full one; streams that finish inside it are retired
+        (pages freed, rows recycled) before the next."""
+        if not self.active:
+            return
+        eng = self.eng
+        chunk = min(eng.gen_chunk, max(a.remaining for a in self.active.values()))
+        live = np.zeros((self.bucket,), bool)
+        for a in self.active.values():
+            live[a.rows] = True
+        self.lengths[~live] = 0      # idle rows: writes pinned to page 0
+        if eng.warm:
+            self._warm("decode")
+        toks, cur, dt, cold = _paged_decode_dispatch(self, chunk)
+        self.cur = cur.copy()
+        self.lengths[live] += chunk
+        for a in list(self.active.values()):
+            take = min(chunk, a.remaining)
+            a.toks.append(toks[a.rows, :take])
+            a.remaining -= take
+            a.decode_s += dt
+            a.cold = a.cold or cold
+            if a.remaining == 0:
+                self._retire(a)
+
+    def _retire(self, a: _Active) -> None:
+        req = a.req
+        gen = torch.from_numpy(np.concatenate(a.toks, axis=1))
+        out = torch.cat([req.prompts, gen], dim=1).to(self.eng.device)
+        b = req.prompts.shape[0]
+        self.eng._done[req.id] = Result(
+            id=req.id, tokens=out, plan_key=self.key, prefill_s=a.prefill_s,
+            decode_s=a.decode_s, tok_s=b * req.gen_len / max(a.decode_s, 1e-9), cold=a.cold)
+        self.alloc.release(a.pages)
+        for row in a.rows:
+            self.table[row, :] = 0
+            self.lengths[row] = 0
+            self.free_rows.append(row)
+        del self.active[req.id]
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP queue 1, item {item})")
+
+
+class ServingEngine:
+    """Plan-keyed batch serving over a trained (params, masks) pair.
+
+    >>> eng = ServingEngine(cfg, params, masks, registry, path="auto")
+    >>> rid = eng.submit(prompts, gen_len=16)
+    >>> eng.step()
+    >>> [res] = eng.retire()
+
+    ``path`` is any ``sparse.plan.PATHS`` entry; ``"auto"`` lets each
+    group's batch bucket pick per-stack formats by the cost model
+    (``profile`` prices them). Plans are built lazily per ``PlanKey`` at
+    the bucket's batch and cached for the engine's lifetime. The engine
+    runs on the params' device; it makes one serving copy of the params at
+    the compute dtype and shares it across plans.
+
+    ``paged=None`` picks the continuous-batching paged scheduler where the
+    config supports it (``model.supports_paged``), else the exact-shape
+    slab path. ``block_size`` is the page size in tokens, ``gen_chunk`` the
+    decode steps between host syncs (streams join and leave at chunk
+    boundaries), and ``warm=True`` captures every new decode graph and runs
+    every new prefill signature once outside the timed window.
+
+    ``values_dtype`` ("bf16"/"int8"/"fp8"; None keeps the param dtype) is
+    an engine-wide setting, not part of ``PlanKey``: every plan exports its
+    value-storing leaves at that width. Masked stacks read the live params.
+
+    ``mesh`` and ``speculative`` are not ported yet and raise.
+    """
+
+    def __init__(self, cfg, params, masks, registry=None, *,
+                 path: str = "auto",
+                 profile: PLAN.HardwareProfile = PLAN.DEFAULT_PROFILE,
+                 mask_versions: dict | None = None,
+                 paged: bool | None = None,
+                 block_size: int = 16,
+                 gen_chunk: int = 16,
+                 warm: bool = True,
+                 values_dtype: str | None = None,
+                 mesh=None,
+                 speculative=None):
+        if path not in PLAN.PATHS:
+            raise ValueError(f"unknown serving path {path!r}; expected one of {PLAN.PATHS}")
+        if mesh is not None:
+            raise _not_ported("tensor-parallel serving (mesh)", 9)
+        if speculative is not None:
+            raise _not_ported("speculative decoding", 6)
+        if paged is None:
+            paged = M.supports_paged(cfg)
+        elif paged and not M.supports_paged(cfg):
+            raise ValueError(
+                "paged serving requires a causal architecture without windowed/ring "
+                f"caches, M-RoPE or SSM state (family={cfg.family!r}); pass paged=None "
+                "to auto-select or paged=False for the slab path")
+        if block_size < 1 or gen_chunk < 1:
+            raise ValueError("block_size and gen_chunk must be >= 1")
+        self.cfg = cfg
+        self.params = params
+        self.masks = masks or {}
+        self.registry = list(REG.build_registry(cfg) if registry is None else registry)
+        self.path = path
+        self.profile = profile
+        self.paged = bool(paged)
+        self.block_size = int(block_size)
+        self.gen_chunk = int(gen_chunk)
+        self.warm = bool(warm)
+        self.values_dtype = F.resolve_quantize_spec(values_dtype)
+        self.tp = 1
+        self.device = params["embed"].device
+        self.compute = M.serving_params(cfg, params)
+        self._graph_pool = _graph_pool(self.device)
+        self._mask_versions = mask_versions
+        self._itemsize = getattr(torch, cfg.param_dtype).itemsize
+        self._stats: dict | None = None
+        self._plans: dict[PlanKey, PLAN.Plan] = {}
+        self._runners: dict[PlanKey, _PagedRunner] = {}
+        self._legacy_decoders: dict[PlanKey, dict] = {}
+        # signatures run so far: "decode" counts captured graphs (step
+        # functions made, on the CPU), "prefill" the prefill shapes
+        self._programs: dict[str, set] = {"prefill": set(), "decode": set()}
+        self._pending: list[Request] = []
+        self._done: dict[int, Result] = {}
+        self._next_id = 0
+
+    # -- stats / keys -------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Realized per-stack export stats (one host sync, cached)."""
+        if self._stats is None:
+            self._stats = COND.export_stats(self.registry, self.masks)
+        return self._stats
+
+    def plan_key(self, batch_size: int) -> PlanKey:
+        """The key a request of ``batch_size`` streams groups under: its
+        batch bucket x the per-stack format signature at that bucket."""
+        bucket = PLAN.batch_bucket(max(int(batch_size), 1))
+        if self.path != "auto":
+            sig = tuple((s.name, self.path) for s in self.registry)
+            return PlanKey(batch_bucket=bucket, formats=sig, tp=self.tp)
+        stats = self.stats()
+        sig = tuple(
+            (s.name, PLAN.select_representation(
+                s, batch_size=bucket, itemsize=self._itemsize, stats=stats[s.name],
+                profile=self.profile, values_dtype=self.values_dtype).representation)
+            for s in self.registry)
+        return PlanKey(batch_bucket=bucket, formats=sig, tp=self.tp)
+
+    def plan_for(self, key: PlanKey) -> PLAN.Plan:
+        """The (lazily built, cached) execution plan serving ``key``."""
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = PLAN.build_plan(self.cfg, self.registry, self.params, self.masks,
+                                   batch_size=key.batch_bucket, path=self.path,
+                                   profile=self.profile, values_dtype=self.values_dtype)
+            self._plans[key] = plan
+        return plan
+
+    def serving_tree_for(self, key: PlanKey):
+        """The masks-slot tree a group executes with; the masked path serves
+        the training-layout masks themselves."""
+        if self.path == "masked":
+            return self.masks
+        return self.plan_for(key).serving_tree
+
+    def program_count(self, kind: str) -> int:
+        """Signatures run so far: ``"decode"`` graphs captured (decode step
+        functions made, on the CPU), ``"prefill"`` prefill shapes. The
+        counterpart of the reference's jit cache sizes."""
+        return len(self._programs[kind])
+
+    # -- request lifecycle --------------------------------------------------
+
+    def submit(self, prompts, gen_len: int) -> int:
+        """Queue a request: ``prompts`` (B, T) integer token ids in
+        ``[0, vocab_size)``, decode ``gen_len`` greedy tokens per stream.
+        Validated and cast to int32 here, so a malformed request fails with
+        a readable error rather than as a device gather of garbage rows.
+        Returns the request id."""
+        prompts = torch.as_tensor(prompts)
+        if prompts.ndim != 2 or 0 in prompts.shape:
+            raise ValueError(f"prompts must be (batch, prompt_len) with both dims >= 1; "
+                             f"got shape {tuple(prompts.shape)}")
+        if (prompts.dtype.is_floating_point or prompts.dtype.is_complex
+                or prompts.dtype == torch.bool):
+            raise ValueError(f"prompts must be integer token ids, got dtype {prompts.dtype}; "
+                             "cast explicitly if these are token ids")
+        if gen_len < 1:
+            raise ValueError("gen_len must be >= 1")
+        lo, hi = int(prompts.min()), int(prompts.max())
+        if lo < 0 or hi >= self.cfg.vocab_size:
+            raise ValueError(f"token ids out of range: prompts span [{lo}, {hi}] but "
+                             f"vocab_size is {self.cfg.vocab_size}")
+        rid = self._next_id
+        self._next_id += 1
+        self._pending.append(Request(id=rid, prompts=prompts.to("cpu", torch.int32),
+                                     gen_len=int(gen_len)))
+        return rid
+
+    def pending_groups(self) -> dict[PlanKey, list[int]]:
+        """Predicted grouping of the pending requests (no execution)."""
+        groups: dict[PlanKey, list[int]] = {}
+        for req in self._pending:
+            groups.setdefault(self.plan_key(req.prompts.shape[0]), []).append(req.id)
+        return groups
+
+    def step(self, quiet: bool = True, max_chunks: int | None = None) -> list[GroupReport]:
+        """Advance serving, one plan-key group at a time.
+
+        Paged (default where supported): each group's runner loops
+        admit-then-decode: pending requests join free bucket rows at chunk
+        boundaries (one bucket-padded prefill per admission wave) and each
+        iteration decodes one adaptive chunk, retiring streams as they
+        finish. ``max_chunks=None`` drains the group; an event loop passes
+        ``max_chunks=1`` to interleave admission with arrival. Results land
+        in the retire queue.
+
+        Slab path (``paged=False``): requests sharing (prompt_len, gen_len)
+        fuse into exact-shape slabs, split so none exceeds the bucket.
+        """
+        if not self.paged:
+            return self._step_legacy(quiet)
+
+        groups: dict[PlanKey, list[Request]] = {}
+        for req in self._pending:
+            groups.setdefault(self.plan_key(req.prompts.shape[0]), []).append(req)
+        keys = list(groups)
+        for key, runner in self._runners.items():
+            if key not in groups and runner.active:
+                keys.append(key)        # drain groups with no new arrivals
+
+        reports = []
+        for key in keys:
+            runner = self._runners.get(key)
+            if runner is None:
+                runner = self._runners[key] = _PagedRunner(self, key)
+            admitted_ids: list[int] = []
+            n_prefills = total_b = chunks = 0
+            while True:
+                # requests leave the pending queue only once their prefill
+                # has run: an exception mid-step must not drop queued work
+                pend = [r for r in self._pending
+                        if self.plan_key(r.prompts.shape[0]) == key]
+                if pend and runner.free_rows:
+                    admitted = runner.admit(pend)
+                    if admitted:
+                        served = {r.id for r in admitted}
+                        self._pending = [r for r in self._pending if r.id not in served]
+                        admitted_ids.extend(sorted(served))
+                        n_prefills += 1
+                        total_b += sum(r.prompts.shape[0] for r in admitted)
+                        if not quiet:
+                            print(f"[engine] group {key.describe()}: admitted "
+                                  f"{len(admitted)} request(s) ({total_b} stream(s)) into "
+                                  f"bucket {runner.bucket}")
+                if not runner.active:
+                    break
+                runner.decode_chunk()
+                chunks += 1
+                if max_chunks is not None and chunks >= max_chunks:
+                    break
+            reports.append(GroupReport(key=key, request_ids=tuple(admitted_ids),
+                                       n_slabs=n_prefills, total_batch=total_b))
+        return reports
+
+    def _step_legacy(self, quiet: bool = True) -> list[GroupReport]:
+        """Exact-shape slab serving through ``generate``'s contiguous cache.
+
+        Within a group, requests sharing (prompt_len, gen_len) fuse into
+        batch slabs, each split at the plan's bucket boundary: the plan is
+        priced at ``key.batch_bucket``, so a slab must never exceed it.
+        """
+        groups: dict[PlanKey, list[Request]] = {}
+        for req in self._pending:
+            groups.setdefault(self.plan_key(req.prompts.shape[0]), []).append(req)
+
+        reports = []
+        for key, reqs in groups.items():
+            # requests stay pending until their slab has run: an exception
+            # mid-step must not drop queued work
+            tree = self.serving_tree_for(key)
+            decoders = self._legacy_decoders.setdefault(key, {})
+            slabs: dict[tuple[int, int], list[Request]] = {}
+            for req in reqs:
+                slabs.setdefault((req.prompts.shape[1], req.gen_len), []).append(req)
+            n_dispatch = 0
+            for (t, gen_len), slab in slabs.items():
+                parts: list[list[Request]] = []
+                cur_part: list[Request] = []
+                cur_b = 0
+                for r in slab:
+                    rb = r.prompts.shape[0]
+                    if cur_part and cur_b + rb > key.batch_bucket:
+                        parts.append(cur_part)
+                        cur_part, cur_b = [], 0
+                    cur_part.append(r)
+                    cur_b += rb
+                parts.append(cur_part)
+                for part in parts:
+                    prompts = torch.cat([r.prompts for r in part], dim=0).to(self.device)
+                    b = prompts.shape[0]
+                    n0 = len(decoders)
+                    out, prefill_s, decode_s, tok_s = _timed_serve(
+                        self.cfg, self.compute, tree, prompts, gen_len, decoders=decoders,
+                        pool=self._graph_pool)
+                    cold = len(decoders) != n0
+                    n_dispatch += 1
+                    row = 0
+                    for r in part:
+                        rb = r.prompts.shape[0]
+                        self._done[r.id] = Result(
+                            id=r.id, tokens=out[row:row + rb], plan_key=key,
+                            prefill_s=prefill_s, decode_s=decode_s, tok_s=tok_s, cold=cold)
+                        row += rb
+                    served = {r.id for r in part}
+                    self._pending = [r for r in self._pending if r.id not in served]
+                    if not quiet:
+                        print(f"[engine] group {key.describe()}: {len(part)} request(s) "
+                              f"fused at {b}x{t}+{gen_len} ({tok_s:.1f} tok/s)")
+            reports.append(GroupReport(
+                key=key, request_ids=tuple(r.id for r in reqs), n_slabs=n_dispatch,
+                total_batch=sum(r.prompts.shape[0] for r in reqs)))
+        return reports
+
+    def retire(self, request_id: int | None = None) -> list[Result]:
+        """Pop finished results (all of them, or one id). Unfinished ids are
+        not returned: call ``step()`` first."""
+        if request_id is not None:
+            res = self._done.pop(request_id, None)
+            return [res] if res is not None else []
+        out = [self._done[k] for k in sorted(self._done)]
+        self._done.clear()
+        return out
+
+    # -- not ported yet -----------------------------------------------------
+
+    def refresh(self, params, masks, mask_versions, *, donate: bool = True):
+        raise _not_ported("ServingEngine.refresh (incremental re-export)", 3)
+
+    def attach_subscriber(self, subscriber, *, donate: bool = True) -> None:
+        raise _not_ported("live train-to-serve sync (subscribers)", 7)
+
+    def autotune(self, batch_size: int, **kw):
+        raise _not_ported("ServingEngine.autotune (launch-configuration search)", 10)

@@ -1,11 +1,12 @@
-"""Serving CLI (port of ``repro/launch/serve.py`` with ``--no-paged``).
+"""Serving CLI: a thin wrapper over ``repro_torch.launch.engine.ServingEngine``
+(port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 32 --gen 16 --path condensed
 
 Initializes the model and its SRigL constant fan-in masks from ``--seed``
-with a ``torch.Generator``, builds the serving tree for ``--path`` and runs
-one greedy prefill + decode pass:
+with a ``torch.Generator``, builds a ``ServingEngine`` for ``--path``,
+submits one request of ``--batch`` random prompts and serves it:
 
   --path masked      masked-dense ``torch.matmul`` on ``w * mask``
   --path condensed   every sparse linear runs the condensed gather kernel
@@ -28,13 +29,16 @@ one greedy prefill + decode pass:
                      (K2; K2-coa over active rows), bf16 is a plain storage
                      cast, f32 keeps the param dtype. Masked stacks read the
                      live params and are unaffected.
+  --no-paged         the exact-shape slab path on a contiguous cache instead
+                     of the paged continuous-batching scheduler
 
-Every path but masked goes through ``sparse.plan.build_plan`` at the
-request's batch bucket. masked, condensed, condensed_over_active and auto
-evaluate the same masked weights, so their tokens agree (up to float ties).
-Runs on CUDA unless ``--device cpu``; with no card and no ``--device cpu``
-it exits with an error. The paged scheduler and the other options of the
-reference CLI come with later slices.
+The engine plans every path but masked with ``sparse.plan.build_plan`` at
+the request's batch bucket. masked, condensed, condensed_over_active and
+auto evaluate the same masked weights, so their tokens agree (up to float
+ties). On the card each decode step is a replayed CUDA graph. Runs on CUDA
+unless ``--device cpu``; with no card and no ``--device cpu`` it exits with
+an error. The reference CLI's ``--tp``, ``--speculative``, ``--sync-dir``,
+``--autotune`` and ``--profile measured`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import argparse
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.launch.engine import ServingModel
+from repro_torch.launch.engine import ServingEngine
 from repro_torch.models import model as M
 from repro_torch.sparse import plan as PLAN
 from repro_torch.sparse import registry as REG
@@ -85,6 +89,9 @@ def main(argv=None):
                          "per output neuron (symmetric absmax scale, dequantized inside "
                          "the kernels), bf16 is a plain storage cast, f32 keeps the param "
                          "dtype; masked stacks read the live params and are unaffected")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="the exact-shape slab path on a contiguous cache instead of the "
+                         "paged continuous-batching scheduler")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -100,23 +107,28 @@ def main(argv=None):
         print("[serve] note: --path masked serves the live dense params; "
               f"--values-dtype {args.values_dtype} only affects exported "
               "value-storing formats (condensed/structured paths or auto)")
-    serving = masks
-    if args.path != "masked":
-        serving = build_plan(cfg, reg, params, masks, args.path, batch_size=args.batch,
-                             values_dtype=args.values_dtype)
-        if args.path == "auto":
-            print(serving.describe(requested_batch=args.batch))
-        if args.values_dtype != "f32" and reg:
-            weight_bytes, masked_ref = serving.weight_bytes()
-            print(f"[serve] values_dtype={args.values_dtype}: serving weight bytes "
-                  f"{weight_bytes} ({weight_bytes / max(masked_ref, 1):.3f}x of the "
-                  f"masked-dense reference)")
-    model = ServingModel(cfg, params, serving)
+    engine = ServingEngine(cfg, params, masks, reg, path=args.path,
+                           paged=False if args.no_paged else None,
+                           values_dtype=args.values_dtype)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
-    out, _ = model.serve_once(prompts, args.gen, args.path)
-    print("[serve] first stream:", out[0, -args.gen:].tolist())
-    return out
+    rid = engine.submit(prompts, args.gen)
+    if args.path == "auto":
+        # the plan is keyed on the batch bucket, so --batch 2 plans at bucket 8
+        print(engine.plan_for(engine.plan_key(args.batch))
+              .describe(requested_batch=args.batch))
+    if args.values_dtype != "f32" and reg and args.path != "masked":
+        weight_bytes, masked_ref = engine.plan_for(engine.plan_key(args.batch)).weight_bytes()
+        print(f"[serve] values_dtype={args.values_dtype}: serving weight bytes "
+              f"{weight_bytes} ({weight_bytes / max(masked_ref, 1):.3f}x of the "
+              f"masked-dense reference)")
+    engine.step()
+    [res] = engine.retire(rid)
+    b, t = prompts.shape
+    print(f"[serve:{args.path}] prefill {b}x{t} in {res.prefill_s:.3f}s | "
+          f"decode {b}x{args.gen} in {res.decode_s:.3f}s ({res.tok_s:.1f} tok/s)")
+    print("[serve] first stream:", res.tokens[0, -args.gen:].tolist())
+    return res.tokens
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ probabilities cast to the value dtype before the value product, masked
 slots at ``NEG_INF`` so their weights underflow to exact zeros. Attention
 is not a TPU kernel in the reference, so it has no hand-written kernel here.
 The cache write is in place: one preallocated cache serves a whole
-generation, as the reference's donated cache does.
+generation, as the reference's donated cache does. The paged primitives
+(``paged_decode_attention``, ``paged_cache_write``) read and write a
+shared page pool through per-stream block tables (``models/paged.py``).
 """
 from __future__ import annotations
 
@@ -113,11 +115,13 @@ def _attend_one_q_chunk(q_i, k_i, v_i, *, q_pos0, kv_pos0, causal, window, kv_ch
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int, *, head_to_kv: tuple, window: int = 0) -> torch.Tensor:
+                     cache_len, *, head_to_kv: tuple, window: int = 0) -> torch.Tensor:
     """Single-token attention against a (possibly ring-buffered) KV cache.
 
     q: (B, 1, H, D); k_cache/v_cache: (B, S, Hkv, D); cache_len: tokens in
-    the cache *including* the one just written.
+    the cache *including* the one just written, a host int or a 0-d device
+    tensor. The whole cache is attended under a mask, so no shape depends
+    on the length.
     """
     b, _, h, d = q.shape
     s = k_cache.shape[1]
@@ -138,22 +142,76 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
-                v_new: torch.Tensor, cache_len: int):
+                v_new: torch.Tensor, cache_len):
     """Write T_new tokens into the cache in place (ring semantics if the
     cache is smaller). k_cache: (B, S, Hkv, D); k_new: (B, T, Hkv, D);
-    cache_len: tokens already present. Returns the (same) caches."""
+    cache_len: tokens already present, a host int or a 0-d device tensor:
+    the slots are computed on the device, so a captured decode step writes
+    at whatever length the cache holds when it is replayed. Returns the
+    (same) caches."""
     s = k_cache.shape[1]
     t = k_new.shape[1]
+    off = 0
     if t >= s:  # only the trailing window survives a big prefill
         k_new, v_new = k_new[:, -s:], v_new[:, -s:]
-        start, t = (cache_len + t - s) % s, s
-    else:
-        start = cache_len % s
-    if start + t <= s:
-        k_cache[:, start:start + t] = k_new
-        v_cache[:, start:start + t] = v_new
-    else:
-        pos = (start + torch.arange(t, device=k_cache.device)) % s
-        k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
+        off, t = t - s, s
+    pos = (cache_len + off + torch.arange(t, device=k_cache.device)) % s
+    k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_table: torch.Tensor, lengths: torch.Tensor, *,
+                           head_to_kv: tuple) -> torch.Tensor:
+    """Single-token attention against a paged KV pool with per-stream lengths.
+
+    q: (B, 1, H, D); k_pool/v_pool: (P, bs, Hkv, D), one layer's page pool;
+    block_table: (B, NB) int32 page ids in position order; lengths: (B,)
+    int32 tokens per stream *including* the one just written. Token ``t``
+    of stream ``b`` lives at ``(block_table[b, t // bs], t % bs)``.
+
+    Slots at or past a stream's length are set to ``NEG_INF`` before the
+    softmax, so their weights underflow to exact zeros and the result does
+    not depend on whatever the masked pages hold (idle rows point their
+    whole table at the reserved page 0). The arithmetic is
+    ``decode_attention``'s over the gathered pages.
+    """
+    b, _, h, d = q.shape
+    nb = block_table.shape[1]
+    bs = k_pool.shape[1]
+    pages = block_table.long()
+    k = k_pool[pages].reshape(b, nb * bs, *k_pool.shape[2:])
+    v = v_pool[pages].reshape(b, nb * bs, *v_pool.shape[2:])
+    k_exp = expand_kv(k, head_to_kv)
+    v_exp = expand_kv(v, head_to_kv)
+    scores = torch.einsum("bqhd,bshd->bhqs", (q * d ** -0.5).float(),
+                          k_exp.float())[:, :, 0]                     # (B, H, S)
+    valid = torch.arange(nb * bs, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", p.to(v_exp.dtype), v_exp)
+    return out.reshape(b, 1, h, d)
+
+
+def paged_cache_write(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, block_table: torch.Tensor,
+                      positions: torch.Tensor):
+    """Scatter T new tokens per stream into a paged pool, in place.
+
+    k_pool/v_pool: (P, bs, Hkv, D); k_new/v_new: (B, T, Hkv, D);
+    block_table: (B, NB) int32; positions: (B, T) absolute token slots.
+    Positions past a stream's table extent clamp into its last table
+    entry: idle rows keep an all-zero table, so their writes land in the
+    reserved garbage page 0 and never touch a live stream's pages. Returns
+    the (same) pools.
+    """
+    bs = k_pool.shape[1]
+    nb = block_table.shape[1]
+    positions = positions.long()
+    page = torch.clamp(positions // bs, max=nb - 1)                  # (B, T)
+    blk = torch.gather(block_table.long(), 1, page)                  # (B, T)
+    off = positions % bs
+    k_pool[blk, off] = k_new.to(k_pool.dtype)
+    v_pool[blk, off] = v_new.to(v_pool.dtype)
+    return k_pool, v_pool

@@ -13,7 +13,9 @@ and their pieces for serving, and ``backbone``, ``cross_entropy_chunked``
 and ``loss_fn`` for training. ``remat="block"`` recomputes each block and
 each cross-entropy chunk in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
-The other families and the paged KV pool come with later slices.
+``supports_paged``, ``init_paged_pool``, ``paged_prefill_step`` and
+``paged_decode_step`` serve the continuous-batching engine from a shared
+page pool. The other families come with later slices.
 """
 from __future__ import annotations
 
@@ -139,11 +141,16 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 
 
 def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: int,
-                  q_offset: int = 0, cache: tuple | None = None, decode: bool = False):
+                  q_offset: int = 0, cache: tuple | None = None, decode: bool = False,
+                  paged: tuple | None = None):
     """Pre-norm attention sublayer (residual added by caller).
 
     cache: (k_cache, v_cache, cache_len) for decode / prefill-write; the
-    write is in place. Returns (out, (k_cache, v_cache) or None).
+    write is in place. paged: (k_pool, v_pool, block_table, lengths), one
+    layer's slice of a paged pool instead of a contiguous cache
+    (``supports_paged`` configs only, window 0): prefill writes positions
+    [0, T) through the table, decode one token per stream at its own
+    length. Returns (out, (k_cache, v_cache) or None).
     """
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = _heads(L.linear(h, p["wq"], m.get("wq")), cfg.n_heads_padded, cfg.head_dim)
@@ -157,7 +164,30 @@ def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: 
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if decode:
+    if paged is not None:
+        k_pool, v_pool, block_table, lengths = paged
+        if decode:
+            if k.shape[1] != 1:
+                raise NotImplementedError(
+                    "multi-token paged decode (speculative verify) is not ported yet "
+                    "(ROADMAP queue 1, item 6)")
+            A.paged_cache_write(k_pool, v_pool, k, v, block_table, lengths[:, None])
+            attn = A.paged_decode_attention(q, k_pool, v_pool, block_table, lengths + 1,
+                                            head_to_kv=cfg.head_to_kv)
+        else:
+            # prefill: attention over the in-flight k/v (causal, so the pads
+            # of a right-padded row sit after every real token and no real
+            # token attends them); the pool write covers all T slots, the
+            # pad slots holding garbage that ``lengths`` masks until decode
+            # overwrites it
+            attn = A.chunked_attention(
+                q, k, v, head_to_kv=cfg.head_to_kv, causal=cfg.causal, window=window,
+                q_offset=q_offset, q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+            t = k.shape[1]
+            pos = torch.arange(t, device=x.device)[None].expand(k.shape[0], t)
+            A.paged_cache_write(k_pool, v_pool, k, v, block_table, pos)
+        new_cache = (k_pool, v_pool)
+    elif decode:
         k_cache, v_cache, cache_len = cache
         k_cache, v_cache = A.cache_write(k_cache, v_cache, k, v, cache_len)
         attn = A.decode_attention(q, k_cache, v_cache, cache_len + 1,
@@ -186,9 +216,9 @@ def mlp_sublayer(cfg, p: dict, m: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def attn_mlp_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
-                   decode=False):
+                   decode=False, paged=None):
     a, new_cache = attn_sublayer(cfg, p, m, x, positions=positions, window=window,
-                                 q_offset=q_offset, cache=cache, decode=decode)
+                                 q_offset=q_offset, cache=cache, decode=decode, paged=paged)
     x = x + a
     x = x + mlp_sublayer(cfg, p, m, x)
     return x, new_cache
@@ -325,12 +355,17 @@ def _attn_cache(cfg, n: int, bsz: int, s: int, dtype, device):
 def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     """Decode state for ``bsz`` streams of up to ``max_len`` tokens.
 
-    ``"len"`` is a host int (tokens already in the cache); the k/v tensors
-    are written in place by ``prefill_step``/``decode_step``.
+    ``"len"`` (tokens already in the cache) is a 0-d int32 tensor on the
+    device, as the reference's is: positions, the cache write and the
+    decode mask are computed from it on the device, so no shape or slice
+    of a decode step depends on a host int and a captured step replays at
+    any length. ``prefill_step``/``decode_step`` advance it and write the
+    k/v tensors in place.
     """
     check_supported(cfg)
     s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
-    return {"len": 0, "blocks": _attn_cache(cfg, cfg.n_layers, bsz, s, _dt(cfg), device)}
+    return {"len": torch.zeros((), dtype=torch.int32, device=device),
+            "blocks": _attn_cache(cfg, cfg.n_layers, bsz, s, _dt(cfg), device)}
 
 
 def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
@@ -358,7 +393,8 @@ def prefill_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
 
 
 def decode_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
-    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, V), cache)."""
+    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, V), cache);
+    the cache, its length included, is advanced in place."""
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     positions = positions + cache["len"]
@@ -366,3 +402,82 @@ def decode_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
     cache["len"] += 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(cfg, params, x[:, 0]), cache
+
+
+# ===========================================================================
+# paged serving (continuous batching): shared page pool + per-stream tables
+# ===========================================================================
+
+def supports_paged(cfg) -> bool:
+    """Can this config decode against a paged KV pool? The uniform
+    full-attention stacks can; windowed ring buffers, gemma's local/global
+    groups, M-RoPE, audio codebooks and SSM state are served by the
+    contiguous-cache path (the reference's predicate)."""
+    return (cfg.family in ("dense", "vlm", "moe")
+            and cfg.causal
+            and not cfg.local_global_ratio
+            and not cfg.sliding_window
+            and not cfg.mrope)
+
+
+def init_paged_pool(cfg, num_blocks: int, block_size: int, device) -> dict:
+    """Layer-stacked page pool: {"pk"/"pv": (L, P, bs, Hkv, D)} of zeros.
+    Page 0 is the reserved garbage page (``models/paged.py``): allocators
+    never hand it out."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads_padded, cfg.head_dim)
+    return {"pk": torch.zeros(shape, dtype=_dt(cfg), device=device),
+            "pv": torch.zeros(shape, dtype=_dt(cfg), device=device)}
+
+
+def _paged_run_blocks(cfg, params, masks, x, pool, block_table, lengths, positions,
+                      decode: bool):
+    """The block stack over per-layer pool slices (views, written in place):
+    the reference's ``_paged_attn_scan`` as a loop over the layers."""
+    layers_p = _unstack(params["blocks"], cfg.n_layers)
+    layers_m = _unstack(masks.get("blocks", {}), cfg.n_layers)
+    for i in range(cfg.n_layers):
+        x, _ = attn_mlp_block(cfg, layers_p[i], layers_m[i], x, positions=positions,
+                              window=0, decode=decode,
+                              paged=(pool["pk"][i], pool["pv"][i], block_table, lengths))
+    return x
+
+
+def paged_prefill_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict,
+                       block_table: torch.Tensor, prompt_lens: torch.Tensor):
+    """Prefill right-padded prompts into a paged KV pool (in place).
+
+    batch["tokens"]: (B, T) right-padded to the prompt bucket; prompt_lens:
+    (B,) real lengths (0 for idle rows, whose all-zero table rows point at
+    the garbage page). Causal attention means real tokens never attend a
+    pad, and each row's logits are read at its own last real token, so a
+    row's results are those of an unpadded prefill. Returns (logits (B, V),
+    pool).
+    """
+    masks = masks or {}
+    x, positions = embed_inputs(cfg, params, batch)
+    x = _paged_run_blocks(cfg, params, masks, x, pool, block_table, prompt_lens,
+                          positions, decode=False)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = x[rows, torch.clamp(prompt_lens.long() - 1, min=0)]
+    return _lm_logits(cfg, params, last), pool
+
+
+def paged_decode_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict,
+                      block_table: torch.Tensor, lengths: torch.Tensor):
+    """One-token decode against the paged pool, per-stream positions.
+
+    batch["tokens"]: (B, 1); lengths: (B,) tokens already present per
+    stream (the new token is written at slot ``lengths[b]`` and attends
+    ``lengths[b] + 1`` slots: ``decode_step`` with the scalar length
+    replaced by a vector). ``lengths`` is read, not advanced. Returns
+    (logits, pool).
+    """
+    masks = masks or {}
+    x, positions = embed_inputs(cfg, params, batch)
+    positions = positions + lengths[:, None]
+    x = _paged_run_blocks(cfg, params, masks, x, pool, block_table, lengths, positions,
+                          decode=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(cfg, params, x[:, 0]), pool
