@@ -107,7 +107,30 @@ Phases, each of which raises (exit code != 0) on any failed check:
    d_out, grown weights 0 and mask_versions moved where the masks did;
    after a plain step AdamW's moments 0 off the mask. A step is timed and
    profiled.
-11. reference: the smoke config on the card against the port's CPU path
+11. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
+   same after two train steps, one DST update and the reference's _bump
+   rewire (the first stack's mask rolled by one input row). The paged
+   ServingEngine, bf16, on condensed (K1), int8 condensed (K2),
+   condensed_over_active over the half-ablated masks (K4) and masked,
+   serves one request (B=4, prompt 32, 16 new tokens, chunks of 8): one
+   chunk on gen-1, refresh(gen-2), the rest; a twin does the same with
+   refresh(donate=False). Gates: the two engines' tokens equal bitwise;
+   export_calls grew by the stacks whose version moved; a leaf whose
+   shapes held kept every data_ptr (in place), and no graph was
+   recaptured unless a leaf's shape moved; the in-place refresh's peak
+   memory grew by less than the plan's weight bytes; a fresh engine from
+   gen-2 serves a new request bitwise equal to the refreshed engine. Each
+   line gives the refresh's seconds, leaves in place and rebuilt, graphs
+   recaptured and max_memory_allocated before and during.
+12. sync: a repro_torch.sync Publisher sends gen-1 (a snapshot) over a
+   QueueChannel, an engine built with engine_from_snapshot (condensed,
+   then int8 condensed) serves one chunk, the publisher sends gen-2 (a
+   topology delta) and gen-2 again (a values-only delta), and step()
+   drains both at the chunk boundary: no graph recaptured, the leaves
+   written in place, tokens bitwise equal to [refresh]'s, the deltas
+   smaller than the snapshot and the values-only one than the topology
+   one; the record bytes, encode, decode and drain seconds are printed.
+13. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -2340,6 +2363,281 @@ def train_phase(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the [refresh] and [sync] phases: one request of B=4, prompt 32, 16 new
+# tokens, decoded in chunks of 8: the first chunk on gen-1, the second after
+# the refresh (or the sync drain) to gen-2
+REFRESH_CHUNK = 8
+# (label, path, values dtype, masks ablated): K1, K2, K4 and masked
+REFRESH_RUNS = (("condensed", "condensed", None, False),
+                ("condensed:int8", "condensed", "int8", False),
+                ("condensed_over_active", "condensed_over_active", None, True),
+                ("masked", "masked", None, False))
+
+
+def _generations(device) -> dict:
+    """gen-1 and gen-2 of the seeded full-width TrainState [train] builds
+    (``init_train_state`` at seed 0): gen-1 a clone of it, gen-2 after two
+    train steps, one DST update and the reference's ``_bump`` rewire
+    (tests/test_sync.py: the first stack's mask rolled by one input row, so
+    its fan-in is unchanged, and its version bumped). The optimizer state
+    and the gradients are freed before any engine is built."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import make_dst_step, make_train_step
+
+    base = configs.get_config(ARCH)
+    cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=2))
+    reg = REG.build_registry(cfg)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    gen1 = (_map_leaves(state.params, torch.clone), _map_leaves(state.masks, torch.clone),
+            {k: int(v) for k, v in state.mask_versions.items()})
+    step = make_train_step(cfg, reg, warmup_cosine(3e-3, 1, 6))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                       seed=0)
+    for i in range(2):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+        state, _ = step(state, batch)
+    state = make_dst_step(cfg, reg)(state, batch)
+    masks2 = _map_leaves(state.masks, lambda m: m)
+    s0 = reg[0]
+    REG.set_path(masks2, s0.path, torch.roll(REG.get_path(masks2, s0.path), 1, dims=-2))
+    versions2 = {k: int(v) for k, v in state.mask_versions.items()}
+    versions2[s0.name] += 1
+    gen2 = (state.params, masks2, versions2)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    moved = sorted(k for k in versions2 if versions2[k] != gen1[2][k])
+    print(f"[refresh] gen-2: 2 train steps, one DST update and {s0.name} rolled by one input "
+          f"row; mask versions moved for {len(moved)}/{len(reg)} stacks {moved}")
+    return dict(cfg=base.replace(dtype="bfloat16"), reg=reg, gen1=gen1, gen2=gen2,
+                moved=moved, device=device)
+
+
+def _gen_masks(gens: dict, gen: str, ablated: bool) -> dict:
+    masks = gens[gen][1]
+    return _ablate_masks(gens["reg"], masks, ABLATION) if ablated else masks
+
+
+def _leaf_storage(eng) -> dict:
+    """stack name -> {field: (data_ptr, shape)} of every plan's leaves."""
+    from repro_torch.sparse import registry as REG
+    out = {}
+    for key, plan in eng._plans.items():
+        for s in eng.registry:
+            leaf = REG.get_path(plan.serving_tree, s.path)
+            out[(key, s.name)] = {f: (t.data_ptr(), tuple(t.shape))
+                                  for f, t in leaf.arrays().items()}
+    return out
+
+
+def _leaf_bytes(eng) -> int:
+    from repro_torch.sparse import registry as REG
+    return sum(t.numel() * t.element_size() for plan in eng._plans.values()
+               for s in eng.registry
+               for t in REG.get_path(plan.serving_tree, s.path).arrays().values())
+
+
+def _serve_chunks(eng, prompts, chunks: int | None):
+    rid = eng.submit(prompts, GEN)
+    eng.step(max_chunks=chunks)
+    return rid
+
+
+def _launched(label: str, counts: dict) -> None:
+    """The engine's decode ran through the kernel of its path, and no other."""
+    want = {"condensed": "K1", "condensed:int8": "K2", "condensed_over_active": "K4"}.get(label)
+    bad = {k: n for k, n in counts.items() if n and k != want}
+    if bad or (want is not None and not counts[want]):
+        raise AssertionError(f"[refresh:{label}] launches {counts}, expected {want} only")
+
+
+def refresh_phase(gens: dict, card: str) -> dict:
+    """ServingEngine.refresh at full width, bf16, mid-generation, on K1
+    (condensed), K2 (int8 condensed), K4 (condensed_over_active on the
+    half-ablated masks) and masked: one chunk on gen-1, refresh(gen-2), the
+    rest of the request. Gates: the in-place tokens equal a twin refreshed
+    with donate=False bitwise; export_calls grew by the stacks whose version
+    moved; every leaf whose shapes held kept its data_ptr, no graph was
+    recaptured unless a leaf's shape moved (then one per runner, its
+    signature new), and the refresh's peak memory stayed below the plan's
+    weight bytes; a fresh engine built from gen-2 serves a new request
+    bitwise equal to the refreshed engine. Returns the in-place tokens."""
+    import torch
+    from repro_torch.launch import engine as E
+
+    cfg, reg, device = gens["cfg"], gens["reg"], gens["device"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    prompts2 = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                             dtype=torch.int32)
+    tokens: dict = {}
+    for label, path, vd, ablated in REFRESH_RUNS:
+        def engine(g: str):
+            params, _, versions = gens[g]
+            return E.ServingEngine(cfg, params, _gen_masks(gens, g, ablated), reg, path=path,
+                                   values_dtype=vd, block_size=ENGINE_BLOCK,
+                                   gen_chunk=REFRESH_CHUNK, mask_versions=versions)
+
+        out, second = {}, None
+        for donate in (True, False):
+            eng = engine("gen1")
+            _zero_counts()
+            rid = _serve_chunks(eng, prompts, 1)
+            before = _leaf_storage(eng)
+            calls = {k: p.export_calls for k, p in eng._plans.items()}
+            captures, programs = eng.captures, eng.program_count("decode")
+            plan_bytes = _leaf_bytes(eng)
+            masks2 = _gen_masks(gens, "gen2", ablated)
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            changed = eng.refresh(gens["gen2"][0], masks2, gens["gen2"][2], donate=donate)
+            torch.cuda.synchronize()
+            refresh_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            eng.step()
+            [res] = eng.retire(rid)
+            _launched(label, _counts())
+            out[donate] = res.tokens.cpu()
+            after = _leaf_storage(eng)
+            for key, p in eng._plans.items():
+                if sorted(changed[key]) != gens["moved"] or \
+                        p.export_calls != calls[key] + len(gens["moved"]):
+                    raise AssertionError(f"[refresh:{label}] re-exported {changed[key]}, "
+                                         f"versions moved for {gens['moved']}")
+            same_shape = {k: {f: v[1] for f, v in a.items()} == {f: v[1] for f, v in
+                                                                  before[k].items()}
+                          for k, a in after.items()}
+            kept = {k: all(v[0] == before[k].get(f, (None,))[0] for f, v in a.items())
+                    for k, a in after.items()}
+            in_place = sum(kept.values())
+            if any(kept[k] != (donate and same_shape[k]) for k in after):
+                raise AssertionError(f"[refresh:{label}] donate={donate}: storage kept "
+                                     f"{kept}, shapes held {same_shape}")
+            reshaped = not all(same_shape.values())
+            recaptured = eng.captures - captures
+            want = int(bool(after) and (reshaped or not donate))
+            if recaptured != want or eng.program_count("decode") != programs + int(reshaped):
+                raise AssertionError(f"[refresh:{label}] donate={donate}: recaptured "
+                                     f"{recaptured} (expected {want}), decode programs "
+                                     f"{programs} -> {eng.program_count('decode')}")
+            # a same-shape refresh must not double the plan's weight bytes
+            # (the masked path has no plan: its copies allocate nothing)
+            grew = peak - mem0
+            if donate and not reshaped and grew >= (plan_bytes or 64 * 2**20):
+                raise AssertionError(f"[refresh:{label}] the refresh allocated {grew} bytes, "
+                                     f"the plan holds {plan_bytes}")
+            print(f"[refresh:{label}] {card}: donate={donate}: refresh {refresh_s:.3f}s "
+                  f"(host clock, synchronised); leaves copied in place {in_place}, rebuilt "
+                  f"{len(after) - in_place}; graphs recaptured {recaptured}; "
+                  f"max_memory_allocated {mem0 / 2**30:.2f} GiB before, "
+                  f"{peak / 2**30:.2f} GiB during (+{grew / 2**20:.1f} MiB; plan weight bytes "
+                  f"{plan_bytes / 2**20:.1f} MiB); stacks re-exported per plan "
+                  f"{[len(v) for v in changed.values()]}")
+            if donate:
+                second = _serve_chunks(eng, prompts2, None)
+                [res2] = eng.retire(second)
+                second = res2.tokens.cpu()
+            del eng, res, masks2
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not torch.equal(out[True], out[False]):
+            raise AssertionError(f"[refresh:{label}] in-place and donate=False tokens differ")
+        fresh = engine("gen2")
+        rid = _serve_chunks(fresh, prompts2, None)
+        [res] = fresh.retire(rid)
+        if not torch.equal(res.tokens.cpu(), second):
+            raise AssertionError(f"[refresh:{label}] a fresh gen-2 engine serves other tokens "
+                                 "than the refreshed one")
+        del fresh, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens[label] = out[True]
+        print(f"[refresh:{label}] in-place tokens == donate=False tokens bitwise; a fresh gen-2 "
+              f"engine == the refreshed engine bitwise at bucket 8")
+    return tokens
+
+
+def sync_phase(gens: dict, refreshed: dict, card: str) -> None:
+    """The same update streamed: a port Publisher sends gen-1 (a snapshot)
+    over a QueueChannel, an engine built from it with engine_from_snapshot
+    (condensed, then int8 condensed) serves one chunk, the publisher sends
+    gen-2 (a topology delta) and gen-2 again (a values-only delta), and the
+    next step() drains both at the chunk boundary. Gates: no graph
+    recaptured, every leaf that kept its shapes kept its data_ptr, tokens
+    bitwise equal to the [refresh] engine's, the deltas smaller than the
+    snapshot and the values-only one smaller than the topology one."""
+    import torch
+    from repro_torch.sync import QueueChannel, Publisher, Subscriber, engine_from_snapshot
+    from repro_torch.sync import delta as D
+
+    cfg, reg, device = gens["cfg"], gens["reg"], gens["device"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    for label, vd in (("condensed", None), ("condensed:int8", "int8")):
+        ch = QueueChannel()
+        pub = Publisher(cfg, reg, ch, path="condensed", values_dtype=vd, batch_size=BATCH,
+                        arch=ARCH)
+        snap = pub.publish(params=gens["gen1"][0], masks=gens["gen1"][1],
+                           mask_versions=gens["gen1"][2])
+        sub = Subscriber(ch.subscribe("replica"), name="replica")
+        t0 = time.perf_counter()
+        sub.poll()
+        snap_decode = time.perf_counter() - t0
+        eng = engine_from_snapshot(cfg, sub, registry=reg, device=device,
+                                   block_size=ENGINE_BLOCK, gen_chunk=REFRESH_CHUNK)
+        _zero_counts()
+        rid = _serve_chunks(eng, prompts, 1)
+        before = _leaf_storage(eng)
+        captures, programs = eng.captures, eng.program_count("decode")
+        topo = pub.publish(params=gens["gen2"][0], masks=gens["gen2"][1],
+                           mask_versions=gens["gen2"][2])
+        vals = pub.publish(params=gens["gen2"][0], masks=gens["gen2"][1],
+                           mask_versions=gens["gen2"][2])
+        decode_s = []
+        for _, blob in ch._log[-2:]:
+            t0 = time.perf_counter()
+            D.decode(blob)
+            decode_s.append(time.perf_counter() - t0)
+        eng.step()
+        [res] = eng.retire(rid)
+        _launched(label, _counts())
+        after = _leaf_storage(eng)
+        if eng._sync_generation != 3:
+            raise AssertionError(f"[sync:{label}] drained to gen {eng._sync_generation}")
+        if (eng.captures, eng.program_count("decode")) != (captures, programs):
+            raise AssertionError(f"[sync:{label}] a graph was recaptured")
+        for k, a in after.items():
+            if {f: v[1] for f, v in a.items()} == {f: v[1] for f, v in before[k].items()} \
+                    and a != before[k]:
+                raise AssertionError(f"[sync:{label}] {k} kept its shapes but not its storage")
+        if not torch.equal(res.tokens.cpu(), refreshed[label]):
+            raise AssertionError(f"[sync:{label}] drained tokens differ from [refresh]'s")
+        if not (vals["bytes"] < topo["bytes"] < snap["bytes"]):
+            raise AssertionError(f"[sync:{label}] record bytes: snapshot {snap['bytes']}, "
+                                 f"topology delta {topo['bytes']}, values-only {vals['bytes']}")
+        in_place = sum(a == before[k] for k, a in after.items())
+        print(f"[sync:{label}] {card}: snapshot {snap['bytes']} B (encode "
+              f"{snap['encode_s']:.3f}s, decode {snap_decode:.3f}s); topology delta "
+              f"{topo['bytes']} B ({len(topo['topology'])} stacks; encode {topo['encode_s']:.3f}s, "
+              f"decode {decode_s[0]:.3f}s); values-only delta {vals['bytes']} B (encode "
+              f"{vals['encode_s']:.3f}s, decode {decode_s[1]:.3f}s); drain of both at the chunk "
+              f"boundary {eng.last_drain_s:.3f}s; leaves written in place {in_place}/"
+              f"{len(after)}; no graph recaptured; tokens == [refresh]'s bitwise")
+        del eng, pub, sub, ch, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _leaf_list(tree) -> list:
     return [x for v in tree.values() for x in (_leaf_list(v) if isinstance(v, dict) else [v])]
 
@@ -2541,6 +2839,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("train", train_phase, device, card)
+    gens = timed("generations", _generations, device)
+    refreshed = timed("refresh", refresh_phase, gens, card)
+    timed("sync", sync_phase, gens, refreshed, card)
+    del gens
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 

@@ -1,0 +1,189 @@
+"""Quickstart on the PyTorch port: train a small LM with SRigL, inspect the
+learned structure, check the condensed representation, serve it through
+the engine, keep training, and refresh the engine incrementally.
+
+  PYTHONPATH=src python examples/quickstart_torch.py --device cpu
+
+(``--device cuda``, the default, runs on the card, where the condensed
+paths launch the port's CUDA kernels and every decode step is a replayed
+CUDA graph.) The sections follow ``examples/quickstart.py``'s 1-6 and 8;
+section 7 (calibration) waits for the port's ``HardwareProfile.measure``.
+"""
+import argparse
+import dataclasses
+import time
+import types
+
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.core import topology
+from repro_torch.core.schedule import DSTSchedule
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.kernels import ops
+from repro_torch.kernels import structured_matmul as SM
+from repro_torch.launch.engine import ServingEngine, generate
+from repro_torch.models import model as M
+from repro_torch.sparse import formats as F
+from repro_torch.sparse import plan as PLAN
+from repro_torch.sparse import registry as REG
+from repro_torch.train.state import init_train_state
+from repro_torch.train.trainer import make_dst_step, make_train_step
+
+
+def _time_us(fn, *args, reps: int = 5) -> float:
+    """Median microseconds of ``fn(*args)``: CUDA events on the card, the
+    host clock on the CPU (where the kernels' plain versions run)."""
+    fn(*args)
+    times = []
+    for _ in range(reps):
+        if args[0].is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) * 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e6)
+    return sorted(times)[len(times) // 2]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    # 1. a reduced qwen3-style config at 90% sparsity, SRigL with ablation
+    cfg = configs.get_smoke_config("qwen3-1.7b")
+    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity, delta_t=10))
+    registry = REG.build_registry(cfg)
+    print(f"sparse stacks: {[s.name for s in registry]}")
+    print(f"ERK densities: {[f'{s.density:.3f}' for s in registry]}")
+
+    # 2. train with periodic topology updates
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    step = make_train_step(cfg, registry, lambda s: 3e-3)
+    dst = make_dst_step(cfg, registry)
+    sched = DSTSchedule(delta_t=10)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=48, batch_size=8, seed=0)
+
+    def train(steps):
+        nonlocal state
+        for i in steps:
+            batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+            state, metrics = step(state, batch)
+            if sched.is_update_step(i + 1):
+                state = dst(state, batch)
+            if i % 10 == 0:
+                print(f"step {i:3d} loss {float(metrics['loss']):.4f} "
+                      f"drop_frac {float(metrics['drop_fraction']):.3f}")
+
+    train(range(60))
+
+    # 3. learned structure: constant fan-in + neuron ablation
+    summary = REG.sparsity_summary(registry, {"masks": state.masks,
+                                              "neuron_active": state.neuron_active})
+    for name, row in summary.items():
+        print(f"{name:20s} density={row['density']:.3f} "
+              f"active_neurons={row['active_neurons']:.2%}")
+
+    # 4. condensed export: the same weights, two representations (paper Sec. 4.4)
+    s0 = registry[0]
+    w = REG.get_path(state.params, s0.path)[0]
+    m = REG.get_path(state.masks, s0.path)[0]
+    k = int(m.sum(0).max())
+    vals, idx = topology.dense_to_condensed(w * m, m, k)
+    x = torch.randn((2, w.shape[0]), generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    err = float((ops.condensed_linear(x, vals, idx) - x @ (w * m)).abs().max())
+    print(f"condensed-vs-masked max err: {err:.2e}  (fan-in k={k}, "
+          f"{vals.numel()}/{w.numel()} weights stored = {vals.numel() / w.numel():.1%})")
+
+    # 5. serve the trained model through the engine: requests group by plan
+    #    key (batch bucket x per-stack format the cost model picks there),
+    #    and greedy decode is token-identical to masked-dense for every
+    #    exact format the plan can choose. The engine keeps its own copy of
+    #    the weights, so the training below does not move what it serves.
+    #    (CLI: PYTHONPATH=src python -m repro_torch.launch.serve \
+    #        --arch qwen3-1.7b --smoke --path auto)
+    engine = ServingEngine(cfg, state.params, state.masks, registry, path="auto",
+                           mask_versions=state.mask_versions)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(2))
+    rid_a = engine.submit(prompts, gen_len=8)            # batch-2 request
+    rid_b = engine.submit(prompts[:1], gen_len=8)        # batch-1 request
+    groups = engine.pending_groups()
+    print(f"serve: {len(groups)} plan-key group(s): {[k.describe() for k in groups]}")
+    print(engine.plan_for(engine.plan_key(2)).describe())
+    engine.step()
+    [res_a] = engine.retire(rid_a)
+    [res_b] = engine.retire(rid_b)
+    out_masked = generate(cfg, M.serving_params(cfg, state.params), state.masks,
+                          prompts.to(device), 8)
+    same = bool(torch.equal(out_masked.cpu(), res_a.tokens.cpu()))
+    print(f"serve: engine decode tokens == masked decode tokens: {same} "
+          f"(batch-1 group: {res_b.tok_s:.1f} tok/s)")
+    print(f"serve: first stream: {res_a.tokens[0, 8:].tolist()}")
+
+    # 6. incremental export: keep training, then refresh the engine. Only
+    #    the stacks whose mask version moved re-export (per cached plan, each
+    #    once across plans); the rest regather their values at the stored
+    #    indices. A same-shape refresh writes into the engine's existing
+    #    tensors, so its captured decode graphs stay valid.
+    before = {kk: int(v) for kk, v in state.mask_versions.items()}
+    train(range(60, 70))
+    moved = sorted(n for n, v in state.mask_versions.items() if int(v) != before[n])
+    changed = engine.refresh(state.params, state.masks, state.mask_versions)
+    print(f"serve: mask versions moved for {len(moved)}/{len(registry)} stacks: {moved}")
+    for key, names in changed.items():
+        plan = engine.plan_for(key)
+        print(f"serve: refresh[{key.describe()}] re-exported {len(names)}/{len(registry)} "
+              f"stacks: {sorted(names)}; values-only regathers (topology unchanged, weights "
+              f"trained on): {plan.value_refreshes}")
+    rid = engine.submit(prompts, gen_len=8)
+    engine.step()
+    [res] = engine.retire(rid)
+    out_masked = generate(cfg, M.serving_params(cfg, state.params), state.masks,
+                          prompts.to(device), 8)
+    print(f"serve: refreshed engine tokens == masked decode tokens: "
+          f"{bool(torch.equal(out_masked.cpu(), res.tokens.cpu()))}")
+
+    # 7. calibration (HardwareProfile.measure, engine.autotune) is not
+    #    ported yet: ROADMAP queue 1, item 10.
+
+    # 8. ablation-aware kernels (Fig. 4 "structured"): the structured path
+    #    multiplies only the surviving columns of the dense weight (K5 on
+    #    the card), so its time follows the active fraction; on an
+    #    ablation-only stack (surviving columns fully dense) the cost model
+    #    lets structured win the auto choice at decode shapes.
+    d_in, d_out, b = 512, 512, 8
+    g8 = torch.Generator(device=device).manual_seed(8)
+    w8 = torch.randn((d_in, d_out), generator=g8, device=device)
+    x8 = torch.randn((b, d_in), generator=g8, device=device)
+    where = "CUDA events around one call" if device.type == "cuda" else "host clock, plain version"
+    base = None
+    for frac in (1.0, 0.5, 0.25):
+        a = int(d_out * frac)
+        cols = torch.randperm(d_out, generator=g8, device=device)[:a].sort().values
+        a_pad = SM.padded_active_count(a, d_out)
+        ai = torch.full((a_pad,), d_out, dtype=torch.int32, device=device)
+        ai[:a] = cols.to(torch.int32)
+        t = _time_us(SM.structured_matmul, x8, w8, ai)
+        base = base or t
+        print(f"structured kernel active={frac:.2f}: {t:8.1f} us ({t / base:.2f}x of "
+              f"dense-width; {where})")
+    stack = types.SimpleNamespace(name="mlp@abl50", d_in=3072, d_out=1024, n_replicas=1)
+    stats = F.ExportStats(k=3072, max_active=512, active_fraction=0.5,
+                          min_fan_in=3072)  # ablation-only: survivors dense
+    for bb in (1, 256):
+        dec = PLAN.select_representation(stack, batch_size=bb, itemsize=4, stats=stats)
+        est = {r: f"{v * 1e6:.1f}us" for r, v in dec.est_s.items()}
+        print(f"auto @ b={bb} (ablation-only stack) -> {dec.representation} {est}")
+
+
+if __name__ == "__main__":
+    main()

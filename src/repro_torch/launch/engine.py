@@ -39,9 +39,19 @@ state outside the timed window, as the reference pre-compiles; a result
 whose dispatch had to do so in-line is ``cold``. ``paged=False`` serves
 exact-shape slabs through ``generate``'s contiguous cache instead.
 
+The engine owns what it serves: it keeps its own copy of the params, of
+their serving copy at the compute dtype and of the masks, so a trainer that
+updates the caller's tensors in place moves nothing here. Only ``refresh``
+and a sync drain (``attach_subscriber``) change what the engine serves, and
+both write into the engine's existing tensors: the params, the masks and
+every same-shape plan leaf keep their storage, so the captured graphs read
+the new numbers on their next replay. Each decode step records the storage
+(address, shape, dtype) of every serving tensor its graph reads; a step
+whose record no longer matches (a leaf changed shape, or was rebuilt) is
+recaptured at its next chunk, and the result that rode it is ``cold``.
+
 Not ported in this slice: tensor parallelism (``mesh``), speculative
-decoding, live sync (subscribers), ``refresh``, ``autotune`` and
-``abstract_plan_key`` (ROADMAP queue 1).
+decoding, ``autotune`` and ``abstract_plan_key`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -66,6 +76,54 @@ from repro_torch.sparse import registry as REG
 def _sync(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
+
+
+def _storage(*trees) -> tuple:
+    """(address, shape, dtype) of every tensor in ``trees`` (a format leaf
+    gives its arrays): the storage a captured decode graph reads."""
+    out: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, F.SparseFormat):
+            for a in t.arrays().values():
+                out.append((a.data_ptr(), tuple(a.shape), a.dtype))
+        elif isinstance(t, torch.Tensor):
+            out.append((t.data_ptr(), tuple(t.shape), t.dtype))
+
+    for tree in trees:
+        walk(tree)
+    return tuple(out)
+
+
+def _owned(tree: dict) -> dict:
+    """A copy of a nested dict of tensors that shares no storage with it."""
+    return {k: _owned(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+@torch.no_grad()
+def _copy_into(dst: dict, src: dict) -> None:
+    """Write ``src`` into ``dst``'s tensors (same paths, shapes), in place."""
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
+@torch.no_grad()
+def _recast_into(compute: dict, params: dict) -> None:
+    """Bring a serving copy (``models.model.serving_params`` of ``params``)
+    up to date in place: each tensor cast from its param, except those that
+    are the param itself."""
+    for k, v in compute.items():
+        if isinstance(v, dict):
+            _recast_into(v, params[k])
+        elif v is not params[k]:
+            v.copy_(params[k])
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -123,9 +181,10 @@ class _Decoder:
     """A decode step over static state: on the card captured once in a CUDA
     graph (``capture``) and replayed, on the CPU run eagerly."""
 
-    def __init__(self, step, state: _DecodeState):
+    def __init__(self, step, state: _DecodeState, storage: tuple = ()):
         self.step = step
         self.state = state
+        self.storage = storage          # ``_storage`` of what the step reads
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict = {}        # kernel launches one replay makes
 
@@ -177,13 +236,15 @@ def _contiguous_decoder(cfg, params, masks, b: int, max_len: int, device, *,
                         decoders: dict | None = None, pool=None,
                         eager: bool = False) -> _Decoder:
     """The decoder of signature (B, max_len) for one serving tree, from
-    ``decoders`` (the owner's, keyed by that signature) or made and, on the
-    card, captured (unless ``eager``)."""
+    ``decoders`` (the owner's, keyed by that signature) while the storage
+    it recorded is still what ``params`` and ``masks`` hold, or made and,
+    on the card, captured (unless ``eager``)."""
+    storage = _storage(params, masks)
     dec = None if decoders is None else decoders.get((b, max_len))
-    if dec is not None:
+    if dec is not None and dec.storage == storage:
         return dec
     st = _new_state(b, max_len, device, cache=M.init_cache(cfg, b, max_len, device))
-    dec = _Decoder(functools.partial(_contiguous_step, cfg, params, masks, st), st)
+    dec = _Decoder(functools.partial(_contiguous_step, cfg, params, masks, st), st, storage)
     if device.type == "cuda" and not eager:
         dec.capture(pool)
     if decoders is not None:
@@ -277,6 +338,13 @@ class ServingModel(nn.Module):
     serving copy of the params (``models.model.serving_params``) is made
     once here, so no call casts weights. Its decode graphs, one per (B,
     max_len), are kept with it and share one graph pool.
+
+    It serves a fixed checkpoint: its tensors are the caller's (and the
+    serving copy shares those already at the compute dtype), so a caller
+    that goes on training them in place must not serve them through it
+    meanwhile; ``ServingEngine`` owns copies and ``refresh`` instead. A
+    graph whose recorded storage no longer matches the tensors is
+    recaptured.
     """
 
     def __init__(self, cfg, params: dict, serving: dict | PLAN.Plan):
@@ -495,25 +563,34 @@ class _PagedRunner:
 
     # -- the decode graph ---------------------------------------------------
 
-    def _signature(self) -> tuple:
-        return (self.key, self.bucket, self.nb, self.num_blocks, self.bs)
+    def _signature(self, storage: tuple) -> tuple:
+        """The decode program's shape: the pool's and the tables', and the
+        shapes and dtypes of the serving tensors it reads."""
+        return (self.key, self.bucket, self.nb, self.num_blocks, self.bs,
+                tuple((shape, dtype) for _, shape, dtype in storage))
 
     def _ensure_decoder(self) -> bool:
         """Make the decode step of the current signature if there is none,
-        capturing it on the card, on garbage state (every table row at page
-        0, lengths 0: the capture's eager warm-up step writes only the
-        garbage page; the host refills the buffers before each chunk).
+        or if the serving tensors it read have moved (a refresh rebuilt a
+        leaf), capturing it on the card, on garbage state (every table row
+        at page 0, lengths 0, step index 0: the capture's eager warm-up
+        step writes only the garbage page and the first token column; the
+        host refills the buffers before each chunk).
         Returns whether it had to."""
-        if self.decoder is not None:
-            return False
         eng, st = self.eng, self.state
+        tree = eng.serving_tree_for(self.key)
+        storage = _storage(eng.compute, tree)
+        if self.decoder is not None and self.decoder.storage == storage:
+            return False
         st.table.zero_()
         st.lengths.zero_()
-        dec = _Decoder(functools.partial(_paged_step, eng.cfg, eng.compute,
-                                         eng.serving_tree_for(self.key), st), st)
+        st.step.zero_()     # a recapture comes after a chunk left it at the chunk's end
+        dec = _Decoder(functools.partial(_paged_step, eng.cfg, eng.compute, tree, st), st,
+                       storage)
         if st.cur.device.type == "cuda":
             dec.capture(eng._graph_pool)
-        eng._programs["decode"].add(self._signature())
+        eng._captures += 1
+        eng._programs["decode"].add(self._signature(storage))
         self.decoder = dec
         return True
 
@@ -525,7 +602,10 @@ class _PagedRunner:
         it runs eagerly, so the pool's size does not key it."""
         eng = self.eng
         if kind == "decode":
-            self._ensure_decoder()
+            # a new signature only: a graph made stale by a refresh is
+            # recaptured in the dispatch, and its result is cold
+            if self.decoder is None:
+                self._ensure_decoder()
             return
         sig = (self.key, t)
         if sig in eng._programs["prefill"]:
@@ -697,7 +777,12 @@ class ServingEngine:
 
     ``values_dtype`` ("bf16"/"int8"/"fp8"; None keeps the param dtype) is
     an engine-wide setting, not part of ``PlanKey``: every plan exports its
-    value-storing leaves at that width. Masked stacks read the live params.
+    value-storing leaves at that width. Masked stacks read the engine's
+    params.
+
+    The engine copies ``params`` and ``masks`` at construction and serves
+    only its copies; ``refresh`` (a training job's update) and an attached
+    sync subscriber write new numbers into them, between chunks.
 
     ``mesh`` and ``speculative`` are not ported yet and raise.
     """
@@ -729,8 +814,10 @@ class ServingEngine:
         if block_size < 1 or gen_chunk < 1:
             raise ValueError("block_size and gen_chunk must be >= 1")
         self.cfg = cfg
-        self.params = params
-        self.masks = masks or {}
+        # the engine's own copies: a caller training its tensors in place
+        # does not move what the engine serves
+        self.params = _owned(params)
+        self.masks = _owned(masks or {})
         self.registry = list(REG.build_registry(cfg) if registry is None else registry)
         self.path = path
         self.profile = profile
@@ -741,9 +828,10 @@ class ServingEngine:
         self.values_dtype = F.resolve_quantize_spec(values_dtype)
         self.tp = 1
         self.device = params["embed"].device
-        self.compute = M.serving_params(cfg, params)
+        self.compute = M.serving_params(cfg, self.params)
         self._graph_pool = _graph_pool(self.device)
-        self._mask_versions = mask_versions
+        self._mask_versions = (None if mask_versions is None
+                               else PLAN._host_versions(mask_versions))
         self._itemsize = getattr(torch, cfg.param_dtype).itemsize
         self._stats: dict | None = None
         self._plans: dict[PlanKey, PLAN.Plan] = {}
@@ -752,9 +840,15 @@ class ServingEngine:
         # signatures run so far: "decode" counts captured graphs (step
         # functions made, on the CPU), "prefill" the prefill shapes
         self._programs: dict[str, set] = {"prefill": set(), "decode": set()}
+        self._captures = 0              # paged decode steps made (graphs captured on the card)
         self._pending: list[Request] = []
         self._done: dict[int, Result] = {}
         self._next_id = 0
+        # live train-to-serve sync: a subscriber drained at chunk boundaries
+        self._subscriber = None
+        self._sync_generation: int | None = None
+        self._sync_donate = True
+        self.last_drain_s = 0.0         # host seconds of the last drain that applied
 
     # -- stats / keys -------------------------------------------------------
 
@@ -785,7 +879,13 @@ class ServingEngine:
         if plan is None:
             plan = PLAN.build_plan(self.cfg, self.registry, self.params, self.masks,
                                    batch_size=key.batch_bucket, path=self.path,
+                                   mask_versions=self._mask_versions,
                                    profile=self.profile, values_dtype=self.values_dtype)
+            if self._subscriber is not None and self._subscriber.generation is not None:
+                # sync rewrites stack leaves in existing plans only, so the
+                # engine's params may lag the stream: bring the new plan to
+                # the subscribed generation
+                self._apply_sync_to_plan(plan, self._subscriber, force=True)
             self._plans[key] = plan
         return plan
 
@@ -797,10 +897,19 @@ class ServingEngine:
         return self.plan_for(key).serving_tree
 
     def program_count(self, kind: str) -> int:
-        """Signatures run so far: ``"decode"`` graphs captured (decode step
-        functions made, on the CPU), ``"prefill"`` prefill shapes. The
-        counterpart of the reference's jit cache sizes."""
+        """Signatures run so far: ``"decode"`` decode programs (the pool's
+        and tables' shapes and the serving tensors' shapes, as the
+        reference's jit cache keys them), ``"prefill"`` prefill shapes. The
+        counterpart of the reference's jit cache sizes. A graph recaptured
+        at an unchanged signature (new storage, same shapes) is counted by
+        ``captures``, not here."""
         return len(self._programs[kind])
+
+    @property
+    def captures(self) -> int:
+        """Paged decode steps made so far: graphs captured on the card,
+        step functions on the CPU, recaptures included."""
+        return self._captures
 
     # -- request lifecycle --------------------------------------------------
 
@@ -850,7 +959,11 @@ class ServingEngine:
 
         Slab path (``paged=False``): requests sharing (prompt_len, gen_len)
         fuse into exact-shape slabs, split so none exceeds the bucket.
+
+        An attached subscriber is drained here and at every chunk boundary,
+        never during a chunk: each chunk runs against one generation.
         """
+        self._drain_sync()          # an idle engine still follows the stream
         if not self.paged:
             return self._step_legacy(quiet)
 
@@ -870,6 +983,8 @@ class ServingEngine:
             admitted_ids: list[int] = []
             n_prefills = total_b = chunks = 0
             while True:
+                if chunks:
+                    self._drain_sync()  # a chunk boundary
                 # requests leave the pending queue only once their prefill
                 # has run: an exception mid-step must not drop queued work
                 pend = [r for r in self._pending
@@ -932,11 +1047,11 @@ class ServingEngine:
                 for part in parts:
                     prompts = torch.cat([r.prompts for r in part], dim=0).to(self.device)
                     b = prompts.shape[0]
-                    n0 = len(decoders)
+                    made = {k: id(d) for k, d in decoders.items()}
                     out, prefill_s, decode_s, tok_s = _timed_serve(
                         self.cfg, self.compute, tree, prompts, gen_len, decoders=decoders,
                         pool=self._graph_pool)
-                    cold = len(decoders) != n0
+                    cold = {k: id(d) for k, d in decoders.items()} != made
                     n_dispatch += 1
                     row = 0
                     for r in part:
@@ -965,13 +1080,176 @@ class ServingEngine:
         self._done.clear()
         return out
 
-    # -- not ported yet -----------------------------------------------------
+    # -- live-training coherence ---------------------------------------------
 
-    def refresh(self, params, masks, mask_versions, *, donate: bool = True):
-        raise _not_ported("ServingEngine.refresh (incremental re-export)", 3)
+    @torch.no_grad()
+    def refresh(self, params, masks, mask_versions, *,
+                donate: bool = True) -> dict[PlanKey, list[str]]:
+        """Bring the engine to a training job's new (params, masks, versions),
+        between chunks, on the current stream (so after every replay already
+        issued and before the next).
+
+        The new params are written into the engine's own copy and its
+        serving copy at the compute dtype (embeddings, norms and dense
+        layers included), the new masks into the engine's masks, and every
+        cached plan is refreshed (``Plan.refresh``: only stacks whose
+        version moved re-export, the other condensed-family stacks regather
+        their values) through one shared ``export_cache``, so a stack used
+        by several plan keys exports once. With ``donate`` every same-shape
+        leaf keeps its tensors and no graph is recaptured; a changed shape
+        (or ``donate=False``) rebuilds the leaf, and the graphs that read it
+        are recaptured at their next chunk. The versions are fetched once;
+        the engine keeps them as host ints. Returns each plan key's
+        re-exported stack names."""
+        versions = PLAN._host_versions(mask_versions)
+        _copy_into(self.params, params)
+        _recast_into(self.compute, self.params)
+        _copy_into(self.masks, masks or {})
+        self._stats = None
+        self._mask_versions = versions
+        cache: dict = {}
+        return {key: plan.refresh(self.params, self.masks, versions, donate=donate,
+                                  export_cache=cache)
+                for key, plan in self._plans.items()}
+
+    # -- streamed sync (repro_torch.sync subscriber) --------------------------
 
     def attach_subscriber(self, subscriber, *, donate: bool = True) -> None:
-        raise _not_ported("live train-to-serve sync (subscribers)", 7)
+        """Attach a ``repro_torch.sync.Subscriber``: its generations are
+        drained at the top of ``step`` and at every chunk boundary and
+        written into the engine's leaves and params in place.
+
+        Only the condensed-family fixed paths can subscribe: ``masked``,
+        ``structured`` and ``auto`` plans read the params at execution time,
+        which a stream of exported leaves does not carry. ``donate=False``
+        rebuilds every adopted tensor instead (its graphs recapture)."""
+        if self.path not in ("condensed", "condensed_over_active"):
+            raise ValueError(f"attach_subscriber requires a condensed-family path; "
+                             f"path={self.path!r} reads the params at execution time")
+        if subscriber.generation is not None:
+            self._check_sync_meta(subscriber.meta)
+            # the engine is built from the subscriber's current state: the
+            # first drain applies only the generations after it
+            subscriber.consume_changes()
+        self._subscriber = subscriber
+        self._sync_donate = bool(donate)
+        self._sync_generation = subscriber.generation
+
+    def _check_sync_meta(self, meta: dict) -> None:
+        if int(meta.get("tp", 1)) != self.tp:
+            raise ValueError(f"sync stream tp={meta.get('tp')} is not served by this port "
+                             "yet (tensor-parallel serving is ROADMAP queue 1, item 9)")
+        for field, mine in (("path", self.path), ("values_dtype", self.values_dtype)):
+            theirs = meta.get(field, mine)
+            if theirs != mine:
+                raise ValueError(f"sync stream {field}={theirs!r} does not match engine "
+                                 f"{field}={mine!r}; rebuild the engine to match the "
+                                 "published layout")
+
+    @torch.no_grad()
+    def _drain_sync(self) -> bool:
+        """Poll the attached subscriber and apply the generations committed
+        since the last drain. Runs between chunks only. Returns whether
+        anything moved; ``last_drain_s`` keeps the host seconds of an
+        applying drain (poll, decode and the copies, synchronised)."""
+        sub = self._subscriber
+        if sub is None:
+            return False
+        t0 = time.perf_counter()
+        sub.poll()
+        if sub.generation is None or sub.generation == self._sync_generation:
+            return False
+        self._check_sync_meta(sub.meta)
+        changes = sub.consume_changes()
+        if changes["snapshot"]:
+            _copy_into(self.masks, sub.masks_tree())
+        self._apply_sync_params(sub, changes)
+        for plan in self._plans.values():
+            self._apply_sync_to_plan(plan, sub, changes=changes)
+        self._mask_versions = dict(sub.mask_versions)
+        self._stats = None
+        self._sync_generation = sub.generation
+        _sync(self.params["embed"])
+        self.last_drain_s = time.perf_counter() - t0
+        return True
+
+    def _apply_sync_params(self, sub, changes: dict) -> None:
+        """Adopt the changed dense (non-stack) params, and their serving
+        copies: embeddings and norms train between topology updates too."""
+        paths = set(sub.params) if changes["snapshot"] else changes["dense"]
+        stack_names = {s.name for s in self.registry}
+        for path in sorted(paths):
+            if path in stack_names:
+                continue
+            parts = tuple(path.split("/"))
+            old = REG.get_path(self.params, parts)
+            old_c = REG.get_path(self.compute, parts)
+            new = F.adopt_array(sub.params[path], old, donate=self._sync_donate,
+                                device=self.device)
+            REG.set_path(self.params, parts, new)
+            if old_c is old:
+                REG.set_path(self.compute, parts, new)
+            else:
+                REG.set_path(self.compute, parts,
+                             F.adopt_array(new.to(old_c.dtype), old_c,
+                                           donate=self._sync_donate))
+
+    def _leaf_from_wire(self, rec):
+        """A format leaf on the engine's device from a topology record."""
+        from repro_torch.sync import delta as D
+        return D.wire_to_leaf(rec, device=self.device)
+
+    def _apply_sync_to_plan(self, plan, sub, *, changes: dict | None = None,
+                            force: bool = False) -> None:
+        """Adopt the subscriber's merged per-stack records into one plan.
+
+        Same layout (class, statics, per-field shapes and dtypes): the
+        changed fields are written into the leaf's tensors (``adopt_arrays``),
+        so no graph over the plan is recaptured. A layout change (k or the
+        active-row count moved) rebuilds the leaf, and the graphs that read
+        it are recaptured. ``force`` adopts every stack (a plan just built
+        from the engine's possibly older params)."""
+        pending = (changes or {}).get("stacks", {})
+        snapshot = bool((changes or {}).get("snapshot"))
+        by_name = {s.name: s for s in self.registry}
+        for name, rec in sub.leaves.items():
+            s = by_name.get(name)
+            if s is None:
+                continue
+            fields = pending.get(name, set())
+            if not (force or snapshot or fields):
+                continue
+            old = REG.get_path(plan.serving_tree, s.path)
+            cls = F.FORMATS[rec.format]
+            same_layout = (
+                type(old) is cls
+                and all(getattr(old, f) == rec.static.get(f) for f in cls._static_fields)
+                and all((getattr(old, f) is None) == (f not in rec.arrays)
+                        and (f not in rec.arrays
+                             or (tuple(getattr(old, f).shape) == tuple(rec.arrays[f].shape)
+                                 and getattr(old, f).dtype == rec.arrays[f].dtype))
+                        for f in cls._array_fields))
+            version_moved = rec.mask_version != plan.mask_versions.get(name)
+            topology = force or snapshot or "__topology__" in fields
+            if same_layout:
+                new_fields = {f: rec.arrays[f]
+                              for f in (rec.arrays if topology else fields & set(rec.arrays))}
+                if not new_fields:
+                    continue
+                leaf = old.adopt_arrays(new_fields, donate=self._sync_donate)
+            else:
+                leaf = self._leaf_from_wire(rec)
+            REG.set_path(plan.serving_tree, s.path, leaf)
+            if not same_layout or version_moved or topology:
+                plan.export_calls += 1
+                dec = plan.decisions[name]
+                plan.decisions[name] = dataclasses.replace(
+                    dec, representation=rec.format, stats=COND.stats_from_leaf(leaf))
+            else:
+                plan.value_refreshes += 1
+            plan.mask_versions[name] = rec.mask_version
+
+    # -- not ported yet -----------------------------------------------------
 
     def autotune(self, batch_size: int, **kw):
         raise _not_ported("ServingEngine.autotune (launch-configuration search)", 10)

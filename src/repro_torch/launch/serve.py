@@ -31,14 +31,22 @@ submits one request of ``--batch`` random prompts and serves it:
                      live params and are unaffected.
   --no-paged         the exact-shape slab path on a contiguous cache instead
                      of the paged continuous-batching scheduler
+  --sync-dir D       subscribe to a live trainer's sync directory
+                     (``repro_torch.sync.DirChannel``): bootstrap the engine
+                     from the publisher's snapshot instead of the local
+                     init, then drain its deltas at chunk boundaries while
+                     serving, written into the engine's tensors in place.
+                     The stream fixes the path and values dtype
+                     (condensed-family only). ``--sync-wait`` seconds to
+                     wait for the snapshot.
 
 The engine plans every path but masked with ``sparse.plan.build_plan`` at
 the request's batch bucket. masked, condensed, condensed_over_active and
 auto evaluate the same masked weights, so their tokens agree (up to float
 ties). On the card each decode step is a replayed CUDA graph. Runs on CUDA
 unless ``--device cpu``; with no card and no ``--device cpu`` it exits with
-an error. The reference CLI's ``--tp``, ``--speculative``, ``--sync-dir``,
-``--autotune`` and ``--profile measured`` are not ported yet.
+an error. The reference CLI's ``--tp``, ``--speculative``, ``--autotune``
+and ``--profile measured`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -92,6 +100,13 @@ def main(argv=None):
     ap.add_argument("--no-paged", action="store_true",
                     help="the exact-shape slab path on a contiguous cache instead of the "
                          "paged continuous-batching scheduler")
+    ap.add_argument("--sync-dir", default=None,
+                    help="subscribe to a live trainer's sync directory (DirChannel): "
+                         "bootstrap the engine from the publisher's snapshot instead of "
+                         "the local init, then drain its deltas at chunk boundaries; the "
+                         "stream's condensed-family path and values dtype are served")
+    ap.add_argument("--sync-wait", type=float, default=10.0,
+                    help="seconds to wait for the bootstrap snapshot in --sync-dir")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -107,9 +122,28 @@ def main(argv=None):
         print("[serve] note: --path masked serves the live dense params; "
               f"--values-dtype {args.values_dtype} only affects exported "
               "value-storing formats (condensed/structured paths or auto)")
-    engine = ServingEngine(cfg, params, masks, reg, path=args.path,
-                           paged=False if args.no_paged else None,
-                           values_dtype=args.values_dtype)
+    subscriber = None
+    if args.sync_dir is not None:
+        from repro_torch.sync import DirChannel, Subscriber, engine_from_snapshot
+        subscriber = Subscriber(DirChannel(args.sync_dir).subscribe("serve"), name="serve")
+        print(f"[serve] syncing from {args.sync_dir}: waiting up to {args.sync_wait:.0f}s "
+              "for a bootstrap snapshot")
+        if not subscriber.wait_for_bootstrap(timeout=args.sync_wait):
+            raise SystemExit(f"no snapshot appeared in {args.sync_dir} within "
+                             f"{args.sync_wait:.0f}s: is the trainer publishing?")
+        meta = subscriber.meta
+        if args.path != meta.get("path"):
+            print(f"[serve] note: stream publishes path={meta.get('path')!r}; serving "
+                  f"that (not --path {args.path})")
+        engine = engine_from_snapshot(cfg, subscriber, registry=reg, device=device,
+                                      paged=False if args.no_paged else None)
+        args.path = engine.path
+        print(f"[serve] bootstrapped at generation {subscriber.generation} "
+              f"(path={engine.path}, values_dtype={engine.values_dtype})")
+    else:
+        engine = ServingEngine(cfg, params, masks, reg, path=args.path,
+                               paged=False if args.no_paged else None,
+                               values_dtype=args.values_dtype)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
     rid = engine.submit(prompts, args.gen)
@@ -128,6 +162,13 @@ def main(argv=None):
     print(f"[serve:{args.path}] prefill {b}x{t} in {res.prefill_s:.3f}s | "
           f"decode {b}x{args.gen} in {res.decode_s:.3f}s ({res.tok_s:.1f} tok/s)")
     print("[serve] first stream:", res.tokens[0, -args.gen:].tolist())
+    if subscriber is not None:
+        c = subscriber.counters
+        print(f"[serve:sync] generation {subscriber.generation} | applied "
+              f"{c['applied_deltas']} delta(s) + {c['applied_snapshots']} snapshot(s) | "
+              f"delta bytes {c['bytes_deltas']} vs snapshot bytes {c['bytes_snapshots']} | "
+              f"stale {c['stale']} dup {c['duplicate']} gaps {c['gaps']} resyncs "
+              f"{c['resyncs']}")
     return res.tokens
 
 

@@ -18,17 +18,53 @@ from repro_torch.sparse import formats as F
 from repro_torch.sparse import registry as REG
 
 
-def export_stats(registry, masks: dict) -> dict[str, F.ExportStats]:
+def export_stats(registry, masks: dict, stacks=None) -> dict[str, F.ExportStats]:
     """Per-stack realized stats with one host sync for all stacks.
 
     ``k`` is the largest realized fan-in of the stack, which sizes its
-    condensed arrays.
+    condensed arrays. ``stacks`` restricts the measurement to a subset (an
+    incremental refresh measures only the stacks whose masks changed).
     """
-    if not registry:
+    stacks = list(registry if stacks is None else stacks)
+    if not stacks:
         return {}
     table = torch.stack([F.stats_row(REG.get_path(masks, s.path))
-                         for s in registry]).tolist()         # single transfer
-    return {s.name: F.stats_from_row(r) for s, r in zip(registry, table)}
+                         for s in stacks]).tolist()           # single transfer
+    return {s.name: F.stats_from_row(r) for s, r in zip(stacks, table)}
+
+
+def stats_from_leaf(leaf, *, min_fan_in: int = 0) -> F.ExportStats:
+    """ExportStats from an exported leaf's geometry (no mask): the sync
+    subscriber adopts leaves exported elsewhere. ``k`` and ``max_active``
+    are exact (they size the arrays), ``active_fraction`` is the spec's
+    padded estimate, and ``min_fan_in`` defaults to 0 ("unknown"), so a
+    plan repriced from these stats never takes the structured path by
+    accident."""
+    spec = leaf.spec()
+    return F.ExportStats(k=int(spec.k), max_active=int(spec.max_active),
+                         active_fraction=float(spec.active_fraction),
+                         min_fan_in=int(min_fan_in))
+
+
+def recondense_stack_leaf(weight, mask, stats: F.ExportStats, old_leaf, *,
+                          over_active: bool = False, donate: bool = True,
+                          quantize_spec=None, dtype: torch.dtype | None = None
+                          ) -> F.SparseFormat:
+    """Re-condense one stack for ``Plan.refresh``, into ``old_leaf``'s
+    tensors when the shapes are unchanged (``formats.*.donate_refresh``).
+    An old leaf of another representation gives a fresh export, its values
+    stored at ``quantize_spec`` or else ``dtype``."""
+    cls = F.CondensedOverActive if over_active else F.Condensed
+    if not isinstance(old_leaf, cls):
+        return cls.export_from_dense(weight, mask, stats, dtype=dtype,
+                                     quantize_spec=quantize_spec)
+    return old_leaf.donate_refresh(weight, mask, stats, donate=donate)
+
+
+def revalue_stack_leaf(weight, mask, leaf, *, donate: bool = False) -> F.SparseFormat:
+    """Values-only refresh of a condensed(-over-active) leaf under an
+    unchanged topology (``formats.Condensed.refresh_values``)."""
+    return leaf.refresh_values(weight, mask, donate=donate)
 
 
 def condense_active_stack_leaf(weight, mask, stats: F.ExportStats, *,

@@ -25,8 +25,22 @@ absmax / qmax); ``Condensed`` and ``CondensedOverActive`` hand the codes and
 scales to the dequant-fused kernel (K2), ``StructuredFanIn`` keeps the
 quantized gathered panel and dequantizes it before K5. ``"bf16"`` is a plain
 storage cast. ``restore_finalize`` reconciles a checkpoint's values with the
-template's declared storage. Tensor-parallel blocks and the donated
-refreshes come with later slices.
+template's declared storage. Tensor-parallel blocks come with a later
+slice.
+
+Refresh (``donate_refresh``, ``refresh_values``, ``adopt_arrays``): the
+reference donates a leaf's old buffers to a jitted re-export so that XLA
+writes the new arrays into them. The port's form of donation is a
+``copy_`` into the leaf's existing tensors: when the new arrays have the
+old shapes and dtypes, the refreshed leaf keeps every tensor (same
+``data_ptr``), so a CUDA graph captured over the old leaf reads the new
+numbers on its next replay. The condensed layouts re-export one layer of
+the stack at a time straight into those tensors, so a refresh holds one
+layer's temporaries, never a second copy of the stack. A changed shape (the
+fan-in ``k`` or condensed_over_active's ``max_active`` moved) returns a
+fresh export, and ``donate=False`` always returns fresh tensors, leaving
+the old leaf intact. Padding slots and rows come out +0 as in a fresh
+export: values are selected, never multiplied by a mask.
 """
 from __future__ import annotations
 
@@ -52,8 +66,13 @@ class ExportStats(typing.NamedTuple):
 
 
 def stats_row(mask: torch.Tensor) -> torch.Tensor:
-    """The four ExportStats of one stacked mask (*lead, d_in, d_out), on its device."""
-    nnz = mask.sum(dim=-2, dtype=torch.int32)                  # (*lead, d_out)
+    """The four ExportStats of one stacked mask (*lead, d_in, d_out), on its
+    device. The fan-ins are counted one layer at a time: a sum to int32
+    casts its input first, so a whole-stack sum would hold a 4-byte copy of
+    the mask."""
+    layers = mask.reshape(-1, *mask.shape[-2:])
+    nnz = torch.stack([m.sum(dim=-2, dtype=torch.int32) for m in layers]).reshape(
+        *mask.shape[:-2], mask.shape[-1])                      # (*lead, d_out)
     act = nnz > 0
     return torch.stack([
         nnz.max().float(),
@@ -241,6 +260,96 @@ def _condense_active_stack(weight: torch.Tensor, mask: torch.Tensor, k: int, a: 
     return values, indices, out_index
 
 
+# ---------------------------------------------------------------------------
+# refresh in place: the port's form of the reference's donated programs
+# ---------------------------------------------------------------------------
+
+
+def adopt_array(new, old: torch.Tensor | None = None, *, donate: bool = True,
+                device=None) -> torch.Tensor:
+    """``new`` (a host or device tensor) as the leaf's tensor: written into
+    ``old`` with ``copy_`` when ``donate`` and shape and dtype match (the
+    old storage kept, a host source copied on the current stream, so before
+    any later replay), else a fresh copy on ``device`` (``old``'s by
+    default), never an alias of ``new``."""
+    src = torch.as_tensor(new)
+    if (donate and old is not None and tuple(old.shape) == tuple(src.shape)
+            and old.dtype == src.dtype):
+        return old.copy_(src)
+    if device is None:
+        device = old.device if old is not None else src.device
+    return src.to(device, copy=True)
+
+
+def _flat_lead(t: torch.Tensor, n_tail: int) -> torch.Tensor:
+    """``t`` with its leading (stack) dims merged into one axis in front of
+    its last ``n_tail``: a view of its storage (exports are contiguous)."""
+    return t.reshape(-1, *t.shape[t.ndim - n_tail:])
+
+
+def _same_layout(old: dict, shapes: dict) -> bool:
+    """Do the leaf's tensors have the shapes the refresh will write?"""
+    return (set(old) == set(shapes)
+            and all(tuple(old[f].shape) == tuple(shp) for f, shp in shapes.items()))
+
+
+def _write_layers(targets: dict, make, n_lead: int, *inputs) -> dict:
+    """Fill ``targets`` (field -> tensor with ``n_lead`` stack dims) one
+    stack layer at a time: ``make(*layer_inputs) -> {field: tensor}`` is
+    one layer's export, cast into the target by ``copy_``. Returns
+    ``targets``."""
+    flat_in = [_flat_lead(t, t.ndim - n_lead) for t in inputs]
+    flat_out = {f: _flat_lead(t, t.ndim - n_lead) for f, t in targets.items()}
+    for i in range(flat_in[0].shape[0]):
+        for f, t in make(*(x[i] for x in flat_in)).items():
+            flat_out[f][i].copy_(t)
+    return targets
+
+
+def _targets(leaf, fields: tuple, donate: bool) -> dict:
+    """The tensors a refresh writes: the leaf's own (``donate``) or fresh
+    ones of the same shapes and dtypes."""
+    return {f: getattr(leaf, f) if donate else torch.empty_like(getattr(leaf, f))
+            for f in fields}
+
+
+def _regather(w: torch.Tensor, mask: torch.Tensor, indices: torch.Tensor,
+              out_index: torch.Tensor | None = None) -> torch.Tensor:
+    """``w * mask`` gathered at the stored condensed indices (any stack
+    dims): the values a fresh export of an unchanged topology gives. The
+    mask is applied by a select, so padding slots (which point at
+    mask-False rows) come out +0; with ``out_index``, padding rows
+    (``out_index == d_out``) are +0 too."""
+    d_out = w.shape[-1]
+    wm = torch.where(mask, w, torch.zeros_like(w)).transpose(-1, -2)      # (.., d_out, d_in)
+    if out_index is not None:
+        rows = out_index.clamp(max=d_out - 1).long()[..., None]
+        wm = torch.gather(wm, -2, rows.expand(*rows.shape[:-1], wm.shape[-1]))
+    vals = torch.gather(wm, -1, indices.long())
+    if out_index is not None:
+        vals = torch.where((out_index < d_out)[..., None], vals, torch.zeros_like(vals))
+    return vals
+
+
+def _revalue(leaf, w, mask, donate: bool, *stored) -> "SparseFormat":
+    """A condensed-family leaf's values regathered at its ``stored`` index
+    arrays (indices, and out_index for condensed_over_active), quantized
+    again when the leaf stores codes, written one layer at a time into its
+    values (and scales), kept (``donate``) or fresh."""
+    quant = leaf.values_dtype in QUANTIZED_DTYPES and leaf.scales is not None
+
+    def make(wl, ml, *st):
+        vals = _regather(wl, ml, *st)
+        if not quant:
+            return {"values": vals}
+        q, sc = quantize_values(vals, leaf.values_dtype)
+        return {"values": q, "scales": sc}
+
+    fields = ("values", "scales") if quant else ("values",)
+    targets = _write_layers(_targets(leaf, fields, donate), make, w.ndim - 2, w, mask, *stored)
+    return dataclasses.replace(leaf, **targets)
+
+
 class SparseFormat:
     """Base of the serving formats (see the module docstring).
 
@@ -252,6 +361,8 @@ class SparseFormat:
 
     format_name: typing.ClassVar[str]
     _array_fields: typing.ClassVar[tuple[str, ...]]
+    # the non-tensor fields a leaf is rebuilt from (the sync wire's "static")
+    _static_fields: typing.ClassVar[tuple[str, ...]] = ()
 
     def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
         raise NotImplementedError
@@ -297,6 +408,31 @@ class SparseFormat:
         arrays): the bytes quantization shrinks."""
         return cls.estimate_weight_bytes(spec)
 
+    def donate_refresh(self, w, mask, stats: ExportStats | None = None, *,
+                       donate: bool = True) -> "SparseFormat":
+        """Full re-export from (w, mask). With ``donate`` and unchanged
+        shapes the new arrays are written into this leaf's tensors, which
+        the caller must then not read as the old leaf."""
+        return type(self).export_from_dense(w, mask, stats)
+
+    def refresh_values(self, w, mask, *, donate: bool = True) -> "SparseFormat":
+        """Values-only refresh under an unchanged topology (nothing to do
+        for formats that read the live weight)."""
+        return self
+
+    def adopt_arrays(self, new: dict, *, donate: bool = True) -> "SparseFormat":
+        """This leaf with the array fields named in ``new`` replaced by the
+        given (host or device) tensors, each written into the old tensor
+        where shape and dtype match (``adopt_array``): the sync
+        subscriber's apply, whose arrays were exported elsewhere."""
+        unknown = set(new) - set(self._array_fields)
+        if unknown:
+            raise ValueError(f"{type(self).__name__} has no array fields {sorted(unknown)}")
+        device = next(iter(self.arrays().values())).device
+        return dataclasses.replace(
+            self, **{f: adopt_array(v, getattr(self, f), donate=donate, device=device)
+                     for f, v in new.items()})
+
     def rebuild_missing(self, missing: frozenset) -> "SparseFormat":
         """Fix up array fields a checkpoint did not carry (``missing``
         names them); by default the template's arrays stay."""
@@ -319,6 +455,7 @@ class MaskedDense(SparseFormat):
 
     format_name: typing.ClassVar[str] = "masked"
     _array_fields: typing.ClassVar[tuple[str, ...]] = ("mask",)
+    _static_fields: typing.ClassVar[tuple[str, ...]] = ("weight_itemsize",)
 
     def apply(self, x, w=None):
         return torch.matmul(x, apply_mask_for_forward(w, self.mask).to(x.dtype))
@@ -374,6 +511,8 @@ class StructuredFanIn(SparseFormat):
     format_name: typing.ClassVar[str] = "structured"
     _array_fields: typing.ClassVar[tuple[str, ...]] = ("neuron_active", "active_index",
                                                        "values", "scales")
+    _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "weight_itemsize",
+                                                        "values_dtype")
 
     def apply(self, x, w=None):
         if self.values is not None:
@@ -439,6 +578,32 @@ class StructuredFanIn(SparseFormat):
             vb += spec.n_replicas * a_pad * 4
         return vb
 
+    def donate_refresh(self, w, mask, stats=None, *, donate=True):
+        """A fresh export, written into this leaf's tensors when the active
+        count (``a_pad``) kept every shape."""
+        fresh = type(self).export_from_dense(w, mask, stats, quantize_spec=self.values_dtype)
+        new = fresh.arrays()
+        if donate and _same_layout(self.arrays(), {f: t.shape for f, t in new.items()}):
+            return dataclasses.replace(
+                fresh, **{f: getattr(self, f).copy_(t) for f, t in new.items()})
+        return fresh
+
+    def refresh_values(self, w, mask, *, donate=True):
+        """Nothing for a float leaf (it reads the live weight). A quantized
+        leaf's panel is regathered at the stored ``active_index`` and
+        requantized, one layer at a time, into its codes and scales."""
+        if self.values is None or self.scales is None:
+            return self
+        qdt = self.values_dtype
+
+        def make(wl, ml, ai):
+            q, sc = quantize_values(_gather_active_panel(wl, ml, ai), qdt, axis=-2)
+            return {"values": q, "scales": sc}
+
+        targets = _write_layers(_targets(self, ("values", "scales"), donate), make,
+                                w.ndim - 2, w, mask, self.active_index)
+        return dataclasses.replace(self, **targets)
+
     def rebuild_missing(self, missing):
         # an archive without the quantized panel cannot rebuild it (no live
         # weight here): serve the live weight, as the reference does
@@ -487,6 +652,7 @@ class Condensed(SparseFormat):
 
     format_name: typing.ClassVar[str] = "condensed"
     _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "scales")
+    _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "values_dtype")
 
     def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
         if self.scales is not None:  # codes and scales go to K2 untouched
@@ -514,6 +680,39 @@ class Condensed(SparseFormat):
         values, scales = _store_values(values, qdt, dtype)
         return cls(values=values, indices=indices, d_in=int(w.shape[-2]), scales=scales,
                    values_dtype=qdt if scales is not None else None)
+
+    def donate_refresh(self, w, mask, stats=None, *, donate=True):
+        """Re-condense ``w * mask`` at the realized fan-in. With an
+        unchanged ``k`` each layer is condensed straight into this leaf's
+        tensors (``donate``) or into fresh ones of the same shapes; a moved
+        ``k`` gives a fresh export at the leaf's storage dtype."""
+        stats = stats if stats is not None else realized_stats(mask)
+        k = max(stats.k, 1)
+        lead, d_out = tuple(w.shape[:-2]), int(w.shape[-1])
+        shapes = {"values": (*lead, d_out, k), "indices": (*lead, d_out, k)}
+        if self.scales is not None:
+            shapes["scales"] = (*lead, d_out)
+        if not _same_layout(self.arrays(), shapes):
+            return type(self).export_from_dense(
+                w, mask, stats, dtype=None if self.scales is not None else self.values.dtype,
+                quantize_spec=self.values_dtype)
+        qdt = self.values_dtype if self.scales is not None else None
+
+        def make(wl, ml):
+            values, indices = topology.dense_to_condensed(wl * ml, ml, k)
+            values, scales = _store_values(values, qdt, None)
+            return {"values": values, "indices": indices,
+                    **({"scales": scales} if scales is not None else {})}
+
+        targets = _write_layers(_targets(self, tuple(shapes), donate), make, len(lead), w, mask)
+        return dataclasses.replace(self, **targets)
+
+    def refresh_values(self, w, mask, *, donate=True):
+        """Regather ``w * mask`` at the stored indices (topology unchanged,
+        no re-sort), one layer at a time into the values (and, quantized,
+        fresh codes and scales), kept (``donate``) or fresh. Indices are
+        reused as they are; padding slots regather +0."""
+        return _revalue(self, w, mask, donate, self.indices)
 
     def spec(self):
         d_out, k = self.values.shape[-2:]
@@ -567,6 +766,7 @@ class CondensedOverActive(SparseFormat):
     format_name: typing.ClassVar[str] = "condensed_over_active"
     _array_fields: typing.ClassVar[tuple[str, ...]] = ("values", "indices", "out_index",
                                                        "scales")
+    _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "d_out", "values_dtype")
 
     def apply(self, x, w=None):
         if self.scales is not None:
@@ -587,6 +787,38 @@ class CondensedOverActive(SparseFormat):
         return cls(values=values, indices=indices, out_index=out_index,
                    d_in=int(w.shape[-2]), d_out=int(w.shape[-1]), scales=scales,
                    values_dtype=qdt if scales is not None else None)
+
+    def donate_refresh(self, w, mask, stats=None, *, donate=True):
+        """Re-export as ``Condensed.donate_refresh`` does; the shapes also
+        hold ``max_active`` rows, so a moved active count (or ``k``) gives a
+        fresh export."""
+        stats = stats if stats is not None else realized_stats(mask)
+        k, a = max(stats.k, 1), max(stats.max_active, 1)
+        lead = tuple(w.shape[:-2])
+        shapes = {"values": (*lead, a, k), "indices": (*lead, a, k), "out_index": (*lead, a)}
+        if self.scales is not None:
+            shapes["scales"] = (*lead, a)
+        if not _same_layout(self.arrays(), shapes):
+            return type(self).export_from_dense(
+                w, mask, stats, dtype=None if self.scales is not None else self.values.dtype,
+                quantize_spec=self.values_dtype)
+        qdt = self.values_dtype if self.scales is not None else None
+
+        def make(wl, ml):
+            values, indices, out_index = _condense_active_stack(wl, ml, k, a)
+            values, scales = _store_values(values, qdt, None)
+            return {"values": values, "indices": indices, "out_index": out_index,
+                    **({"scales": scales} if scales is not None else {})}
+
+        targets = _write_layers(_targets(self, tuple(shapes), donate), make, len(lead), w, mask)
+        return dataclasses.replace(self, **targets)
+
+    def refresh_values(self, w, mask, *, donate=True):
+        """Regather at the stored indices and ``out_index``, as
+        ``Condensed.refresh_values`` does. Padding rows come out +0, as a
+        fresh export gives them (the reference regathers a clipped column
+        there, which its scatter then drops)."""
+        return _revalue(self, w, mask, donate, self.indices, self.out_index)
 
     def spec(self):
         a, k = self.values.shape[-2:]
@@ -623,6 +855,8 @@ class CondensedOverActive(SparseFormat):
     def restore_finalize(self):
         return _finalize_quantized_restore(self)
 
+
+CONDENSED_FAMILY = (Condensed, CondensedOverActive)
 
 FORMATS: dict[str, type[SparseFormat]] = {
     cls.format_name: cls

@@ -16,9 +16,15 @@ engine keys them, so ``--path auto`` decides at the same batch as there.
 part of the plan: every value-storing leaf is exported at that storage
 width and the cost model prices that width, as in the reference.
 
+``Plan.refresh`` keeps a plan coherent with a training job: only the
+stacks whose mask version moved are re-exported, the other condensed-family
+stacks get a values-only regather, and a same-shape refresh writes into the
+leaves' existing tensors (``formats.*.donate_refresh``), so CUDA graphs
+captured over the plan stay valid.
+
 Ported so far for one device (``tp=1``). Queued: ``HardwareProfile.measure``
-(CUDA events on the card), ``Plan.refresh`` (it needs the trainer's mask
-versions), tensor parallelism and the speculative-draft helpers.
+(CUDA events on the card, with ``autotune``), tensor parallelism and the
+speculative-draft helpers.
 """
 from __future__ import annotations
 
@@ -201,13 +207,28 @@ def _decide(stack, path: str, *, batch_size: int, itemsize: int, stats: F.Export
                          stats=stats)
 
 
+def _host_versions(mask_versions: dict) -> dict[str, int]:
+    """Trainer counters (host ints or tensors) as a plain int dict. A dict
+    of host ints is returned as it is, with no device sync; tensors are
+    fetched together with one ``tolist``."""
+    mv = dict(mask_versions)
+    if all(type(v) is int for v in mv.values()):
+        return mv
+    tensors = [torch.as_tensor(v) for v in mv.values()]
+    dev = next((t.device for t in tensors if t.device.type != "cpu"), torch.device("cpu"))
+    vals = torch.stack([t.to(dev, torch.int64).reshape(()) for t in tensors]).tolist()
+    return dict(zip(mv, (int(v) for v in vals)))
+
+
 @dataclasses.dataclass
 class Plan:
-    """Decisions per stack and the serving tree they built.
+    """Decisions per stack, the serving tree they built and the mask
+    versions it was exported at.
 
     ``serving_tree`` plugs into the masks slot of prefill/decode_step; its
     leaves are ``formats`` objects, and ``models.layers.linear`` dispatches
-    on their type.
+    on their type. ``export_calls`` counts per-stack leaf (re)builds over the
+    plan's life and ``value_refreshes`` the values-only regathers.
     """
 
     cfg: object
@@ -218,9 +239,93 @@ class Plan:
     decisions: dict[str, StackDecision]
     serving_tree: dict
     values_dtype: str | None = None  # storage of the exported values (None: param dtype)
+    mask_versions: dict = dataclasses.field(default_factory=dict)  # stack -> version exported
+    export_calls: int = 0
+    value_refreshes: int = 0       # values-only regathers (no re-sort)
 
     def representation_of(self, name: str) -> str:
         return self.decisions[name].representation
+
+    def refresh(self, params: dict, masks: dict, mask_versions: dict, *,
+                refresh_values: bool = True, donate: bool = True,
+                export_cache: dict | None = None) -> list[str]:
+        """Incremental re-export: only the stacks whose version moved.
+
+        ``mask_versions`` holds the trainer's per-stack counters (host ints,
+        or tensors fetched with one sync). A changed stack gets fresh
+        realized stats (one sync over just those stacks), a re-run of the
+        decision (ablation appearing can flip condensed to
+        condensed_over_active under ``auto``) and a rebuilt leaf. With
+        ``refresh_values`` every other condensed-family stack gets a
+        values-only regather at its stored indices, so the plan follows
+        weights that kept training; masked and float structured leaves read
+        the live weight and need nothing.
+
+        ``donate=True`` writes each same-shape leaf into its existing
+        tensors (the port's form of the reference's donated programs), one
+        stack layer at a time, so the plan's weights never exist twice and
+        graphs captured over it keep reading the right storage;
+        ``donate=False`` leaves the old leaves intact. ``export_cache``, one
+        dict for a whole refresh sweep, shares each (stack,
+        representation, version) export across plans: the first plan
+        refreshes its own leaf, the others adopt that leaf object. Returns
+        the names of the re-exported stacks.
+        """
+        versions = _host_versions(mask_versions)
+        by_name = {s.name: s for s in self.registry}
+        changed = [by_name[n] for n, v in versions.items()
+                   if n in by_name and v != self.mask_versions.get(n)]
+        changed_names = {s.name for s in changed}
+        dtype = getattr(torch, self.cfg.dtype)
+        if changed:
+            stats = COND.export_stats(self.registry, masks, stacks=changed)
+            itemsize = getattr(torch, self.cfg.param_dtype).itemsize
+            for s in changed:
+                dec = _decide(s, self.path, batch_size=self.batch_size, itemsize=itemsize,
+                              stats=stats[s.name], profile=self.profile,
+                              values_dtype=self.values_dtype)
+                rep = dec.representation
+                weight, mask = REG.get_path(params, s.path), REG.get_path(masks, s.path)
+                key = (s.name, rep, self.values_dtype, versions[s.name])
+                if export_cache is not None and key in export_cache:
+                    leaf = export_cache[key]
+                elif rep in ("condensed", "condensed_over_active") and \
+                        rep == self.decisions[s.name].representation:
+                    leaf = COND.recondense_stack_leaf(
+                        weight, mask, stats[s.name], REG.get_path(self.serving_tree, s.path),
+                        over_active=rep == "condensed_over_active", donate=donate,
+                        quantize_spec=self.values_dtype, dtype=dtype)
+                elif donate and rep == self.decisions[s.name].representation:
+                    leaf = REG.get_path(self.serving_tree, s.path).donate_refresh(
+                        weight, mask, stats[s.name])
+                else:
+                    leaf = _build_leaf(rep, weight, mask, stats[s.name], dtype,
+                                       self.values_dtype)
+                if export_cache is not None:
+                    export_cache[key] = leaf
+                self.decisions[s.name] = dec
+                REG.set_path(self.serving_tree, s.path, leaf)
+                self.mask_versions[s.name] = versions[s.name]
+                self.export_calls += 1
+        if refresh_values:
+            for s in self.registry:
+                if s.name in changed_names:
+                    continue
+                leaf = REG.get_path(self.serving_tree, s.path)
+                if not isinstance(leaf, F.CONDENSED_FAMILY):
+                    continue
+                key = (s.name, type(leaf).__name__, self.values_dtype, "values")
+                if export_cache is not None and key in export_cache:
+                    fresh = export_cache[key]
+                else:
+                    fresh = COND.revalue_stack_leaf(REG.get_path(params, s.path),
+                                                    REG.get_path(masks, s.path), leaf,
+                                                    donate=donate)
+                    if export_cache is not None:
+                        export_cache[key] = fresh
+                REG.set_path(self.serving_tree, s.path, fresh)
+                self.value_refreshes += 1
+        return [s.name for s in changed]
 
     def weight_bytes(self) -> tuple[int, int]:
         """(serving weight bytes under this plan, masked-path weight bytes),
@@ -251,7 +356,8 @@ class Plan:
 
 
 def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
-               path: str = "auto", profile: HardwareProfile = DEFAULT_PROFILE,
+               path: str = "auto", mask_versions: dict | None = None,
+               profile: HardwareProfile = DEFAULT_PROFILE,
                values_dtype: str | None = None) -> Plan:
     """The per-stack execution plan for a request of ``batch_size`` rows.
 
@@ -261,11 +367,16 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
     None or "f32" keep the param dtype) for the value-storing formats, whose
     leaves then store their values at that width, quantized from the float32
     ``params``. Without it condensed values are stored at ``cfg.dtype``.
+    ``mask_versions`` (the trainer's counters; 0 for every stack by
+    default) stamps the versions exported, so a later ``refresh``
+    re-exports only the stacks whose counter moved.
     """
     if path not in PATHS:
         raise ValueError(f"unknown serving path {path!r}; expected one of {PATHS}")
     vd = F.resolve_quantize_spec(values_dtype)
     registry = list(registry or [])
+    versions = (_host_versions(mask_versions) if mask_versions is not None
+                else {s.name: 0 for s in registry})
     itemsize = getattr(torch, cfg.param_dtype).itemsize
     dtype = getattr(torch, cfg.dtype)
     stats = COND.export_stats(registry, masks)
@@ -280,4 +391,6 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
                                                REG.get_path(masks, s.path),
                                                stats[s.name], dtype, vd))
     return Plan(cfg=cfg, registry=registry, path=path, batch_size=batch_size,
-                profile=profile, decisions=decisions, serving_tree=tree, values_dtype=vd)
+                profile=profile, decisions=decisions, serving_tree=tree, values_dtype=vd,
+                mask_versions={s.name: versions.get(s.name, 0) for s in registry},
+                export_calls=len(registry))

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` at import or in its
-sources, and no quiet drop to the CPU."""
+sources (the package, ``examples/*_torch.py`` and ``chip_smoke.py``), and no
+quiet drop to the CPU."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -55,6 +56,23 @@ def test_importing_the_ablation_kernels_and_the_plan_loads_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_importing_the_sync_package_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.sync, repro_torch.sync.smoke, repro_torch.launch.engine\n"
+        "from repro_torch.sync import delta, channel, publisher, subscriber\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_importing_the_training_path_loads_no_jax():
     code = (
         "import sys\n"
@@ -82,6 +100,7 @@ def test_train_cli_refuses_to_drop_to_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+                                       *(ROOT / "examples").glob("*_torch.py"),
                                        ROOT / "chip_smoke.py"]))
 def test_source_imports_neither_jax_nor_the_reference(path):
     text = (ROOT / path).read_text()
