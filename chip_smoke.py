@@ -100,13 +100,35 @@ Phases, each of which raises (exit code != 0) on any failed check:
    gathered at the condensed indices within GRAD_F32_BOUND. The bf16
    gradients of both paths are reported against the float32 one, and the
    condensed one again with the backward's dx accumulated in float32.
+   Then grad:structured: loss_fn over the structured tree on the
+   ablation-only masks, float32, backpropagated into the dense weights
+   (K5 4 * 28 times per forward, the structured linear's backward): each
+   sparse stack's dW and the embedding's gradient within STRUCT_GRAD_BOUND
+   of the same loss with every structured linear computed as
+   structured_dense under autograd, ablated columns' dW exactly 0, and
+   one layer per stack shape (B*T = 512) its dx and dW the same way.
 10. train: full-width qwen3-1.7b from a seeded random init: the train CLI
    for 3 steps (8 x 64 tokens), then the Trainer with delta_t=2 for 4 steps
    (two SRigL updates): every loss and grad norm finite, after each update
    every active neuron's fan-in equal to its layer's new k', nnz <= k0 *
    d_out, grown weights 0 and mask_versions moved where the masks did;
    after a plain step AdamW's moments 0 off the mask. A step is timed and
-   profiled.
+   profiled, and the DST steps timed. Then rigl: the train CLI with
+   --method rigl for 3 steps, the Trainer with delta_t=2 for 4 steps (two
+   RigL updates: every layer's nnz its target_nnz, neuron_active all True,
+   grown weights 0, mask_versions moved; n_ablated per stack) and one more
+   step (moments 0 off the mask), the DST step's time beside SRigL's; the
+   trained masks condensed at their realized max fan-in (k, mean fan-in,
+   padding share and bf16 leaf bytes per stack beside SRigL's plan), served
+   on condensed (K1 4 * 28 * 17 times) and masked with the tie rule, the
+   condensed wall beside slice's SRigL one; K1 per layer at RigL's shapes
+   (decode B=4 and tiled B=128, bf16 and f32, against its plain version,
+   decode == tiled bitwise, beside the library call and the bound, one
+   [kernel] JSON line each, "masks": "rigl"). Then set: the train CLI with
+   --method set for 2 steps, the Trainer for 2 steps (one update): the
+   survivors equal prune_survivors' on the weights the update saw, the
+   grown positions were inactive and as many as pruned, and the update run
+   twice more from the same state, seed and step regrows the same masks.
 11. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
    same after two train steps, one DST update and the reference's _bump
    rewire (the first stack's mask rolled by one input row). The paged
@@ -1420,7 +1442,11 @@ def model_setup(device) -> dict:
     print(f"[slice] {ARCH}: {base.n_layers} layers, d_model {base.d_model}, d_ff "
           f"{base.d_ff}, vocab {base.vocab_size}; fan-ins {k_fan}; init "
           f"{time.perf_counter() - t0:.1f}s")
-    return dict(base=base, reg=reg, k_fan=k_fan, params=params, masks=masks, prompts=prompts)
+    # what later phases report beside their own numbers: [slice]'s condensed
+    # bf16 generate wall and leaf bytes, [train]'s SRigL DST step times
+    report = {"srigl_bytes": {}}
+    return dict(base=base, reg=reg, k_fan=k_fan, params=params, masks=masks, prompts=prompts,
+                report=report)
 
 
 def slice_phase(setup: dict, card: str):
@@ -1443,6 +1469,9 @@ def slice_phase(setup: dict, card: str):
             leaf = REG.get_path(cond, s.path)
             if leaf.values.shape[-1] != k_fan[s.path[-1]]:
                 raise AssertionError(f"{s.name}: exported k {leaf.values.shape[-1]}")
+            if dtype_name == "bfloat16":
+                setup["report"]["srigl_bytes"][s.name] = sum(
+                    t.numel() * t.element_size() for t in leaf.arrays().values())
         torch.cuda.synchronize()
         print(f"[slice:{dtype_name}] condensed export {time.perf_counter() - t0:.1f}s")
         cond_model = ServingModel(cfg, params, cond)
@@ -1474,6 +1503,7 @@ def slice_phase(setup: dict, card: str):
                 walls[path].append(wall)
         _eager_wall(f"slice:{dtype_name}:condensed", cond_model, prompts, out_c,
                     walls["condensed"], tok_s["condensed"])
+        setup["report"][f"condensed_wall:{dtype_name}"] = statistics.median(walls["condensed"])
         _eager_wall(f"slice:{dtype_name}:masked", masked_model, prompts, out_m,
                     walls["masked"], tok_s["masked"])
         toks_m, gaps = _masked_gaps(cfg, masked_model, prompts, GEN)
@@ -1528,13 +1558,13 @@ def _prefetch_gather(on: bool):
 
 
 def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = REPEATS,
-                   eager: bool = True):
+                   eager: bool = True, walls_out: list | None = None):
     """A warm-up (which captures the decode graph), then one run with the
     launch counts zeroed just before and read just after (they must equal
     ``expected``), then ``repeats`` - 1 more timed runs that must give the
     same tokens; with ``eager``, the eager decode loop's wall beside them
     (``_eager_wall``). Returns (tokens, tok/s list, the counted run's launch
-    counts)."""
+    counts); the runs' walls (s) go to ``walls_out`` if given."""
     import torch
     model.generate(prompts, GEN)
     _zero_counts()
@@ -1551,6 +1581,8 @@ def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = RE
         walls.append(wall)
     if eager:
         _eager_wall(label, model, prompts, out, walls, rates)
+    if walls_out is not None:
+        walls_out.extend(walls)
     return out, rates, counts
 
 
@@ -2266,10 +2298,32 @@ def _check_dst(cfg, reg, state, old_masks: dict, old_versions: dict) -> None:
               f"{int(state.mask_versions[s.name])}")
 
 
-def train_phase(device, card: str) -> None:
+def _timed_dst(trainer, times: list, before=None) -> None:
+    """Give ``trainer`` its step functions, its DST step timed (device
+    synchronized on both sides, seconds appended to ``times``) and preceded
+    by ``before(state)`` when given."""
+    import torch
+    from repro_torch.train.trainer import make_dst_step, make_train_step
+    trainer._step_fn = make_train_step(trainer.cfg, trainer.registry, trainer.lr_fn)
+    inner = make_dst_step(trainer.cfg, trainer.registry)
+
+    def dst(state, batch):
+        if before is not None:
+            before(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    trainer._dst_fn = dst
+
+
+def train_phase(device, card: str) -> list:
     """Full-width qwen3-1.7b training from a seeded random init: the CLI for
     3 steps, then the Trainer with delta_t=2 for 4 steps (two DST updates),
-    each step and update checked; one more step timed and profiled."""
+    each step and update checked; one more step timed and profiled. Returns
+    the two DST steps' seconds."""
     import dataclasses
     import gc
     import torch
@@ -2303,6 +2357,8 @@ def train_phase(device, card: str) -> None:
     cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=2))
     trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 6), log_every=1)
     reg = trainer.registry
+    dst_times: list = []
+    _timed_dst(trainer, dst_times)
     t0 = time.perf_counter()
     state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
@@ -2356,10 +2412,476 @@ def train_phase(device, card: str) -> None:
           f"no DST) {min(times) * 1e3:.1f} ms (of {[round(t * 1e3, 1) for t in times]}); "
           f"{TRAIN_TOKENS / min(times):.0f} tokens/s; peak device memory {peak:.1f} GiB; "
           f"every loss and grad norm finite, DST invariants held, moments 0 off the mask")
+    print(f"[train] {card}: SRigL DST step (dense gradient recomputed, then the update "
+          f"over {len(reg)} stacks) {[round(t * 1e3, 1) for t in dst_times]} ms")
     _device_profile(lambda: step_fn(state, batch), "train",
                     f"train step {TRAIN_BATCH}x{TRAIN_SEQ}")
     del state, trainer, step_fn
     gc.collect()
+    torch.cuda.empty_cache()
+    return dst_times
+
+
+def _moments_off_mask(label: str, reg, state) -> None:
+    """AdamW's moments are 0 wherever the mask is off."""
+    from repro_torch.sparse import registry as REG
+    for s in reg:
+        mask = REG.get_path(state.masks, s.path)
+        for moment in ("mu", "nu"):
+            if bool(REG.get_path(state.opt_state[moment], s.path).masked_fill(mask, 0.0).any()):
+                raise AssertionError(f"{label} {s.name}: {moment} is not 0 off the mask")
+
+
+def _unstructured_cli(method: str, steps: int) -> None:
+    """The train CLI with ``--method``: params and moments finite, each
+    layer's nnz its target, no port kernel launched."""
+    import torch
+    from repro_torch.launch import train as TL
+    from repro_torch.sparse import registry as REG
+    t0 = time.perf_counter()
+    _zero_counts()
+    state = TL.main(["--arch", ARCH, "--method", method, "--steps", str(steps), "--batch",
+                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    torch.cuda.synchronize()
+    if int(state.step) != steps or _counts() != _none():
+        raise AssertionError(f"{method} CLI: step {int(state.step)}, launches {_counts()}")
+    for name, t in (("params", state.params), ("mu", state.opt_state["mu"]),
+                    ("nu", state.opt_state["nu"])):
+        if not all(bool(torch.isfinite(v).all()) for v in _leaf_list(t)):
+            raise AssertionError(f"{method} CLI: non-finite {name}")
+    for s in REG.build_registry(_method_cfg(method)):
+        m = REG.get_path(state.masks, s.path)
+        if m.reshape(m.shape[0], -1).sum(-1).tolist() != [s.rigl_spec().target_nnz] * s.lead[0]:
+            raise AssertionError(f"{method} CLI {s.name}: nnz is not target_nnz")
+    print(f"[{method}] CLI --arch {ARCH} --method {method} --steps {steps} --batch "
+          f"{TRAIN_BATCH} --seq {TRAIN_SEQ}: {time.perf_counter() - t0:.1f}s with init; params "
+          f"and moments finite, every layer at its target nnz; no port kernel launched")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _method_cfg(method: str, delta_t: int | None = None):
+    """Full-width qwen3-1.7b with ``method`` (and ``delta_t``)."""
+    import dataclasses
+    from repro_torch import configs
+    base = configs.get_config(ARCH)
+    sp = dataclasses.replace(base.sparsity, method=method)
+    if delta_t is not None:
+        sp = dataclasses.replace(sp, delta_t=delta_t)
+    return base.replace(sparsity=sp)
+
+
+def _check_unstructured_dst(label: str, reg, state, old_masks: dict,
+                            old_versions: dict) -> dict:
+    """The RigL / SET invariants after an update on the full-width state:
+    every layer's nnz equal to its target_nnz, neuron_active all True, grown
+    weights 0, the mask moved and mask_versions with it. Returns the
+    neurons left with no incoming weight per stack (RigL's implicit
+    ablation)."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.sparse import registry as REG
+    ablated = {}
+    for s in reg:
+        new, old = REG.get_path(state.masks, s.path), REG.get_path(old_masks, s.path)
+        target = s.rigl_spec().target_nnz
+        if new.reshape(new.shape[0], -1).sum(-1).tolist() != [target] * s.lead[0]:
+            raise AssertionError(f"{label} {s.name}: a layer's nnz is not {target}")
+        if not bool(REG.get_path(state.neuron_active, s.path).all()):
+            raise AssertionError(f"{label} {s.name}: neuron_active changed")
+        grown = new & ~old
+        if bool(REG.get_path(state.params, s.path).masked_select(grown).any()):
+            raise AssertionError(f"{label} {s.name}: a grown weight is not 0")
+        if torch.equal(new, old) or int(state.mask_versions[s.name]) != old_versions[s.name] + 1:
+            raise AssertionError(f"{label} {s.name}: the mask or mask_versions did not move")
+        fan = topology.column_nnz(new)
+        ablated[s.name] = int((fan == 0).sum())
+        print(f"[{label}] DST {s.name}: nnz {target} per layer, grown {int(grown.sum())}, "
+              f"pruned {int((old & ~new).sum())}, fan-in {int(fan.min())}..{int(fan.max())}, "
+              f"n_ablated {ablated[s.name]} of {fan.numel()} neurons, mask_versions "
+              f"{int(state.mask_versions[s.name])}")
+    return ablated
+
+
+def _unstructured_trainer(method: str, device, steps: int, dst_times: list, before=None):
+    """The Trainer with ``method`` and delta_t=2 for ``steps`` steps from a
+    seeded full-width init, each update checked; returns (cfg, registry,
+    state, the step function, the next batch)."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import Trainer
+
+    cfg = _method_cfg(method, delta_t=2)
+    trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 6), log_every=1)
+    reg = trainer.registry
+    _timed_dst(trainer, dst_times, before)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    for s in reg:
+        fan = topology.column_nnz(REG.get_path(state.masks, s.path))
+        print(f"[{method}] init {s.name}: fan-in {int(fan.min())}..{int(fan.max())} (SRigL's k "
+              f"{REG.k_fan_map(cfg, reg)[s.path[-1]]})")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                       seed=0)
+    batches = Prefetcher(data.iterate(), depth=2, pin=True)
+    logs: list = []
+    try:
+        for i in range(steps):
+            old_masks, old_versions = state.masks, {k: int(v) for k, v in
+                                                    state.mask_versions.items()}
+            state = trainer.fit(state, batches, 1, log_fn=logs.append)
+            m = trainer.last_metrics
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{method} step {i}: loss {loss}, grad norm {gnorm}")
+            dst = (i + 1) % 2 == 0
+            print(f"[{method}] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}"
+                  + (f", DST step {dst_times[-1] * 1e3:.1f} ms" if dst else ""))
+            if dst:
+                _check_unstructured_dst(method, reg, state, old_masks, old_versions)
+            else:
+                _moments_off_mask(f"{method} step {i}", reg, state)
+        if _counts() != _none():
+            raise AssertionError(f"the {method} trainer launched {_counts()}")
+        batch = {k: v.to(device) for k, v in next(batches).items()}
+    finally:
+        batches.close()
+    return cfg, reg, state, trainer._step_fn, batch
+
+
+def rigl_kernel_phase(device, cond32: dict, masks: dict, reg, srigl_cases: list) -> list:
+    """K1 at RigL's realized shapes: layer 0 of each stack's condensed
+    export (the stack's max fan-in k, the shorter columns padded), decode
+    B=4 and tiled B=128, bf16 and f32: within TOL of the plain version,
+    decode == tiled bitwise, timed beside torch.matmul on the dense weight
+    and the bound (bytes of the padded slots, operations of the real
+    non-zeros); one JSON line per case and one line per layer beside
+    SRigL's K1 (``srigl_cases``, kernel_phase's records)."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import registry as REG
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    cases = []
+    for s in reg:  # w_up is timed too: its realized k is its own
+        name = s.path[-1]
+        leaf = REG.get_path(cond32, s.path)
+        vals32, idx = leaf.values[0].contiguous(), leaf.indices[0].contiguous()
+        n_out, k = vals32.shape
+        nnz = int(REG.get_path(masks, s.path)[0].sum())
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            vals = vals32.to(dtype).contiguous()
+            dense = topology.condensed_to_dense(vals32, idx, s.d_in).to(dtype).contiguous()
+            isz = vals.element_size()
+            weight_sets = [(vals.clone(), idx.clone())
+                           for _ in range(_copies(n_out * k * (isz + 4)))]
+            dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * isz))]
+            for b, launch in ((BATCH, "decode"), (BATCH * PROMPT, "tiled")):
+                x = torch.randn((b, s.d_in), generator=gen, device=device).to(dtype)
+                y = cm.condensed_matmul(x, vals, idx)
+                y_ref = ref.condensed_matmul_ref(x, vals, idx)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype_name])
+                err = (y.float() - y_ref.float()).abs().max().item()
+                tiled = cm.TILED_ROWS[dtype]
+                if launch == "decode":
+                    same = torch.equal(cm.condensed_matmul_decode(x, vals, idx),
+                                       cm.condensed_matmul(x, vals, idx, block_b=tiled))
+                    pair = f"decode == tiled({tiled})"
+                else:
+                    least = cm.GATHER_ROWS[dtype][0]
+                    same = torch.equal(y, cm.condensed_matmul(x, vals, idx, block_b=least))
+                    pair = f"tiled({tiled}) == tiled({least})"
+                if not same:
+                    raise AssertionError(f"K1 rigl {name} {dtype_name} B={b}: {pair} is not "
+                                         f"bitwise")
+                ms = _time_ms(cm.condensed_matmul, [(x, v, i) for v, i in weight_sets])
+                plain_ms = _time_ms(ref.condensed_matmul_ref,
+                                    [(x, v, i) for v, i in weight_sets], iters=10)
+                library_ms = _time_ms(torch.matmul, [(x, wd) for wd in dense_sets])
+                nbytes = n_out * k * (isz + 4) + b * s.d_in * isz + b * n_out * isz
+                ops = 2 * b * nnz
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                rec = dict(kernel="K1", masks="rigl", stack=name, d_in=s.d_in, n_out=n_out, k=k,
+                           mean_fan_in=nnz / n_out, dtype=dtype_name, batch=b, launch=launch,
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair)
+                cases.append(rec)
+                print("[kernel] " + json.dumps(rec))
+            del weight_sets, dense_sets
+    # one layer: every stack once; kernel_phase timed w_gate for w_up too
+    per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}
+    for dtype_name in ("bfloat16", "float32"):
+        for launch in ("decode", "tiled"):
+            def layer(recs):
+                return {t: sum(r[t] * (1 if r.get("masks") else per_layer[r["stack"]])
+                               for r in recs)
+                        for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            pick = (lambda c: c["kernel"] == "K1" and c["dtype"] == dtype_name
+                    and c["launch"] == launch)
+            rg = layer([c for c in cases if pick(c)])
+            sr = layer([c for c in srigl_cases if pick(c)])
+            print(f"[rigl] K1 {dtype_name} {launch} one layer (wo + w_gate + w_up + w_down) at "
+                  f"RigL's k: {rg['ms'] * 1e3:.2f} us | plain {rg['plain_ms'] * 1e3:.2f} | "
+                  f"library {rg['library_ms'] * 1e3:.2f} | bound {rg['bound_ms'] * 1e3:.2f}; "
+                  f"SRigL's k: {sr['ms'] * 1e3:.2f} us | library {sr['library_ms'] * 1e3:.2f} "
+                  f"| bound {sr['bound_ms'] * 1e3:.2f}")
+    torch.cuda.empty_cache()
+    return cases
+
+
+def rigl_phase(device, card: str, report: dict, srigl_cases: list) -> list:
+    """RigL at full width: the train CLI with --method rigl for 3 steps; the
+    Trainer with delta_t=2 for 4 steps (two updates, each checked) and one
+    more step (moments 0 off the mask); the trained state condensed at its
+    realized max fan-in (k, mean fan-in, padding share and bf16 leaf bytes
+    per stack beside SRigL's); served B=4, 32+16, graph decode, on condensed
+    (K1, 4 * 28 * 17 launches) and masked, held to the tie rule, the
+    condensed wall beside [slice]'s SRigL one; then K1 at RigL's shapes
+    (rigl_kernel_phase). Returns the kernel records."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.launch.engine import ServingModel
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import registry as REG
+
+    _unstructured_cli("rigl", 3)
+    dst_times: list = []
+    cfg, reg, state, step_fn, batch = _unstructured_trainer("rigl", device, 4, dst_times)
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    _moments_off_mask("rigl step 4", reg, state)
+    srigl = report["srigl_dst_s"]
+    print(f"[rigl] {card}: DST step {[round(t * 1e3, 1) for t in dst_times]} ms (median "
+          f"{statistics.median(dst_times) * 1e3:.1f}); SRigL's in [train] "
+          f"{[round(t * 1e3, 1) for t in srigl]} ms (median {statistics.median(srigl) * 1e3:.1f})"
+          f"; moments 0 off the mask after the next step")
+    params, masks = state.params, state.masks
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = cfg.replace(dtype="bfloat16")
+    cond = COND.export_condensed(cfg, reg, params, masks)
+    for s in reg:
+        leaf = REG.get_path(cond, s.path)
+        fan = topology.column_nnz(REG.get_path(masks, s.path))
+        k, mean = leaf.values.shape[-1], fan.float().mean().item()
+        if k != int(fan.max()):
+            raise AssertionError(f"rigl {s.name}: exported k {k}, max fan-in {int(fan.max())}")
+        nbytes = sum(t.numel() * t.element_size() for t in leaf.arrays().values())
+        sb = report["srigl_bytes"][s.name]
+        print(f"[rigl] {s.name}: realized max k {k} (SRigL's k "
+              f"{REG.k_fan_map(cfg, reg)[s.path[-1]]}), mean fan-in {mean:.2f}, padding share "
+              f"{1 - mean / k:.4f}; condensed bf16 leaf {nbytes} bytes, SRigL's plan {sb} bytes "
+              f"({nbytes / sb:.3f}x)")
+    gen = torch.Generator(device=device).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    cond_model = ServingModel(cfg, params, cond)
+    masked_model = ServingModel(cfg, params, masks)
+    expected = {**_none(), "K1": 4 * cfg.n_layers * (1 + GEN)}
+    walls: list = []
+    out_c, rates_c, _ = _serve_counted("rigl:condensed", cond_model, prompts, expected,
+                                       walls_out=walls)
+    out_m, rates_m, _ = _serve_counted("rigl:masked", masked_model, prompts, _none())
+    toks_m, gaps = _masked_gaps(cfg, masked_model, prompts, GEN)
+    if not torch.equal(toks_m, out_m[:, PROMPT:]):
+        raise AssertionError("rigl masked: step-by-step run differs from generate")
+    agree = _check_ties("rigl", cfg, out_c, toks_m, gaps)
+    sw = report["condensed_wall:bfloat16"]
+    print(f"[rigl] {card}: condensed (K1 {expected['K1']} launches) generate "
+          f"{BATCH}x{PROMPT}+{GEN} wall {statistics.median(walls) * 1e3:.2f} ms (median of "
+          f"{len(walls)}), SRigL's in [slice] {sw * 1e3:.2f} ms; decode "
+          f"{_rates({'condensed': rates_c, 'masked': rates_m})}; streams agreeing with masked "
+          f"in full {agree}/{BATCH}")
+    del cond, cond_model, masked_model
+    torch.cuda.empty_cache()
+    cond32 = COND.export_condensed(cfg.replace(dtype="float32"), reg, params, masks)
+    cases = rigl_kernel_phase(device, cond32, masks, reg, srigl_cases)
+    del cond32, params, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def set_phase(device, card: str) -> None:
+    """SET at full width: the train CLI with --method set for 2 steps; the
+    Trainer with delta_t=2 for 2 steps (one update): the survivors equal
+    prune_survivors' on the weights and mask the update saw, the grown
+    positions were all inactive and as many as were pruned, and the update
+    run again from the same state, seed and step regrows the same masks."""
+    import torch
+    from repro_torch.core import saliency
+    from repro_torch.core.rigl import n_to_prune
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.trainer import _dst_schedule, set_generator
+
+    _unstructured_cli("set", 2)
+    seen: dict = {}
+
+    def before(state):  # what the update sees (it zeroes grown weights in place)
+        seen.update(state=state, masks=state.masks,
+                    params=_map_leaves(state.params, torch.clone))
+    dst_times: list = []
+    cfg, reg, state, _, _ = _unstructured_trainer("set", device, 2, dst_times, before)
+    pre = seen["state"]._replace(params=seen["params"])
+    drop = _dst_schedule(cfg).drop_fraction(int(pre.step))
+    for s in reg:
+        w = REG.get_path(pre.params, s.path)
+        old, new = REG.get_path(seen["masks"], s.path), REG.get_path(state.masks, s.path)
+        for layer in range(s.lead[0]):
+            m = old[layer]
+            n_prune = n_to_prune(m, drop)
+            survive = saliency.prune_survivors(w[layer].float(), m, n_prune)
+            if not torch.equal(new[layer] & m, survive):
+                raise AssertionError(f"set {s.name} layer {layer}: survivors differ from "
+                                     f"prune_survivors'")
+            grown = int((new[layer] & ~m).sum())
+            if grown != int(n_prune) or int((m & ~new[layer]).sum()) != grown:
+                raise AssertionError(f"set {s.name} layer {layer}: grown {grown}, n_prune "
+                                     f"{int(n_prune)}")
+    sp = {"masks": pre.masks, "neuron_active": pre.neuron_active}
+    again = [REG.dst_update(cfg, reg, pre.params, {}, sp, drop, set_generator(pre))[0]
+             for _ in range(2)]
+    for s in reg:
+        want = REG.get_path(state.masks, s.path)
+        if not all(torch.equal(REG.get_path(a["masks"], s.path), want) for a in again):
+            raise AssertionError(f"set {s.name}: the same seed and step regrew other masks")
+    print(f"[set] {card}: DST step {[round(t * 1e3, 1) for t in dst_times]} ms; survivors == "
+          f"prune_survivors' in every layer; grown positions all inactive before, as many as "
+          f"pruned; the same seed and step regrew the same masks twice")
+    del state, pre, seen, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# [grad:structured]: dx and dW through K5 and the structured backward
+# against autograd through structured_dense, float32, as max |difference|
+# / max |reference|
+STRUCT_GRAD_BOUND = 1e-4
+
+
+def _plain_structured(x, w, active_index):
+    """The structured linear as ``structured_dense`` (autograd through
+    plain torch), its neuron_active read back from ``active_index``."""
+    import torch
+    from repro_torch.kernels import ref
+    act = torch.zeros(w.shape[-1] + 1, dtype=torch.bool, device=w.device)
+    act[active_index.long()] = True
+    return ref.structured_dense(x, w.to(x.dtype), act[:-1])
+
+
+def _rel(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def structured_grad_phase(setup: dict) -> None:
+    """loss_fn over the structured serving tree (K5 forward, the structured
+    backward) of full-width qwen3-1.7b on the ablation-only masks [ablation]
+    builds, float32, a train batch of 8 x 64: K5 launches 4 * 28 per
+    forward; every sparse stack's dW and the embedding's gradient (dx
+    carried through every layer) against the same loss with each structured
+    linear computed as structured_dense under autograd, within
+    STRUCT_GRAD_BOUND of the max; ablated columns' dW exactly 0. Then one
+    layer per stack shape at B*T = 512: dx and dW against structured_dense's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import registry as REG
+
+    base, reg, params = setup["base"], setup["reg"], setup["params"]
+    cfg = base.replace(dtype="float32")
+    masks = _ablation_only(reg, setup["masks"], ABLATION)
+    tree = COND.export_structured(cfg, reg, masks)
+    batch = _train_batch(cfg, params["embed"].device)
+    paths = [("embed",)] + [s.path for s in reg]
+    per_pass = 4 * cfg.n_layers
+    found = []
+    for plain in (False, True):
+        leaves = [REG.get_path(params, p) for p in paths]
+        for t in leaves:
+            t.requires_grad_(True)
+        saved = ops.structured_linear_nd
+        if plain:
+            ops.structured_linear_nd = _plain_structured
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _zero_counts()
+            loss = M.loss_fn(cfg, params, tree, batch)[0]
+            fwd = _counts()
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            total = _counts()
+            dt = time.perf_counter() - t0
+        finally:
+            ops.structured_linear_nd = saved
+            for t in leaves:
+                t.requires_grad_(False)
+        if not plain:
+            # K5 at every forward linear, again when each checkpointed block
+            # is recomputed for the backward
+            if fwd != {**_none(), "K5": per_pass} or total != {**_none(), "K5": 2 * per_pass}:
+                raise AssertionError(f"structured loss: forward launched {fwd}, forward and "
+                                     f"backward {total}")
+            print(f"[grad:structured] loss {loss.item():.6f}; forward + backward {dt:.2f}s; K5 "
+                  f"launches per forward {fwd['K5']}, with the backward's recompute "
+                  f"{total['K5']}")
+        elif total != _none():
+            raise AssertionError(f"the plain structured loss launched {total}")
+        found.append((loss.detach(), dict(zip(paths, grads))))
+    (loss_k, got), (loss_p, want) = found
+    if not abs(loss_k.item() - loss_p.item()) <= STRUCT_GRAD_BOUND * abs(loss_p.item()):
+        raise AssertionError(f"structured loss {loss_k.item()} vs plain {loss_p.item()}")
+    for p in paths:
+        rel = _rel(got[p], want[p])
+        extra = ""
+        if p != ("embed",):
+            active = REG.get_path(masks, p).any(dim=-2)                 # (L, d_out)
+            dead = got[p].masked_select(~active[:, None, :].expand_as(got[p]))
+            if bool(dead.any()):
+                raise AssertionError(f"{'/'.join(p)}: an ablated column's dW is not 0")
+            extra = f"; ablated columns' dW exactly 0 ({dead.numel()} entries)"
+        print(f"[grad:structured] {'/'.join(p)}: max |grad - structured_dense grad| / max = "
+              f"{rel:.3g} (bound {STRUCT_GRAD_BOUND:g}){extra}")
+        if not rel <= STRUCT_GRAD_BOUND:
+            raise AssertionError(f"{'/'.join(p)}: {rel} above {STRUCT_GRAD_BOUND}")
+    del found, got, want, tree
+    gen = torch.Generator(device=params["embed"].device).manual_seed(12)
+    shapes = {}
+    for s in reg:
+        shapes.setdefault((s.d_in, s.d_out), s)
+    for (d_in, d_out), s in shapes.items():
+        w = REG.get_path(params, s.path)[0].clone()
+        leaf = F.StructuredFanIn.from_mask(REG.get_path(masks, s.path)[:1])
+        ai = leaf.active_index[0]
+        x = torch.randn((TRAIN_TOKENS, d_in), generator=gen, device=w.device)
+        dy = torch.randn((TRAIN_TOKENS, d_out), generator=gen, device=w.device)
+        out = []
+        for fn in (ops.structured_linear, _plain_structured):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            fn(xr, wr, ai).backward(dy)
+            out.append((xr.grad, wr.grad))
+        (dx, dw), (dx_p, dw_p) = out
+        rx, rw = _rel(dx, dx_p), _rel(dw, dw_p)
+        if not (rx <= STRUCT_GRAD_BOUND and rw <= STRUCT_GRAD_BOUND):
+            raise AssertionError(f"{s.path[-1]} layer: dx {rx}, dW {rw}")
+        print(f"[grad:structured] {s.path[-1]} layer {d_in}->{d_out}, {int((ai < d_out).sum())} "
+              f"columns active, B*T={TRAIN_TOKENS}: dx {rx:.3g}, dW {rw:.3g} from "
+              f"structured_dense's (bound {STRUCT_GRAD_BOUND:g})")
     torch.cuda.empty_cache()
 
 
@@ -2835,10 +3357,15 @@ def main() -> int:
     timed("checkpoint", checkpoint_phase, setup)
     timed("engine", engine_phase, setup, card)
     launches["K3"] = timed("grad", grad_phase, setup)
+    timed("grad_structured", structured_grad_phase, setup)
+    report = setup["report"]
     del setup
     gc.collect()
     torch.cuda.empty_cache()
-    timed("train", train_phase, device, card)
+    report["srigl_dst_s"] = timed("train", train_phase, device, card)
+    rigl_cases = timed("rigl", rigl_phase, device, card, report,
+                       [c for c in cases if c["kernel"] == "K1"])
+    timed("set", set_phase, device, card)
     gens = timed("generations", _generations, device)
     refreshed = timed("refresh", refresh_phase, gens, card)
     timed("sync", sync_phase, gens, refreshed, card)
@@ -2851,7 +3378,8 @@ def main() -> int:
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
-        json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases}, indent=1))
+        json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
+                    "rigl_cases": rigl_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

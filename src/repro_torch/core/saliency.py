@@ -29,6 +29,27 @@ def descending_ranks(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
     return torch.empty_like(order).scatter_(axis, order, ar)
 
 
+def prune_survivors(weight: torch.Tensor, mask: torch.Tensor, n_prune) -> torch.Tensor:
+    """Layer-wise magnitude prune: drop the ``n_prune`` smallest-|w| active
+    weights of the (d_in, d_out) layer. Returns the survivor mask.
+
+    The ranks run over the flattened layer (row-major, so ties fall as in
+    the reference), inactive positions at -inf; ``n_prune`` may be a tensor.
+    """
+    mag = torch.where(mask, weight.abs(), torch.full((), NEG, dtype=weight.dtype,
+                                                     device=weight.device))
+    ranks = descending_ranks(mag)  # active weights occupy ranks [0, A)
+    return mask & (ranks < (mask.sum() - n_prune))
+
+
+def top_k_candidates(score: torch.Tensor, candidates: torch.Tensor, n_grow) -> torch.Tensor:
+    """Layer-wise top-``n_grow`` of ``score`` among ``candidates`` (bool),
+    ranked over the flattened layer as ``prune_survivors`` ranks."""
+    s = torch.where(candidates, score, torch.full((), NEG, dtype=score.dtype,
+                                                  device=score.device))
+    return candidates & (descending_ranks(s) < n_grow)
+
+
 def topk_threshold(values: torch.Tensor, candidates: torch.Tensor, k: torch.Tensor,
                    iters: int = 30) -> torch.Tensor:
     """Scalar threshold t with count(values > t & candidates) ~= k.

@@ -37,6 +37,51 @@ def random_constant_fan_in_mask(generator: torch.Generator, d_in: int, d_out: in
     return mask.scatter_(-2, top, True)
 
 
+def random_unstructured_mask(generator: torch.Generator, d_in: int, d_out: int,
+                             nnz: int, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Boolean mask (*lead, d_in, d_out) with exactly nnz True per layer,
+    uniform over the layer's matrix (the RigL and SET initialization).
+
+    Each layer keeps the positions of its nnz largest uniform scores drawn
+    from ``generator`` on its device.
+    """
+    total = d_in * d_out
+    if not 0 <= nnz <= total:
+        raise ValueError(f"nnz={nnz} out of range [0, {total}]")
+    scores = torch.rand((*lead, total), generator=generator, device=generator.device)
+    top = torch.topk(scores, nnz, dim=-1).indices
+    mask = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+    return mask.scatter_(-1, top, True).reshape(*lead, d_in, d_out)
+
+
+def random_nm_mask(generator: torch.Generator, d_in: int, d_out: int, n: int, m: int, *,
+                   lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Classic N:M mask (*lead, d_in, d_out): N non-zeros in every M
+    *contiguous* fan-in weights of each column.
+
+    Constant fan-in (the paper's structure) is the special case M = d_in;
+    this covers the hardware 2:4 style patterns the paper relates to (Sec. 2,
+    Mishra et al. 2021) for comparison studies.
+    """
+    if d_in % m:
+        raise ValueError(f"d_in={d_in} not divisible by M={m}")
+    if not 1 <= n <= m:
+        raise ValueError(f"need 1 <= N <= M, got {n}:{m}")
+    scores = torch.rand((*lead, d_in // m, m, d_out), generator=generator,
+                        device=generator.device)
+    top = torch.topk(scores, n, dim=-2).indices
+    mask = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+    return mask.scatter_(-2, top, True).reshape(*lead, d_in, d_out)
+
+
+def check_nm(mask, n: int, m: int) -> bool:
+    """True iff every contiguous M-group along fan-in has exactly N non-zeros
+    (of every layer of a stacked mask)."""
+    a = np.asarray(torch.as_tensor(mask).cpu())
+    groups = a.reshape(*a.shape[:-2], a.shape[-2] // m, m, a.shape[-1]).sum(axis=-2)
+    return bool(np.all(groups == n))
+
+
 def dense_to_condensed(weight: torch.Tensor, mask: torch.Tensor, k: int):
     """Masked dense (*lead, d_in, d_out) -> condensed (values, indices), each (*lead, d_out, k).
 
@@ -62,6 +107,11 @@ def condensed_to_dense(values: torch.Tensor, indices: torch.Tensor, d_in: int) -
     dense = torch.zeros((*lead, d_out, d_in), dtype=values.dtype, device=values.device)
     dense.scatter_add_(-1, indices.long(), values)
     return dense.transpose(-1, -2)
+
+
+def column_nnz(mask: torch.Tensor) -> torch.Tensor:
+    """Number of non-zeros per output neuron (column), int32 (*lead, d_out)."""
+    return mask.sum(dim=-2, dtype=torch.int32)
 
 
 def check_constant_fan_in(mask, k: int, neuron_active=None) -> bool:

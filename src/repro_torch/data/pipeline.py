@@ -33,7 +33,8 @@ class SyntheticLM:
 
     def __post_init__(self):
         if self.family != "dense":
-            raise NotImplementedError(f"family {self.family!r} batches are not ported yet")
+            raise NotImplementedError(f"family {self.family!r} batches are not ported yet "
+                                      f"(ROADMAP queue 1, item 8)")
         rng = np.random.default_rng(self.seed)
         v = self.vocab_size
         succ = min(8, v)  # each token has ~8 successors
@@ -56,6 +57,18 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def make_train_batch(cfg, generator: torch.Generator, batch_size: int, seq_len: int) -> dict:
+    """Random batch on the generator's device (tests, examples): ``tokens``
+    and ``targets`` (B, T) int32, uniform over the vocab, ``targets`` the
+    tokens shifted by one. The dense family only."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} batches are not ported yet "
+                                  f"(ROADMAP queue 1, item 8)")
+    toks = torch.randint(0, cfg.vocab_size, (batch_size, seq_len + 1), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
 def to_tensors(batch: dict, pin: bool = False) -> dict:

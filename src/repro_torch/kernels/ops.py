@@ -7,8 +7,16 @@ K1 / K4; the backward computes
   dx = scatter-add of dy * values, in dy's dtype (``ref.condensed_matmul_dx_ref``)
   dw = the values-gradient kernel K3 (``condensed_matmul.condensed_matmul_dw``),
 
-returned at x's and values' dtypes. The rest are forward only. The ``_nd``
-wrappers flatten the leading dims of x to the batch axis:
+returned at x's and values' dtypes. ``structured_linear`` is one too: the
+forward runs K5 (or K6); the backward is the reference's
+``_structured_bwd``, which the reference also computes outside any kernel:
+
+  dx = dy_act @ w_act.T          (dy and w at the surviving columns)
+  dw = x.T @ dy_act, added into zeros at the surviving columns only,
+
+so padding entries (``== d_out``) are dropped and ablated columns get an
+exact 0. The quantized (``scales=``) and pregathered paths are forward
+only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
 
 * ``condensed_linear_nd`` — the condensed gather (K1; K2 with ``scales=``,
   inference only);
@@ -16,12 +24,11 @@ wrappers flatten the leading dims of x to the batch axis:
   written through ``out_index`` (K4; K2-coa with ``scales=``, inference
   only);
 * ``structured_linear_nd`` — the column-gathered matmul over the live dense
-  weight (K5, or K6 with ``REPRO_PREFETCH_GATHER=1`` at decode shapes);
+  weight (K5, or K6 with ``REPRO_PREFETCH_GATHER=1`` at decode shapes),
+  differentiable in x and the weight;
 * ``structured_gathered_linear_nd`` — the same kernel over a caller-supplied
   panel of gathered columns;
 * ``structured_dense`` — the formula the structured kernel is held to.
-
-The structured linear's backward is not ported yet.
 """
 from __future__ import annotations
 
@@ -142,12 +149,45 @@ def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,
     return y.reshape(*x.shape[:-1], d_out)
 
 
+class _StructuredLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, active_index):
+        ctx.save_for_backward(x, w, active_index)
+        return sm.structured_matmul(x, w.to(x.dtype), active_index)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, active_index = ctx.saved_tensors
+        d_out = w.shape[-1]
+        dy_act = _dy_active(dy, active_index, d_out)                  # (B, a_pad)
+        cols = active_index.long()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_act = w[:, cols.clamp(max=d_out - 1)].to(dy_act.dtype)  # (d_in, a_pad)
+            dx = (dy_act @ w_act.T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            contrib = (x.to(dy_act.dtype).T @ dy_act).to(w.dtype)     # (d_in, a_pad)
+            # one spare column takes the padding entries, then is cut off
+            dw = torch.zeros((w.shape[0], d_out + 1), dtype=w.dtype, device=w.device)
+            dw = dw.index_add_(1, cols, contrib)[:, :d_out].contiguous()
+        return dx, dw, None
+
+
+def structured_linear(x: torch.Tensor, w: torch.Tensor,
+                      active_index: torch.Tensor) -> torch.Tensor:
+    """y = x @ w over the surviving columns ``active_index`` (padded with
+    the sentinel ``d_out``) of the dense (d_in, d_out) weight, ablated
+    columns exact zeros; differentiable in x and w. The weight is cast to
+    ``x.dtype`` (a no-op for the serving copy). x (B, d_in)."""
+    if _needs_graph(x, w):
+        return _StructuredLinear.apply(x, w, active_index)
+    return sm.structured_matmul(x, w.to(x.dtype), active_index)
+
+
 def structured_linear_nd(x: torch.Tensor, w: torch.Tensor,
                          active_index: torch.Tensor) -> torch.Tensor:
-    """y = x @ w over the surviving columns ``active_index`` of the dense
-    (d_in, d_out) weight; ablated columns exactly zero. The weight is cast
-    to ``x.dtype`` (a no-op for the serving copy)."""
-    y = sm.structured_matmul(_rows(x), w.to(x.dtype), active_index)
+    """``structured_linear`` with the leading dims of x flattened."""
+    y = structured_linear(_rows(x), w, active_index)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

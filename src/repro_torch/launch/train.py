@@ -3,10 +3,11 @@
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --device cpu \
       --steps 4
 
-Trains masked-dense with the straight-through mask and runs the SRigL
-topology update every ``delta_t`` steps. Runs on the card unless
-``--device cpu`` is given; without a card it raises. ``--method rigl`` and
-``--method set`` are not ported yet.
+Trains masked-dense with the straight-through mask and runs the topology
+update every ``delta_t`` steps: SRigL by default, the paper's baselines
+with ``--method rigl`` or ``--method set`` (unstructured masks), none with
+``--method dense``. Runs on the card unless ``--device cpu`` is given;
+without a card it raises.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    if args.method in ("rigl", "set"):
-        raise NotImplementedError(f"--method {args.method} is not ported yet")
 
     cfg = (configs.get_smoke_config if args.smoke else configs.get_config)(args.arch)
     sp = cfg.sparsity

@@ -47,7 +47,8 @@ def check_supported(cfg) -> None:
     if (cfg.family != "dense" or cfg.local_global_ratio or cfg.mrope
             or not cfg.causal or cfg.is_moe):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense causal family is ported so far")
+            f"{cfg.name}: only the dense causal family is ported so far "
+            f"(ROADMAP queue 1, item 8)")
 
 
 # ===========================================================================

@@ -6,10 +6,10 @@ identically-shaped layers stacked on leading dims, e.g. ``("blocks",
 over the stacks. Paper defaults: MLP and attention-output projections are
 sparse; QKV input projections, norms and embeddings stay dense.
 
-Ported so far: the dense family's enumeration, ``k_fan_map``, the tree path
-helpers, SRigL mask initialization, the SRigL topology update over every
-stack (``dst_update``) and ``sparsity_summary``. The RigL and SET updates
-are not ported yet.
+Ported: the dense family's enumeration, ``k_fan_map``, the tree path
+helpers, mask initialization and the topology update over every stack
+(``dst_update``) for SRigL, RigL and SET, the ITOP tracker and
+``sparsity_summary``. The other families come with ROADMAP queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import distributions as D
+from repro_torch.core import rigl as R
+from repro_torch.core import set_sparse as SS
 from repro_torch.core import srigl as S
 from repro_torch.core import topology
 
@@ -45,6 +47,10 @@ class SparseStack:
         return S.SRigLSpec(
             name=self.name, d_in=self.d_in, d_out=self.d_out,
             density=self.density, gamma_sal=sp.gamma_sal, ablation=sp.ablation)
+
+    def rigl_spec(self) -> R.RigLSpec:
+        return R.RigLSpec(name=self.name, d_in=self.d_in, d_out=self.d_out,
+                          density=self.density)
 
 
 def _attn_stacks(cfg, prefix: tuple, lead: tuple, with_mlp=True) -> list[SparseStack]:
@@ -72,7 +78,7 @@ def build_registry(cfg) -> list[SparseStack]:
     if cfg.family != "dense" or cfg.local_global_ratio:
         raise NotImplementedError(
             f"family {cfg.family!r} (local_global_ratio="
-            f"{cfg.local_global_ratio}) is not ported yet")
+            f"{cfg.local_global_ratio}) is not ported yet (ROADMAP queue 1, item 8)")
     stacks = _attn_stacks(cfg, ("blocks",), (cfg.n_layers,))
     shapes = [D.LayerShape(s.name, s.d_in, s.d_out, s.n_replicas) for s in stacks]
     solver = D.erk_densities if cfg.sparsity.distribution == "erk" else D.uniform_densities
@@ -103,18 +109,23 @@ def init_sparsity_state(cfg, generator: torch.Generator,
                         registry: Sequence[SparseStack]) -> dict:
     """Returns {"masks": tree, "neuron_active": tree} (paths mirror params).
 
-    Masks are drawn from ``generator`` on its device, exactly k True per
-    column of every layer (k from the stack's solved density).
+    Masks are drawn from ``generator`` on its device: for SRigL exactly k
+    True per column of every layer (k from the stack's solved density), for
+    RigL and SET exactly ``target_nnz`` True per layer, uniform over it.
     """
-    if cfg.sparsity.method != "srigl":
-        raise NotImplementedError(
-            f"sparsity method {cfg.sparsity.method!r} is not ported yet")
+    method = cfg.sparsity.method
+    if method not in ("srigl", "rigl", "set"):
+        raise ValueError(method)
     masks: dict = {}
     active: dict = {}
     for s in registry:
-        k = D.fan_in_from_density(s.d_in, s.density)
-        mask = topology.random_constant_fan_in_mask(generator, s.d_in, s.d_out, k,
-                                                    lead=s.lead)
+        if method == "srigl":
+            k = D.fan_in_from_density(s.d_in, s.density)
+            mask = topology.random_constant_fan_in_mask(generator, s.d_in, s.d_out, k,
+                                                        lead=s.lead)
+        else:  # rigl / set: unstructured
+            mask = topology.random_unstructured_mask(generator, s.d_in, s.d_out,
+                                                     s.rigl_spec().target_nnz, lead=s.lead)
         set_path(masks, s.path, mask)
         set_path(active, s.path, torch.ones((*s.lead, s.d_out), dtype=torch.bool,
                                             device=generator.device))
@@ -123,43 +134,90 @@ def init_sparsity_state(cfg, generator: torch.Generator,
 
 def _map_over_lead(fn, n_lead: int, *args):
     """``fn`` on one layer slab at a time along the FIRST leading axis (the
-    reference's ``lax.map``), its (LayerState, UpdateStats) stacked; inner
-    leading axes go to ``fn`` whole. Selection temporaries then stay at one
-    slab's size."""
+    reference's ``lax.map``), its (state, stats) stacked; inner leading axes
+    go to ``fn`` whole. Selection temporaries then stay at one slab's size."""
     if n_lead == 0:
         return fn(*args)
-    outs = [fn(*xs) for xs in zip(*args)]
-    return (S.LayerState(*(torch.stack(t) for t in zip(*(o[0] for o in outs)))),
-            S.UpdateStats(*(torch.stack(t) for t in zip(*(o[1] for o in outs)))))
+    return R.stack_stats([fn(*xs) for xs in zip(*args)])
 
 
 def dst_update(cfg, registry: Sequence[SparseStack], params: dict, grads: dict,
-               state: dict, drop_fraction, rng=None):
+               state: dict, drop_fraction, rng: torch.Generator | None = None):
     """One topology update across every sparse stack.
 
     Run on its own every delta_t steps (not inside the train step), one
     layer slab at a time, with the float32 casts made per slab. ``rng`` is
-    the reference's key argument, which only its SET update reads.
-    Returns (new_state, stats keyed by stack name: each an ``UpdateStats``
-    field as an int32 tensor over the stack's leading dims).
+    the generator SET draws its regrowth scores from (stack after stack,
+    layer after layer); SRigL and RigL read nothing random, and SET reads
+    no gradient (``grads`` may be empty). RigL and SET carry
+    ``neuron_active`` unchanged. Returns (new_state, stats keyed by
+    stack name: a dict of int32 tensors over the stack's leading dims).
     """
     method = cfg.sparsity.method
-    if method != "srigl":
-        raise NotImplementedError(f"the {method!r} topology update is not ported yet")
+    if method not in ("srigl", "rigl", "set"):
+        raise ValueError(method)
+    if method == "set" and rng is None:
+        raise ValueError("the SET update draws its regrowth from a torch.Generator (rng=)")
     new_masks, new_active, stats = {}, {}, {}
     for s in registry:
-        spec = s.srigl_spec(cfg)
+        w = get_path(params, s.path)
+        m, a = get_path(state["masks"], s.path), get_path(state["neuron_active"], s.path)
+        g = None if method == "set" else get_path(grads, s.path)
+        if method == "srigl":
+            spec = s.srigl_spec(cfg)
 
-        def fn(w_, g_, m_, a_, spec=spec):
-            return S.srigl_update(spec, w_.float(), g_.float(), S.LayerState(m_, a_),
-                                  drop_fraction)
-        st, sts = _map_over_lead(fn, len(s.lead), get_path(params, s.path),
-                                 get_path(grads, s.path), get_path(state["masks"], s.path),
-                                 get_path(state["neuron_active"], s.path))
+            def fn(w_, g_, m_, a_, spec=spec):
+                return S.srigl_update(spec, w_.float(), g_.float(), S.LayerState(m_, a_),
+                                      drop_fraction)
+            st, sts = _map_over_lead(fn, len(s.lead), w, g, m, a)
+            set_path(new_active, s.path, st.neuron_active)
+            sts = dict(sts._asdict())
+        elif method == "rigl":
+            spec = s.rigl_spec()
+
+            def fn(w_, g_, m_, spec=spec):
+                return R.rigl_update(spec, w_.float(), g_.float(), R.RigLState(m_),
+                                     drop_fraction)
+            st, sts = _map_over_lead(fn, len(s.lead), w, g, m)
+            set_path(new_active, s.path, a)
+        else:
+            spec = s.rigl_spec()
+
+            def fn(w_, m_, spec=spec):
+                return SS.set_update(spec, w_.float(), rng, R.RigLState(m_), drop_fraction)
+            st, sts = _map_over_lead(fn, len(s.lead), w, m)
+            set_path(new_active, s.path, a)
         set_path(new_masks, s.path, st.mask)
-        set_path(new_active, s.path, st.neuron_active)
-        stats[s.name] = dict(sts._asdict())
+        stats[s.name] = sts
     return {"masks": new_masks, "neuron_active": new_active}, stats
+
+
+def _map_tree(fn, *trees) -> dict:
+    """``fn`` over the leaves of trees of one structure (the first's keys)."""
+    return {k: _map_tree(fn, *(t[k] for t in trees)) if isinstance(v, dict)
+            else fn(*(t[k] for t in trees)) for k, v in trees[0].items()}
+
+
+def init_itop(registry: Sequence[SparseStack], state: dict) -> dict:
+    """In-Time Overparameterization tracker (Liu et al. 2021c; paper App. H):
+    the union of all masks seen so far, starting as a copy of the current
+    masks. ITOP rate = |union| / |weights|."""
+    return _map_tree(torch.clone, state["masks"])
+
+
+def update_itop(itop: dict, masks: dict) -> dict:
+    """The union tracked so far with ``masks``."""
+    return _map_tree(torch.logical_or, itop, masks)
+
+
+def itop_rate(registry: Sequence[SparseStack], itop: dict) -> dict:
+    """Per stack, the fraction of its weights ever active: the union's count
+    in float32 over the weight count in float32."""
+    out = {}
+    for s in registry:
+        u = get_path(itop, s.path)
+        out[s.name] = float(u.sum(dtype=torch.int64).to(torch.float32) / u.numel())
+    return out
 
 
 def sparsity_summary(registry: Sequence[SparseStack], state: dict) -> dict:

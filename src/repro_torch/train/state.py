@@ -23,7 +23,9 @@ class TrainState(NamedTuple):
     mask_versions: Any         # {stack name: () int32} — bumped by the DST step
                                # when that stack's mask changed
     rng: np.ndarray            # the reference's PRNG key, uint32[2]: carried
-                               # unchanged so checkpoints keep it; unused here
+                               # unchanged so checkpoints keep it; with the
+                               # step it seeds SET's regrowth
+                               # (trainer.set_generator)
 
 
 def init_train_state(cfg, generator: torch.Generator, device=None) -> TrainState:

@@ -9,9 +9,10 @@
      re-masks gradients and moments.
 
 ``make_dst_step`` builds the topology update that runs every ``delta_t``
-steps on its own: it recomputes the dense gradients of the sparse stacks,
-prunes/grows/ablates, zeroes newly grown weights (RigL semantics: a regrown
-connection starts at w = 0 with zero momentum) and stamps ``mask_versions``.
+steps on its own (SRigL, RigL or SET, as ``cfg.sparsity.method`` says): it
+recomputes the dense gradients of the sparse stacks, prunes/grows/ablates,
+zeroes newly grown weights (RigL semantics: a regrown connection starts at
+w = 0 with zero momentum) and stamps ``mask_versions``.
 
 Both consume their state: params and moments are updated in place, as the
 reference's jitted step donates its state. The Trainer adds the shell:
@@ -146,17 +147,39 @@ def make_train_step(cfg, registry, lr_fn: Callable, *, clip_norm: float = 1.0,
     return train_step
 
 
+def set_generator(state: TrainState) -> torch.Generator:
+    """The generator SET's update at ``state.step`` draws its regrowth from,
+    on the state's device.
+
+    The reference splits its key every update; ``jax.random`` streams cannot
+    be reproduced in torch, and the port carries that key unchanged
+    (``TrainState.rng``). So the generator is seeded from the key and the
+    step together: a run restored at step s regrows exactly as an
+    uninterrupted run does at s, and the checkpoint layout stays the
+    reference's.
+    """
+    key = (int(state.rng[0]) << 32) | int(state.rng[1])
+    device = next(t for _, t in _leaves(state.params)).device
+    seed = (key * 1_000_003 + int(state.step)) % 2**63
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def make_dst_step(cfg, registry):
-    """The topology update step(state, batch) -> state: new masks and
-    neuron_active; newly grown weights restart at 0 (their moments are
-    re-masked by the next optimizer call); ``mask_versions`` of every
-    stack whose mask changed move up by one."""
+    """The topology update step(state, batch) -> state: new masks (and, for
+    SRigL, neuron_active); newly grown weights restart at 0 (their moments
+    are re-masked by the next optimizer call); ``mask_versions`` of every
+    stack whose mask changed move up by one. SET draws its regrowth from
+    ``set_generator(state)``."""
     sched = _dst_schedule(cfg)
     accum_n = max(cfg.sparsity.grad_accum_for_saliency, 1)
+    method = cfg.sparsity.method
 
     def dst_step(state: TrainState, batch: dict) -> TrainState:
         drop = sched.drop_fraction(int(state.step))
-        if accum_n > 1:
+        rng = None
+        if method == "set":  # random regrowth: no gradient to recompute
+            rng, sal = set_generator(state), {}
+        elif accum_n > 1:
             sal = {s.path: REG.get_path(state.grad_accum, s.path) / accum_n for s in registry}
         else:
             # recompute the sparse stacks' dense grads (1/delta_t amortized)
@@ -165,7 +188,8 @@ def make_dst_step(cfg, registry):
         sal_grads = _tree({p: g.float() for p, g in sal.items()})
         del sal
         sp_state = {"masks": state.masks, "neuron_active": state.neuron_active}
-        new_sp, _stats = REG.dst_update(cfg, registry, state.params, sal_grads, sp_state, drop)
+        new_sp, _stats = REG.dst_update(cfg, registry, state.params, sal_grads, sp_state, drop,
+                                        rng)
         del sal_grads
         new_versions = dict(state.mask_versions)
         for s in registry:

@@ -174,10 +174,14 @@ def test_dst_update_over_the_smoke_stacks_equals_the_reference(ablate):
 
 
 def test_dst_update_refuses_the_methods_not_ported():
+    """SRigL, RigL and SET are ported; any other method is refused, as the
+    reference refuses it (ValueError)."""
     m = smoke_model()
-    cfg = m["tcfg"].replace(sparsity=dataclasses.replace(m["tcfg"].sparsity, method="rigl"))
-    with pytest.raises(NotImplementedError, match="rigl"):
+    cfg = m["tcfg"].replace(sparsity=dataclasses.replace(m["tcfg"].sparsity, method="gmp"))
+    with pytest.raises(ValueError, match="gmp"):
         TR.dst_update(cfg, m["treg"], m["tparams"], {}, {}, np.float32(0.1))
+    with pytest.raises(ValueError, match="gmp"):
+        TR.init_sparsity_state(cfg, torch.Generator(), m["treg"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

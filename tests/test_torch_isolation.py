@@ -79,6 +79,9 @@ def test_importing_the_training_path_loads_no_jax():
         "import repro_torch.launch.train, repro_torch.train.trainer, repro_torch.train.state\n"
         "import repro_torch.core.saliency, repro_torch.core.schedule, repro_torch.core.srigl\n"
         "import repro_torch.optim, repro_torch.data.pipeline, repro_torch.kernels.ops\n"
+        "import repro_torch.core.rigl, repro_torch.core.set_sparse, repro_torch.core.theory\n"
+        "import repro_torch.core.flops, repro_torch.optim.grad_compress\n"
+        "import repro_torch.train.elastic\n"
         "from repro_torch.kernels.condensed_matmul import condensed_matmul_dw\n"
         "assert condensed_matmul_dw.launches == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

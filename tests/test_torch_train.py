@@ -13,7 +13,8 @@
   ``neuron_active`` and ``mask_versions`` after the two DST updates are
   EXACTLY equal.
 * ``python -m repro_torch.launch.train --smoke --device cpu`` runs, saves
-  checkpoints and resumes from them.
+  checkpoints and resumes from them (``--method rigl|set``:
+  ``test_torch_rigl_set.py``).
 """
 import pytest
 
@@ -218,5 +219,3 @@ def test_cli_trains_on_the_cpu_and_resumes_from_its_checkpoint(tmp_path, capsys)
     again = TL.main(args[:-4] + ["--steps", "2", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "[train] resumed from step 4" in out and int(again.step) == 6
-    with pytest.raises(NotImplementedError, match="rigl"):
-        TL.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--method", "rigl"])
