@@ -91,7 +91,36 @@ Phases, each of which raises (exit code != 0) on any failed check:
    and launches each kernel as often as the plans' decisions imply; every
    request's tokens equal a standalone generate's, or part only at a logit
    near-tie (max(TIE_GAP, 2 x the bucket-padded prefill's logit noise)).
-9. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
+   Then the first four requests once more in float32 (K1), where a stream
+   may part only below 1e-3.
+9. rows: whether torch.matmul gives other rows for other row counts M on
+   the card (M = 4 vs 8, 8 vs 32, 128 vs 512; bf16 and f32; qwen3-1.7b's
+   dense product shapes, the head through the embedding's transpose), and
+   RMSNorm, the softmax and decode attention over a longer masked span;
+   reported, not gated: it says why two correct paths' streams part.
+10. kernel:spec: K1, K2, K4, K2-coa, K5 and K6 at the shapes speculation
+   gives them (a bucket-8 draft step, 8 rows; its gamma = 3 verify, 32
+   rows; sentinel and subset drafts from plan.derive_draft_leaf), against
+   their plain versions, the 8-row launch bitwise the 32-row launch's
+   first rows, K6 == K5.
+11. profile: HardwareProfile.measure on the card (float32, as the
+   reference), its cache round trip, the plan's decisions at buckets 1 to
+   512 under the default and the measured profile; a decision that moves
+   at bucket 8 is served end to end under both and both walls printed.
+12. spec: self-draft speculative decoding in the paged engine, gamma = 3,
+   ENGINE_MIX (a warm wave, then a timed one) beside plain graph decode on
+   the same path and masks: condensed at draft ablation 0.5 (sentinel
+   drafts, K4; verify K1) and 0.0 and in f32, structured on ablation-only
+   masks (subset drafts and verify, K5). The draft and verify are replayed
+   CUDA graphs, none new in the timed wave; the timed wave launches each
+   kernel as the plans and draft kinds imply (gamma x 112 draft and 112
+   verify launches a round); pages come back after each wave; the draft
+   holds no value bytes of its own; each stream equals plain decode's or
+   parts at a tie (f32: below 1e-3); at ablation 0.0 every rejected draft
+   is at a tie. Prints acceptance, rounds, dispatches per token, draft and
+   verify device ms, both tok/s and the reference's price under both
+   profiles.
+13. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
    masks, a train batch of 8 x 64 tokens) backpropagated into the values,
    float32 and bfloat16, then condensed_over_active on the ablated masks:
    K3 launches exactly 4 * 28 times per backward and K1 (K4) 2 * 4 * 28
@@ -107,7 +136,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    of the same loss with every structured linear computed as
    structured_dense under autograd, ablated columns' dW exactly 0, and
    one layer per stack shape (B*T = 512) its dx and dW the same way.
-10. train: full-width qwen3-1.7b from a seeded random init: the train CLI
+14. train: full-width qwen3-1.7b from a seeded random init: the train CLI
    for 3 steps (8 x 64 tokens), then the Trainer with delta_t=2 for 4 steps
    (two SRigL updates): every loss and grad norm finite, after each update
    every active neuron's fan-in equal to its layer's new k', nnz <= k0 *
@@ -129,7 +158,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    survivors equal prune_survivors' on the weights the update saw, the
    grown positions were inactive and as many as pruned, and the update run
    twice more from the same state, seed and step regrows the same masks.
-11. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
+15. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
    same after two train steps, one DST update and the reference's _bump
    rewire (the first stack's mask rolled by one input row). The paged
    ServingEngine, bf16, on condensed (K1), int8 condensed (K2),
@@ -144,7 +173,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    gen-2 serves a new request bitwise equal to the refreshed engine. Each
    line gives the refresh's seconds, leaves in place and rebuilt, graphs
    recaptured and max_memory_allocated before and during.
-12. sync: a repro_torch.sync Publisher sends gen-1 (a snapshot) over a
+16. sync: a repro_torch.sync Publisher sends gen-1 (a snapshot) over a
    QueueChannel, an engine built with engine_from_snapshot (condensed,
    then int8 condensed) serves one chunk, the publisher sends gen-2 (a
    topology delta) and gen-2 again (a values-only delta), and step()
@@ -152,7 +181,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    written in place, tokens bitwise equal to [refresh]'s, the deltas
    smaller than the snapshot and the values-only one than the topology
    one; the record bytes, encode, decode and drain seconds are printed.
-13. reference: the smoke config on the card against the port's CPU path
+17. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -2050,8 +2079,10 @@ def engine_phase(setup: dict, card: str) -> None:
     between step(max_chunks=1) calls, then a second wave of the same shapes,
     on --path condensed (K1) and on --path auto with half of every stack's
     neurons ablated (K4 at bucket 8); then the first four requests on
-    condensed with int8 values (K2). Gates: replay == eager bitwise from a
-    saved state; pages disjoint and none leaked; the second wave captures
+    condensed with int8 values (K2), and in float32 (K1), where a stream
+    may part from standalone generate only below TIE_GAP's 1e-3. Gates:
+    replay == eager bitwise from a saved state; pages disjoint and none
+    leaked; the second wave captures
     no graph, runs no new prefill shape, has no cold result and launches
     each kernel as the plans' decisions imply; every request's tokens equal
     a standalone generate's, except at near-ties."""
@@ -2059,12 +2090,14 @@ def engine_phase(setup: dict, card: str) -> None:
     from repro_torch.launch import engine as E
 
     base, reg, params, masks = setup["base"], setup["reg"], setup["params"], setup["masks"]
-    cfg = base.replace(dtype="bfloat16")
-    runs = (("condensed", masks, None, ENGINE_MIX),
-            ("auto", _ablate_masks(reg, masks, ABLATION), None, ENGINE_MIX),
-            ("condensed", masks, "int8", ENGINE_MIX[:4]))
-    for path, m, vd, mix in runs:
-        label = f"engine:{path}" + (f":{vd}" if vd else "")
+    runs = (("condensed", masks, None, ENGINE_MIX, "bfloat16"),
+            ("auto", _ablate_masks(reg, masks, ABLATION), None, ENGINE_MIX, "bfloat16"),
+            ("condensed", masks, "int8", ENGINE_MIX[:4], "bfloat16"),
+            ("condensed", masks, None, ENGINE_MIX[:4], "float32"))
+    for path, m, vd, mix, dtype_name in runs:
+        cfg = base.replace(dtype=dtype_name)
+        label = (f"engine:{path}" + (f":{vd}" if vd else "")
+                 + (":f32" if dtype_name == "float32" else ""))
         eng = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
                               gen_chunk=ENGINE_CHUNK, values_dtype=vd)
         first, wall1 = _engine_wave(label, eng, mix, seed=1, replay_check=True)
@@ -2098,7 +2131,525 @@ def engine_phase(setup: dict, card: str) -> None:
               f"as the plans imply; streams bitwise equal to standalone generate "
               f"{equal}/{total}")
         del eng, first, second
+        gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# self-draft speculative decoding ([rows], [kernel:spec], [profile:measured],
+# [spec])
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 3
+SPEC_BUCKET = 8  # the engine's bucket for ENGINE_MIX's batches 2-4
+# the dense products whose rows the verify computes at bucket x (gamma + 1)
+# where plain decode computes them at the bucket: qwen3-1.7b's q, k/v and
+# fused QKV projections, the MLP's (masked stacks), and the tied head
+ROWS_SHAPES = (("wq", 2048, 2048), ("wk|wv", 2048, 1024), ("qkv", 2048, 4096),
+               ("mlp up", 2048, 6144), ("mlp down", 6144, 2048), ("head", 2048, 151_936))
+# the row counts compared: a standalone generate's decode (B = 4) against
+# the engine's bucket (8), plain decode against a gamma = 3 verify (32), and
+# a 4 x 32 prefill against the engine's bucket-padded 8 x 64
+ROWS_PAIRS = ((4, 8), (8, 32), (128, 512))
+# label, path, masks ("plain" 90% SRigL, or "only": ablation-only), draft
+# ablation, compute dtype
+SPEC_RUNS = (("spec:condensed", "condensed", "plain", 0.5, "bfloat16"),
+             ("spec:condensed:abl0", "condensed", "plain", 0.0, "bfloat16"),
+             ("spec:structured", "structured", "only", 0.5, "bfloat16"),
+             ("spec:condensed:f32", "condensed", "plain", 0.5, "float32"))
+PROFILE_BUCKETS = (1, 8, 32, 128, 512)
+
+
+def rows_phase(device) -> dict:
+    """Whether torch.matmul's rows depend on the row count M on the card,
+    at ROWS_PAIRS, bf16 and f32, at qwen3-1.7b's dense product shapes (the
+    head as the model runs it, through the embedding's transpose); and
+    whether RMSNorm, the softmax and decode attention over a longer span
+    of masked slots give other rows. Returns {(dtype, pair): [names whose
+    rows differ]}."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=device).manual_seed(11)
+    found: dict = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for name, k, n in ROWS_SHAPES:
+            if name == "head":
+                w = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(dtype).T
+            else:
+                w = (torch.randn((k, n), generator=gen, device=device) / k ** 0.5).to(dtype)
+            x = torch.randn((512, k), generator=gen, device=device).to(dtype)
+            y = {m: torch.matmul(x[:m], w) for m in (4, 8, 32, 128, 512)}
+            parts = []
+            for a, b in ROWS_PAIRS:
+                diff = (y[a].float() - y[b][:a].float()).abs()
+                rows = int((diff.amax(dim=1) > 0).sum())
+                parts.append(f"M={a} vs M={b}: {rows}/{a} rows differ "
+                             f"(max {diff.max().item():.3g})")
+                if rows:
+                    found.setdefault((dtype_name, f"{a}-{b}"), []).append(name)
+            print(f"[rows] torch.matmul {name:8s} {k}->{n} {dtype_name:8s}: " + "; ".join(parts))
+            del w, x, y
+        # decode attention over 40 tokens held in a span of 48 or of 64
+        # slots (a cache or a page table's span; the slots past 40 masked)
+        q = torch.randn((8, 1, 16, 128), generator=gen, device=device).to(dtype)
+        kv = [torch.randn((8, 64, 8, 128), generator=gen, device=device).to(dtype)
+              for _ in range(2)]
+        h2kv = tuple(h // 2 for h in range(16))
+        out = {s_: A.decode_attention(q, kv[0][:, :s_], kv[1][:, :s_], 40, head_to_kv=h2kv)
+               for s_ in (48, 64)}
+        rows = int((out[48] != out[64]).reshape(8, -1).any(dim=1).sum())
+        if rows:
+            found.setdefault((dtype_name, "span 48-64"), []).append("decode attention")
+        print(f"[rows] decode attention   {dtype_name:8s}: 40 tokens in a span of 48 vs 64 "
+              f"slots: {rows}/8 rows differ (max "
+              f"{(out[48].float() - out[64].float()).abs().max().item():.3g})")
+        # the row-wise reductions of a decode step: RMSNorm over d_model and
+        # over a head (qk-norm), the attention softmax over a table span
+        scale = torch.randn((2048,), generator=gen, device=device)
+        others = {
+            "rms_norm d_model": (lambda t: L.rms_norm(t, scale), (2048,)),
+            "rms_norm head": (lambda t: L.rms_norm(t, scale[:128]), (16, 128)),
+            "softmax span": (lambda t: torch.softmax(t.float(), dim=-1), (16, 512)),
+        }
+        for name, (fn, shape) in others.items():
+            x = torch.randn((32, *shape), generator=gen, device=device).to(dtype)
+            y = {m: fn(x[:m]) for m in (4, 8, 32)}
+            parts = []
+            for a, b in ((4, 8), (8, 32)):
+                rows = int((y[a] != y[b][:a]).reshape(a, -1).any(dim=1).sum())
+                parts.append(f"M={a} vs M={b}: {rows}/{a} rows differ")
+                if rows:
+                    found.setdefault((dtype_name, f"{a}-{b}"), []).append(name)
+            print(f"[rows] {name:16s} {dtype_name:8s}: " + "; ".join(parts))
+    torch.cuda.empty_cache()
+    print(f"[rows] products whose rows depend on M: "
+          f"{ {f'{d} {p}': v for (d, p), v in found.items()} or 'none'}")
+    return found
+
+
+def spec_kernel_phase(device) -> list:
+    """K1, K4, K2, K2-coa, K5 and K6 at the shapes speculation gives them,
+    per stack of full-width qwen3-1.7b: a bucket-8 draft step (8 rows) and
+    its gamma = 3 verify (32 rows). K1 and K2 over the target's rows; K4 and
+    K2-coa over a sentinel draft (``plan.derive_draft_leaf``: every row,
+    the less salient half's out_index the sentinel d_out); K5 over an
+    ablation-only target's surviving columns and over its subset draft (a
+    quarter of d_out, padded); K6 at the subset draft. Each against its
+    plain version, the 8-row launch bitwise equal to the 32-row launch's
+    first 8 rows (decode == tiled), K6 == K5 bitwise; bf16, and K1/K4 in
+    f32 too. Returns the per-case records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(21)
+    shapes = {}
+    for s in REG.build_registry(cfg):
+        shapes.setdefault((s.d_in, s.d_out), (s.path[-1], D.fan_in_from_density(s.d_in, s.density)))
+    rows = (SPEC_BUCKET, SPEC_BUCKET * (SPEC_GAMMA + 1))
+    cases = []
+
+    def case(kernel, what, stack, dtype_name, fn, plain, weights, nbytes, x):
+        y_big = fn(x, *weights)
+        y_small = fn(x[:rows[0]], *weights)
+        want = plain(x, *weights)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y_big.float(), want.float(), **TOL[dtype_name])
+        err = (y_big.float() - want.float()).abs().max().item()
+        if not torch.equal(y_small, y_big[:rows[0]]):
+            raise AssertionError(f"{kernel} {what} {stack} {dtype_name}: the {rows[0]}-row "
+                                 f"launch is not bitwise the {rows[1]}-row launch's rows")
+        sets = [tuple(t.clone() for t in weights) for _ in range(_copies(nbytes))]
+        ms = {r: _time_ms(fn, [(x[:r], *s) for s in sets]) for r in rows}
+        rec = dict(kernel=kernel, what=what, stack=stack, dtype=dtype_name,
+                   ms_draft_rows=ms[rows[0]], ms_verify_rows=ms[rows[1]], max_abs_err=err,
+                   rows=list(rows))
+        cases.append(rec)
+        print(f"[kernel:spec] {kernel:6s} {what:16s} {stack:6s} {dtype_name:8s}: "
+              f"{rows[0]} rows {ms[rows[0]]:.5f} ms, {rows[1]} rows {ms[rows[1]]:.5f} ms | "
+              f"max_abs_err {err:.3g} vs plain | {rows[0]} rows == first {rows[0]} of "
+              f"{rows[1]}: bitwise")
+        del sets
+        return y_small
+
+    for (d_in, d_out), (name, k) in shapes.items():
+        mask = topology.random_constant_fan_in_mask(gen, d_in, d_out, k)
+        w = torch.randn((d_in, d_out), generator=gen, device=device) / k ** 0.5
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            isz = dtype.itemsize
+            x = torch.randn((rows[1], d_in), generator=gen, device=device).to(dtype)
+            cond = F.Condensed.export_from_dense(w, mask, dtype=dtype)
+            draft, kind = PLAN.derive_draft_leaf(cond, w, mask, 0.5)
+            if kind != "sentinel" or draft.values is not cond.values:
+                raise AssertionError(f"{name}: a condensed leaf's draft is {kind}, sharing "
+                                     f"values: {draft.values is cond.values}")
+            case("K1", "target", name, dtype_name, cm.condensed_matmul,
+                 ref.condensed_matmul_ref, (cond.values, cond.indices), d_out * k * (isz + 4), x)
+            case("K4", "sentinel draft", name, dtype_name,
+                 lambda xx, v, i, o: sm.condensed_over_active_matmul(xx, v, i, o, d_out),
+                 lambda xx, v, i, o: ref.condensed_over_active_matmul_ref(xx, v, i, o, d_out),
+                 (draft.values, draft.indices, draft.out_index), d_out * (k * (isz + 4) + 4), x)
+            if dtype_name != "bfloat16":
+                continue
+            q = F.Condensed.export_from_dense(w, mask, quantize_spec="int8")
+            qd, _ = PLAN.derive_draft_leaf(q, w, mask, 0.5)
+            case("K2", "int8 target", name, dtype_name,
+                 lambda xx, v, i, s: cm.condensed_matmul(xx, v, i, scales=s),
+                 ref.condensed_matmul_scaled_ref, (q.values, q.indices, q.scales),
+                 d_out * (k * 5 + 4), x)
+            case("K2-coa", "int8 sentinel", name, dtype_name,
+                 lambda xx, v, i, o, s: sm.condensed_over_active_matmul(xx, v, i, o, d_out,
+                                                                       scales=s),
+                 lambda xx, v, i, o, s: ref.condensed_over_active_matmul_scaled_ref(
+                     xx, v, i, o, s, d_out),
+                 (qd.values, qd.indices, qd.out_index, qd.scales), d_out * (k * 5 + 8), x)
+            only = _ablated(torch.ones_like(mask), ABLATION)
+            tgt = F.StructuredFanIn.export_from_dense(w, only)
+            sub, kind = PLAN.derive_draft_leaf(tgt, w, only, 0.5)
+            if kind != "subset":
+                raise AssertionError(f"{name}: a structured leaf's draft is {kind}")
+            wd = w.to(dtype)
+
+            def k5(xx, ww, ai):
+                return sm.structured_matmul(xx, ww, ai, prefetch_gather=False)
+
+            def k5_plain(xx, ww, ai):
+                return ref.structured_matmul_ref(xx, sm._gather_columns(ww, ai), ai, d_out)
+
+            for what, leaf in (("structured target", tgt), ("subset draft", sub)):
+                a_pad = leaf.active_index.shape[0]
+                y8 = case("K5", what, name, dtype_name, k5, k5_plain,
+                          (wd, leaf.active_index), d_in * a_pad * isz + a_pad * 4, x)
+            y6 = sm.structured_matmul_prefetch(x[:rows[0]], wd, sub.active_index)
+            if not torch.equal(y6, y8):
+                raise AssertionError(f"K6 {name}: the subset draft's prefetch launch is not "
+                                     f"bitwise K5's")
+            print(f"[kernel:spec] K6     subset draft     {name:6s} bfloat16: {rows[0]} rows "
+                  f"== K5's decode launch bitwise ({sub.active_index.shape[0]} of {d_out} "
+                  f"columns, {int((sub.active_index < d_out).sum())} live)")
+            del q, qd, tgt, sub, wd
+        del mask, w
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _spec_masks(reg, masks) -> dict:
+    return {"plain": masks, "only": _ablation_only(reg, masks, ABLATION)}
+
+
+def profile_phase(setup: dict, card: str):
+    """HardwareProfile.measure on the card (CUDA events over replayed work;
+    K1 at the reference's gather points, float32 as the reference
+    measures), cached in build/autotune.json and read back; the plan's
+    per-stack decisions at PROFILE_BUCKETS under the default and the
+    measured profile, on the 90% masks and the half-ablated ones. A
+    decision that differs at bucket 8 (B = 4) is served end to end under
+    both profiles (--path auto, one B = 4 request, bf16, warm then timed),
+    and both walls are printed. Returns the measured profile."""
+    import torch
+    from repro_torch.launch import engine as E
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import plan as PLAN
+
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(REPO / "build" / "autotune.json")
+    AT.reset_cache_state()
+    device = setup["params"]["embed"].device
+    d = PLAN.DEFAULT_PROFILE
+    t0 = time.perf_counter()
+    prof = PLAN.HardwareProfile.measure(device=device, use_cache=False)
+    took = time.perf_counter() - t0
+    if PLAN.HardwareProfile.measure(device=device) != prof:
+        raise AssertionError("the measured profile did not round-trip through the cache")
+    print(f"[profile:measured] {card}: hbm {prof.hbm_bytes_per_s / 1e12:.4f} TB/s (default "
+          f"{d.hbm_bytes_per_s / 1e12:.4f}), float32 matmul (128x2048x1024) "
+          f"{prof.mxu_flops_per_s / 1e12:.3f} TFLOP/s (default, the bf16 peak, "
+          f"{d.mxu_flops_per_s / 1e12:.1f}), K1 float32 gather "
+          f"{prof.gather_flops_per_s / 1e12:.4f} TFLOP/s at B={prof.gather_small_batch} -> "
+          f"{prof.gather_flops_per_s_large / 1e12:.4f} at B={prof.gather_large_batch} "
+          f"(default {d.gather_flops_per_s / 1e12:.4f}, one point); measured in "
+          f"{took * 1e3:.1f} ms, cached in {AT.cache_path()} and read back")
+    base, reg = setup["base"], setup["reg"]
+    itemsize = getattr(torch, base.param_dtype).itemsize
+    differ = {}
+    for label, m in (("90%", setup["masks"]), ("ablated", _ablate_masks(reg, setup["masks"],
+                                                                          ABLATION))):
+        stats = COND.export_stats(reg, m)
+        for b in PROFILE_BUCKETS:
+            reps = [[PLAN.select_representation(s, batch_size=b, itemsize=itemsize,
+                                                stats=stats[s.name], profile=p).representation
+                     for s in reg] for p in (d, prof)]
+            if reps[0] != reps[1] and b == SPEC_BUCKET:
+                differ[label] = m
+            print(f"[profile:measured] {label} masks, bucket {b}: default {reps[0]} | measured "
+                  f"{reps[1]}" + ("  <- differs" if reps[0] != reps[1] else ""))
+    for label, m in differ.items():
+        walls, toks = {}, {}
+        for name, p in (("default", d), ("measured", prof)):
+            eng = E.ServingEngine(base.replace(dtype="bfloat16"), setup["params"], m, reg,
+                                  path="auto", profile=p, block_size=ENGINE_BLOCK,
+                                  gen_chunk=ENGINE_CHUNK)
+            for _ in range(2):  # warm, then timed
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rid = eng.submit(setup["prompts"], GEN)
+                eng.step()
+                [res] = eng.retire(rid)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t1
+            toks[name] = res.tokens
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"[profile:measured] {label} masks, bucket {SPEC_BUCKET} served end to end "
+              f"(B={BATCH}, prompt {PROMPT}, {GEN} new tokens, bf16, --path auto): default "
+              f"wall {walls['default'] * 1e3:.2f} ms, measured wall "
+              f"{walls['measured'] * 1e3:.2f} ms; tokens equal: "
+              f"{bool(torch.equal(toks['default'], toks['measured']))}")
+    if not differ:
+        print(f"[profile:measured] no decision differs at bucket {SPEC_BUCKET}: nothing to "
+              f"serve under both")
+    return prof
+
+
+def _prefix_gap(cfg, compute, tree, tokens) -> float:
+    """The top-2 logit gap of the next token after ``tokens`` (1, n): one
+    contiguous-cache prefill of the prefix."""
+    import torch
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        cache = M.init_cache(cfg, 1, tokens.shape[1], tokens.device)
+        logits, _ = M.prefill_step(cfg, compute, tree, {"tokens": tokens}, cache)
+        top2 = logits[0, :cfg.vocab_size].topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def _replay_ms(decoder, reps: int = 10) -> float:
+    """Device ms of one replay of ``decoder``'s graph (median of ``reps``;
+    the step index is reset before each, outside the timed span)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        decoder.state.step.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        decoder.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _spec_expected(eng, dispatches: dict) -> dict:
+    """Kernel launches the plans and draft kinds imply for ``dispatches``
+    ({plan key: (prefills, rounds)}): per layer, each stack's target kernel
+    once per prefill and per verify, its draft's kernel gamma times a round."""
+    quant = eng.values_dtype is not None
+    target = {"condensed": "K2" if quant else "K1",
+              "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
+    draft = {"sentinel": "K2-coa" if quant else "K4", "subset": "K5"}
+    gamma = eng.speculative.gamma
+    expected = _none()
+    for key, (prefills, rounds) in dispatches.items():
+        report = eng._draft_reports[key]
+        for name, rep in key.formats:
+            if rep in target:
+                expected[target[rep]] += eng.cfg.n_layers * (prefills + rounds)
+            kind = report[name]
+            kern = draft.get(kind) if kind != "identity" else target.get(rep)
+            if kern:
+                expected[kern] += eng.cfg.n_layers * gamma * rounds
+    return expected
+
+
+def spec_phase(setup: dict, card: str, measured) -> None:
+    """Self-draft speculative decoding in the paged engine at full width,
+    gamma = 3, ENGINE_MIX, one warm wave then one timed wave, beside the
+    plain engine (graph decode) on the same path, masks and mix in the same
+    call: condensed with draft ablation 0.5 (sentinel drafts: K4, verify
+    K1), 0.0 (the protocol's ceiling) and in f32, and structured on
+    ablation-only masks (subset drafts and verify on K5). Gates: the draft
+    and verify are replayed graphs, none captured in the timed wave and no
+    result cold; the timed wave launches each kernel as the plans and draft
+    kinds imply; pages all back after each wave; no extra draft weight
+    bytes; every stream equals the plain engine's or parts at a top-2 gap
+    under the tie rule (f32: only below 1e-3); at draft ablation 0.0 every
+    rejected draft is at such a tie. Prints acceptance, rounds, full-network
+    dispatches per token, draft and verify device ms a round (CUDA events),
+    both tok/s, launches a round, and SpecEstimate under the default and the
+    measured profile beside the measured step ratios. Configurations that
+    share the path, masks and dtype share one plain engine's waves."""
+    import torch
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import speculative as SP
+    from repro_torch.sparse import plan as PLAN
+
+    base, reg, params = setup["base"], setup["reg"], setup["params"]
+    masks_of = _spec_masks(reg, setup["masks"])
+    gamma = SPEC_GAMMA
+    tokens_per_wave = sum(b * g for b, _, g in ENGINE_MIX)
+    plain_runs: dict = {}       # (path, masks, dtype): the plain engine's timed wave
+    for label, path, mk, ablation, dtype_name in SPEC_RUNS:
+        t_run = time.perf_counter()
+        cfg = base.replace(dtype=dtype_name)
+        m = masks_of[mk]
+        if (path, mk, dtype_name) not in plain_runs:
+            plain_runs.clear()
+            gc.collect()
+            plain = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
+                                    gen_chunk=ENGINE_CHUNK)
+            _engine_wave(label + ":plain", plain, ENGINE_MIX, seed=1)
+            plain_res, plain_wall = _engine_wave(label + ":plain", plain, ENGINE_MIX, seed=2)
+            plain_step_ms = _replay_ms(plain._runners[plain.plan_key(SPEC_BUCKET)].decoder)
+            plain_runs[(path, mk, dtype_name)] = (plain, plain_res, plain_wall, plain_step_ms)
+        plain, plain_res, plain_wall, plain_step_ms = plain_runs[(path, mk, dtype_name)]
+
+        eng = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
+                              gen_chunk=ENGINE_CHUNK,
+                              speculative=SP.SpecConfig(gamma=gamma, draft_ablation=ablation,
+                                                        force=True))
+        _engine_wave(label, eng, ENGINE_MIX, seed=1)
+        programs = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
+        if not programs["draft"] or programs["draft"] != programs["verify"] or \
+                eng.program_count("decode"):
+            raise AssertionError(f"{label}: graphs {programs}, decode "
+                                 f"{eng.program_count('decode')}")
+        if any(r.draft.graph is None or r.verify.graph is None
+               for r in eng._runners.values()):
+            raise AssertionError(f"{label}: a draft or verify step is not a captured graph")
+        before = {key: (r.prefills, r.rounds, r.draft_s, r.verify_s)
+                  for key, r in eng._runners.items()}
+        _zero_counts()
+        res, wall = _engine_wave(label, eng, ENGINE_MIX, seed=2)
+        counts = _counts()
+        after = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
+        if after != programs:
+            raise AssertionError(f"{label}: the timed wave ran new signatures {programs} -> "
+                                 f"{after}")
+        cold = sorted(rid for rid, (_, _, r) in res.items() if r.cold)
+        if cold:
+            raise AssertionError(f"{label}: timed-wave requests {cold} are cold")
+        dispatches = {key: (r.prefills - before.get(key, (0,) * 4)[0],
+                            r.rounds - before.get(key, (0,) * 4)[1])
+                      for key, r in eng._runners.items()}
+        expected = _spec_expected(eng, dispatches)
+        if counts != expected:
+            raise AssertionError(f"{label}: the timed wave launched {counts}, the plans and "
+                                 f"draft kinds imply {expected}")
+        rounds = sum(r for _, r in dispatches.values())
+        in_prefill = _spec_expected(eng, {k: (p, 0) for k, (p, _) in dispatches.items()})
+        per_round = {k: round((v - in_prefill[k]) / max(rounds, 1), 2)
+                     for k, v in counts.items() if v - in_prefill[k]}
+        key8 = eng.plan_key(SPEC_BUCKET)
+        target, draft = eng.serving_tree_for(key8), eng.draft_tree_for(key8)
+        shared, extra = PLAN.draft_weight_overhead_bytes(reg, target, draft)
+        if extra:
+            raise AssertionError(f"{label}: the draft holds {extra} value bytes of its own")
+        kinds = sorted(set(eng._draft_reports[key8].values()))
+
+        # tokens against the plain engine's (same ids: both engines saw the
+        # same two waves)
+        tie = TIE_GAP[dtype_name]
+        equal = total = 0
+        for rid, (p, g, r) in res.items():
+            want = plain_res[rid][2].tokens
+            t = p.shape[1]
+            div = _first_divergence(r.tokens[:, t:], want[:, t:])
+            total += len(div)
+            equal += sum(j is None for j in div)
+            if all(j is None for j in div):
+                continue
+            if dtype_name != "float32":
+                tie = max(TIE_GAP[dtype_name],
+                          2 * _engine_noise(cfg, plain, r.plan_key,
+                                            plain.serving_tree_for(r.plan_key), p.to(plain.device)))
+            for i, j in enumerate(div):
+                if j is None:
+                    continue
+                gap = _prefix_gap(cfg, plain.compute, plain.serving_tree_for(r.plan_key),
+                                  want[i:i + 1, :t + j])
+                print(f"[{label}] request {rid} stream {i}: parts from plain graph decode at "
+                      f"generated token {j}, top-2 gap {gap:.3g} (tie below {tie:.3g})")
+                if gap >= tie:
+                    raise AssertionError(f"{label}: request {rid} differs from plain decode "
+                                         f"at a gap of {gap}")
+        stats = [r.spec for _, _, r in res.values()]
+        drafted = sum(s["drafted"] for s in stats)
+        matched = sum(s["matched"] for s in stats)
+        acceptance = matched / max(drafted, 1)
+        fdpt = statistics.mean(s["full_dispatches_per_token"] for s in stats)
+        if ablation == 0.0:
+            largest = 0.0
+            rejects = {(rid, i, q) for rid, (_, _, r) in res.items()
+                       for i, q in r.spec["rejected"]}
+            for rid, i, q in sorted(rejects):
+                p, _, r = res[rid]
+                t = p.shape[1]
+                tree = eng.serving_tree_for(r.plan_key)
+                gap = _prefix_gap(cfg, eng.compute, tree, r.tokens[i:i + 1, :t + q])
+                tie0 = TIE_GAP[dtype_name] if dtype_name == "float32" else max(
+                    TIE_GAP[dtype_name],
+                    2 * _engine_noise(cfg, eng, r.plan_key, tree, p.to(eng.device)))
+                print(f"[{label}] request {rid} stream {i}: draft rejected at generated token "
+                      f"{q}, top-2 gap {gap:.3g} (tie below {tie0:.3g})")
+                if gap >= tie0:
+                    raise AssertionError(f"{label}: a draft rejected at draft ablation 0 at a "
+                                         f"top-2 gap of {gap}")
+                largest = max(largest, gap)
+            print(f"[{label}] draft ablation 0.0: {len(rejects)} rejections in "
+                  f"{drafted} drafts, each at a tie (largest gap {largest:.3g}); acceptance "
+                  f"{acceptance:.4f}")
+        runner8 = eng._runners[key8]
+        _, rounds0, draft0, verify0 = before.get(key8, (0,) * 4)
+        draft_ms = (runner8.draft_s - draft0) / (runner8.rounds - rounds0) * 1e3
+        verify_ms = (runner8.verify_s - verify0) / (runner8.rounds - rounds0) * 1e3
+        draft_step_ms = _replay_ms(runner8.draft)
+        verify_step_ms = _replay_ms(runner8.verify)
+        ests = {name: PLAN.price_speculation(reg, target, draft, batch_size=SPEC_BUCKET,
+                                             gamma=gamma, acceptance=a, profile=p)
+                for name, p, a in (("default", PLAN.DEFAULT_PROFILE, 0.7),
+                                   ("measured", measured, 0.7),
+                                   ("measured at the measured acceptance", measured,
+                                    acceptance))}
+        est_s = "; ".join(
+            f"{n}: draft/target {e.draft_step_s / e.target_step_s:.3f}, verify/target "
+            f"{e.verify_s / e.target_step_s:.3f}, {e.spec_s_per_token * 1e6:.2f} vs "
+            f"{e.base_s_per_token * 1e6:.2f} us/token at acceptance {e.acceptance:.3f} -> auto "
+            f"would {'run' if e.worthwhile else 'decline'}" for n, e in ests.items())
+        print(f"[{label}] {card}: {dtype_name}, gamma {gamma}, draft ablation {ablation} "
+              f"({'/'.join(kinds)} drafts); timed wave {wall:.3f}s = "
+              f"{tokens_per_wave / wall:.1f} tok/s vs plain graph decode {plain_wall:.3f}s = "
+              f"{tokens_per_wave / plain_wall:.1f} tok/s ({plain_wall / wall:.3f}x); acceptance "
+              f"{acceptance:.4f} ({matched}/{drafted}), {rounds} rounds, full-network "
+              f"dispatches/token {fdpt:.4f} (mean over requests); bucket {SPEC_BUCKET} per "
+              f"round: draft {draft_ms:.3f} ms + verify {verify_ms:.3f} ms device (events); "
+              f"one replay: draft step {draft_step_ms:.3f} ms, verify {verify_step_ms:.3f} ms, "
+              f"plain decode step {plain_step_ms:.3f} ms (draft/plain "
+              f"{draft_step_ms / plain_step_ms:.3f}, verify/plain "
+              f"{verify_step_ms / plain_step_ms:.3f}); graphs: draft {programs['draft']}, "
+              f"verify {programs['verify']}, none new in the timed wave, no cold result; "
+              f"launches {counts} as the plans imply, per round {per_round}; pages all back "
+              f"after each wave; draft weight bytes shared {shared}, extra {extra}; streams "
+              f"bitwise equal to plain graph decode {equal}/{total}")
+        print(f"[{label}] SpecEstimate at bucket {SPEC_BUCKET}: {est_s}")
+        print(f"[time] {label}: {time.perf_counter() - t_run:.1f}s")
+        del eng, plain, res, plain_res
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain_runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _map_leaves(tree: dict, fn) -> dict:
@@ -3356,6 +3907,10 @@ def main() -> int:
     launches.update({"K2": quant["K2"], "K2-coa": quant["K2-coa"]})
     timed("checkpoint", checkpoint_phase, setup)
     timed("engine", engine_phase, setup, card)
+    timed("rows", rows_phase, device)
+    spec_cases = timed("kernel_spec", spec_kernel_phase, device)
+    measured = timed("profile", profile_phase, setup, card)
+    timed("spec", spec_phase, setup, card, measured)
     launches["K3"] = timed("grad", grad_phase, setup)
     timed("grad_structured", structured_grad_phase, setup)
     report = setup["report"]
@@ -3379,7 +3934,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
-                    "rigl_cases": rigl_cases}, indent=1))
+                    "rigl_cases": rigl_cases, "spec_cases": spec_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

@@ -6,11 +6,16 @@ the engine, keep training, and refresh the engine incrementally.
 
 (``--device cuda``, the default, runs on the card, where the condensed
 paths launch the port's CUDA kernels and every decode step is a replayed
-CUDA graph.) The sections follow ``examples/quickstart.py``'s 1-6 and 8;
-section 7 (calibration) waits for the port's ``HardwareProfile.measure``.
+CUDA graph.) The sections follow ``examples/quickstart.py``'s 1-8 and 13:
+section 7 has the profile half of the reference's calibration (its
+launch-configuration search waits for ROADMAP queue 1, item 10), section
+13 is self-draft speculative decoding.
 """
 import argparse
 import dataclasses
+import os
+import subprocess
+import sys
 import time
 import types
 
@@ -23,9 +28,11 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.kernels import structured_matmul as SM
 from repro_torch.launch.engine import ServingEngine, generate
+from repro_torch.launch.speculative import SpecConfig
 from repro_torch.models import model as M
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import plan as PLAN
+from repro_torch.sparse import autotune
 from repro_torch.sparse import registry as REG
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import make_dst_step, make_train_step
@@ -152,8 +159,27 @@ def main(argv=None):
     print(f"serve: refreshed engine tokens == masked decode tokens: "
           f"{bool(torch.equal(out_masked.cpu(), res.tokens.cpu()))}")
 
-    # 7. calibration (HardwareProfile.measure, engine.autotune) is not
-    #    ported yet: ROADMAP queue 1, item 10.
+    # 7. calibration: replace the cost model's built-in H100 figures with
+    #    rates measured on this device (a float32 stream, a matmul, and the
+    #    condensed gather at two batch points, B = 8 and 512; CUDA events
+    #    over replayed work on the card), cached per device name. The plan
+    #    decisions at each bucket under both profiles, side by side.
+    #    (CLI: --path auto --profile measured.) The reference's block search
+    #    (engine.autotune) is not ported yet: ROADMAP queue 1, item 10.
+    prof = PLAN.HardwareProfile.measure(device=device)
+    print(f"calibrated {prof.name}: hbm {prof.hbm_bytes_per_s / 1e9:.1f} GB/s "
+          f"matmul {prof.mxu_flops_per_s / 1e9:.1f} GFLOP/s "
+          f"gather {prof.gather_flops_per_s / 1e9:.1f}->"
+          f"{prof.gather_flops_per_s_large / 1e9:.1f} GFLOP/s "
+          f"(b={prof.gather_small_batch}->{prof.gather_large_batch}; "
+          f"cache: {autotune.cache_path()})")
+    engine_m = ServingEngine(cfg, state.params, state.masks, registry, path="auto",
+                             profile=prof)
+    for bb in (1, 8, 32, 128, 512):
+        reps = {p_.name: [dict(k.formats)[s.name] for s in registry]
+                for p_, k in ((PLAN.DEFAULT_PROFILE, engine.plan_key(bb)),
+                              (prof, engine_m.plan_key(bb)))}
+        print(f"decisions @ bucket {bb}: " + " | ".join(f"{n}: {r}" for n, r in reps.items()))
 
     # 8. ablation-aware kernels (Fig. 4 "structured"): the structured path
     #    multiplies only the surviving columns of the dense weight (K5 on
@@ -183,6 +209,56 @@ def main(argv=None):
         dec = PLAN.select_representation(stack, batch_size=bb, itemsize=4, stats=stats)
         est = {r: f"{v * 1e6:.1f}us" for r, v in dec.est_s.items()}
         print(f"auto @ b={bb} (ablation-only stack) -> {dec.representation} {est}")
+
+    # 13. self-draft speculative decoding: neuron ablation means the served
+    #     model already contains its own draft, the same trained weights at
+    #     a higher ablation fraction. The engine derives a draft tree per
+    #     plan key (plan.derive_draft_tree: every value tensor shared with
+    #     the target plan, asserted), runs gamma draft steps, then one
+    #     full-network verify over the gamma + 1 positions; the agreed prefix
+    #     commits and the paged KV past it is rewound. Greedy acceptance
+    #     keeps the tokens plain greedy decode's: the knobs trade
+    #     full-network dispatches per token, never correctness. Whether it
+    #     is worth running is priced (plan.price_speculation; --path auto
+    #     may decline, a fixed path runs). Ablation 0.0 is the protocol's
+    #     ceiling: acceptance 1.0, 1/(gamma + 1) dispatches per token. On
+    #     the card the draft and verify are replayed CUDA graphs.
+    p13 = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(13))
+    eng_ref = ServingEngine(cfg, state.params, state.masks, registry, path="condensed")
+    rid = eng_ref.submit(p13, gen_len=16)
+    eng_ref.step()
+    [ref13] = eng_ref.retire(rid)
+    for gamma, frac in ((3, 0.0), (3, 0.5), (2, 0.5)):
+        eng13 = ServingEngine(cfg, state.params, state.masks, registry, path="condensed",
+                              speculative=SpecConfig(gamma=gamma, draft_ablation=frac,
+                                                     force=True))
+        rid = eng13.submit(p13, gen_len=16)
+        eng13.step()
+        [res13] = eng13.retire(rid)
+        s13 = res13.spec
+        print(f"spec g={gamma} abl={frac}: acceptance {s13['acceptance_rate']:.2f}, "
+              f"full-network dispatches/token {s13['full_dispatches_per_token']:.3f}, "
+              f"bitwise == plain: {bool(torch.equal(res13.tokens, ref13.tokens))}")
+    est13 = eng13.spec_estimate_for(eng13.plan_key(2))
+    print(f"spec pricing @ smoke dims: draft {est13.draft_step_s * 1e6:.2f}us vs target "
+          f"{est13.target_step_s * 1e6:.2f}us per step -> auto would "
+          f"{'run' if est13.worthwhile else 'decline'} (a sentinel draft gathers every row)")
+    # the CLI drives the same: --speculative --gamma G --draft-ablation F
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-1.7b", "--smoke",
+         "--path", "condensed", "--batch", "2", "--prompt-len", "8", "--gen", "16",
+         "--speculative", "--gamma", "3", "--draft-ablation", "0.5", "--device", args.device],
+        capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")]
+            + [p_ for p_ in [os.environ.get("PYTHONPATH")] if p_])))
+    for line in proc.stdout.splitlines():
+        if "[serve:spec]" in line or "tok/s" in line:
+            print(f"spec-cli| {line}")
+    if proc.returncode:
+        print(proc.stdout[-2000:], proc.stderr[-2000:])
+        raise SystemExit("serve --speculative failed")
 
 
 if __name__ == "__main__":

@@ -50,14 +50,28 @@ the new numbers on their next replay. Each decode step records the storage
 whose record no longer matches (a leaf changed shape, or was rebuilt) is
 recaptured at its next chunk, and the result that rode it is ``cold``.
 
-Not ported in this slice: tensor parallelism (``mesh``), speculative
-decoding, ``autotune`` and ``abstract_plan_key`` (ROADMAP queue 1).
+With ``speculative=SpecConfig(...)`` each group decodes in speculative
+rounds instead of chunks (``launch/speculative.py``): ``gamma`` steps of a
+draft graph over the plan's draft tree (the same weights at a higher neuron
+ablation, ``plan.derive_draft_tree``), one verify graph over the ``gamma +
+1`` positions, one host sync, acceptance on the host and a paged rewind of
+what the round wrote past each stream's committed length. The tokens are
+plain greedy decode's. The draft and verify graphs live beside the decode
+graph under the same signature rules: dropped with it when the pool moves,
+and recaptured when the tensors they read move. A refresh or a sync drain
+moves the saliency a draft's ``out_index`` follows, so each draft is
+derived again and written into the old draft's tensors where the shapes
+hold (its graph stays valid); ``captures`` counts every graph made.
+
+Not ported in this slice: tensor parallelism (``mesh``), ``autotune`` and
+``abstract_plan_key`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -65,6 +79,7 @@ from torch import nn
 
 from repro_torch import bridge
 from repro_torch.kernels import counters
+from repro_torch.launch import speculative as SP
 from repro_torch.models import model as M
 from repro_torch.models import paged as PG
 from repro_torch.sparse import condensed as COND
@@ -412,6 +427,69 @@ def _paged_decode_dispatch(runner: "_PagedRunner", chunk: int):
     return out[:, :chunk], out[:, chunk:], time.perf_counter() - t0, cold
 
 
+@torch.no_grad()
+def _spec_dispatch(runner: "_PagedRunner"):
+    """One timed speculative round on the device: the host's tables,
+    lengths and next tokens copied into the runner's static buffers,
+    ``gamma`` replays of the draft graph, one of the verify graph, then the
+    round's one host sync (eager steps on the CPU). Returns (feed (B, gamma +
+    1), targ (B, gamma + 1), wall seconds, draft seconds, verify seconds,
+    cold): numpy; the draft and verify seconds from CUDA events on the card;
+    cold when a graph had to be captured in-line."""
+    gamma = runner.eng.speculative.gamma
+    t0 = time.perf_counter()
+    cold = runner._ensure_spec()
+    st = runner.state
+    st.table.copy_(torch.from_numpy(runner.table))
+    st.lengths.copy_(torch.from_numpy(runner.lengths))
+    st.cur.copy_(torch.from_numpy(runner.cur))
+    stamps = SP.Stamps(st.cur.device)
+    stamps.mark()
+    runner.draft.run(gamma)
+    stamps.mark()
+    runner.verify.run(1)
+    stamps.mark()
+    out = torch.cat([st.toks[:, :gamma + 1], runner.targ], dim=1).cpu().numpy()
+    dt_draft, dt_verify = stamps.seconds()
+    runner.rounds += 1
+    runner.draft_s += dt_draft
+    runner.verify_s += dt_verify
+    return (out[:, :gamma + 1], out[:, gamma + 1:], time.perf_counter() - t0, dt_draft,
+            dt_verify, cold)
+
+
+@torch.no_grad()
+def _adopt_draft(old: dict | None, new: dict, target: dict, registry) -> dict:
+    """``new``, a draft derived again after a refresh, written into the
+    tensors of ``old``, the draft it replaces, so the captured draft graph
+    (which reads ``old``'s addresses) stays valid. That holds where every
+    stack's draft keeps its format, static fields, and array shapes and
+    dtypes, and shares the same tensors of the (``target``) serving tree;
+    otherwise ``new`` is returned and the draft graph is recaptured."""
+    if old is None:
+        return new
+    copies = []
+    for s in registry:
+        o, n = REG.get_path(old, s.path), REG.get_path(new, s.path)
+        if type(o) is not type(n) or any(getattr(o, f) != getattr(n, f)
+                                         for f in n._static_fields):
+            return new
+        oa, na = o.arrays(), n.arrays()
+        if oa.keys() != na.keys():
+            return new
+        shared = {id(a) for a in REG.get_path(target, s.path).arrays().values()}
+        for f, t in na.items():
+            if t is oa[f]:
+                continue                # a target tensor both drafts read
+            if id(t) in shared or id(oa[f]) in shared or t.shape != oa[f].shape \
+                    or t.dtype != oa[f].dtype:
+                return new
+            copies.append((oa[f], t))
+    for dst, src in copies:
+        dst.copy_(src)
+    return old
+
+
 def _pow2_bucket(n: int) -> int:
     """Prompt-length bucket: next power of two (>= 1)."""
     b = 1
@@ -460,6 +538,7 @@ class Result:
     tok_s: float            # decode throughput of the slab this request ran in
     cold: bool = False      # a dispatch it rode captured a graph (or ran a new
                             # prefill signature) in-line; never with warm=True
+    spec: dict | None = None  # ``SpecStats.summary`` when it decoded speculatively
 
 
 @dataclasses.dataclass(frozen=True)
@@ -489,21 +568,27 @@ class _Active:
     cold: bool
     toks: list = dataclasses.field(default_factory=list)
     decode_s: float = 0.0
+    spec: SP.SpecStats = dataclasses.field(default_factory=SP.SpecStats)
+    base_pages: int = 0         # the admission budget per row: rewinds stop there
 
 
 class _PagedRunner:
     """Device and host state of one plan-key group.
 
-    Owns the page pool and the static buffers its decode graph reads
-    (``state``: pool, tables, lengths, next tokens, emitted tokens), the
-    host copies of the tables, lengths and next tokens, and the graph
-    (``decoder``). Rows are bucket slots: every dispatch runs at the full
+    Owns the page pool and the static buffers its graphs read (``state``:
+    pool, tables, lengths, next tokens, emitted tokens; ``targ``, the
+    verify's argmax), the host copies of the tables, lengths and next
+    tokens, and the graphs (``decoder``; ``draft`` and ``verify`` when the
+    engine speculates). Rows are bucket slots: every dispatch runs at the full
     ``key.batch_bucket``, idle rows with all-zero tables (the garbage page)
     and length 0.
     """
 
     def __init__(self, eng: "ServingEngine", key: PlanKey):
-        self.eng = eng
+        # the engine owns its runners; a weak reference back keeps them out
+        # of a cycle, so a dropped engine's graphs are freed at once, never
+        # by the cyclic collector (which may run inside another capture)
+        self._eng = weakref.ref(eng)
         self.key = key
         self.bucket = key.batch_bucket
         self.bs = eng.block_size
@@ -517,16 +602,26 @@ class _PagedRunner:
         self.active: dict[int, _Active] = {}
         self.state: _DecodeState | None = None
         self.decoder: _Decoder | None = None
+        self.draft: _Decoder | None = None      # speculative: the draft step
+        self.verify: _Decoder | None = None     # speculative: the verify
+        self.targ: torch.Tensor | None = None   # (bucket, gamma + 1) verify argmax
         self.prefills = 0               # prefill dispatches of requests
         self.steps = 0                  # decode steps dispatched
+        self.rounds = 0                 # speculative rounds dispatched
+        self.draft_s = 0.0              # their draft and verify device seconds
+        self.verify_s = 0.0
+
+    @property
+    def eng(self) -> "ServingEngine":
+        return self._eng()
 
     # -- capacity -----------------------------------------------------------
 
     def _ensure_capacity(self, nb_needed: int, pages_needed: int) -> None:
         """Size (or grow) the pool so an admission of ``pages_needed`` fresh
         pages with table width ``nb_needed`` fits. Growth moves the pool and
-        widens the tables, so the decode graph of the old shape is dropped
-        (and recaptured at the new one); existing pages keep their ids and
+        widens the tables, so the graphs of the old shape are dropped (and
+        recaptured at the new one); existing pages keep their ids and
         contents, so in-flight streams are unaffected."""
         nb = max(self.nb, nb_needed)
         blocks = self.num_blocks
@@ -554,12 +649,19 @@ class _PagedRunner:
             self._new_state(pool)
 
     def _new_state(self, pool: dict) -> None:
-        dev = self.eng.device
+        eng = self.eng
+        dev = eng.device
+        sc = eng.speculative
+        # a speculative round's feed [cur, d_1..d_gamma] lives in the
+        # emitted-token buffer, so it is at least gamma + 1 wide
+        width = max(eng.gen_chunk, sc.gamma + 1) if sc is not None else eng.gen_chunk
         self.state = _new_state(
-            self.bucket, self.eng.gen_chunk, dev, pool=pool,
+            self.bucket, width, dev, pool=pool,
             table=torch.zeros((self.bucket, self.nb), dtype=torch.int32, device=dev),
             lengths=torch.zeros((self.bucket,), dtype=torch.int32, device=dev))
-        self.decoder = None
+        self.targ = (torch.zeros((self.bucket, sc.gamma + 1), dtype=torch.int32, device=dev)
+                     if sc is not None else None)
+        self.decoder = self.draft = self.verify = None
 
     # -- the decode graph ---------------------------------------------------
 
@@ -577,22 +679,55 @@ class _PagedRunner:
         step writes only the garbage page and the first token column; the
         host refills the buffers before each chunk).
         Returns whether it had to."""
-        eng, st = self.eng, self.state
+        eng = self.eng
         tree = eng.serving_tree_for(self.key)
         storage = _storage(eng.compute, tree)
         if self.decoder is not None and self.decoder.storage == storage:
             return False
+        self.decoder = self._make("decode", functools.partial(
+            _paged_step, eng.cfg, eng.compute, tree, self.state), storage)
+        return True
+
+    def _make(self, kind: str, step, storage: tuple, lengths: int = 0) -> _Decoder:
+        """A step of ``kind`` over the runner's state, captured on the card
+        on garbage state: every table row at page 0, step index 0 and the
+        lengths at ``lengths`` (the verify's L0 = lengths - gamma is then 0),
+        so the capture's eager warm-up writes only the garbage page; the
+        host refills the buffers before each dispatch."""
+        eng, st = self.eng, self.state
         st.table.zero_()
-        st.lengths.zero_()
+        st.lengths.fill_(lengths)
         st.step.zero_()     # a recapture comes after a chunk left it at the chunk's end
-        dec = _Decoder(functools.partial(_paged_step, eng.cfg, eng.compute, tree, st), st,
-                       storage)
+        dec = _Decoder(step, st, storage)
         if st.cur.device.type == "cuda":
             dec.capture(eng._graph_pool)
         eng._captures += 1
-        eng._programs["decode"].add(self._signature(storage))
-        self.decoder = dec
-        return True
+        eng._programs[kind].add(self._signature(storage) + (
+            (eng.speculative.gamma,) if kind != "decode" else ()))
+        return dec
+
+    def _ensure_spec(self) -> bool:
+        """Make the draft and verify steps of the current signature where
+        there are none or the tensors they read have moved (a new draft tree
+        after a refresh, a rebuilt leaf), capturing them on the card.
+        Returns whether it had to."""
+        eng = self.eng
+        gamma = eng.speculative.gamma
+        made = False
+        draft_tree = eng.draft_tree_for(self.key)
+        storage = _storage(eng.compute, draft_tree)
+        if self.draft is None or self.draft.storage != storage:
+            self.draft = self._make("draft", functools.partial(
+                _paged_step, eng.cfg, eng.compute, draft_tree, self.state), storage)
+            made = True
+        tree = eng.serving_tree_for(self.key)
+        storage = _storage(eng.compute, tree)
+        if self.verify is None or self.verify.storage != storage:
+            self.verify = self._make("verify", functools.partial(
+                SP.verify_step, eng.cfg, eng.compute, tree, self.state, self.targ, gamma),
+                storage, lengths=gamma)
+            made = True
+        return made
 
     def _warm(self, kind: str, t: int = 0) -> None:
         """Make a new signature ready outside the timed window: capture the
@@ -606,6 +741,10 @@ class _PagedRunner:
             # recaptured in the dispatch, and its result is cold
             if self.decoder is None:
                 self._ensure_decoder()
+            return
+        if kind in ("draft", "verify"):
+            if getattr(self, kind) is None:
+                self._ensure_spec()
             return
         sig = (self.key, t)
         if sig in eng._programs["prefill"]:
@@ -647,7 +786,15 @@ class _PagedRunner:
         # end. Tight capacity keeps the attention span (nb * bs) near the
         # contiguous cache's.
         per_row = {r.id: PG.pages_for(t_bucket + r.gen_len, self.bs) for r in chosen}
-        self._ensure_capacity(max(per_row.values()),
+        # speculative: the table is wider than the page budget, by gamma
+        # slots: draft and verify overshoot lands in entries that are either
+        # best-effort page grants (rewound each round) or zero (the writes
+        # clamp into the garbage page, and the commit is capped to match)
+        nb_width = max(per_row.values())
+        if eng.speculative is not None:
+            nb_width = max(PG.pages_for(t_bucket + r.gen_len + eng.speculative.gamma, self.bs)
+                           for r in chosen)
+        self._ensure_capacity(nb_width,
                               sum(per_row[r.id] * r.prompts.shape[0] for r in chosen))
         if eng.warm:
             self._warm("prefill", t_bucket)
@@ -671,7 +818,8 @@ class _PagedRunner:
                     tokens[row, :t] = prompts_np[i]
                     prompt_lens[row] = t
                 admitted.append(_Active(req=r, rows=rows, pages=pages_all,
-                                        remaining=r.gen_len, prefill_s=0.0, cold=False))
+                                        remaining=r.gen_len, prefill_s=0.0, cold=False,
+                                        base_pages=per_row[r.id]))
             dev = eng.device
             logits, dt, cold = _paged_prefill_dispatch(
                 eng.cfg, eng.compute, eng.serving_tree_for(self.key),
@@ -727,14 +875,96 @@ class _PagedRunner:
             if a.remaining == 0:
                 self._retire(a)
 
+    # -- speculative rounds -------------------------------------------------
+
+    def spec_round(self) -> None:
+        """One speculative round over the full bucket: ``gamma`` draft steps,
+        one verify over the ``gamma + 1`` positions, acceptance on the host,
+        and a paged rewind of what the round wrote past each stream's new
+        committed length. A request's rows commit in lockstep (they share
+        one remaining count): each commits the minimum over its rows of
+        (accepted prefix + 1), capped further by what remains and by the
+        capacity of the pages the row holds. A cap below a row's acceptance
+        stays exact; the dropped suffix is drafted again next round."""
+        if not self.active:
+            return
+        eng = self.eng
+        gamma = eng.speculative.gamma
+        live = np.zeros((self.bucket,), bool)
+        for a in self.active.values():
+            live[a.rows] = True
+        self.lengths[~live] = 0      # idle rows: writes pinned to page 0
+        # best-effort overshoot grants: pages covering slots up to L0 +
+        # gamma. A row that gets none still makes progress: its overshoot
+        # writes clamp into the garbage page and its commit is capped at the
+        # capacity it holds (>= 1: the admission budget covers the next token)
+        for a in self.active.values():
+            for row in a.rows:
+                needed = PG.pages_for(int(self.lengths[row]) + gamma + 1, self.bs)
+                held = int(np.count_nonzero(self.table[row]))
+                if needed > held:
+                    try:
+                        extra = self.alloc.alloc(needed - held)
+                    except RuntimeError:
+                        continue
+                    self.table[row, held:held + len(extra)] = extra
+                    a.pages.extend(extra)
+        if eng.warm:
+            self._warm("draft")
+            self._warm("verify")
+        feed, targ, dt, dt_draft, dt_verify, cold = _spec_dispatch(self)
+        for a in list(self.active.values()):
+            commit, matched = a.remaining, 0
+            for i, row in enumerate(a.rows):
+                m = 0
+                while m < gamma and feed[row, m + 1] == targ[row, m]:
+                    m += 1
+                matched += m
+                # only positions whose verify K/V landed in held pages have
+                # the right logits (garbage-page overshoot attends junk)
+                held = int(np.count_nonzero(self.table[row]))
+                room = held * self.bs - int(self.lengths[row])
+                commit = min(commit, m + 1, room)
+                # a rejection at a right logit, of a token the request emits:
+                # the generated index where the target's pick beat the draft's
+                pick = int(self.lengths[row]) - a.req.prompts.shape[1] + m + 1
+                if m < gamma and m < room and pick < a.req.gen_len:
+                    a.spec.rejected.append((i, pick))
+            assert commit >= 1, "the admission budget must cover the next token"
+            a.toks.append(feed[a.rows, :commit])
+            for row in a.rows:
+                self.cur[row, 0] = targ[row, commit - 1]
+                self.lengths[row] += commit
+            a.remaining -= commit
+            a.decode_s += dt
+            a.cold = a.cold or cold
+            a.spec.rounds += 1
+            a.spec.drafted += gamma * len(a.rows)
+            a.spec.matched += matched
+            a.spec.committed += commit * len(a.rows)
+            a.spec.draft_s += dt_draft
+            a.spec.verify_s += dt_verify
+            if a.remaining == 0:
+                self._retire(a)
+        # rewind: pages covering only rejected or overshoot slots go back to
+        # the pool, never below the admission budget (which guarantees the
+        # next round's commit without allocating under contention)
+        for a in self.active.values():
+            for row in a.rows:
+                keep = max(int(self.lengths[row]), a.base_pages * self.bs)
+                PG.rewind_pages(self.table[row], self.alloc, keep, self.bs)
+            a.pages = [int(p) for row in a.rows for p in self.table[row] if p != 0]
+
     def _retire(self, a: _Active) -> None:
         req = a.req
         gen = torch.from_numpy(np.concatenate(a.toks, axis=1))
         out = torch.cat([req.prompts, gen], dim=1).to(self.eng.device)
         b = req.prompts.shape[0]
+        spec = a.spec.summary(self.eng.speculative, b) if a.spec.rounds else None
         self.eng._done[req.id] = Result(
             id=req.id, tokens=out, plan_key=self.key, prefill_s=a.prefill_s,
-            decode_s=a.decode_s, tok_s=b * req.gen_len / max(a.decode_s, 1e-9), cold=a.cold)
+            decode_s=a.decode_s, tok_s=b * req.gen_len / max(a.decode_s, 1e-9), cold=a.cold,
+            spec=spec)
         self.alloc.release(a.pages)
         for row in a.rows:
             self.table[row, :] = 0
@@ -784,7 +1014,13 @@ class ServingEngine:
     only its copies; ``refresh`` (a training job's update) and an attached
     sync subscriber write new numbers into them, between chunks.
 
-    ``mesh`` and ``speculative`` are not ported yet and raise.
+    ``speculative`` (a ``launch.speculative.SpecConfig``) decodes each
+    group in self-draft speculative rounds on the paged scheduler (not on
+    the masked path, whose plan has no format to derive a draft from);
+    ``draft_tree_for`` and ``spec_estimate_for`` give a key's draft and its
+    price, by which ``path="auto"`` may decline unless ``force``.
+
+    ``mesh`` is not ported yet and raises.
     """
 
     def __init__(self, cfg, params, masks, registry=None, *,
@@ -797,13 +1033,22 @@ class ServingEngine:
                  warm: bool = True,
                  values_dtype: str | None = None,
                  mesh=None,
-                 speculative=None):
+                 speculative: SP.SpecConfig | None = None):
         if path not in PLAN.PATHS:
             raise ValueError(f"unknown serving path {path!r}; expected one of {PLAN.PATHS}")
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", 9)
         if speculative is not None:
-            raise _not_ported("speculative decoding", 6)
+            if path == "masked":
+                raise ValueError(
+                    "speculative decoding needs a format-typed plan to derive the draft "
+                    "from; the all-masked path serves raw masks -- pick any other path "
+                    "(or 'auto')")
+            if paged is False or not M.supports_paged(cfg):
+                raise ValueError(
+                    "speculative decoding runs on the paged scheduler (draft overshoot "
+                    "rollback is a page-table edit); this configuration only supports "
+                    "the slab path")
         if paged is None:
             paged = M.supports_paged(cfg)
         elif paged and not M.supports_paged(cfg):
@@ -835,12 +1080,22 @@ class ServingEngine:
         self._itemsize = getattr(torch, cfg.param_dtype).itemsize
         self._stats: dict | None = None
         self._plans: dict[PlanKey, PLAN.Plan] = {}
+        # self-draft speculative decoding: draft trees derived lazily per plan
+        # key (with their kind reports and prices), dropped whenever refresh
+        # or a sync drain moves what the target leaves hold
+        self.speculative = speculative
+        self._draft_trees: dict[PlanKey, dict | None] = {}
+        self._stale_drafts: dict[PlanKey, dict] = {}
+        self._draft_reports: dict[PlanKey, dict[str, str]] = {}
+        self._spec_estimates: dict[PlanKey, PLAN.SpecEstimate] = {}
         self._runners: dict[PlanKey, _PagedRunner] = {}
         self._legacy_decoders: dict[PlanKey, dict] = {}
-        # signatures run so far: "decode" counts captured graphs (step
-        # functions made, on the CPU), "prefill" the prefill shapes
-        self._programs: dict[str, set] = {"prefill": set(), "decode": set()}
-        self._captures = 0              # paged decode steps made (graphs captured on the card)
+        # signatures run so far: "decode", "draft" and "verify" count
+        # captured graphs (step functions made, on the CPU), "prefill" the
+        # prefill shapes
+        self._programs: dict[str, set] = {"prefill": set(), "decode": set(), "draft": set(),
+                                          "verify": set()}
+        self._captures = 0              # paged steps made (graphs captured on the card)
         self._pending: list[Request] = []
         self._done: dict[int, Result] = {}
         self._next_id = 0
@@ -896,10 +1151,56 @@ class ServingEngine:
             return self.masks
         return self.plan_for(key).serving_tree
 
+    def draft_tree_for(self, key: PlanKey):
+        """The (lazily derived, cached) draft serving tree for ``key``: the
+        target plan at ``speculative.draft_ablation`` extra neuron ablation,
+        sharing every value tensor with the target (asserted: no extra
+        weight bytes). None when speculation is off, or when ``path="auto"``
+        pricing declines it for this key and ``force`` is unset; a fixed
+        path runs what it was told."""
+        if self.speculative is None:
+            return None
+        if key in self._draft_trees:
+            return self._draft_trees[key]
+        sc = self.speculative
+        plan = self.plan_for(key)
+        tree, report = PLAN.derive_draft_tree(self.registry, plan.serving_tree, self.params,
+                                              self.masks, sc.draft_ablation)
+        tree = _adopt_draft(self._stale_drafts.pop(key, None), tree, plan.serving_tree,
+                            self.registry)
+        _, extra = PLAN.draft_weight_overhead_bytes(self.registry, plan.serving_tree, tree)
+        assert extra == 0, (f"draft tree allocated {extra} value bytes; self-drafting must "
+                            f"share the target's weight residency ({report})")
+        est = PLAN.price_speculation(self.registry, plan.serving_tree, tree,
+                                     batch_size=key.batch_bucket, gamma=sc.gamma,
+                                     acceptance=sc.acceptance, profile=self.profile)
+        self._spec_estimates[key] = est
+        self._draft_reports[key] = report
+        if self.path == "auto" and not sc.force and not est.worthwhile:
+            tree = None         # declined: plain decode is priced faster at this bucket
+        self._draft_trees[key] = tree
+        return tree
+
+    def spec_estimate_for(self, key: PlanKey) -> PLAN.SpecEstimate | None:
+        """The price behind ``draft_tree_for``'s run or decline (None when
+        speculation is off)."""
+        self.draft_tree_for(key)
+        return self._spec_estimates.get(key)
+
+    def _drop_drafts(self) -> None:
+        """Derive each draft anew at its next use (a refresh or a sync drain
+        moved the saliency its rows were chosen by); the old trees are kept
+        to be written in place (``_adopt_draft``)."""
+        self._stale_drafts.update((k, t) for k, t in self._draft_trees.items() if t is not None)
+        self._draft_trees.clear()
+        self._draft_reports.clear()
+        self._spec_estimates.clear()
+
     def program_count(self, kind: str) -> int:
-        """Signatures run so far: ``"decode"`` decode programs (the pool's
-        and tables' shapes and the serving tensors' shapes, as the
-        reference's jit cache keys them), ``"prefill"`` prefill shapes. The
+        """Signatures run so far: ``"decode"``, ``"draft"`` and ``"verify"``
+        graphs (the pool's and tables' shapes and the serving tensors'
+        shapes, as the reference's jit cache keys them; the draft and verify
+        also gamma), ``"prefill"`` prefill shapes. The
         counterpart of the reference's jit cache sizes. A graph recaptured
         at an unchanged signature (new storage, same shapes) is counted by
         ``captures``, not here."""
@@ -907,8 +1208,8 @@ class ServingEngine:
 
     @property
     def captures(self) -> int:
-        """Paged decode steps made so far: graphs captured on the card,
-        step functions on the CPU, recaptures included."""
+        """Paged decode, draft and verify steps made so far: graphs captured
+        on the card, step functions on the CPU, recaptures included."""
         return self._captures
 
     # -- request lifecycle --------------------------------------------------
@@ -1003,7 +1304,10 @@ class ServingEngine:
                                   f"bucket {runner.bucket}")
                 if not runner.active:
                     break
-                runner.decode_chunk()
+                if self.speculative is not None and self.draft_tree_for(key) is not None:
+                    runner.spec_round()
+                else:
+                    runner.decode_chunk()
                 chunks += 1
                 if max_chunks is not None and chunks >= max_chunks:
                     break
@@ -1102,6 +1406,8 @@ class ServingEngine:
         the engine keeps them as host ints. Returns each plan key's
         re-exported stack names."""
         versions = PLAN._host_versions(mask_versions)
+        # a cached draft's out_index follows the old saliency: derive anew
+        self._drop_drafts()
         _copy_into(self.params, params)
         _recast_into(self.compute, self.params)
         _copy_into(self.masks, masks or {})
@@ -1160,6 +1466,7 @@ class ServingEngine:
         if sub.generation is None or sub.generation == self._sync_generation:
             return False
         self._check_sync_meta(sub.meta)
+        self._drop_drafts()
         changes = sub.consume_changes()
         if changes["snapshot"]:
             _copy_into(self.masks, sub.masks_tree())

@@ -39,14 +39,28 @@ submits one request of ``--batch`` random prompts and serves it:
                      The stream fixes the path and values dtype
                      (condensed-family only). ``--sync-wait`` seconds to
                      wait for the snapshot.
+  --speculative      self-draft speculative decoding: the same weights at
+                     ``--draft-ablation`` extra neuron ablation draft
+                     ``--gamma`` tokens a round, one full-network verify
+                     scores them (``launch/speculative.py``); the tokens are
+                     plain greedy decode's, and a ``[serve:spec]`` line
+                     reports acceptance and full-network dispatches per
+                     token. Any path but masked; a fixed path always
+                     speculates, ``--path auto`` may decline by its price.
+  --profile default|measured
+                     the hardware profile ``--path auto`` (and the
+                     speculation price) is computed with: ``measured`` times
+                     the rates on this device (``HardwareProfile.measure``,
+                     cached per device name in
+                     ``$REPRO_TORCH_AUTOTUNE_CACHE``).
 
 The engine plans every path but masked with ``sparse.plan.build_plan`` at
 the request's batch bucket. masked, condensed, condensed_over_active and
 auto evaluate the same masked weights, so their tokens agree (up to float
 ties). On the card each decode step is a replayed CUDA graph. Runs on CUDA
 unless ``--device cpu``; with no card and no ``--device cpu`` it exits with
-an error. The reference CLI's ``--tp``, ``--speculative``, ``--autotune``
-and ``--profile measured`` are not ported yet.
+an error. The reference CLI's ``--tp`` and ``--autotune`` are not ported
+yet (ROADMAP queue 1, items 9 and 10).
 """
 from __future__ import annotations
 
@@ -56,6 +70,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.launch.engine import ServingEngine
+from repro_torch.launch.speculative import SpecConfig
 from repro_torch.models import model as M
 from repro_torch.sparse import plan as PLAN
 from repro_torch.sparse import registry as REG
@@ -107,6 +122,23 @@ def main(argv=None):
                          "stream's condensed-family path and values dtype are served")
     ap.add_argument("--sync-wait", type=float, default=10.0,
                     help="seconds to wait for the bootstrap snapshot in --sync-dir")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-draft speculative decoding: the same weights at "
+                         "--draft-ablation extra neuron ablation draft --gamma tokens a "
+                         "round, one full-network verify scores them (the tokens stay "
+                         "plain greedy decode's); any path but masked, and --path auto "
+                         "may decline it by its price")
+    ap.add_argument("--gamma", type=int, default=3,
+                    help="drafted tokens per speculative round (the verify scores "
+                         "gamma + 1 positions)")
+    ap.add_argument("--draft-ablation", type=float, default=0.5,
+                    help="extra neuron ablation of the draft (0.5 keeps the most "
+                         "salient half of each stack's active neurons)")
+    ap.add_argument("--profile", choices=("default", "measured"), default="default",
+                    help="the hardware profile --path auto and the speculation price "
+                         "use: 'measured' times the stream, matmul and gather rates on "
+                         "this device (cached per device name) instead of the built-in "
+                         "H100 figures")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -118,6 +150,20 @@ def main(argv=None):
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"] if reg else {}
     if args.path not in ("masked", "auto") and not reg:
         raise SystemExit(f"{args.arch} has no sparse stacks — only --path masked/auto")
+    profile = PLAN.DEFAULT_PROFILE
+    if args.profile == "measured":
+        profile = PLAN.HardwareProfile.measure(device=device)
+        print(f"[serve] calibrated profile {profile.name}: "
+              f"hbm {profile.hbm_bytes_per_s / 1e9:.1f} GB/s, "
+              f"matmul {profile.mxu_flops_per_s / 1e9:.1f} GFLOP/s, "
+              f"gather {profile.gather_flops_per_s / 1e9:.1f}"
+              f"->{profile.gather_flops_per_s_large / 1e9:.1f} GFLOP/s")
+    speculative = None
+    if args.speculative:
+        # a fixed path is the operator's choice: speculate as asked; --path
+        # auto keeps the price in charge
+        speculative = SpecConfig(gamma=args.gamma, draft_ablation=args.draft_ablation,
+                                 force=args.path != "auto")
     if args.values_dtype != "f32" and args.path == "masked":
         print("[serve] note: --path masked serves the live dense params; "
               f"--values-dtype {args.values_dtype} only affects exported "
@@ -136,14 +182,16 @@ def main(argv=None):
             print(f"[serve] note: stream publishes path={meta.get('path')!r}; serving "
                   f"that (not --path {args.path})")
         engine = engine_from_snapshot(cfg, subscriber, registry=reg, device=device,
-                                      paged=False if args.no_paged else None)
+                                      profile=profile,
+                                      paged=False if args.no_paged else None,
+                                      speculative=speculative)
         args.path = engine.path
         print(f"[serve] bootstrapped at generation {subscriber.generation} "
               f"(path={engine.path}, values_dtype={engine.values_dtype})")
     else:
-        engine = ServingEngine(cfg, params, masks, reg, path=args.path,
+        engine = ServingEngine(cfg, params, masks, reg, path=args.path, profile=profile,
                                paged=False if args.no_paged else None,
-                               values_dtype=args.values_dtype)
+                               values_dtype=args.values_dtype, speculative=speculative)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
     rid = engine.submit(prompts, args.gen)
@@ -162,6 +210,19 @@ def main(argv=None):
     print(f"[serve:{args.path}] prefill {b}x{t} in {res.prefill_s:.3f}s | "
           f"decode {b}x{args.gen} in {res.decode_s:.3f}s ({res.tok_s:.1f} tok/s)")
     print("[serve] first stream:", res.tokens[0, -args.gen:].tolist())
+    if speculative is not None:
+        if res.spec is not None:
+            s = res.spec
+            print(f"[serve:spec] gamma={s['gamma']} draft_ablation={s['draft_ablation']} | "
+                  f"acceptance {s['acceptance_rate']:.3f} ({s['matched']}/{s['drafted']} "
+                  f"drafts) | {s['full_dispatches_per_token']:.3f} full-network "
+                  f"dispatches/token | draft {s['draft_s']:.3f}s + verify "
+                  f"{s['verify_s']:.3f}s")
+        else:
+            est = engine.spec_estimate_for(res.plan_key)
+            print(f"[serve:spec] declined by the price: {est.spec_s_per_token * 1e6:.1f} vs "
+                  f"plain {est.base_s_per_token * 1e6:.1f} us/tok at assumed acceptance "
+                  f"{est.acceptance:.2f} (gamma={est.gamma}); served plain decode")
     if subscriber is not None:
         c = subscriber.counters
         print(f"[serve:sync] generation {subscriber.generation} | applied "

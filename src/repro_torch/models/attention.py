@@ -7,8 +7,9 @@ slots at ``NEG_INF`` so their weights underflow to exact zeros. Attention
 is not a TPU kernel in the reference, so it has no hand-written kernel here.
 The cache write is in place: one preallocated cache serves a whole
 generation, as the reference's donated cache does. The paged primitives
-(``paged_decode_attention``, ``paged_cache_write``) read and write a
-shared page pool through per-stream block tables (``models/paged.py``).
+(``paged_decode_attention``, ``paged_verify_attention``,
+``paged_cache_write``) read and write a shared page pool through
+per-stream block tables (``models/paged.py``).
 """
 from __future__ import annotations
 
@@ -161,6 +162,33 @@ def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tenso
     return k_cache, v_cache
 
 
+def _paged_kv(k_pool: torch.Tensor, v_pool: torch.Tensor, block_table: torch.Tensor,
+              head_to_kv: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer's pages in position order, expanded to the query heads:
+    (B, NB * bs, H, D) each."""
+    b, nb = block_table.shape
+    bs = k_pool.shape[1]
+    pages = block_table.long()
+    k = k_pool[pages].reshape(b, nb * bs, *k_pool.shape[2:])
+    v = v_pool[pages].reshape(b, nb * bs, *v_pool.shape[2:])
+    return expand_kv(k, head_to_kv), expand_kv(v, head_to_kv)
+
+
+def _attend_prefix(q: torch.Tensor, k32: torch.Tensor, v_exp: torch.Tensor,
+                   limit: torch.Tensor) -> torch.Tensor:
+    """``decode_attention``'s arithmetic for one query position per stream:
+    q (B, 1, H, D) attends the slots ``< limit[b]`` of the gathered keys
+    (``k32``, in float32) and values. Slots at or past the limit get
+    ``NEG_INF`` before the softmax, so their weights underflow to exact zeros
+    and the result does not depend on what they hold. Returns (B, H, D)."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bshd->bhqs", (q * d ** -0.5).float(), k32)[:, :, 0]
+    valid = torch.arange(k32.shape[1], device=q.device)[None, :] < limit[:, None]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p.to(v_exp.dtype), v_exp)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            block_table: torch.Tensor, lengths: torch.Tensor, *,
                            head_to_kv: tuple) -> torch.Tensor:
@@ -171,27 +199,33 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     int32 tokens per stream *including* the one just written. Token ``t``
     of stream ``b`` lives at ``(block_table[b, t // bs], t % bs)``.
 
-    Slots at or past a stream's length are set to ``NEG_INF`` before the
-    softmax, so their weights underflow to exact zeros and the result does
-    not depend on whatever the masked pages hold (idle rows point their
-    whole table at the reserved page 0). The arithmetic is
-    ``decode_attention``'s over the gathered pages.
+    Slots at or past a stream's length are masked (``_attend_prefix``), so
+    the result does not depend on whatever the masked pages hold (idle rows
+    point their whole table at the reserved page 0).
     """
-    b, _, h, d = q.shape
-    nb = block_table.shape[1]
-    bs = k_pool.shape[1]
-    pages = block_table.long()
-    k = k_pool[pages].reshape(b, nb * bs, *k_pool.shape[2:])
-    v = v_pool[pages].reshape(b, nb * bs, *v_pool.shape[2:])
-    k_exp = expand_kv(k, head_to_kv)
-    v_exp = expand_kv(v, head_to_kv)
-    scores = torch.einsum("bqhd,bshd->bhqs", (q * d ** -0.5).float(),
-                          k_exp.float())[:, :, 0]                     # (B, H, S)
-    valid = torch.arange(nb * bs, device=q.device)[None, :] < lengths[:, None]
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", p.to(v_exp.dtype), v_exp)
-    return out.reshape(b, 1, h, d)
+    k_exp, v_exp = _paged_kv(k_pool, v_pool, block_table, head_to_kv)
+    return _attend_prefix(q, k_exp.float(), v_exp, lengths)[:, None]
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_table: torch.Tensor, lengths: torch.Tensor, *,
+                           head_to_kv: tuple) -> torch.Tensor:
+    """Multi-position attention against a paged KV pool (speculative verify).
+
+    q: (B, T, H, D), token ``i`` of stream ``b`` sitting at slot
+    ``lengths[b] + i`` (already written to the pool); lengths: (B,) tokens
+    committed per stream before this dispatch. Query ``i`` attends slots
+    ``< lengths[b] + i + 1``: the visibility a chain of T
+    ``paged_decode_attention`` calls gives it.
+
+    The pages are gathered once; each position then runs the decode's own
+    body (``_attend_prefix``) at the decode's shapes, so position ``i`` is
+    bitwise the decode's result at length ``lengths + i + 1`` whatever T is.
+    """
+    k_exp, v_exp = _paged_kv(k_pool, v_pool, block_table, head_to_kv)
+    k32 = k_exp.float()
+    return torch.stack([_attend_prefix(q[:, i:i + 1], k32, v_exp, lengths + (i + 1))
+                        for i in range(q.shape[1])], dim=1)             # (B, T, H, D)
 
 
 def paged_cache_write(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.Tensor,

@@ -13,9 +13,10 @@ and their pieces for serving, and ``backbone``, ``cross_entropy_chunked``
 and ``loss_fn`` for training. ``remat="block"`` recomputes each block and
 each cross-entropy chunk in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
-``supports_paged``, ``init_paged_pool``, ``paged_prefill_step`` and
-``paged_decode_step`` serve the continuous-batching engine from a shared
-page pool. The other families come with later slices.
+``supports_paged``, ``init_paged_pool``, ``paged_prefill_step``,
+``paged_decode_step`` and ``paged_verify_step`` (the speculative verify)
+serve the continuous-batching engine from a shared page pool. The other
+families come with later slices.
 """
 from __future__ import annotations
 
@@ -167,13 +168,17 @@ def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: 
     new_cache = None
     if paged is not None:
         k_pool, v_pool, block_table, lengths = paged
-        if decode:
-            if k.shape[1] != 1:
-                raise NotImplementedError(
-                    "multi-token paged decode (speculative verify) is not ported yet "
-                    "(ROADMAP queue 1, item 6)")
+        if decode and k.shape[1] == 1:
             A.paged_cache_write(k_pool, v_pool, k, v, block_table, lengths[:, None])
             attn = A.paged_decode_attention(q, k_pool, v_pool, block_table, lengths + 1,
+                                            head_to_kv=cfg.head_to_kv)
+        elif decode:
+            # speculative verify: all T slots are written before any
+            # position attends them (the draft's K/V there is overwritten)
+            t = k.shape[1]
+            pos = lengths[:, None] + torch.arange(t, device=x.device, dtype=lengths.dtype)
+            A.paged_cache_write(k_pool, v_pool, k, v, block_table, pos)
+            attn = A.paged_verify_attention(q, k_pool, v_pool, block_table, lengths,
                                             head_to_kv=cfg.head_to_kv)
         else:
             # prefill: attention over the in-flight k/v (causal, so the pads
@@ -482,3 +487,23 @@ def paged_decode_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict
                           decode=True)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(cfg, params, x[:, 0]), pool
+
+
+def paged_verify_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict,
+                      block_table: torch.Tensor, lengths: torch.Tensor):
+    """Multi-position decode against the paged pool (speculative verify).
+
+    batch["tokens"]: (B, T): token ``i`` is written at slot ``lengths[b] + i``
+    and attends ``lengths[b] + i + 1`` slots, the visibility of T sequential
+    ``paged_decode_step`` calls, in one pass of the network over B * T rows.
+    ``lengths`` is read, not advanced. Returns (logits (B, T, V), pool);
+    ``argmax(logits[:, i])`` is the model's next token after consuming
+    ``batch["tokens"][:, :i + 1]``.
+    """
+    masks = masks or {}
+    x, positions = embed_inputs(cfg, params, batch)
+    positions = positions + lengths[:, None]
+    x = _paged_run_blocks(cfg, params, masks, x, pool, block_table, lengths, positions,
+                          decode=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_logits(cfg, params, x), pool

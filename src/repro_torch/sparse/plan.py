@@ -22,9 +22,17 @@ stacks get a values-only regather, and a same-shape refresh writes into the
 leaves' existing tensors (``formats.*.donate_refresh``), so CUDA graphs
 captured over the plan stay valid.
 
-Ported so far for one device (``tp=1``). Queued: ``HardwareProfile.measure``
-(CUDA events on the card, with ``autotune``), tensor parallelism and the
-speculative-draft helpers.
+``HardwareProfile.measure`` times the rates the cost model prices with on
+the card (CUDA events over replayed work) and caches them per device name
+(``sparse/autotune.py``); ``DEFAULT_PROFILE`` stays the default.
+
+Self-draft speculative decoding (``launch/speculative.py``) derives its
+draft here: ``derive_draft_tree`` turns a plan's serving tree into the same
+weights at a higher neuron ablation, sharing every value tensor with it, and
+``price_speculation`` prices draft steps and one batched verify against
+plain decode, so ``--path auto`` can decline.
+
+Ported for one device (``tp=1``). Queued: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -100,6 +108,77 @@ class HardwareProfile:
         t = ((math.log(b) - math.log(self.gather_small_batch))
              / (math.log(self.gather_large_batch) - math.log(self.gather_small_batch)))
         return math.exp((1.0 - t) * math.log(small) + t * math.log(large))
+
+    @classmethod
+    def measure(cls, *, device: str | torch.device | None = None, stream_mb: float = 96.0,
+                matmul_shape: tuple[int, int, int] = (128, 2048, 1024),
+                gather_shape: tuple[int, int, int, int] = (8, 2048, 1024, 205),
+                gather_large_shape: tuple[int, int, int, int] = (512, 2048, 1024, 205),
+                reps: int = 5, use_cache: bool = True, save: bool = True) -> "HardwareProfile":
+        """The cost model's rates timed on ``device`` (the card unless told
+        otherwise), as the reference measures them:
+
+        * ``hbm_bytes_per_s``: ``x + 1`` over ``stream_mb`` of float32, reads
+          and writes counted, the median of ``reps``;
+        * ``mxu_flops_per_s``: a float32 matmul at ``matmul_shape = (b,
+          d_in, d_out)``, the best of ``reps``;
+        * ``gather_flops_per_s`` / ``gather_flops_per_s_large``: ``2 * B *
+          n_out * k / t`` of the port's condensed gather wrapper (K1 on the
+          card, its plain version on the CPU) in float32 at ``gather_shape``
+          and ``gather_large_shape`` = (B, d_in, n_out, k), the best of
+          ``reps``.
+
+        On the card each timing is a CUDA-graph replay of 20 calls between
+        CUDA events (``autotune._time_us``), on the CPU the wall clock
+        around a call.
+        With ``use_cache`` a profile stored for this device under the same
+        settings (``autotune.cached_profile``) is returned without timing;
+        ``save`` stores a fresh one. The port's profile has no interconnect
+        rate: tensor parallelism is not ported (ROADMAP queue 1, item 9).
+        """
+        import statistics
+
+        from repro_torch import resolve_device
+        from repro_torch.kernels import condensed_matmul as cm
+        from repro_torch.sparse import autotune as AT
+
+        dev = resolve_device(device)
+        key = AT.device_key(dev)
+        params = {"stream_mb": stream_mb, "matmul_shape": list(matmul_shape),
+                  "gather_shape": list(gather_shape),
+                  "gather_large_shape": list(gather_large_shape), "reps": reps}
+        if use_cache:
+            cached = AT.cached_profile(key)
+            if cached and cached.get("params") == params:
+                return cls(**{f.name: cached[f.name] for f in dataclasses.fields(cls)})
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        n = max(int(stream_mb * 2**20 / 4), 1024)
+        xs = torch.full((n,), 1.5, dtype=torch.float32, device=dev)
+        t_stream = AT._time_us(lambda x: x + 1.0, xs, reps=reps, agg=statistics.median)
+        hbm = 8.0 * n / (t_stream * 1e-6)
+
+        mb, md_in, md_out = matmul_shape
+        a = torch.randn((mb, md_in), generator=gen, device=dev)
+        b = torch.randn((md_in, md_out), generator=gen, device=dev)
+        t_mm = AT._time_us(torch.matmul, a, b, reps=reps)
+        mxu = 2.0 * mb * md_in * md_out / (t_mm * 1e-6)
+
+        def gather_point(shape):
+            gb, gd, gn, gk = shape
+            x = torch.randn((gb, gd), generator=gen, device=dev)
+            vals = torch.randn((gn, gk), generator=gen, device=dev)
+            idx = torch.randint(0, gd, (gn, gk), generator=gen, device=dev, dtype=torch.int32)
+            t_g = AT._time_us(cm.condensed_matmul, x, vals, idx, reps=reps)
+            return 2.0 * gb * gn * gk / (t_g * 1e-6)
+
+        prof = cls(name=f"measured-{key}", hbm_bytes_per_s=hbm, mxu_flops_per_s=mxu,
+                   gather_flops_per_s=gather_point(gather_shape),
+                   gather_flops_per_s_large=gather_point(gather_large_shape),
+                   gather_small_batch=gather_shape[0], gather_large_batch=gather_large_shape[0])
+        if save:
+            AT.store_profile({**dataclasses.asdict(prof), "params": params}, device=key)
+        return prof
 
 
 DEFAULT_PROFILE = HardwareProfile(name="h100-sxm", hbm_bytes_per_s=3.35e12,
@@ -394,3 +473,230 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
                 profile=profile, decisions=decisions, serving_tree=tree, values_dtype=vd,
                 mask_versions={s.name: versions.get(s.name, 0) for s in registry},
                 export_calls=len(registry))
+
+
+# ---------------------------------------------------------------------------
+# self-draft speculative decoding: the draft tree and its price
+#
+# The draft is the target plan at a higher neuron ablation, derived per
+# stack from the serving leaf without copying any value tensor:
+# * condensed / condensed_over_active: the dropped rows' ``out_index`` is
+#   set to the sentinel, so the gather still runs over every row and drops
+#   them at the scatter ("sentinel": exact zeros, no compute saved);
+# * float structured (and ablation-only masked stacks): a smaller column
+#   subset of the live weight ("subset": fewer columns run);
+# * quantized structured: the dropped panel columns become sentinels;
+# * masked stacks that are not ablation-only draft as themselves
+#   ("identity").
+# Dropped neurons are the least salient: sum |values| per output neuron
+# (dequantized where there are scales), the column L1 norm of the live
+# weight for the live-weight formats.
+# ---------------------------------------------------------------------------
+
+
+def _draft_keep(n: int, draft_ablation: float) -> int:
+    """Rows or columns the draft keeps out of ``n`` at ablation ``F``."""
+    f = min(max(float(draft_ablation), 0.0), 1.0)
+    return max(int(math.ceil(n * (1.0 - f))), 1)
+
+
+def _keep_top_rows(saliency: torch.Tensor, valid: torch.Tensor, keep: int) -> torch.Tensor:
+    """Bool mask of the top-``keep`` valid entries of the last axis per lead
+    replica. A stable descending sort breaks ties toward the lower index,
+    as ``jax.lax.top_k`` does."""
+    s = torch.where(valid, saliency.float(), torch.tensor(-torch.inf, device=saliency.device))
+    flat = s.reshape(-1, s.shape[-1])
+    idx = torch.sort(flat, dim=-1, descending=True, stable=True).indices[:, :min(keep, s.shape[-1])]
+    km = torch.zeros(flat.shape, dtype=torch.bool, device=s.device)
+    km.scatter_(1, idx, True)
+    return km.reshape(s.shape) & valid
+
+
+def _row_saliency(values: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
+    s = values.float().abs().sum(dim=-1)
+    return s * scales if scales is not None else s
+
+
+def _is_ablation_only(mask: torch.Tensor) -> bool:
+    """Does every surviving column keep its full fan-in? One layer at a
+    time (a whole-stack comparison would hold a second mask-sized tensor),
+    and one host sync."""
+    layers = mask.reshape(-1, *mask.shape[-2:])
+    full = torch.ones((), dtype=torch.bool, device=mask.device)
+    for m in layers:
+        full &= torch.all(m == m.any(dim=-2, keepdim=True))
+    return bool(full)
+
+
+def _structured_subset(weight: torch.Tensor, neuron_active: torch.Tensor, keep: int,
+                       weight_itemsize: int) -> F.StructuredFanIn:
+    """A live-weight column-subset ``StructuredFanIn`` draft."""
+    d_out = neuron_active.shape[-1]
+    sal = weight.float().abs().sum(dim=-2)
+    km = _keep_top_rows(sal, neuron_active, keep)
+    a_pad = F.padded_active_count(min(keep, d_out), d_out)
+    return F.StructuredFanIn(neuron_active=km, active_index=F.active_index_from_bools(km, a_pad),
+                             d_in=int(weight.shape[-2]), weight_itemsize=weight_itemsize)
+
+
+def derive_draft_leaf(leaf: F.SparseFormat, weight: torch.Tensor, mask: torch.Tensor,
+                      draft_ablation: float) -> tuple[F.SparseFormat, str]:
+    """One stack's draft leaf from its target serving leaf.
+
+    Returns (draft_leaf, kind): ``"subset"`` drafts run fewer columns,
+    ``"sentinel"`` drafts share the target's tensors and drop rows at the
+    scatter, ``"identity"`` stacks draft as themselves. Value tensors are
+    never copied: a draft's ``values`` and ``scales`` are the target leaf's
+    own tensor objects, and subset drafts read the live weight.
+    """
+    if isinstance(leaf, F.Condensed):
+        d_out = leaf.values.shape[-2]
+        sal = _row_saliency(leaf.values, leaf.scales)
+        km = _keep_top_rows(sal, torch.ones(sal.shape, dtype=torch.bool, device=sal.device),
+                            _draft_keep(d_out, draft_ablation))
+        rows = torch.arange(d_out, dtype=torch.int32, device=sal.device).expand(sal.shape)
+        oi = torch.where(km, rows, d_out).to(torch.int32)
+        return F.CondensedOverActive(values=leaf.values, indices=leaf.indices, out_index=oi,
+                                     d_in=leaf.d_in, d_out=d_out, scales=leaf.scales,
+                                     values_dtype=leaf.values_dtype), "sentinel"
+    if isinstance(leaf, F.CondensedOverActive):
+        valid = leaf.out_index < leaf.d_out
+        sal = _row_saliency(leaf.values, leaf.scales)
+        km = _keep_top_rows(sal, valid, _draft_keep(leaf.values.shape[-2], draft_ablation))
+        oi = torch.where(km, leaf.out_index, leaf.d_out).to(leaf.out_index.dtype)
+        return dataclasses.replace(leaf, out_index=oi), "sentinel"
+    if isinstance(leaf, F.StructuredFanIn):
+        d_out = leaf.neuron_active.shape[-1]
+        if leaf.values is not None:
+            # quantized: the stored panel is indexed by position, so the
+            # layout stays and the dropped columns become sentinels
+            valid = leaf.active_index < d_out
+            sal = leaf.values.float().abs().sum(dim=-2)
+            if leaf.scales is not None:
+                sal = sal * leaf.scales
+            km = _keep_top_rows(sal, valid,
+                                _draft_keep(leaf.active_index.shape[-1], draft_ablation))
+            ai = torch.where(km, leaf.active_index, d_out).to(leaf.active_index.dtype)
+            return dataclasses.replace(leaf, active_index=ai), "sentinel"
+        keep = _draft_keep(leaf.active_index.shape[-1], draft_ablation)
+        return _structured_subset(weight, leaf.neuron_active, keep,
+                                  leaf.weight_itemsize), "subset"
+    if isinstance(leaf, F.MaskedDense):
+        if not _is_ablation_only(mask):
+            return leaf, "identity"
+        act = mask.any(dim=-2)
+        a = max(int(act.sum(dim=-1, dtype=torch.int32).max()), 1)
+        return _structured_subset(weight, act, _draft_keep(a, draft_ablation),
+                                  leaf.weight_itemsize), "subset"
+    raise ValueError(f"cannot derive a draft from {type(leaf).__name__}")
+
+
+def derive_draft_tree(registry, serving_tree: dict, params: dict, masks: dict,
+                      draft_ablation: float) -> tuple[dict, dict[str, str]]:
+    """The draft serving tree for a plan's ``serving_tree``: (tree, the kind
+    of each stack's draft). It plugs into the same masks slot of the paged
+    decode step; the embeddings, norms and dense layers are the model's
+    own."""
+    tree: dict = {}
+    report: dict[str, str] = {}
+    for s in registry:
+        leaf = REG.get_path(serving_tree, s.path)
+        if not isinstance(leaf, F.SparseFormat):
+            raise ValueError(
+                f"stack {s.name!r} serves a raw mask leaf ({type(leaf).__name__}); "
+                "speculative drafting needs a format-typed plan (any engine path "
+                "except 'masked')")
+        draft, kind = derive_draft_leaf(leaf, REG.get_path(params, s.path),
+                                        REG.get_path(masks, s.path), draft_ablation)
+        REG.set_path(tree, s.path, draft)
+        report[s.name] = kind
+    return tree, report
+
+
+def draft_weight_overhead_bytes(registry, target_tree: dict,
+                                draft_tree: dict) -> tuple[int, int]:
+    """(shared_bytes, extra_bytes) of value storage in a draft tree.
+
+    ``shared`` counts the draft's ``values``/``scales`` tensors that are the
+    target leaf's own tensor objects (compared by identity: the zero extra
+    weight residency contract), ``extra`` any other value storage, which the
+    engine asserts to be 0. Index and bool metadata (``active_index``,
+    ``out_index``, ``neuron_active``) is not weight data and is left out.
+    """
+    shared = extra = 0
+    for s in registry:
+        t = REG.get_path(target_tree, s.path)
+        d = REG.get_path(draft_tree, s.path)
+        target_ids = {id(getattr(t, f)) for f in t._array_fields
+                      if getattr(t, f, None) is not None}
+        for f in ("values", "scales"):
+            arr = getattr(d, f, None)
+            if arr is None:
+                continue
+            nbytes = arr.numel() * arr.element_size()
+            if id(arr) in target_ids:
+                shared += nbytes
+            else:
+                extra += nbytes
+    return shared, extra
+
+
+def expected_tokens_per_dispatch(acceptance: float, gamma: int) -> float:
+    """Expected tokens committed per verify dispatch at per-token acceptance
+    ``a``: 1 + a + ... + a^gamma (the verify always commits the target's own
+    next token, plus every accepted draft prefix token)."""
+    a = min(max(float(acceptance), 0.0), 1.0)
+    g = max(int(gamma), 0)
+    if a >= 1.0:
+        return float(g + 1)
+    return (1.0 - a ** (g + 1)) / (1.0 - a)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecEstimate:
+    """The priced speculation decision for one plan key.
+
+    The costs are sums over the sparse stacks, priced as the plan's own
+    decisions are (attention and dense layers cost the same under draft and
+    target); the verify is the full network at ``batch * (gamma + 1)`` rows.
+    """
+
+    gamma: int
+    acceptance: float            # assumed per-token acceptance
+    expected_tokens: float       # tokens committed per verify dispatch
+    target_step_s: float         # one full-network step at the bucket
+    draft_step_s: float          # one draft-tree step at the bucket
+    verify_s: float              # one (gamma + 1)-position verify
+
+    @property
+    def spec_s_per_token(self) -> float:
+        return (self.gamma * self.draft_step_s + self.verify_s) / max(self.expected_tokens, 1e-9)
+
+    @property
+    def base_s_per_token(self) -> float:
+        return self.target_step_s
+
+    @property
+    def worthwhile(self) -> bool:
+        return self.spec_s_per_token < self.base_s_per_token
+
+
+def _tree_step_cost(registry, tree: dict, batch: int, profile: HardwareProfile) -> float:
+    return sum(type(leaf).estimate_cost(leaf.spec(), batch, profile)
+               for leaf in (REG.get_path(tree, s.path) for s in registry))
+
+
+def price_speculation(registry, target_tree: dict, draft_tree: dict, *, batch_size: int,
+                      gamma: int, acceptance: float = 0.7,
+                      profile: HardwareProfile = DEFAULT_PROFILE) -> SpecEstimate:
+    """Expected tokens per dispatch at (acceptance, gamma) against the cost
+    of gamma draft steps and one batched verify: the price by which
+    ``--path auto`` declines speculation when the draft is too slow
+    (sentinel drafts save no compute) or the assumed acceptance too low."""
+    b = max(int(batch_size), 1)
+    return SpecEstimate(
+        gamma=int(gamma), acceptance=float(acceptance),
+        expected_tokens=expected_tokens_per_dispatch(acceptance, gamma),
+        target_step_s=_tree_step_cost(registry, target_tree, b, profile),
+        draft_step_s=_tree_step_cost(registry, draft_tree, b, profile),
+        verify_s=_tree_step_cost(registry, target_tree, b * (int(gamma) + 1), profile))

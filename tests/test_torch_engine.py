@@ -331,11 +331,10 @@ def test_legacy_path_splits_slabs_at_bucket_boundary(smoke, monkeypatch):
 def test_engine_refuses_what_is_not_ported(smoke):
     with pytest.raises(NotImplementedError, match="item 9"):
         _engine(smoke, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _engine(smoke, speculative=object())
     eng = _engine(smoke)
-    # refresh and attach_subscriber are ported: tests/test_torch_refresh.py
-    # and tests/test_torch_sync.py hold them to the reference
+    # refresh and attach_subscriber are ported (tests/test_torch_refresh.py
+    # and tests/test_torch_sync.py), speculative decoding too
+    # (tests/test_torch_speculative.py)
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.autotune(1)
     with pytest.raises(ValueError, match="paged serving requires"):

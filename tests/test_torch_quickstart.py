@@ -1,8 +1,12 @@
 """``examples/quickstart_torch.py --device cpu`` runs end to end: the engine
 serves the masked path's tokens, and the refresh after ten more training
 steps re-exports exactly the stacks whose mask version moved, in every
-plan, and then still serves the masked path's tokens; section 8 times the
-structured kernel and picks structured on an ablation-only stack."""
+plan, and then still serves the masked path's tokens; section 7 measures
+a profile into its own cache and prints the decisions beside the
+default's; section 8 times the structured kernel and picks structured on an
+ablation-only stack; section 13's speculative streams equal plain greedy
+for every (gamma, draft ablation), with acceptance 1.00 at ablation 0.0,
+and the CLI prints its ``[serve:spec]`` line."""
 import os
 import re
 import subprocess
@@ -11,8 +15,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_quickstart_torch_runs_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+def test_quickstart_torch_runs_on_the_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "autotune.json"))
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "quickstart_torch.py"),
                            "--device", "cpu"], capture_output=True, text=True, env=env,
                           timeout=600)
@@ -27,3 +32,15 @@ def test_quickstart_torch_runs_on_the_cpu():
     assert all(r == moved.groups() for r in refreshes)
     # section 8: the cost model picks structured on an ablation-only stack
     assert "auto @ b=1 (ablation-only stack) -> structured" in out
+    # section 7: a measured profile, cached in the given file, and the
+    # decisions at each bucket under both profiles
+    assert "calibrated measured-cpu:" in out and str(tmp_path / "autotune.json") in out
+    assert (tmp_path / "autotune.json").exists()
+    assert len(re.findall(r"decisions @ bucket \d+: h100-sxm: .* \| measured-cpu: ", out)) == 5
+    # section 13: speculation keeps plain greedy's tokens
+    spec = re.findall(r"spec g=(\d) abl=([\d.]+): acceptance ([\d.]+), .* "
+                      r"bitwise == plain: (\w+)", out)
+    assert [(g, a) for g, a, _, _ in spec] == [("3", "0.0"), ("3", "0.5"), ("2", "0.5")]
+    assert all(same == "True" for *_, same in spec)
+    assert spec[0][2] == "1.00"
+    assert "spec-cli| [serve:spec] gamma=3" in out
