@@ -120,7 +120,21 @@ Phases, each of which raises (exit code != 0) on any failed check:
    is at a tie. Prints acceptance, rounds, dispatches per token, draft and
    verify device ms, both tok/s and the reference's price under both
    profiles.
-13. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
+13. autotune: the launch-configuration search (sparse/autotune.py) at
+   full width, bf16, B = 4, 32 and 128 (buckets 8, 32, 128), on the SRigL
+   stacks' shapes: every candidate launch of K1, of K4 over half of each
+   stack's rows, of K2 on int8 codes (bucket 8) and of K5 over the
+   ablation-only masks' surviving columns, each bitwise, row by row, the
+   default launch's output, the winner held to its plain version; per key
+   the default's and the winner's microseconds and the candidates timed,
+   and K5's beside the plan's price with and without the reference's
+   one-hot epilogue term. Then ServingEngine.autotune(4) into a cache file
+   of its own: a tuned condensed engine serves a B = 4 request with the
+   untuned engine's tokens, bitwise, and 4 * 28 * 17 K1 launches; walls and
+   a decode step's device ms beside each other. Then a speculative verify
+   (gamma 3, 32 rows) with and without autotune(32)'s entries: device ms,
+   tokens equal.
+14. grad: loss_fn over full-width qwen3-1.7b's condensed serving tree (90%
    masks, a train batch of 8 x 64 tokens) backpropagated into the values,
    float32 and bfloat16, then condensed_over_active on the ablated masks:
    K3 launches exactly 4 * 28 times per backward and K1 (K4) 2 * 4 * 28
@@ -136,7 +150,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    of the same loss with every structured linear computed as
    structured_dense under autograd, ablated columns' dW exactly 0, and
    one layer per stack shape (B*T = 512) its dx and dW the same way.
-14. train: full-width qwen3-1.7b from a seeded random init: the train CLI
+15. train: full-width qwen3-1.7b from a seeded random init: the train CLI
    for 3 steps (8 x 64 tokens), then the Trainer with delta_t=2 for 4 steps
    (two SRigL updates): every loss and grad norm finite, after each update
    every active neuron's fan-in equal to its layer's new k', nnz <= k0 *
@@ -158,7 +172,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    survivors equal prune_survivors' on the weights the update saw, the
    grown positions were inactive and as many as pruned, and the update run
    twice more from the same state, seed and step regrows the same masks.
-15. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
+16. refresh: gen-1 is [train]'s seeded full-width TrainState, gen-2 the
    same after two train steps, one DST update and the reference's _bump
    rewire (the first stack's mask rolled by one input row). The paged
    ServingEngine, bf16, on condensed (K1), int8 condensed (K2),
@@ -173,7 +187,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    gen-2 serves a new request bitwise equal to the refreshed engine. Each
    line gives the refresh's seconds, leaves in place and rebuilt, graphs
    recaptured and max_memory_allocated before and during.
-16. sync: a repro_torch.sync Publisher sends gen-1 (a snapshot) over a
+17. sync: a repro_torch.sync Publisher sends gen-1 (a snapshot) over a
    QueueChannel, an engine built with engine_from_snapshot (condensed,
    then int8 condensed) serves one chunk, the publisher sends gen-2 (a
    topology delta) and gen-2 again (a values-only delta), and step()
@@ -181,7 +195,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
    written in place, tokens bitwise equal to [refresh]'s, the deltas
    smaller than the snapshot and the values-only one than the topology
    one; the record bytes, encode, decode and drain seconds are printed.
-17. reference: the smoke config on the card against the port's CPU path
+18. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -2652,6 +2666,360 @@ def spec_phase(setup: dict, card: str, measured) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [autotune]: the launch-configuration search
+# ---------------------------------------------------------------------------
+
+# the batches the search runs at: buckets 8, 32 and 128
+AUTOTUNE_BATCHES = (BATCH, 32, 128)
+
+
+def _rows_bitwise(got, want) -> int:
+    """The rows of ``got`` whose bits equal ``want``'s."""
+    import torch
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    return int((got.contiguous().view(view) == want.contiguous().view(view)).all(dim=1).sum())
+
+
+def _autotune_key(label: str, kind: str, cands, operands, plain, search) -> dict:
+    """Every candidate launch of one key run once and held bitwise, row by
+    row, to the default launch (the first candidate; all outputs kept
+    alive, so no candidate's output lands on another's); then the timed
+    search on the same seeded operands, and its winner held to the plain
+    version at the [kernel] tolerance."""
+    import torch
+    from repro_torch.sparse import autotune as AT
+    outs = [AT.candidate_call(kind, *c)(*operands) for c in cands]
+    torch.cuda.synchronize()
+    rows = outs[0].shape[0]
+    for c, out in zip(cands, outs):
+        same = _rows_bitwise(out, outs[0])
+        if same != rows:
+            raise AssertionError(f"[autotune] {label}: launch {AT._label(*c)} equals the "
+                                 f"default launch in {same}/{rows} rows")
+    res = search()
+    if list(res.table) != [AT._label(*c) for c in cands]:
+        raise AssertionError(f"[autotune] {label}: timed {list(res.table)}, listed {cands}")
+    if res.us != min(res.table.values()) or res.speedup_vs_default < 1.0:
+        raise AssertionError(f"[autotune] {label}: the winner is not its table's argmin")
+    won = outs[cands.index((res.block_b, res.block_n))].float()
+    want = plain(*operands).float()
+    torch.testing.assert_close(won, want, **TOL["bfloat16"])
+    err = (won - want).abs().max().item()
+    print(f"[autotune] {label}: default {AT._label(*cands[0])} {res.default_us:.2f} us, best "
+          f"{res.label} {res.us:.2f} us ({res.speedup_vs_default:.3f}x), {len(res.table)} "
+          f"candidates timed, each bitwise the default in all {rows} rows; winner vs plain "
+          f"max_abs_err {err:.3g}; key {res.key}")
+    return dict(label=label, key=res.key, default=AT._label(*cands[0]),
+                default_us=res.default_us, best=res.label, us=res.us,
+                candidates=len(res.table), max_abs_err=err, table=res.table)
+
+
+def _autotune_request(eng, prompts) -> tuple:
+    """One B = 4, prompt 32, 16-token request served twice (warm, then
+    timed): its tokens, the timed wall and the timed request's launches."""
+    import torch
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        rid = eng.submit(prompts, GEN)
+        eng.step()
+        [res] = eng.retire(rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res.tokens, wall, _counts()
+
+
+@contextlib.contextmanager
+def _recorded_launches():
+    """Record every launch configuration ``condensed_matmul.launch_args``
+    gives while the block runs (graph captures included; a replay makes
+    none): a set of (d_in, rows, batch rows, block_rows, block_neurons,
+    decode_loads)."""
+    from repro_torch.kernels import condensed_matmul as cm
+    real, seen = cm.launch_args, set()
+
+    def spy(x, n_rows, block_rows, sm_count, block_n=None):
+        out = real(x, n_rows, block_rows, sm_count, block_n)
+        seen.add((x.shape[1], n_rows, x.shape[0], out[0], out[4], out[5]))
+        return out
+    cm.launch_args = spy
+    try:
+        yield seen
+    finally:
+        cm.launch_args = real
+
+
+def _alternate_ms(a, b, rounds: int = 6) -> tuple[float, float]:
+    """Device ms of one replay of captured step ``a`` and of ``b`` (medians
+    of ``_replay_ms``), replayed in turns: a b, b a, a b, ..."""
+    ta, tb = [], []
+    for i in range(rounds):
+        for step, times in ((a, ta), (b, tb))[::1 if i % 2 == 0 else -1]:
+            times.append(_replay_ms(step))
+    return statistics.median(ta), statistics.median(tb)
+
+
+def _check_capture(label: str, reg, stats, device, launched, pairs: dict) -> list:
+    """Gate that an engine's decode graph captured the launches it should:
+    for each stack, the decode step (at most SMALL_BATCH_MAX rows) made one
+    launch configuration in the capture (``launched``, from
+    ``_recorded_launches``), and it is the launch of ``pairs[name]``
+    ((block_b, block_n); (None, None): the default). Where the pair is the
+    cache's entry, ``ops._resolve_blocks`` at the step's rows must return
+    it too (the key ops reads is the key autotune wrote). Returns the
+    stacks whose launch differs from the default."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sparse import formats as F
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    differ = {}
+    for s_ in reg:
+        spec = F.spec_for_stack(s_, stats[s_.name], 2)
+        entry = AT.lookup_entry(F.Condensed.spec_tuning_key(spec, BATCH))
+        pair = pairs[s_.name]
+        at = {c for c in launched
+              if c[:2] == (s_.d_in, s_.d_out) and c[2] <= cm.SMALL_BATCH_MAX}
+        rows = next(iter(at))[2] if len(at) == 1 else None
+
+        def launch(block_b, block_n):
+            meta = torch.empty((rows, s_.d_in), dtype=torch.bfloat16, device="meta")
+            tile = cm.decode_rows(rows) if block_b is None else block_b
+            out = cm.launch_args(meta, s_.d_out, tile, sms, block_n)
+            return (s_.d_in, s_.d_out, rows, out[0], out[4], out[5])
+        if rows is None or at != {launch(*pair)}:
+            raise AssertionError(f"[autotune:engine] {s_.name}: the {label} decode capture "
+                                 f"launched {sorted(at)}, expected the launch of {pair}")
+        if entry is not None and pair == (entry["block_b"], entry["block_n"]):
+            x = torch.empty((rows, s_.d_in), dtype=torch.bfloat16, device=device)
+            got = ops._resolve_blocks(x, s_.d_out, spec.k, None, None)
+            if got != pair:
+                raise AssertionError(f"[autotune:engine] {s_.name}: ops resolves {got} at "
+                                     f"{rows} rows, the entry is {entry}")
+        if launch(*pair) != launch(None, None):
+            differ[s_.name] = (f"{AT._label(*pair)} (default "
+                               f"{AT._label(None, launch(None, None)[4])})")
+    return [f"{name} {text}" for name, text in differ.items()]
+
+
+def autotune_phase(setup: dict, card: str, smi: str) -> list:
+    """The launch-configuration search at full width, bf16, at B = 4, 32 and
+    128 (buckets 8, 32 and 128) on qwen3-1.7b's SRigL stacks (wo 2048 ->
+    2048 k 293, w_gate / w_up 2048 -> 6144 k 195, w_down 6144 -> 2048 k
+    585): every candidate of K1, of K4 on half of each stack's rows (the
+    half-ablated masks), of K2 on int8 codes at bucket 8 and of K5 over the
+    ablation-only masks' surviving columns, each held bitwise, row by row,
+    to the default launch, the winner to its plain version; per key the
+    default's and the winner's µs and the candidates timed, and for K5 the
+    plan's price of a layer with and without the reference's one-hot
+    epilogue term. Then, with $REPRO_TORCH_AUTOTUNE_CACHE on a file of its
+    own: a condensed engine serves a B = 4 request untuned, a second engine
+    runs ServingEngine.autotune(4) and serves it tuned; the tokens must be
+    equal bitwise and K1 the only kernel, 4 * 28 * 17 launches; each decode
+    capture's launches are recorded and held to each stack's entry (the
+    untuned one's to the default), and a third engine, with every entry
+    set by hand to a decode launch other than the default, must capture
+    those, same tokens; the two first engines' decode steps are replayed
+    in turns (the untuned one's graph, captured before autotune, keeps its
+    launches). Last a speculative
+    engine (gamma 3, draft ablation 0.5) serves the request without
+    bucket-32 entries, runs autotune(32), and a fresh one serves it with
+    them: tokens equal, the two verify graphs' device ms in turns. Returns
+    the per-key records."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import speculative as SP
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import plan as PLAN
+
+    base, reg, params, masks = setup["base"], setup["reg"], setup["params"], setup["masks"]
+    device = params["embed"].device
+    bf16 = torch.bfloat16
+    print(f"[autotune] {smi}: the launch search, bf16, B = {AUTOTUNE_BATCHES} (buckets "
+          f"{tuple(PLAN.batch_bucket(b) for b in AUTOTUNE_BATCHES)}), L2 kept cold by copies")
+    shapes = {}
+    for s_ in reg:  # w_up has w_gate's shape
+        shapes.setdefault((s_.d_in, s_.d_out), (s_.path[-1], setup["k_fan"][s_.path[-1]]))
+    kw = dict(dtype=bf16, device=device, save=False)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    records = []
+    for (d_in, d_out), (name, k) in shapes.items():
+        a = d_out - max(1, int(d_out * ABLATION))
+        a_pad = sm.padded_active_count(a, d_out)
+        for b in AUTOTUNE_BATCHES:
+            bucket = PLAN.batch_bucket(b)
+            where = f"{name} {d_in}->{d_out} B={b} (bucket {bucket})"
+
+            def gather(rows):
+                return cm.gather_candidates(bucket, d_in, rows, bf16, sm_count=sms)
+            jobs = [("K1", "condensed", gather(d_out),
+                     AT.gather_operands(b, d_in, d_out, k, dtype=bf16, device=device),
+                     cm._plain, lambda: AT.autotune_blocks(b, d_in, d_out, k, **kw)),
+                    (f"K4 {a} rows", "coa", gather(a),
+                     AT.gather_operands(b, d_in, a, k, dtype=bf16, device=device, d_out=d_out),
+                     sm._coa_plain, lambda: AT.autotune_coa_blocks(b, d_in, a, k, d_out, **kw)),
+                    (f"K5 a_pad {a_pad}", "structured",
+                     sm.structured_candidates(bucket, d_in, a_pad, bf16),
+                     AT.structured_operands(b, d_in, a_pad, d_out, dtype=bf16, device=device),
+                     ref.structured_matmul_ref,
+                     lambda: AT.autotune_structured_blocks(b, d_in, a_pad, d_out, **kw))]
+            if bucket == PLAN.batch_bucket(BATCH):
+                jobs.append(("K2 int8", "condensed", gather(d_out),
+                             AT.gather_operands(b, d_in, d_out, k, dtype=bf16, device=device,
+                                                values_dtype="int8"),
+                             cm._plain, lambda: AT.autotune_blocks(b, d_in, d_out, k,
+                                                                   values_dtype="int8", **kw)))
+            for kern, kind, cands, operands, plain, search in jobs:
+                rec = _autotune_key(f"{kern} k={k if kind != 'structured' else 0} {where}",
+                                    kind, cands, operands, plain, search)
+                rec.update(kernel=kern.split()[0], stack=name, batch=b, bucket=bucket)
+                records.append(rec)
+                if kind == "structured":
+                    # the plan's price of this layer, as the reference prices it (with
+                    # its one-hot epilogue's a_pad * d_out flops a row) and without
+                    st = F.ExportStats(k=d_in, max_active=a, active_fraction=a / d_out,
+                                       min_fan_in=d_in)
+                    spec = F.spec_for_stack(SimpleNamespace(d_in=d_in, d_out=d_out), st, 2)
+                    prof = PLAN.DEFAULT_PROFILE
+                    with_term = F.StructuredFanIn.estimate_cost(spec, bucket, prof)
+                    without = max(F.StructuredFanIn.estimate_weight_bytes(spec)
+                                  / prof.hbm_bytes_per_s,
+                                  2.0 * bucket * a_pad * d_in / prof.mxu_flops_per_s)
+                    rec.update(price_us=with_term * 1e6, price_without_epilogue_us=without * 1e6)
+                    print(f"[autotune:epilogue] K5 {where}: measured default "
+                          f"{rec['default_us']:.2f} us, tuned {rec['us']:.2f} us; "
+                          f"StructuredFanIn.estimate_cost (default profile) "
+                          f"{with_term * 1e6:.3f} us with the one-hot epilogue term, "
+                          f"{without * 1e6:.3f} us without")
+            del jobs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    cache = REPO / "build" / "autotune_phase.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    AT.reset_cache_state()
+    try:
+        cfg = base.replace(dtype="bfloat16")
+        prompts = setup["prompts"]
+        untuned = E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                                  block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+        with _recorded_launches() as launched_u:
+            toks_u, wall_u, counts_u = _autotune_request(untuned, prompts)
+        eng = E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                              block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+        t0 = time.perf_counter()
+        tuned = eng.autotune(BATCH)
+        took = time.perf_counter() - t0
+        for name, res in tuned.items():
+            print(f"[autotune:engine] autotuned {name}: best {res.label} ({res.us:.2f} us vs "
+                  f"default {res.default_us:.2f} us, {len(res.table)} launches timed)")
+        stats = eng.stats()
+        missing = [s_.name for s_ in reg if AT.lookup_entry(F.Condensed.spec_tuning_key(
+            F.spec_for_stack(s_, stats[s_.name], 2), BATCH)) is None]
+        if missing or not tuned:
+            raise AssertionError(f"[autotune:engine] tuned {sorted(tuned)}; no entry for "
+                                 f"{missing}")
+        with _recorded_launches() as launched_t:
+            toks_t, wall_t, counts_t = _autotune_request(eng, prompts)
+        entries = {s_.name: AT.lookup_entry(F.Condensed.spec_tuning_key(
+            F.spec_for_stack(s_, stats[s_.name], 2), BATCH)) for s_ in reg}
+        _check_capture("untuned", reg, stats, device, launched_u,
+                       {n: (None, None) for n in entries})
+        differ = _check_capture("tuned", reg, stats, device, launched_t,
+                                {n: (e["block_b"], e["block_n"]) for n, e in entries.items()})
+        # the same read with a launch that surely differs: each stack's entry
+        # set by hand to a decode launch other than the default, and a fresh
+        # engine's capture must take it, with the same tokens
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        saved = {k_: dict(v) for k_, v in AT._load()["kernels"].items()}
+        forced = {}
+        for s_ in reg:
+            cands = cm.gather_candidates(PLAN.batch_bucket(BATCH), s_.d_in, s_.d_out, bf16,
+                                         sm_count=sms)
+            forced[s_.name] = next(c for c in cands[1:] if c[0] is None)
+            AT._load()["kernels"][F.Condensed.spec_tuning_key(
+                F.spec_for_stack(s_, stats[s_.name], 2), BATCH)] = dict(
+                    block_b=forced[s_.name][0], block_n=forced[s_.name][1])
+        other = E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                                block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+        with _recorded_launches() as launched_f:
+            toks_f, _, counts_f = _autotune_request(other, prompts)
+        forced_differ = _check_capture("forced", reg, stats, device, launched_f, forced)
+        AT._load()["kernels"] = saved
+        if not torch.equal(toks_f, toks_u) or len(forced_differ) != len(reg):
+            raise AssertionError(f"[autotune:engine] the forced entries' engine: tokens equal "
+                                 f"{torch.equal(toks_f, toks_u)}, launches that differ "
+                                 f"{forced_differ}")
+        del other
+        print(f"[autotune:engine] decode captures at the step's rows: untuned == the default "
+              f"launches, tuned == each stack's entry (ops resolves it), launches that differ "
+              f"from the default: {', '.join(differ) or 'none'}; with entries forced by hand "
+              f"to {', '.join(forced_differ)} a fresh engine's capture takes them, same tokens")
+        want = {**_none(), "K1": 4 * base.n_layers * (1 + GEN)}
+        for label, counts in (("untuned", counts_u), ("tuned", counts_t), ("forced", counts_f)):
+            if counts != want:
+                raise AssertionError(f"[autotune:engine] {label} request launched {counts}, "
+                                     f"expected {want}")
+        if not torch.equal(toks_u, toks_t):
+            raise AssertionError("[autotune:engine] tuned tokens differ from untuned")
+        # the untuned engine's decode graph was captured before autotune and
+        # keeps its launches; the two steps replayed in turns
+        step_u, step_t = _alternate_ms(untuned._runners[untuned.plan_key(BATCH)].decoder,
+                                       eng._runners[eng.plan_key(BATCH)].decoder)
+        n_tok = BATCH * GEN
+        print(f"[autotune:engine] {card}: condensed bf16, B={BATCH} prompt {PROMPT} + {GEN}: "
+              f"autotune({BATCH}) {took:.2f}s; tuned tokens == untuned bitwise; K1 "
+              f"{counts_t['K1']} launches a request, tuned and untuned; wall {wall_t * 1e3:.2f} "
+              f"ms ({n_tok / wall_t:.1f} tok/s) tuned vs {wall_u * 1e3:.2f} ms "
+              f"({n_tok / wall_u:.1f} tok/s) untuned; one decode step's replay "
+              f"{step_t:.3f} ms device tuned vs {step_u:.3f} ms untuned, in turns (findings, "
+              f"not gated)")
+        del eng, untuned
+        gc.collect()
+
+        spec = SP.SpecConfig(gamma=SPEC_GAMMA, draft_ablation=0.5, force=True)
+        untuned = E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                                  block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK,
+                                  speculative=spec)
+        toks_s, _, _ = _autotune_request(untuned, prompts)
+        rows = SPEC_BUCKET * (SPEC_GAMMA + 1)
+        tuned32 = untuned.autotune(rows)  # its graphs, captured before, keep their launches
+        eng = E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                              block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK, speculative=spec)
+        toks_s2, _, _ = _autotune_request(eng, prompts)
+        if not torch.equal(toks_s, toks_s2):
+            raise AssertionError("[autotune:verify] tokens differ with the bucket-32 entries")
+        verify_u, verify_t = _alternate_ms(
+            untuned._runners[untuned.plan_key(SPEC_BUCKET)].verify,
+            eng._runners[eng.plan_key(SPEC_BUCKET)].verify)
+        best = ", ".join(f"{n} {r.label} {r.us:.2f} us (default {r.default_us:.2f})"
+                         for n, r in tuned32.items())
+        print(f"[autotune:verify] {card}: one speculative verify (gamma {SPEC_GAMMA}, bucket "
+              f"{SPEC_BUCKET}, {rows} rows, bf16) {verify_t:.3f} ms device with the bucket-32 "
+              f"entries ({best}) vs {verify_u:.3f} ms without, replayed in turns; tokens "
+              f"equal")
+        del eng, untuned
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old
+        AT.reset_cache_state()
+    return records
+
+
 def _map_leaves(tree: dict, fn) -> dict:
     return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -3877,6 +4245,17 @@ def main() -> int:
     print(smi)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
+    # the launch cache the kernel wrappers read is this run's own, fresh:
+    # every phase serves the default launches but [autotune], whose engines
+    # use a file of their own
+    from repro_torch.sparse import autotune as AT
+    cache = REPO / "build" / "autotune.json"
+    cache.parent.mkdir(exist_ok=True)
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    AT.reset_cache_state()
+    print(f"[env] launch cache {AT.cache_path()} (fresh, no entries); the [autotune] "
+          f"phase's engines use build/autotune_phase.json")
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -3911,6 +4290,10 @@ def main() -> int:
     spec_cases = timed("kernel_spec", spec_kernel_phase, device)
     measured = timed("profile", profile_phase, setup, card)
     timed("spec", spec_phase, setup, card, measured)
+    autotune_cases = timed("autotune", autotune_phase, setup, card, smi)
+    if AT.cache_path() != str(cache) or AT.has_kernel_entries():
+        raise AssertionError(f"after [autotune] the wrappers read {AT.cache_path()}, which "
+                             f"must be {cache} with no launch entries")
     launches["K3"] = timed("grad", grad_phase, setup)
     timed("grad_structured", structured_grad_phase, setup)
     report = setup["report"]
@@ -3934,7 +4317,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
-                    "rigl_cases": rigl_cases, "spec_cases": spec_cases}, indent=1))
+                    "rigl_cases": rigl_cases, "spec_cases": spec_cases,
+                    "autotune_cases": autotune_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

@@ -7,9 +7,8 @@ the engine, keep training, and refresh the engine incrementally.
 (``--device cuda``, the default, runs on the card, where the condensed
 paths launch the port's CUDA kernels and every decode step is a replayed
 CUDA graph.) The sections follow ``examples/quickstart.py``'s 1-8 and 13:
-section 7 has the profile half of the reference's calibration (its
-launch-configuration search waits for ROADMAP queue 1, item 10), section
-13 is self-draft speculative decoding.
+section 7 is the calibration (a measured profile, then the
+launch-configuration search), section 13 self-draft speculative decoding.
 """
 import argparse
 import dataclasses
@@ -164,8 +163,12 @@ def main(argv=None):
     #    condensed gather at two batch points, B = 8 and 512; CUDA events
     #    over replayed work on the card), cached per device name. The plan
     #    decisions at each bucket under both profiles, side by side.
-    #    (CLI: --path auto --profile measured.) The reference's block search
-    #    (engine.autotune) is not ported yet: ROADMAP queue 1, item 10.
+    #    (CLI: --path auto --profile measured.) Then the launch search
+    #    (engine.autotune): every launch configuration of each kernel the
+    #    engine's stacks run at a bucket is timed and the fastest kept in
+    #    the same cache, under the formats' tuning keys, which the kernel
+    #    wrappers read (CLI: --autotune). On the CPU each candidate is the
+    #    plain version, so the winners say nothing of the card.
     prof = PLAN.HardwareProfile.measure(device=device)
     print(f"calibrated {prof.name}: hbm {prof.hbm_bytes_per_s / 1e9:.1f} GB/s "
           f"matmul {prof.mxu_flops_per_s / 1e9:.1f} GFLOP/s "
@@ -180,6 +183,9 @@ def main(argv=None):
                 for p_, k in ((PLAN.DEFAULT_PROFILE, engine.plan_key(bb)),
                               (prof, engine_m.plan_key(bb)))}
         print(f"decisions @ bucket {bb}: " + " | ".join(f"{n}: {r}" for n, r in reps.items()))
+    for name, res in engine_m.autotune(2).items():
+        print(f"autotuned {name} @ b=2: best {res.label} ({res.us:.0f} us vs default "
+              f"{res.default_us:.0f} us, {len(res.table)} launches timed)")
 
     # 8. ablation-aware kernels (Fig. 4 "structured"): the structured path
     #    multiplies only the surviving columns of the dense weight (K5 on

@@ -26,8 +26,10 @@ launches the kernel or raises — there is no fallback. As in the reference,
 block row) and larger batches the tiled launch; a caller-given ``block_b``
 (the batch rows of a block, one of ``GATHER_ROWS[dtype]``) forces the tiled
 launch. The tiled launch takes ``TILED_ROWS[dtype]`` rows a block: 128 in
-bfloat16 (the slots read once per call up to B = 128), 8 in float32. Every
-launch of one shape is bitwise equal to every other.
+bfloat16 (the slots read once per call up to B = 128), 8 in float32.
+``block_n`` sets the neurons of a block (``neuron_tiles``). Every launch of
+one shape is bitwise equal to every other, so the launch is a knob that
+``sparse.autotune`` searches over ``gather_candidates``.
 
 ``condensed_matmul.launches`` counts K1's launches,
 ``condensed_matmul.scaled_launches`` K2's and ``condensed_matmul_dw.launches``
@@ -81,6 +83,12 @@ DECODE_NEURONS = 16
 # dynamic shared memory three blocks may hold together on an SM (228 KB an
 # SM, 1 KB of it reserved a block)
 THREE_BLOCKS_SMEM = 233_472 - 3 * 1024
+# float32's neurons a block (``block_n``): 8 warps of 1 to 8 neurons each;
+# the search times the powers of two among them
+F32_NEURONS = tuple(range(8, 65, 8))
+F32_SEARCHED = tuple(n for n in F32_NEURONS if n & (n - 1) == 0)
+# an H100 SXM's SMs: the card a search run on the CPU lists its launches for
+DEFAULT_SM_COUNT = 132
 
 
 class GatherGeometry(NamedTuple):
@@ -248,34 +256,121 @@ def _plain(x, values, indices, scales):
     return ref.condensed_matmul_scaled_ref(x, values, indices, scales)
 
 
-def launch_args(x: torch.Tensor, n_rows: int, block_rows: int,
-                sm_count: int) -> tuple[int, int, int, int, int, int]:
+def _mma_fits(geo: GatherGeometry, tile_rows: int, neurons: int) -> bool:
+    """Whether gather_mma takes ``neurons`` a block at ``tile_rows`` batch
+    rows with the geometry's own passes: within SMEM_BYTES, an outbox
+    entry holding the local row, 16 neurons when the split takes passes."""
+    return ((geo.passes == 1 or neurons == NEURON_TILES[-1])
+            and mma_smem_bytes(tile_rows, neurons, geo.pass_rows, geo.passes) <= SMEM_BYTES
+            and _outbox_fits(neurons, geo.splits, geo.pass_rows))
+
+
+def neuron_tiles(tile_rows: int, d_in: int, dtype: torch.dtype) -> tuple[int, ...]:
+    """The neurons a block (``block_n``) a launch at ``tile_rows`` batch
+    rows takes: bfloat16's decode kernel (a tile of at most 8 rows where it
+    fits) 16 or 8, gather_mma each of ``NEURON_TILES`` that fits; float32
+    ``F32_NEURONS``. None of them moves the reduction order."""
+    if dtype != torch.bfloat16:
+        return F32_NEURONS
+    geo = gather_geometry(d_in, dtype)
+    if tile_rows <= SMALL_BATCH_MAX and geo.decode_loads:
+        return (DECODE_NEURONS, 8)
+    return tuple(n for n in NEURON_TILES if _mma_fits(geo, tile_rows, n))
+
+
+def check_block_n(block_n: int | None, tile_rows: int, d_in: int, dtype: torch.dtype) -> None:
+    """Raise unless ``block_n`` is None or a block of the launch at
+    ``tile_rows`` takes it: a launch that does not fit is never clamped."""
+    if block_n is not None and block_n not in neuron_tiles(tile_rows, d_in, dtype):
+        raise ValueError(f"block_n must be one of {neuron_tiles(tile_rows, d_in, dtype)} "
+                         f"for {dtype} at d_in={d_in} and {tile_rows} batch rows a block, "
+                         f"got {block_n}")
+
+
+def launch_args(x: torch.Tensor, n_rows: int, block_rows: int, sm_count: int,
+                block_n: int | None = None) -> tuple[int, int, int, int, int, int]:
     """(block_rows, rows_per_warp, split_rows, pass_rows, block_neurons,
     decode_loads): one launch of the shared body (csrc/condensed_rows.cuh)
     on x (B, d_in) over ``n_rows`` neurons, on a card of ``sm_count`` SMs;
     the C side makes no choice of its own. bfloat16, from
     ``gather_geometry``: a batch tile of at most 8 rows runs the decode
-    kernel where it fits (``decode_loads`` > 0), 8 neurons a block (the m16
-    tile's other rows zero) where the grid then still holds at most a block
-    an SM, so more SMs pull from HBM at once, else 16; any other tile runs
-    gather_mma (``decode_loads`` 0). float32: the x tile shrunk to fit
-    shared memory and neurons a warp for enough blocks to give two waves
-    over the SMs, more neurons a block (fewer x tiles staged) when there are
-    blocks to spare."""
+    kernel where it fits (``decode_loads`` > 0; its grid covers B in
+    tiles), ``block_n`` neurons a block or by default 8 (the m16 tile's
+    other rows zero) where the grid then still holds at most a block an
+    SM, so more SMs pull from HBM at once, else 16; any other tile runs
+    gather_mma (``decode_loads`` 0), ``block_n`` neurons a block or the
+    geometry's. float32: the x tile shrunk to fit shared memory and
+    ``block_n`` / 8 neurons a warp, or by default enough blocks for two
+    waves over the SMs, more neurons a block (fewer x tiles staged) when
+    there are blocks to spare. ``block_n`` must be one of
+    ``neuron_tiles(block_rows, ...)``."""
     b, d_in = x.shape
+    check_block_n(block_n, block_rows, d_in, x.dtype)
     if x.dtype == torch.bfloat16:
         geo = gather_geometry(d_in, x.dtype)
         if block_rows <= SMALL_BATCH_MAX and geo.decode_loads:
-            neurons = 8 if -(-n_rows // 8) <= sm_count else DECODE_NEURONS
+            neurons = block_n or (8 if -(-n_rows // 8) <= sm_count else DECODE_NEURONS)
             return block_rows, 0, geo.split_rows, 0, neurons, geo.decode_loads
-        return block_rows, 0, geo.split_rows, geo.pass_rows, geo.block_neurons, 0
+        return block_rows, 0, geo.split_rows, geo.pass_rows, block_n or geo.block_neurons, 0
     rows = _fit_rows(block_rows, d_in, x.element_size())
-    per_warp = max(1, min(8, n_rows * -(-b // rows) // (_WARPS_PER_BLOCK * 2 * sm_count)))
+    if block_n is None:
+        per_warp = max(1, min(8, n_rows * -(-b // rows) // (_WARPS_PER_BLOCK * 2 * sm_count)))
+    else:
+        per_warp = block_n // _WARPS_PER_BLOCK
     return rows, per_warp, 0, 0, 0, 0
 
 
+def _pow2_at_least(b: int) -> int:
+    return 1 << max(int(b) - 1, 0).bit_length()
+
+
+def _search_tiles(top: int, rows: tuple[int, ...]) -> list[int]:
+    """The batch tiles a search times at a bucket whose rows round up to
+    ``top``: from ``top`` down to a sixteenth of it (smaller tiles only
+    read the weights more often)."""
+    return [t for t in rows if top // 16 <= t <= top]
+
+
+def gather_candidates(b: int, d_in: int, n_rows: int, dtype: torch.dtype, *,
+                      sm_count: int) -> list[tuple[int | None, int]]:
+    """The launches of K1, K2, K4 and K2-coa that the search times at batch
+    ``b`` (a bucket) over ``n_rows`` neurons on a card of ``sm_count`` SMs
+    (which the default launch depends on): ``(block_b, block_n)`` pairs,
+    ``block_b`` None for the decode launch (``condensed_matmul_decode``,
+    B <= SMALL_BATCH_MAX). The first is the launch the wrapper picks today,
+    the baseline; then each neuron tile of the decode kernel (bfloat16, at
+    batch tiles of at most 8 rows, covering B in tiles) and of gather_mma
+    at each larger tile, or float32's tiles and ``F32_SEARCHED`` neurons a
+    block. No tile exceeds ``b`` rounded up to a power of two, and none of
+    them moves ``gather_geometry`` (``split_rows``, ``splits``,
+    ``pass_rows``), so every candidate is bitwise the baseline."""
+    top = min(_pow2_at_least(b), max(GATHER_ROWS[dtype]))
+    small = b <= SMALL_BATCH_MAX
+
+    def entry(tile: int, neurons: int) -> tuple[int | None, int]:
+        return (None if small and tile == decode_rows(b) else tile), neurons
+
+    base_tile = decode_rows(b) if small else TILED_ROWS[dtype]
+    args = launch_args(torch.empty((b, d_in), dtype=dtype, device="meta"), n_rows,
+                       base_tile, sm_count)
+    cands = [entry(base_tile, args[4] if dtype == torch.bfloat16
+                   else args[1] * _WARPS_PER_BLOCK)]
+    if dtype == torch.bfloat16:
+        tiles = _search_tiles(top, GATHER_ROWS[dtype])
+        decode = gather_geometry(d_in, dtype).decode_loads
+        cands += [entry(t, n) for t in tiles if t > SMALL_BATCH_MAX or not decode
+                  for n in neuron_tiles(t, d_in, dtype)]
+        if decode:
+            cands += [entry(t, n) for t in tiles if t <= SMALL_BATCH_MAX
+                      for n in neuron_tiles(t, d_in, dtype)]
+    else:
+        cands += [entry(t, n) for t in _search_tiles(top, BLOCK_ROWS) for n in F32_SEARCHED]
+    return list(dict.fromkeys(cands))
+
+
 def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-            scales: torch.Tensor | None, block_rows: int) -> torch.Tensor:
+            scales: torch.Tensor | None, block_rows: int,
+            block_n: int | None = None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul kernel runs on CUDA tensors, "
                          f"not {x.device}")
@@ -284,7 +379,7 @@ def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
     if b == 0 or n_out == 0:
         return y
-    args = launch_args(x, n_out, block_rows, _sm_count(x.device.index or 0))
+    args = launch_args(x, n_out, block_rows, _sm_count(x.device.index or 0), block_n)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -317,7 +412,8 @@ def decode_rows(b: int) -> int:
 
 def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                      *, scales: torch.Tensor | None = None,
-                     block_b: int | None = None) -> torch.Tensor:
+                     block_b: int | None = None,
+                     block_n: int | None = None) -> torch.Tensor:
     """Forward condensed matmul. x (B, d_in); values, indices (n_out, k) -> (B, n_out).
 
     Every index must lie in [0, d_in); the kernel does not check it (the
@@ -329,16 +425,20 @@ def condensed_matmul(x: torch.Tensor, values: torch.Tensor, indices: torch.Tenso
     block (128 in bfloat16, 8 in float32). An explicit ``block_b`` (one of
     ``GATHER_ROWS[dtype]``: a power of two up to 128 in bfloat16, up to 8
     in float32, where the x tile shrinks to fit shared memory) forces the
-    tiled launch at that tile.
+    tiled launch at that tile; in bfloat16 a tile of at most 8 rows runs
+    the decode kernel over B in tiles. ``block_n``, the neurons of a block,
+    is one of ``neuron_tiles`` at that tile (None: ``launch_args``'
+    default); one that does not fit raises, on the CPU too.
     """
     _check(x, values, indices, scales)
     check_block_b(block_b, x.dtype)
+    if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
+        return condensed_matmul_decode(x, values, indices, scales=scales, block_n=block_n)
+    tile = TILED_ROWS[x.dtype] if block_b is None else block_b
+    check_block_n(block_n, tile, x.shape[1], x.dtype)
     if x.device.type == "cpu":
         return _plain(x, values, indices, scales)
-    if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
-        return condensed_matmul_decode(x, values, indices, scales=scales)
-    return _launch(x, values, indices, scales,
-                   TILED_ROWS[x.dtype] if block_b is None else block_b)
+    return _launch(x, values, indices, scales, tile, block_n)
 
 
 condensed_matmul.launches = 0
@@ -347,16 +447,19 @@ condensed_matmul.scaled_launches = 0
 
 def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
                             indices: torch.Tensor, *,
-                            scales: torch.Tensor | None = None) -> torch.Tensor:
+                            scales: torch.Tensor | None = None,
+                            block_n: int | None = None) -> torch.Tensor:
     """Decode launch: the whole batch (rounded up to a power of two, at most
     8 rows) in one block row, the grid over neuron tiles (and, in bfloat16,
     d_in splits) only. Bitwise equal to the tiled launch: each output's
     reduction order depends on d_in and the dtype alone. ``scales`` runs
-    K2's decode launch."""
+    K2's decode launch; ``block_n`` as in ``condensed_matmul``."""
     _check(x, values, indices, scales)
+    tile = decode_rows(x.shape[0])
+    check_block_n(block_n, tile, x.shape[1], x.dtype)
     if x.device.type == "cpu":
         return _plain(x, values, indices, scales)
-    return _launch(x, values, indices, scales, decode_rows(x.shape[0]))
+    return _launch(x, values, indices, scales, tile, block_n)
 
 
 @functools.cache

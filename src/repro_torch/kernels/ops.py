@@ -29,6 +29,18 @@ only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
 * ``structured_gathered_linear_nd`` — the same kernel over a caller-supplied
   panel of gathered columns;
 * ``structured_dense`` — the formula the structured kernel is held to.
+
+Launch resolution (``_resolve_blocks``, as the reference's): a
+caller-forced ``block_b`` or ``block_n`` wins; else the launch cached by
+``sparse.autotune`` under the format's key (``formats.shape_tuning_key``
+at x's device, dtype and batch bucket; the structured kernel's and the
+condensed-over-active kernel's keys carry their ``kind``); else the
+wrapper's default. With one of the two forced the cache is not read: an
+entry names a pair. The lookup reads the cache's in-memory view, so a
+call reads no file; inside a captured CUDA graph it happens once, at
+capture, and a graph captured before ``autotune`` keeps the launch it
+captured (as a reference program compiled before ``autotune`` keeps its
+blocks).
 """
 from __future__ import annotations
 
@@ -38,6 +50,35 @@ from repro_torch.kernels import condensed_matmul as cm
 from repro_torch.kernels import ref
 from repro_torch.kernels import structured_matmul as sm
 from repro_torch.kernels.ref import structured_dense  # noqa: F401  (the reference's ops name)
+
+
+def _resolve_blocks(x: torch.Tensor, n_out: int, k: int, block_b: int | None,
+                    block_n: int | None, *, kind: str = "condensed",
+                    scatter_width: int | None = None,
+                    values_dtype: str | None = None) -> tuple[int | None, int | None]:
+    """(block_b, block_n) for one launch on x (B, d_in): the caller's where
+    either is forced, else the cached entry under the format's key, else
+    (None, None), the wrapper's default."""
+    if block_b is not None or block_n is not None:
+        return block_b, block_n
+    # lazy: the formats import this module
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sparse import formats as F
+    if not AT.has_kernel_entries():
+        return None, None
+    tuned = AT.lookup_entry(F.shape_tuning_key(
+        x.shape[-1], n_out, k, x.shape[0], backend=AT.device_key(x.device),
+        itemsize=x.element_size(), kind=kind, scatter_width=scatter_width,
+        values_dtype=values_dtype))
+    if tuned is None:
+        return None, None
+    return tuned["block_b"], tuned["block_n"]
+
+
+def _quantized_name(values: torch.Tensor) -> str | None:
+    """The key's name of quantized codes ("int8" / "fp8")."""
+    from repro_torch.sparse import formats as F
+    return F.resolve_quantize_spec(values.dtype)
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -52,9 +93,9 @@ def _needs_graph(x: torch.Tensor, values: torch.Tensor) -> bool:
 
 class _CondensedLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, values, indices):
+    def forward(ctx, x, values, indices, block_b, block_n):
         ctx.save_for_backward(x, values, indices)
-        return cm.condensed_matmul(x, values, indices)
+        return cm.condensed_matmul(x, values, indices, block_b=block_b, block_n=block_n)
 
     @staticmethod
     def backward(ctx, dy):
@@ -65,16 +106,18 @@ class _CondensedLinear(torch.autograd.Function):
             dx = ref.condensed_matmul_dx_ref(dy, values, indices, x.shape[-1]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = cm.condensed_matmul_dw(dy, x, indices).to(values.dtype)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
-def condensed_linear(x: torch.Tensor, values: torch.Tensor,
-                     indices: torch.Tensor) -> torch.Tensor:
+def condensed_linear(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                     block_b: int | None = None, block_n: int | None = None) -> torch.Tensor:
     """y[b, n] = sum_k x[b, indices[n, k]] * values[n, k]; differentiable in
-    x and values. x (B, d_in); values, indices (n_out, k)."""
+    x and values. x (B, d_in); values, indices (n_out, k). The launch as
+    ``_resolve_blocks`` gives it."""
+    bb, bn = _resolve_blocks(x, *values.shape, block_b, block_n)
     if _needs_graph(x, values):
-        return _CondensedLinear.apply(x, values, indices)
-    return cm.condensed_matmul(x, values, indices)
+        return _CondensedLinear.apply(x, values, indices, bb, bn)
+    return cm.condensed_matmul(x, values, indices, block_b=bb, block_n=bn)
 
 
 def _dy_active(dy: torch.Tensor, out_index: torch.Tensor, d_out: int) -> torch.Tensor:
@@ -86,10 +129,11 @@ def _dy_active(dy: torch.Tensor, out_index: torch.Tensor, d_out: int) -> torch.T
 
 class _CondensedOverActiveLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, values, indices, out_index, d_out):
+    def forward(ctx, x, values, indices, out_index, d_out, block_b, block_n):
         ctx.save_for_backward(x, values, indices, out_index)
         ctx.d_out = d_out
-        return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out)
+        return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out,
+                                               block_b=block_b, block_n=block_n)
 
     @staticmethod
     def backward(ctx, dy):
@@ -100,18 +144,23 @@ class _CondensedOverActiveLinear(torch.autograd.Function):
             dx = ref.condensed_matmul_dx_ref(dy_act, values, indices, x.shape[-1]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = cm.condensed_matmul_dw(dy_act, x, indices).to(values.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def condensed_over_active_linear(x: torch.Tensor, values: torch.Tensor,
                                  indices: torch.Tensor, out_index: torch.Tensor,
-                                 d_out: int) -> torch.Tensor:
+                                 d_out: int, block_b: int | None = None,
+                                 block_n: int | None = None) -> torch.Tensor:
     """The condensed gather over the ``a`` surviving rows, row r stored at
     column ``out_index[r]`` of the (B, d_out) output (``d_out`` marks a
-    padding row); differentiable in x and values."""
+    padding row); differentiable in x and values. The launch as
+    ``_resolve_blocks`` gives it (the ``coa`` keys)."""
+    bb, bn = _resolve_blocks(x, *values.shape, block_b, block_n, kind="coa",
+                             scatter_width=d_out)
     if _needs_graph(x, values):
-        return _CondensedOverActiveLinear.apply(x, values, indices, out_index, d_out)
-    return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out)
+        return _CondensedOverActiveLinear.apply(x, values, indices, out_index, d_out, bb, bn)
+    return sm.condensed_over_active_matmul(x, values, indices, out_index, d_out,
+                                           block_b=bb, block_n=bn)
 
 
 def _inference_only(x: torch.Tensor) -> None:
@@ -125,11 +174,14 @@ def condensed_linear_nd(x: torch.Tensor, values: torch.Tensor, indices: torch.Te
     """y[..., n] = sum_k x[..., indices[n, k]] * values[n, k]. ``scales``
     marks ``values`` as int8/fp8 codes: y[..., n] is then that sum times
     scales[n] (the dequant-fused kernel K2; inference only)."""
+    x2 = _rows(x)
     if scales is None:
-        y = condensed_linear(_rows(x), values, indices)
+        y = condensed_linear(x2, values, indices)
     else:
         _inference_only(x)
-        y = cm.condensed_matmul(_rows(x), values, indices, scales=scales)
+        bb, bn = _resolve_blocks(x2, *values.shape, None, None,
+                                 values_dtype=_quantized_name(values))
+        y = cm.condensed_matmul(x2, values, indices, scales=scales, block_b=bb, block_n=bn)
     return y.reshape(*x.shape[:-1], values.shape[0])
 
 
@@ -140,20 +192,23 @@ def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,
     """y[..., out_index[r]] = sum_k x[..., indices[r, k]] * values[r, k] over
     the surviving rows r; every other output column is exactly zero.
     ``scales`` marks ``values`` as codes, as in ``condensed_linear_nd`` (K2-coa)."""
+    x2 = _rows(x)
     if scales is None:
-        y = condensed_over_active_linear(_rows(x), values, indices, out_index, d_out)
+        y = condensed_over_active_linear(x2, values, indices, out_index, d_out)
     else:
         _inference_only(x)
-        y = sm.condensed_over_active_matmul(_rows(x), values, indices, out_index, d_out,
-                                            scales=scales)
+        bb, bn = _resolve_blocks(x2, *values.shape, None, None, kind="coa",
+                                 scatter_width=d_out, values_dtype=_quantized_name(values))
+        y = sm.condensed_over_active_matmul(x2, values, indices, out_index, d_out,
+                                            scales=scales, block_b=bb, block_n=bn)
     return y.reshape(*x.shape[:-1], d_out)
 
 
 class _StructuredLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, active_index):
+    def forward(ctx, x, w, active_index, block_b):
         ctx.save_for_backward(x, w, active_index)
-        return sm.structured_matmul(x, w.to(x.dtype), active_index)
+        return sm.structured_matmul(x, w.to(x.dtype), active_index, block_b=block_b)
 
     @staticmethod
     def backward(ctx, dy):
@@ -170,18 +225,22 @@ class _StructuredLinear(torch.autograd.Function):
             # one spare column takes the padding entries, then is cut off
             dw = torch.zeros((w.shape[0], d_out + 1), dtype=w.dtype, device=w.device)
             dw = dw.index_add_(1, cols, contrib)[:, :d_out].contiguous()
-        return dx, dw, None
+        return dx, dw, None, None
 
 
-def structured_linear(x: torch.Tensor, w: torch.Tensor,
-                      active_index: torch.Tensor) -> torch.Tensor:
+def structured_linear(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor,
+                      block_b: int | None = None) -> torch.Tensor:
     """y = x @ w over the surviving columns ``active_index`` (padded with
     the sentinel ``d_out``) of the dense (d_in, d_out) weight, ablated
     columns exact zeros; differentiable in x and w. The weight is cast to
-    ``x.dtype`` (a no-op for the serving copy). x (B, d_in)."""
+    ``x.dtype`` (a no-op for the serving copy). x (B, d_in). The batch tile
+    as ``_resolve_blocks`` gives it (the ``structured`` keys; K5 takes no
+    ``block_n``)."""
+    bb, _ = _resolve_blocks(x, active_index.shape[0], 0, block_b, None, kind="structured",
+                            scatter_width=w.shape[-1])
     if _needs_graph(x, w):
-        return _StructuredLinear.apply(x, w, active_index)
-    return sm.structured_matmul(x, w.to(x.dtype), active_index)
+        return _StructuredLinear.apply(x, w, active_index, bb)
+    return sm.structured_matmul(x, w.to(x.dtype), active_index, block_b=bb)
 
 
 def structured_linear_nd(x: torch.Tensor, w: torch.Tensor,
@@ -192,8 +251,14 @@ def structured_linear_nd(x: torch.Tensor, w: torch.Tensor,
 
 
 def structured_gathered_linear_nd(x: torch.Tensor, panel: torch.Tensor,
-                                  active_index: torch.Tensor, d_out: int) -> torch.Tensor:
+                                  active_index: torch.Tensor, d_out: int, *,
+                                  values_dtype: str | None = None) -> torch.Tensor:
     """Structured matmul over a (d_in, a) panel of already gathered columns.
-    A panel already in ``x.dtype`` (a dequantized one) is used as it is."""
-    y = sm.structured_matmul_pregathered(_rows(x), panel.to(x.dtype), active_index, d_out)
+    A panel already in ``x.dtype`` (a dequantized one) is used as it is.
+    ``values_dtype`` names the quantized leaf's key."""
+    x2 = _rows(x)
+    bb, _ = _resolve_blocks(x2, active_index.shape[0], 0, None, None, kind="structured",
+                            scatter_width=d_out, values_dtype=values_dtype)
+    y = sm.structured_matmul_pregathered(x2, panel.to(x.dtype), active_index, d_out,
+                                         block_b=bb)
     return y.reshape(*x.shape[:-1], d_out)

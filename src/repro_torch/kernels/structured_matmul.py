@@ -108,6 +108,22 @@ def padded_active_count(a, d_out: int) -> int:
     return min(ceil_to(int(max(a, 1))), ceil_to(int(max(d_out, 1))))
 
 
+def structured_candidates(b: int, d_in: int, a_pad: int,
+                          dtype: torch.dtype) -> list[tuple[int | None, None]]:
+    """The launches of K5 that the search times at batch ``b`` (a bucket):
+    ``(block_b, None)`` pairs, ``block_b`` None for the decode launch (B <=
+    SMALL_BATCH_MAX). K5's block holds a fixed number of columns, so only
+    the batch tile is searched. The first is the launch the wrapper picks
+    today, the baseline; then each tile of ``STRUCTURED_ROWS`` from ``b``
+    rounded up to a power of two down to a sixteenth of it. None moves
+    ``split_geometry``, so every candidate is bitwise the baseline."""
+    small = b <= SMALL_BATCH_MAX
+    base = _decode_rows(b) if small else TILED_ROWS[dtype]
+    tiles = [base] + cm._search_tiles(cm._pow2_at_least(b), STRUCTURED_ROWS[dtype])
+    return list(dict.fromkeys(
+        (None if small and t == _decode_rows(b) else t, None) for t in tiles))
+
+
 def _prefetch_default() -> bool:
     return os.environ.get("REPRO_PREFETCH_GATHER", "0") != "0"
 
@@ -299,7 +315,8 @@ def structured_matmul_pregathered(x: torch.Tensor, panel: torch.Tensor,
 
 def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                 out_index: torch.Tensor, d_out: int, block_rows: int,
-                scales: torch.Tensor | None = None) -> torch.Tensor:
+                scales: torch.Tensor | None = None,
+                block_n: int | None = None) -> torch.Tensor:
     _on_cuda(x, "condensed_over_active_matmul")
     b, d_in = x.shape
     a, k = values.shape
@@ -308,7 +325,7 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
         return out
     if a == 0:
         return out.zero_()
-    args = cm.launch_args(x, a, block_rows, cm._sm_count(x.device.index or 0))
+    args = cm.launch_args(x, a, block_rows, cm._sm_count(x.device.index or 0), block_n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if scales is None:
@@ -344,7 +361,8 @@ def _coa_plain(x, values, indices, out_index, d_out, scales):
 def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
                                  indices: torch.Tensor, out_index: torch.Tensor,
                                  d_out: int, *, scales: torch.Tensor | None = None,
-                                 block_b: int | None = None) -> torch.Tensor:
+                                 block_b: int | None = None,
+                                 block_n: int | None = None) -> torch.Tensor:
     """Condensed gather over the surviving rows, written through
     ``out_index`` into a (B, d_out) output. x (B, d_in); values, indices
     (a, k); out_index (a,) int32, ``d_out`` marking padding rows. ``scales``
@@ -353,18 +371,20 @@ def condensed_over_active_matmul(x: torch.Tensor, values: torch.Tensor,
     ``block_b=None``: B <= SMALL_BATCH_MAX goes to the decode launch, larger
     batches to the tiled launch with ``cm.TILED_ROWS[dtype]`` batch rows a
     block (128 in bfloat16, 8 in float32); an explicit ``block_b`` (one of
-    ``cm.GATHER_ROWS[dtype]``) forces the tiled launch at that tile, as for
-    K1 (``condensed_matmul``).
+    ``cm.GATHER_ROWS[dtype]``) forces the tiled launch at that tile and
+    ``block_n`` sets the neurons of a block, as for K1
+    (``condensed_matmul``).
     """
     _check_coa(x, values, indices, out_index, scales)
     cm.check_block_b(block_b, x.dtype)
-    if x.device.type == "cpu":
-        return _coa_plain(x, values, indices, out_index, d_out, scales)
     if block_b is None and x.shape[0] <= SMALL_BATCH_MAX:
         return condensed_over_active_matmul_decode(x, values, indices, out_index, d_out,
-                                                   scales=scales)
-    return _coa_launch(x, values, indices, out_index, d_out,
-                       cm.TILED_ROWS[x.dtype] if block_b is None else block_b, scales)
+                                                   scales=scales, block_n=block_n)
+    tile = cm.TILED_ROWS[x.dtype] if block_b is None else block_b
+    cm.check_block_n(block_n, tile, x.shape[1], x.dtype)
+    if x.device.type == "cpu":
+        return _coa_plain(x, values, indices, out_index, d_out, scales)
+    return _coa_launch(x, values, indices, out_index, d_out, tile, scales, block_n)
 
 
 condensed_over_active_matmul.launches = 0
@@ -374,10 +394,13 @@ condensed_over_active_matmul.scaled_launches = 0
 def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
                                         indices: torch.Tensor, out_index: torch.Tensor,
                                         d_out: int, *,
-                                        scales: torch.Tensor | None = None) -> torch.Tensor:
+                                        scales: torch.Tensor | None = None,
+                                        block_n: int | None = None) -> torch.Tensor:
     """Decode launch of K4 (K2-coa with ``scales``), the batch in one block
-    row; bitwise equal to the tiled launch."""
+    row; bitwise equal to the tiled launch. ``block_n`` as for K1."""
     _check_coa(x, values, indices, out_index, scales)
+    tile = _decode_rows(x.shape[0])
+    cm.check_block_n(block_n, tile, x.shape[1], x.dtype)
     if x.device.type == "cpu":
         return _coa_plain(x, values, indices, out_index, d_out, scales)
-    return _coa_launch(x, values, indices, out_index, d_out, _decode_rows(x.shape[0]), scales)
+    return _coa_launch(x, values, indices, out_index, d_out, tile, scales, block_n)

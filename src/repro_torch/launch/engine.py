@@ -63,7 +63,13 @@ moves the saliency a draft's ``out_index`` follows, so each draft is
 derived again and written into the old draft's tensors where the shapes
 hold (its graph stays valid); ``captures`` counts every graph made.
 
-Not ported in this slice: tensor parallelism (``mesh``), ``autotune`` and
+``autotune`` runs the launch-configuration search (``sparse.autotune``)
+for every launch the engine's stacks make at a batch bucket; the kernel
+wrappers read its entries when a graph is captured, so graphs captured
+before it keep their launches (the tokens are the same either way: every
+launch of one shape is bitwise equal to every other).
+
+Not ported in this slice: tensor parallelism (``mesh``) and
 ``abstract_plan_key`` (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -82,6 +88,7 @@ from repro_torch.kernels import counters
 from repro_torch.launch import speculative as SP
 from repro_torch.models import model as M
 from repro_torch.models import paged as PG
+from repro_torch.sparse import autotune as AT
 from repro_torch.sparse import condensed as COND
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import plan as PLAN
@@ -1556,7 +1563,19 @@ class ServingEngine:
                 plan.value_refreshes += 1
             plan.mask_versions[name] = rec.mask_version
 
-    # -- not ported yet -----------------------------------------------------
+    # -- calibration --------------------------------------------------------
 
-    def autotune(self, batch_size: int, **kw):
-        raise _not_ported("ServingEngine.autotune (launch-configuration search)", 10)
+    def autotune(self, batch_size: int, *, dtype: torch.dtype | None = None,
+                 reps: int = 3) -> dict[str, AT.TuneResult]:
+        """Run the launch-configuration search (``autotune.tune_registry``)
+        for every launch this engine's stacks make at ``batch_size``'s
+        bucket, under the keys the formats' ``spec_tuning_key`` give, which
+        are what the kernel wrappers read (``kernels.ops``). Tunes at the
+        serving dtype (``cfg.dtype``: an f32 entry is never read by a bf16
+        serving run) and at the engine's ``values_dtype``, on the engine's
+        device. A decode graph captured before this call keeps the launch
+        it captured; later captures read the new entries."""
+        dtype = getattr(torch, self.cfg.dtype) if dtype is None else dtype
+        return AT.tune_registry(self.registry, self.stats(), batch=batch_size, dtype=dtype,
+                                reps=reps, device=self.device, values_dtype=self.values_dtype,
+                                tp=self.tp)

@@ -53,14 +53,20 @@ submits one request of ``--batch`` random prompts and serves it:
                      the rates on this device (``HardwareProfile.measure``,
                      cached per device name in
                      ``$REPRO_TORCH_AUTOTUNE_CACHE``).
+  --autotune         before serving, time every launch configuration of
+                     each kernel the engine's stacks run at ``--batch``'s
+                     bucket (``ServingEngine.autotune``) and keep the
+                     fastest in the same cache, where the kernel wrappers
+                     read it; prints one ``[serve] autotuned`` line per
+                     launch shape. Skipped on ``--path masked``.
 
 The engine plans every path but masked with ``sparse.plan.build_plan`` at
 the request's batch bucket. masked, condensed, condensed_over_active and
 auto evaluate the same masked weights, so their tokens agree (up to float
 ties). On the card each decode step is a replayed CUDA graph. Runs on CUDA
 unless ``--device cpu``; with no card and no ``--device cpu`` it exits with
-an error. The reference CLI's ``--tp`` and ``--autotune`` are not ported
-yet (ROADMAP queue 1, items 9 and 10).
+an error. The reference CLI's ``--tp`` is not ported yet (ROADMAP queue 1,
+item 9).
 """
 from __future__ import annotations
 
@@ -139,6 +145,10 @@ def main(argv=None):
                          "use: 'measured' times the stream, matmul and gather rates on "
                          "this device (cached per device name) instead of the built-in "
                          "H100 figures")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time every launch configuration of the sparse kernels at the "
+                         "batch's bucket before serving and keep the fastest (cached per "
+                         "device name in $REPRO_TORCH_AUTOTUNE_CACHE)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -192,6 +202,13 @@ def main(argv=None):
         engine = ServingEngine(cfg, params, masks, reg, path=args.path, profile=profile,
                                paged=False if args.no_paged else None,
                                values_dtype=args.values_dtype, speculative=speculative)
+    if args.autotune and args.path == "masked":
+        print("[serve] --autotune skipped: --path masked never dispatches to the "
+              "condensed kernels (use a condensed-family path or auto)")
+    elif args.autotune and reg:
+        for name, res in engine.autotune(args.batch).items():
+            print(f"[serve] autotuned {name}: best {res.label} ({res.us:.1f} us vs "
+                  f"default {res.default_us:.1f} us)")
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
     rid = engine.submit(prompts, args.gen)

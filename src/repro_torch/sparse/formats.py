@@ -211,6 +211,43 @@ def spec_for_stack(stack, stats: ExportStats, itemsize: int,
                       values_dtype=resolve_quantize_spec(values_dtype))
 
 
+def shape_tuning_key(d_in: int, n_out: int, k: int, batch: int, *,
+                     backend: str | None = None, itemsize: int = 4,
+                     kind: str = "condensed", scatter_width: int | None = None,
+                     values_dtype: str | None = None) -> str:
+    """The launch-configuration cache key of one kernel shape, the
+    reference's layout letter for letter:
+    ``{backend}/w{bits}|w{int8,fp8}/d{d_in}/n{n_out}/k{k}/b{bucket}[/{kind}-o{scatter_width}]``.
+
+    The one definition that the formats' ``tuning_key``, ``sparse.autotune``
+    (which writes entries under it) and ``kernels.ops`` (which reads them)
+    share. ``backend`` is ``autotune.device_key``'s name of the device (the
+    card's name, or ``cpu``; None: the card, raising without one), so an entry
+    timed on the CPU never serves the card. The batch is bucketed
+    (``plan.batch_bucket``): an entry serves every batch of its bucket.
+    ``kind`` keeps the kernels' key spaces apart: ``"condensed"`` (K1/K2),
+    ``"coa"`` (K4/K2-coa; ``n_out``/``k`` the surviving rows' arrays) and
+    ``"structured"`` (K5; ``n_out`` the padded active columns, ``k`` 0),
+    the last two with the dense output width ``scatter_width``. A quantized
+    ``values_dtype`` keys as ``wint8``/``wfp8`` in place of the bit width,
+    as in the reference, so such a key does not say the compute dtype.
+    """
+    from repro_torch.sparse import autotune as AT  # lazy: the plan imports this module
+    from repro_torch.sparse.plan import batch_bucket
+    backend = backend or AT.device_key()
+    vd = resolve_quantize_spec(values_dtype)
+    width = f"w{vd}" if vd in QUANTIZED_DTYPES else f"w{itemsize * 8}"
+    key = f"{backend}/{width}/d{d_in}/n{n_out}/k{k}/b{batch_bucket(batch)}"
+    if kind != "condensed":
+        key += f"/{kind}-o{scatter_width}"
+    return key
+
+
+def _leaf_backend(backend: str | None, t: torch.Tensor) -> str:
+    from repro_torch.sparse import autotune as AT
+    return backend or AT.device_key(t.device)
+
+
 def active_index_from_bools(neuron_active: torch.Tensor, a_pad: int) -> torch.Tensor:
     """Surviving-column ids for the structured kernel: (*lead, a_pad) int32,
     the active columns in increasing order, then the sentinel ``d_out``."""
@@ -408,6 +445,18 @@ class SparseFormat:
         arrays): the bytes quantization shrinks."""
         return cls.estimate_weight_bytes(spec)
 
+    def tuning_key(self, batch: int, *, backend: str | None = None) -> str | None:
+        """The launch-configuration cache key of this leaf's kernel launch
+        at ``batch`` (``shape_tuning_key``; ``backend`` None: the leaf's
+        device), or None where the format runs no tuned kernel."""
+        return None
+
+    @classmethod
+    def spec_tuning_key(cls, spec: FormatSpec, batch: int, *,
+                        backend: str | None = None) -> str | None:
+        """``tuning_key`` from a ``FormatSpec`` alone (no tensors)."""
+        return None
+
     def donate_refresh(self, w, mask, stats: ExportStats | None = None, *,
                        donate: bool = True) -> "SparseFormat":
         """Full re-export from (w, mask). With ``donate`` and unchanged
@@ -519,7 +568,8 @@ class StructuredFanIn(SparseFormat):
             panel = (self.values if self.scales is None else
                      dequantize_values(self.values, self.scales, axis=-2, dtype=x.dtype))
             return ops.structured_gathered_linear_nd(x, panel, self.active_index,
-                                                     self.neuron_active.shape[-1])
+                                                     self.neuron_active.shape[-1],
+                                                     values_dtype=self.values_dtype)
         return ops.structured_linear_nd(x, w, self.active_index)
 
     @classmethod
@@ -577,6 +627,20 @@ class StructuredFanIn(SparseFormat):
         if spec.values_dtype in QUANTIZED_DTYPES:
             vb += spec.n_replicas * a_pad * 4
         return vb
+
+    def tuning_key(self, batch, *, backend=None):
+        return shape_tuning_key(
+            self.d_in, self.active_index.shape[-1], 0, batch,
+            backend=_leaf_backend(backend, self.active_index), itemsize=self.weight_itemsize,
+            kind="structured", scatter_width=self.neuron_active.shape[-1],
+            values_dtype=self.values_dtype)
+
+    @classmethod
+    def spec_tuning_key(cls, spec, batch, *, backend=None):
+        a_pad = padded_active_count(spec.max_active, spec.d_out)
+        return shape_tuning_key(spec.d_in, a_pad, 0, batch, backend=backend,
+                                itemsize=spec.itemsize, kind="structured",
+                                scatter_width=spec.d_out, values_dtype=spec.values_dtype)
 
     def donate_refresh(self, w, mask, stats=None, *, donate=True):
         """A fresh export, written into this leaf's tensors when the active
@@ -741,6 +805,18 @@ class Condensed(SparseFormat):
             vb += spec.n_replicas * spec.d_out * 4  # one float32 scale per neuron
         return vb
 
+    def tuning_key(self, batch, *, backend=None):
+        d_out, k = self.values.shape[-2:]
+        return shape_tuning_key(self.d_in, d_out, k, batch,
+                                backend=_leaf_backend(backend, self.values),
+                                itemsize=self.values.element_size(),
+                                values_dtype=self.values_dtype)
+
+    @classmethod
+    def spec_tuning_key(cls, spec, batch, *, backend=None):
+        return shape_tuning_key(spec.d_in, spec.d_out, spec.k, batch, backend=backend,
+                                itemsize=spec.itemsize, values_dtype=spec.values_dtype)
+
     def restore_finalize(self):
         return _finalize_quantized_restore(self)
 
@@ -851,6 +927,21 @@ class CondensedOverActive(SparseFormat):
         if spec.values_dtype in QUANTIZED_DTYPES:
             vb += spec.n_replicas * spec.max_active * 4
         return vb
+
+    def tuning_key(self, batch, *, backend=None):
+        a, k = self.values.shape[-2:]
+        return shape_tuning_key(self.d_in, a, k, batch,
+                                backend=_leaf_backend(backend, self.values),
+                                itemsize=self.values.element_size(), kind="coa",
+                                scatter_width=self.d_out, values_dtype=self.values_dtype)
+
+    @classmethod
+    def spec_tuning_key(cls, spec, batch, *, backend=None):
+        # the kernel runs over the exported (max_active, k) arrays and stores
+        # into the d_out-wide output: both are in its key
+        return shape_tuning_key(spec.d_in, spec.max_active, spec.k, batch, backend=backend,
+                                itemsize=spec.itemsize, kind="coa", scatter_width=spec.d_out,
+                                values_dtype=spec.values_dtype)
 
     def restore_finalize(self):
         return _finalize_quantized_restore(self)

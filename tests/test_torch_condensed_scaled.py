@@ -175,9 +175,9 @@ def test_quantized_formats_hand_codes_and_scales_to_the_scaled_op(name, monkeypa
     seen = []
     real = TCM.condensed_matmul
 
-    def spy(x, values, indices, *, scales=None, block_b=None):
+    def spy(x, values, indices, *, scales=None, block_b=None, block_n=None):
         seen.append((values.dtype, None if scales is None else scales.dtype))
-        return real(x, values, indices, scales=scales, block_b=block_b)
+        return real(x, values, indices, scales=scales, block_b=block_b, block_n=block_n)
     monkeypatch.setattr(TCM, "condensed_matmul", spy)
     x = torch.from_numpy(rng.standard_normal((3, 24)).astype(np.float32)).to(torch.bfloat16)
     TF.Condensed.export_from_dense(w, mask, quantize_spec=name).apply(x)

@@ -34,6 +34,7 @@ from repro_torch.kernels import counters  # noqa: E402
 from repro_torch.launch import engine as TE  # noqa: E402
 from repro_torch.launch import serve as TS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.sparse import autotune  # noqa: E402
 from repro_torch.sparse import plan as TP  # noqa: E402
 
 from _torch_smoke_model import smoke_model  # noqa: E402
@@ -334,9 +335,10 @@ def test_engine_refuses_what_is_not_ported(smoke):
     eng = _engine(smoke)
     # refresh and attach_subscriber are ported (tests/test_torch_refresh.py
     # and tests/test_torch_sync.py), speculative decoding too
-    # (tests/test_torch_speculative.py)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.autotune(1)
+    # (tests/test_torch_speculative.py), and autotune on one device
+    # (tests/test_torch_autotune.py); its tensor-parallel shapes are not
+    with pytest.raises(NotImplementedError, match="item 9"):
+        autotune.tune_registry(eng.registry, eng.stats(), batch=1, tp=2, device="cpu")
     with pytest.raises(ValueError, match="paged serving requires"):
         TE.ServingEngine(smoke["tcfg"].replace(sliding_window=16), smoke["tparams"],
                          smoke["tmasks"], smoke["treg"], paged=True)
