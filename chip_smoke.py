@@ -8,7 +8,8 @@ Phases, each of which raises (exit code != 0) on any failed check:
 1. build: every CUDA source under src/repro_torch/kernels/csrc, compiled
    with nvcc for sm_90a, all at once; then the shared memory the C side
    sizes each bfloat16 gather block with (condensed_matmul_smem_bytes)
-   must equal condensed_matmul.gather_geometry's at GEOMETRY_D_IN.
+   must equal condensed_matmul.gather_geometry's at GEOMETRY_D_IN (the
+   zoo configs' input widths among them).
 2. kernels: the condensed gather kernel (K1) at every shape the serving
    path of full-width qwen3-1.7b gives it (wo, w_gate/w_up, w_down; decode
    B=4 and prefill B*T=128; bfloat16 and float32), then K4 (condensed over
@@ -49,7 +50,15 @@ Phases, each of which raises (exit code != 0) on any failed check:
    forward), bf16 and f32, beside the library call and the bound. With its
    defaults it takes K1, K2, K4 and K2-coa at B = 4, 128 and 512; it calls
    only wrappers that older trees have too, so it times their kernels the
-   same way in one call.
+   same way in one call. Then kernel:zoo: K1 at every (d_in, d_out, k)
+   of the ZOO configs' sparse stacks (gemma3-1b, qwen2-vl-7b,
+   internlm2-20b, mistral-large-123b; k the realized fan-in of their ERK
+   densities at 90%), bf16 and f32, B=4 and B*T=128, against its plain
+   version (computed in neuron chunks at these widths), the decode launch
+   bitwise the tiled launch, each shape's bf16 geometry printed (splits,
+   passes, whether the decode kernel exists: up to d_in 6656), timed beside
+   the plain version, torch.matmul on the dense masked weight and the byte
+   bound, and one decode and one tiled layer a config.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -195,7 +204,21 @@ Phases, each of which raises (exit code != 0) on any failed check:
    written in place, tokens bitwise equal to [refresh]'s, the deltas
    smaller than the snapshot and the values-only one than the topology
    one; the record bytes, encode, decode and drain seconds are printed.
-18. reference: the smoke config on the card against the port's CPU path
+18. zoo: each ZOO config at its published width (gemma3-1b and
+   qwen2-vl-7b at full depth, internlm2-20b at 16 of 48 layers and
+   mistral-large-123b at 4 of 88: see ZOO), random weights and 90% SRigL
+   masks from a seeded generator, bf16, served by ServingEngine with
+   paged=None: gemma3-1b's grouped local/global layout (prompts of 600
+   tokens against its 512-token window, so the ring caches wrap in prefill
+   and in decode) and qwen2-vl-7b's M-RoPE on the slab path, the other two
+   on the paged pool, each on masked and condensed: the counted request
+   launches K1 4 * layers * (1 + GEN) times on condensed and nothing on
+   masked; the engine's tokens equal standalone generate's (the paged
+   engine's may part at a near-tie), the eager decode loop's equal the
+   graph replays', and condensed is held to masked under the tie rule.
+   Prints the layout, the depth, the graph and eager walls and
+   max_memory_allocated.
+19. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -376,9 +399,12 @@ def build_phase():
 
 
 # the d_in at which the C side's shared memory must equal the wrapper's
-# geometry: the CPU tests' values (tests/test_torch_condensed_matmul.py)
+# geometry: the CPU tests' values (tests/test_torch_condensed_matmul.py),
+# then the input widths of the zoo configs' sparse stacks (ZOO: wo, w_gate
+# and w_up, w_down)
 GEOMETRY_D_IN = (1, 63, 64, 65, 511, 512, 513, 1000, 1001, 2048, 6144, 8192, 14336,
-                 40_000, 40_001, 116_224, 1_000_000)
+                 40_000, 40_001, 116_224, 1_000_000,
+                 1152, 3584, 4096, 6912, 12288, 16384, 18944, 28672)
 
 
 def gather_geometry_check() -> None:
@@ -1440,17 +1466,18 @@ def _counts() -> dict:
 
 
 def _check_ties(label: str, cfg, out, toks_m, gaps, tie: float | None = None,
-                against: str = "masked") -> int:
+                against: str = "masked", prompt: int = PROMPT) -> int:
     """Tokens of a path against the masked path's on the same masks (or
     another path's, named by ``against``): they may part only where that
     path's top-2 logit gap is a tie (below ``tie``, by default TIE_GAP at
-    this dtype). Returns the number of streams that agree in full."""
+    this dtype). ``prompt`` is the prompts' length. Returns the number of
+    streams that agree in full."""
     dtype_name = cfg.dtype
     tie = TIE_GAP[dtype_name] if tie is None else tie
-    if out.shape != (BATCH, PROMPT + GEN) or not bool(
+    if out.shape != (BATCH, prompt + GEN) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"{label}: bad tokens, shape {tuple(out.shape)}")
-    div = _first_divergence(out[:, PROMPT:], toks_m)
+    div = _first_divergence(out[:, prompt:], toks_m)
     for b, j in enumerate(div):
         if j is None:
             continue
@@ -4225,6 +4252,306 @@ def reference_phase(device):
               f"plain path: {cpu[0, 8:].tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# the config zoo beyond qwen3-1.7b ([kernel:zoo], [zoo:<arch>])
+# ---------------------------------------------------------------------------
+
+# (arch, layers served: None for the published depth, prompt length). gemma3's
+# prompt is longer than its 512-token window, so its local layers' ring
+# caches wrap in prefill and again in decode. internlm2-20b and
+# mistral-large-123b run at their published widths but a cut depth: the
+# phase holds the bf16 weights and masks twice (the caller's and an engine's
+# own copy), about 2.8 GB a layer for internlm2-20b and 11 GB for
+# mistral-large-123b, which at 48 and 88 layers do not fit one card
+ZOO = (("gemma3-1b", None, 600), ("qwen2-vl-7b", None, PROMPT),
+       ("internlm2-20b", 16, PROMPT), ("mistral-large-123b", 4, PROMPT))
+# the gathered (B, neurons, k) float32 block the chunked plain version holds
+PLAIN_CHUNK_BYTES = 1 << 30
+
+
+def _plain_k1(x, vals, idx):
+    """K1's plain version (``ref.condensed_matmul_ref``) over neuron chunks
+    whose gathered float32 block stays within PLAIN_CHUNK_BYTES: the same
+    function, output by output, at widths where one gather of the whole
+    (B, n_out, k) block would not fit the card."""
+    import torch
+    from repro_torch.kernels import ref
+    n_out, k = vals.shape
+    step = max(1, PLAIN_CHUNK_BYTES // (4 * x.shape[0] * k))
+    return torch.cat([ref.condensed_matmul_ref(x, vals[i:i + step], idx[i:i + step])
+                      for i in range(0, n_out, step)], dim=1)
+
+
+def _zoo_shapes() -> dict:
+    """{(d_in, d_out, k): (arch, stack)}: each distinct K1 shape of ZOO's
+    sparse stacks, k the realized fan-in of the registry's ERK densities at
+    90% (gemma3's g_local, g_global and g_rem stacks share theirs)."""
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.sparse import registry as REG
+    shapes = {}
+    for arch, _, _ in ZOO:
+        for s in REG.build_registry(configs.get_config(arch)):
+            k = D.fan_in_from_density(s.d_in, s.density)
+            shapes.setdefault((s.d_in, s.d_out, k), (arch, s.path[-1]))
+    return shapes
+
+
+def zoo_kernel_phase(device) -> list:
+    """K1 at every (d_in, d_out, k) of ZOO's sparse stacks, bf16 and f32, at
+    decode B=4 and tiled B*T=128: held to its plain version within TOL, the
+    decode launch bitwise the tiled launch's first rows, timed beside the
+    plain version, torch.matmul on the dense masked weight and the byte
+    bound. Prints each shape's bfloat16 geometry (whether the decode kernel
+    exists there: up to d_in 6656; past it B <= 8 runs gather_mma at a
+    small batch tile) and a line per config: one decode layer (wo + w_gate
+    + w_up + w_down) in bf16. Returns the per-case records."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = []
+    for (d_in, n_out, k), (arch, name) in _zoo_shapes().items():
+        geo = cm.gather_geometry(d_in, torch.bfloat16)
+        decode = geo.decode_loads is not None
+        print(f"[kernel:zoo] {arch} {name} {d_in}->{n_out} k={k}: bf16 geometry "
+              f"{geo.splits} splits of {geo.split_rows} inputs, {geo.passes} pass(es) of "
+              f"{geo.pass_rows}, gather_mma {geo.block_neurons} neurons a block "
+              f"({geo.smem_bytes} bytes), decode kernel "
+              + (f"yes ({geo.decode_smem_bytes} bytes, {geo.decode_loads} loads a thread)"
+                 if decode else "no (B <= 8 runs gather_mma at the batch's tile)"))
+        mask = topology.random_constant_fan_in_mask(gen, d_in, n_out, k)
+        w = torch.randn((d_in, n_out), generator=gen, device=device) / k ** 0.5
+        vals32, idx = topology.dense_to_condensed(w * mask, mask, k)
+        del mask, w
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            vals = vals32.to(dtype).contiguous()
+            dense = topology.condensed_to_dense(vals32, idx, d_in).to(dtype).contiguous()
+            isz = vals.element_size()
+            weight_sets = [(vals.clone(), idx.clone())
+                           for _ in range(_copies(n_out * k * (isz + 4)))]
+            dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * isz))]
+            del dense
+            for b, launch in ((BATCH, "decode"), (BATCH * PROMPT, "tiled")):
+                x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
+                y = cm.condensed_matmul(x, vals, idx)
+                y_ref = _plain_k1(x, vals, idx)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype_name])
+                err = (y.float() - y_ref.float()).abs().max().item()
+                del y_ref
+                tiled = cm.TILED_ROWS[dtype]
+                if launch == "decode":
+                    same = torch.equal(cm.condensed_matmul_decode(x, vals, idx),
+                                       cm.condensed_matmul(x, vals, idx, block_b=tiled))
+                    pair = f"decode == tiled({tiled})"
+                else:
+                    same = torch.equal(cm.condensed_matmul_decode(x[:BATCH], vals, idx),
+                                       y[:BATCH])
+                    pair = f"decode(first {BATCH} rows) == tiled({tiled})"
+                if not same:
+                    raise AssertionError(f"K1 {arch} {name} {dtype_name} B={b}: {pair} is not "
+                                         f"bitwise")
+                ms = _time_ms(cm.condensed_matmul, [(x, v, i) for v, i in weight_sets])
+                plain_ms = _time_ms(_plain_k1, [(x, v, i) for v, i in weight_sets[:1]],
+                                    reps=3, iters=3)
+                library_ms = _time_ms(torch.matmul, [(x, wd) for wd in dense_sets])
+                nbytes = n_out * k * (isz + 4) + b * d_in * isz + b * n_out * isz
+                ops = 2 * b * n_out * k
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                rec = dict(kernel="K1", arch=arch, stack=name, d_in=d_in, n_out=n_out, k=k,
+                           dtype=dtype_name, batch=b, launch=launch, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair,
+                           decode_kernel=decode, splits=geo.splits, split_rows=geo.split_rows,
+                           passes=geo.passes)
+                cases.append(rec)
+                print(f"[kernel:zoo] K1 {arch} {name:6s} {d_in}->{n_out} k={k} "
+                      f"{dtype_name:8s} B={b:3d} {launch:6s}: ms {ms:.5f} | plain "
+                      f"{plain_ms:.5f} | torch.matmul {library_ms:.5f} | bound "
+                      f"{rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g} | "
+                      f"{pair}: bitwise")
+            del weight_sets, dense_sets
+        del vals32, idx
+        torch.cuda.empty_cache()
+    per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
+    for arch, _, _ in ZOO:
+        for launch in ("decode", "tiled"):
+            layer = [c for c in cases if c["arch"] == arch and c["launch"] == launch
+                     and c["dtype"] == "bfloat16"]
+            tot = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
+                   for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"[kernel:zoo] {arch} one {launch} layer (wo + w_gate + w_up + w_down, "
+                  f"bf16, B={layer[0]['batch']}): K1 {tot['ms'] * 1e3:.2f} us | bound "
+                  f"{tot['bound_ms'] * 1e3:.2f} us | plain {tot['plain_ms'] * 1e3:.2f} us | "
+                  f"torch.matmul {tot['library_ms'] * 1e3:.2f} us")
+    return cases
+
+
+def _zoo_request(eng, prompts):
+    """One request of ``prompts`` for GEN tokens, served to the end: (its
+    Result, the wall seconds from submit to retire)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = eng.submit(prompts, GEN)
+    eng.step()
+    [res] = eng.retire(rid)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> int:
+    """One ZOO config at its published width: random weights and SRigL ERK
+    masks at 90% from a seeded generator, served by ServingEngine (bf16,
+    paged=None: the paged pool where model.supports_paged, else the slab
+    path) on masked, then condensed (K1). Each engine serves a warm request
+    (which captures its decode graph), then one with the counts zeroed just
+    before and read just after (condensed: K1 four times a layer a dispatch,
+    4 * layers * (1 + GEN) on the slab path; masked: nothing), then two
+    more, all with the same tokens. The eager decode loop gives standalone
+    generate's tokens bitwise; the engine's tokens equal standalone
+    generate's (the paged engine's may part only at a near-tie,
+    ``_engine_tokens``). Condensed is held to masked under the tie rule
+    (``_check_ties`` at ``_tie_threshold``). Prints the layout, the depth,
+    both walls and the peak memory. Returns the counted request's K1
+    launches."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch import configs
+    from repro_torch.launch import engine as E
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+
+    full = configs.get_config(arch)
+    cfg = full if depth is None else full.replace(n_layers=depth)
+    label = f"zoo:{arch}"
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    reg = REG.build_registry(cfg)
+    k_fan = REG.k_fan_map(cfg, reg)
+    if k_fan != REG.k_fan_map(full, REG.build_registry(full)):
+        raise AssertionError(f"{label}: the cut depth moved the fan-ins to {k_fan}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, k_fan)
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen,
+                            device=device, dtype=torch.int32)
+    # the serving copy at the compute dtype (the params themselves where they
+    # are stored at it): the engines copy what they are given, so they are
+    # given this, and the float32 params go
+    compute = M.serving_params(cfg, params)
+    del params
+    torch.cuda.synchronize()
+    layout = ", ".join(f"{key} {lead}" for key, lead in M.block_stacks(cfg))
+    print(f"[{label}] {cfg.n_layers} layers"
+          + ("" if depth is None else f" of the published {full.n_layers} (depth cut; "
+             f"widths as published)")
+          + f" ({layout}); d_model {cfg.d_model}, {cfg.n_heads} q heads (padded to "
+          f"{cfg.n_heads_padded}) / {cfg.n_kv_heads} kv of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} head, "
+          f"window {cfg.sliding_window} (local:global {cfg.local_global_ratio}:1), "
+          f"mrope {cfg.mrope}, params {cfg.param_dtype} served {cfg.dtype}; fan-ins {k_fan}; "
+          f"prompts {BATCH}x{prompt} + {GEN}; init {time.perf_counter() - t0:.1f}s")
+    if cfg.local_global_ratio:
+        w = cfg.sliding_window
+        print(f"[{label}] local layers' ring caches of {min(w, prompt + GEN)} slots: prefill "
+              f"writes positions 0-{prompt - 1} (wrapped {prompt // w} time(s)), decode "
+              f"{prompt}-{prompt + GEN - 1} into slots {prompt % w}-{(prompt + GEN - 1) % w}")
+    outs, launches, cond_tree = {}, 0, None
+    for path in ("masked", "condensed"):
+        name = f"{label}:{path}"
+        eng = E.ServingEngine(cfg, compute, masks, reg, path=path, block_size=ENGINE_BLOCK,
+                              gen_chunk=ENGINE_CHUNK)
+        if eng.paged != M.supports_paged(cfg):
+            raise AssertionError(f"{name}: paged={eng.paged}, supports_paged "
+                                 f"{M.supports_paged(cfg)}")
+        first, _ = _zoo_request(eng, prompts)
+        before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
+        _zero_counts()
+        res, wall = _zoo_request(eng, prompts)
+        counts = _counts()
+        if eng.paged:
+            dispatches = {key: r.prefills + r.steps - before.get(key, 0)
+                          for key, r in eng._runners.items()}
+            expected = _engine_expected(eng, dispatches)
+        else:
+            dispatches = {res.plan_key: 1 + GEN}
+            expected = {**_none(), "K1": (4 * cfg.n_layers * (1 + GEN)
+                                          if path == "condensed" else 0)}
+        if counts != expected:
+            raise AssertionError(f"{name}: launched {counts}, expected {expected}")
+        walls = [wall]
+        for _ in range(2):
+            again, wall = _zoo_request(eng, prompts)
+            walls.append(wall)
+            if not torch.equal(again.tokens, res.tokens):
+                raise AssertionError(f"{name}: a repeated request gave other tokens")
+        if not torch.equal(first.tokens, res.tokens):
+            raise AssertionError(f"{name}: the warm request gave other tokens")
+        tree = eng.serving_tree_for(res.plan_key)
+        standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t1
+        if not torch.equal(eager, standalone):
+            raise AssertionError(f"{name}: the eager decode loop gave other tokens than the "
+                                 f"graph replays")
+        if eng.paged:
+            equal, total = _engine_tokens(name, cfg, eng, {res.id: (prompts.cpu(), GEN, res)})
+            agree = f"engine streams bitwise equal to standalone generate {equal}/{total}"
+        elif not torch.equal(res.tokens, standalone):
+            raise AssertionError(f"{name}: the slab engine's tokens differ from standalone "
+                                 f"generate's")
+        else:
+            agree = "engine tokens == standalone generate"
+        print(f"[{name}] {card}: {'paged' if eng.paged else 'slab'} engine, request "
+              f"{BATCH}x{prompt}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
+              f"(median of {len(walls)}; prefill {res.prefill_s * 1e3:.2f} ms, decode "
+              f"{res.decode_s * 1e3:.2f} ms), eager decode loop wall {eager_wall * 1e3:.2f} ms "
+              f"(decode {t_dec * 1e3:.2f} ms); dispatches {sum(dispatches.values())}, "
+              f"launches {counts}; {agree}; eager == graph tokens")
+        outs[path] = standalone
+        if path == "condensed":
+            launches, cond_tree = counts["K1"], tree
+        del eng, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    masked = SimpleNamespace(compute=compute, serving=masks)
+    toks_m, gaps = _masked_gaps(cfg, masked, prompts, GEN)
+    if not torch.equal(toks_m, outs["masked"][:, prompt:]):
+        raise AssertionError(f"{label}: masked step-by-step run differs from generate")
+    tie = _tie_threshold(label, cfg, SimpleNamespace(compute=compute, serving=cond_tree),
+                         masked, prompts)
+    agree = _check_ties(label, cfg, outs["condensed"], toks_m, gaps, tie, prompt=prompt)
+    print(f"[{label}] {card}: condensed against masked: streams agreeing in full "
+          f"{agree}/{BATCH}, min masked top-2 gap {gaps.min().item():.3g}; K1 launches "
+          f"{launches}; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+          f"(max_memory_allocated); condensed first stream "
+          f"{outs['condensed'][0, prompt:].tolist()}")
+    return launches
+
+
+def zoo_phase(device, card: str) -> int:
+    """Every ZOO config served on masked and condensed (``_zoo_serve``);
+    returns K1's launches over their counted requests."""
+    import torch
+    total = 0
+    for arch, depth, prompt in ZOO:
+        t0 = time.perf_counter()
+        total += _zoo_serve(device, card, arch, depth, prompt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] zoo:{arch}: {time.perf_counter() - t0:.1f}s")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4275,6 +4602,7 @@ def main() -> int:
     # quant_kernel_phase's; here the [grad] forward's K1 and K4 at B*T = 512
     layer_cases = timed("gather_layer", gather_layer_phase, device,
                         ((TRAIN_TOKENS, "grad"),), ("K1", "K4"))
+    zoo_cases = timed("kernel_zoo", zoo_kernel_phase, device)
     setup = timed("model_setup", model_setup, device)
     launches = {"K1": timed("slice", slice_phase, setup, card)}
     ablation = timed("ablation", ablation_phase, setup, card)
@@ -4310,6 +4638,7 @@ def main() -> int:
     del gens
     gc.collect()
     torch.cuda.empty_cache()
+    launches["K1"] += timed("zoo", zoo_phase, device, card)
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 
@@ -4318,7 +4647,7 @@ def main() -> int:
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
                     "rigl_cases": rigl_cases, "spec_cases": spec_cases,
-                    "autotune_cases": autotune_cases}, indent=1))
+                    "autotune_cases": autotune_cases, "zoo_cases": zoo_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

@@ -2,11 +2,22 @@
 
 Only the architectures the port serves so far are listed.
 """
-from repro_torch.configs import qwen3_1_7b
-from repro_torch.configs.base import ArchConfig, SparsityConfig  # noqa: F401
+from repro_torch.configs import (
+    gemma3_1b,
+    internlm2_20b,
+    mistral_large_123b,
+    qwen2_vl_7b,
+    qwen3_1_7b,
+)
+from repro_torch.configs.base import ArchConfig, ShapeConfig, SparsityConfig  # noqa: F401
+from repro_torch.configs.shapes import ALL_SHAPES, SHAPES, shapes_for  # noqa: F401
 
 _MODULES = {
+    "mistral-large-123b": mistral_large_123b,
     "qwen3-1.7b": qwen3_1_7b,
+    "gemma3-1b": gemma3_1b,
+    "internlm2-20b": internlm2_20b,
+    "qwen2-vl-7b": qwen2_vl_7b,
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -1,7 +1,7 @@
 """Architecture + sparsity configuration dataclasses.
 
 A field-for-field copy of ``repro/configs/base.py`` (``ArchConfig``,
-``SparsityConfig``): the port keeps its own copy so it never imports the
+``SparsityConfig``, ``ShapeConfig``): the port keeps its own copy so it never imports the
 JAX package. ``dataclasses.asdict`` of a config here equals that of its
 counterpart there (``tests/test_torch_configs.py``).
 """
@@ -143,6 +143,15 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def window_for_layer(self, layer: int) -> int:
         """Per-layer attention window (gemma3 local:global interleave)."""
         if self.local_global_ratio and self.sliding_window:
@@ -152,3 +161,17 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the evaluation grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch

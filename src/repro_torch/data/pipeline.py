@@ -20,21 +20,32 @@ import numpy as np
 import torch
 
 
+_FAMILIES = ("dense", "vlm")
+
+
+def _check_family(family: str) -> None:
+    if family not in _FAMILIES:
+        raise NotImplementedError(f"family {family!r} batches are not ported yet "
+                                  f"(ROADMAP queue 1, item 8, steps 4-8)")
+
+
 @dataclasses.dataclass
 class SyntheticLM:
-    """Markov-chain token stream with per-(seed, step) determinism (the
-    dense family's batches: ``tokens`` and ``targets``, (B, T) int32)."""
+    """Markov-chain token stream with per-(seed, step) determinism:
+    ``tokens`` and ``targets``, (B, T) int32; a ``vlm`` batch adds the
+    frontend stub's ``frontend_embeds`` (B, T, d_model) float32 and
+    ``mrope_positions`` (3, B, T) int32, drawn after the tokens from the
+    same generator, as the reference draws them."""
 
     vocab_size: int
     seq_len: int
     batch_size: int
     seed: int = 0
     family: str = "dense"
+    d_model: int = 0         # the frontend embeddings' width (vlm)
 
     def __post_init__(self):
-        if self.family != "dense":
-            raise NotImplementedError(f"family {self.family!r} batches are not ported yet "
-                                      f"(ROADMAP queue 1, item 8)")
+        _check_family(self.family)
         rng = np.random.default_rng(self.seed)
         v = self.vocab_size
         succ = min(8, v)  # each token has ~8 successors
@@ -50,7 +61,13 @@ class SyntheticLM:
             cur = toks[:, i]
             choice = (rng.random(b)[:, None] < np.cumsum(self._succ_p[cur], -1)).argmax(-1)
             toks[:, i + 1] = self._succ_idx[cur, choice]
-        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if self.family == "vlm":
+            batch["frontend_embeds"] = (
+                rng.standard_normal((b, t, self.d_model)).astype(np.float32) * 0.02)
+            pos = np.broadcast_to(np.arange(t, dtype=np.int32)[None], (b, t))
+            batch["mrope_positions"] = np.stack([pos, pos, pos])
+        return batch
 
     def iterate(self, start_step: int = 0) -> Iterator[dict]:
         step = start_step
@@ -62,13 +79,21 @@ class SyntheticLM:
 def make_train_batch(cfg, generator: torch.Generator, batch_size: int, seq_len: int) -> dict:
     """Random batch on the generator's device (tests, examples): ``tokens``
     and ``targets`` (B, T) int32, uniform over the vocab, ``targets`` the
-    tokens shifted by one. The dense family only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} batches are not ported yet "
-                                  f"(ROADMAP queue 1, item 8)")
+    tokens shifted by one; a ``vlm`` batch adds ``frontend_embeds``
+    (standard normal x 0.02, float32) and ``mrope_positions`` (three copies
+    of ``arange(T)``), as the reference's."""
+    _check_family(cfg.family)
+    dev = generator.device
     toks = torch.randint(0, cfg.vocab_size, (batch_size, seq_len + 1), generator=generator,
-                         device=generator.device, dtype=torch.int32)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["frontend_embeds"] = torch.randn((batch_size, seq_len, cfg.d_model),
+                                               generator=generator, device=dev) * 0.02
+        p = torch.arange(seq_len, device=dev, dtype=torch.int32)[None].expand(batch_size,
+                                                                              seq_len)
+        batch["mrope_positions"] = torch.stack([p, p, p])
+    return batch
 
 
 def to_tensors(batch: dict, pin: bool = False) -> dict:

@@ -33,14 +33,14 @@ only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
 Launch resolution (``_resolve_blocks``, as the reference's): a
 caller-forced ``block_b`` or ``block_n`` wins; else the launch cached by
 ``sparse.autotune`` under the format's key (``formats.shape_tuning_key``
-at x's device, dtype and batch bucket; the structured kernel's and the
-condensed-over-active kernel's keys carry their ``kind``); else the
-wrapper's default. With one of the two forced the cache is not read: an
-entry names a pair. The lookup reads the cache's in-memory view, so a
-call reads no file; inside a captured CUDA graph it happens once, at
-capture, and a graph captured before ``autotune`` keeps the launch it
-captured (as a reference program compiled before ``autotune`` keeps its
-blocks).
+at x's device, dtype and batch bucket, a quantized key naming x's dtype;
+the structured kernel's and the condensed-over-active kernel's keys carry
+their ``kind``); else the wrapper's default. With one of the two forced
+the cache is not read: an entry names a pair. The lookup reads the
+cache's in-memory view, so a call reads no file; inside a captured CUDA
+graph it happens once, at capture, and a graph captured before
+``autotune`` keeps the launch it captured (as a reference program compiled
+before ``autotune`` keeps its blocks).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ def _resolve_blocks(x: torch.Tensor, n_out: int, k: int, block_b: int | None,
     tuned = AT.lookup_entry(F.shape_tuning_key(
         x.shape[-1], n_out, k, x.shape[0], backend=AT.device_key(x.device),
         itemsize=x.element_size(), kind=kind, scatter_width=scatter_width,
-        values_dtype=values_dtype))
+        values_dtype=values_dtype, compute_dtype=x.dtype))
     if tuned is None:
         return None, None
     return tuned["block_b"], tuned["block_n"]

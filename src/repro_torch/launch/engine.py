@@ -69,8 +69,14 @@ wrappers read its entries when a graph is captured, so graphs captured
 before it keep their launches (the tokens are the same either way: every
 launch of one shape is bitwise equal to every other).
 
-Not ported in this slice: tensor parallelism (``mesh``) and
-``abstract_plan_key`` (ROADMAP queue 1).
+Configurations that ``model.supports_paged`` turns away (gemma3's grouped
+local/global layout with its ring caches, qwen2-vl's M-RoPE) are served by
+the slab path, as in the reference; a paged or speculative engine for them
+is refused.
+
+Not ported: tensor parallelism (``mesh``) and ``abstract_plan_key``
+(ROADMAP queue 1), and ``refresh``, sync and ``autotune`` on the grouped
+local/global layout, which raise.
 """
 from __future__ import annotations
 
@@ -990,6 +996,12 @@ def _not_ported(what: str, item: int):
                                f"(ROADMAP queue 1, item {item})")
 
 
+def _check_flat_layout(cfg, what: str) -> None:
+    """Refuse ``what`` on gemma3's grouped local/global layout."""
+    if cfg.local_global_ratio:
+        raise _not_ported(f"{what} on the grouped local/global layout ({cfg.name})", 8)
+
+
 class ServingEngine:
     """Plan-keyed batch serving over a trained (params, masks) pair.
 
@@ -1411,7 +1423,8 @@ class ServingEngine:
         (or ``donate=False``) rebuilds the leaf, and the graphs that read it
         are recaptured at their next chunk. The versions are fetched once;
         the engine keeps them as host ints. Returns each plan key's
-        re-exported stack names."""
+        re-exported stack names. Not on the grouped local/global layout."""
+        _check_flat_layout(self.cfg, "ServingEngine.refresh")
         versions = PLAN._host_versions(mask_versions)
         # a cached draft's out_index follows the old saliency: derive anew
         self._drop_drafts()
@@ -1435,7 +1448,9 @@ class ServingEngine:
         Only the condensed-family fixed paths can subscribe: ``masked``,
         ``structured`` and ``auto`` plans read the params at execution time,
         which a stream of exported leaves does not carry. ``donate=False``
-        rebuilds every adopted tensor instead (its graphs recapture)."""
+        rebuilds every adopted tensor instead (its graphs recapture). Not
+        on the grouped local/global layout."""
+        _check_flat_layout(self.cfg, "live sync")
         if self.path not in ("condensed", "condensed_over_active"):
             raise ValueError(f"attach_subscriber requires a condensed-family path; "
                              f"path={self.path!r} reads the params at execution time")
@@ -1574,7 +1589,9 @@ class ServingEngine:
         serving dtype (``cfg.dtype``: an f32 entry is never read by a bf16
         serving run) and at the engine's ``values_dtype``, on the engine's
         device. A decode graph captured before this call keeps the launch
-        it captured; later captures read the new entries."""
+        it captured; later captures read the new entries. Not on the grouped
+        local/global layout."""
+        _check_flat_layout(self.cfg, "ServingEngine.autotune")
         dtype = getattr(torch, self.cfg.dtype) if dtype is None else dtype
         return AT.tune_registry(self.registry, self.stats(), batch=batch_size, dtype=dtype,
                                 reps=reps, device=self.device, values_dtype=self.values_dtype,

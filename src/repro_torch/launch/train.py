@@ -49,7 +49,8 @@ def main(argv=None):
     cfg = cfg.replace(sparsity=sp)
 
     data = SyntheticLM(vocab_size=max(cfg.vocab_size, 2), seq_len=args.seq,
-                       batch_size=args.batch, seed=args.seed, family=cfg.family)
+                       batch_size=args.batch, seed=args.seed, family=cfg.family,
+                       d_model=cfg.d_model)
     batches = Prefetcher(data.iterate(), depth=2, pin=device.type == "cuda")
     trainer = Trainer(
         cfg=cfg,

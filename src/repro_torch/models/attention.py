@@ -13,6 +13,8 @@ per-stream block tables (``models/paged.py``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 NEG_INF = -1e30
@@ -28,8 +30,15 @@ def expand_kv(k: torch.Tensor, head_to_kv: tuple) -> torch.Tensor:
         # plain GQA groups: no index tensor, whose host-to-device copy
         # would synchronise the stream on every call
         return torch.repeat_interleave(k, group, dim=2)
-    idx = torch.tensor(head_to_kv, dtype=torch.long, device=k.device)
-    return torch.index_select(k, 2, idx)
+    return torch.index_select(k, 2, _kv_index(head_to_kv, k.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_index(head_to_kv: tuple, device: torch.device) -> torch.Tensor:
+    """The map as an index tensor on ``device``, made once there: the eager
+    step before a decode graph's capture makes it, and the capture, where a
+    copy from the host would fail, reads it."""
+    return torch.tensor(head_to_kv, dtype=torch.long, device=device)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

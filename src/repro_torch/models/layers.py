@@ -1,7 +1,8 @@
 """Primitive layers: norms, init, RoPE, sparse-aware linear apply (port of
 ``repro/models/layers.py``).
 
-Functions on tensors with the reference's signatures; random init draws
+Functions on tensors with the reference's signatures (RoPE and the
+three-stream M-RoPE among them); random init draws
 from an explicit ``torch.Generator`` on the generator's device.
 """
 from __future__ import annotations
@@ -71,6 +72,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     ang = positions[..., None].float() * freqs                   # (..., T, D/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(2, 1, 1)) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): three position streams (t, h, w) over the
+    D/2 frequency bands.
+
+    x: (B, T, H, D); positions: (3, B, T). The bands are split in proportion
+    to ``sections``, the last band taking the remainder, and each band turns
+    by its own stream's positions.
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)                # (D/2,)
+    n = d // 2
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections:
+        bounds.append((acc, acc + (n * s) // total))
+        acc = bounds[-1][1]
+    bounds[-1] = (bounds[-1][0], n)
+    ang = torch.cat([positions[axis][..., None].float() * freqs[lo:hi]
+                     for axis, (lo, hi) in enumerate(bounds)], dim=-1)   # (B, T, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :n], x[..., n:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -1,22 +1,32 @@
-"""Decoder LM, dense family (port of ``repro/models/model.py``).
+"""Decoder LM, dense and VLM families (port of ``repro/models/model.py``).
 
 Parameters are a nested dict with the reference's paths and stacked layout:
-``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0. The
-reference scans over that axis with ``lax.scan``; here a Python loop slices
-one layer at a time. Sparse linears receive their serving leaf (a bool mask
-or a ``formats.SparseFormat``) from the ``masks`` tree, whose paths mirror
-the params.
+``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0, or, for
+gemma3's local/global pattern (``cfg.local_global_ratio`` = r), the grouped
+layout: ``g_local`` with lead (g, r), ``g_global`` with lead (g,) and
+``g_rem`` with lead (rem,), where g = n_layers // (r + 1) and rem the layers
+left over. Each group runs its r local layers at ``cfg.sliding_window``,
+then its global layer at window 0; ``g_rem`` runs last, at the window. The
+reference scans over the stacks with ``lax.scan``; here a Python loop
+slices one layer at a time. Sparse linears receive their serving leaf (a
+bool mask or a ``formats.SparseFormat``) from the ``masks`` tree, whose
+paths mirror the params.
 
-Ported so far: the dense family (qwen3-style GQA with qk-norm, RoPE, SwiGLU)
-without sliding windows: ``init_params``, ``prefill_step``, ``decode_step``
-and their pieces for serving, and ``backbone``, ``cross_entropy_chunked``
-and ``loss_fn`` for training. ``remat="block"`` recomputes each block and
+Ported so far: the dense family (GQA with optional qk-norm, RoPE, SwiGLU,
+sliding windows and the grouped local/global layout, whose local layers
+keep ring caches of the window's size) and the VLM family (M-RoPE over
+three position streams, precomputed frontend embeddings added to the
+token embeddings): ``init_params``, ``prefill_step``, ``decode_step`` and
+their pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
+``loss_fn`` for training. ``remat="block"`` recomputes each block and
 each cross-entropy chunk in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 ``supports_paged``, ``init_paged_pool``, ``paged_prefill_step``,
 ``paged_decode_step`` and ``paged_verify_step`` (the speculative verify)
-serve the continuous-batching engine from a shared page pool. The other
-families come with later slices.
+serve the continuous-batching engine from a shared page pool, for the
+uniform full-attention ``blocks`` layout only, as in the reference.
+MoE, SSM, hybrid, audio and the encoder-only ViT are not ported
+(``check_supported`` refuses them).
 """
 from __future__ import annotations
 
@@ -45,11 +55,41 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.local_global_ratio or cfg.mrope
-            or not cfg.causal or cfg.is_moe):
+    if cfg.family not in ("dense", "vlm") or not cfg.causal or cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense causal family is ported so far "
-            f"(ROADMAP queue 1, item 8)")
+            f"{cfg.name}: family {cfg.family!r} (causal={cfg.causal}) is not ported to "
+            f"repro_torch yet; the dense and vlm families are (MoE, SSM, hybrid, audio "
+            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 4-8)")
+
+
+def group_counts(cfg) -> tuple[int, int, int]:
+    """(g, r, rem) of the grouped local/global layout: g groups of r local
+    layers and one global layer, then rem local layers."""
+    r = cfg.local_global_ratio
+    g = cfg.n_layers // (r + 1)
+    return g, r, cfg.n_layers - g * (r + 1)
+
+
+def block_stacks(cfg) -> list[tuple[str, tuple[int, ...]]]:
+    """(params key, leading dims) of each block stack."""
+    if not cfg.local_global_ratio:
+        return [("blocks", (cfg.n_layers,))]
+    g, r, rem = group_counts(cfg)
+    return [("g_local", (g, r)), ("g_global", (g,))] + ([("g_rem", (rem,))] if rem else [])
+
+
+def _block_order(cfg) -> list[tuple[str, tuple[int, ...], int]]:
+    """Each layer's (stack key, index in the stack's leading dims, window)
+    in execution order."""
+    w = cfg.sliding_window
+    if not cfg.local_global_ratio:
+        return [("blocks", (i,), w) for i in range(cfg.n_layers)]
+    g, r, rem = group_counts(cfg)
+    out = []
+    for i in range(g):
+        out += [("g_local", (i, j), w) for j in range(r)]
+        out.append(("g_global", (i,), 0))
+    return out + [("g_rem", (i,), w) for i in range(rem)]
 
 
 # ===========================================================================
@@ -103,7 +143,8 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
     params["embed"] = L.embed_init(generator, vp, d, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, d, vp, dtype)
-    params["blocks"] = _init_attn_block(generator, cfg, dtype, k_fan, lead=(cfg.n_layers,))
+    for key, lead in block_stacks(cfg):
+        params[key] = _init_attn_block(generator, cfg, dtype, k_fan, lead=lead)
     return params
 
 
@@ -142,6 +183,20 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def _layer_trees(cfg, tree: dict) -> dict:
+    """{(stack key, index): one layer's tree} of a params or serving tree
+    (a stack the tree lacks gives empty trees). A (g, r) stack splits twice:
+    into its g groups, each keeping the inner r dim, then into layers."""
+    out = {}
+    for key, lead in block_stacks(cfg):
+        for i, t in enumerate(_unstack(tree.get(key, {}), lead[0])):
+            if len(lead) == 1:
+                out[key, (i,)] = t
+            else:
+                out.update(((key, (i, j)), tj) for j, tj in enumerate(_unstack(t, lead[1])))
+    return out
+
+
 def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: int,
                   q_offset: int = 0, cache: tuple | None = None, decode: bool = False,
                   paged: tuple | None = None):
@@ -162,8 +217,12 @@ def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: 
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = L.apply_mrope(q, positions, cfg.rope_theta)
+        k = L.apply_mrope(k, positions, cfg.rope_theta)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if paged is not None:
@@ -243,8 +302,8 @@ def _maybe_remat(cfg, fn):
                                     preserve_rng_state=False)
 
 
-def _train_block(cfg, p, m, x, positions):
-    return attn_mlp_block(cfg, p, m, x, positions=positions, window=cfg.sliding_window)[0]
+def _train_block(cfg, p, m, x, positions, window):
+    return attn_mlp_block(cfg, p, m, x, positions=positions, window=window)[0]
 
 
 def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
@@ -256,11 +315,10 @@ def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
     differentiate through their values where those require grad).
     """
     check_supported(cfg)
-    masks = masks or {}
-    stack_p, stack_m = params["blocks"], masks.get("blocks", {})
+    layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks or {})
     block = _maybe_remat(cfg, _train_block)
-    for p_i, m_i in zip(_unstack(stack_p, cfg.n_layers), _unstack(stack_m, cfg.n_layers)):
-        x = block(cfg, p_i, m_i, x, positions)
+    for key, idx, window in _block_order(cfg):
+        x = block(cfg, layers_p[key, idx], layers_m[key, idx], x, positions, window)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -270,13 +328,25 @@ def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
 # ===========================================================================
 
 def embed_inputs(cfg, params: Params, batch: dict):
-    """Token embedding. Returns (x (B, T, d), positions (B, T))."""
+    """Token embedding, plus the precomputed ``frontend_embeds`` (B, T, d) a
+    VLM batch may carry. Returns (x (B, T, d), positions): (B, T), or under
+    M-RoPE the (3, B, T) ``mrope_positions``, by default three copies of
+    ``arange(T)``."""
     toks = batch["tokens"]
-    x = params["embed"][toks].to(_dt(cfg))
+    x = params["embed"][toks]
+    if "frontend_embeds" in batch:
+        x = x + batch["frontend_embeds"].to(x.dtype)
+    x = x.to(_dt(cfg))
     bsz, t = toks.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(t, device=toks.device)[None].expand(bsz, t)
+    if cfg.mrope:
+        positions = batch.get("mrope_positions")
+        if positions is None:
+            p = torch.arange(t, device=toks.device)[None].expand(bsz, t)
+            positions = torch.stack([p, p, p])
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(t, device=toks.device)[None].expand(bsz, t)
     return x, positions
 
 
@@ -367,21 +437,36 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     of a decode step depends on a host int and a captured step replays at
     any length. ``prefill_step``/``decode_step`` advance it and write the
     k/v tensors in place.
+
+    The grouped local/global layout keeps ring caches of min(window,
+    max_len) slots for ``g_local`` (lead (g, r)) and ``g_rem``, and full
+    caches for ``g_global``: a local layer's slot ``j`` holds the newest
+    position t with t % window == j.
     """
     check_supported(cfg)
-    s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
-    return {"len": torch.zeros((), dtype=torch.int32, device=device),
-            "blocks": _attn_cache(cfg, cfg.n_layers, bsz, s, _dt(cfg), device)}
+    dt = _dt(cfg)
+    cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    if not cfg.local_global_ratio:
+        s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+        cache["blocks"] = _attn_cache(cfg, cfg.n_layers, bsz, s, dt, device)
+        return cache
+    g, r, rem = group_counts(cfg)
+    w = min(cfg.sliding_window, max_len)
+    cache["g_local"] = {k: v.reshape(g, r, *v.shape[1:])
+                        for k, v in _attn_cache(cfg, g * r, bsz, w, dt, device).items()}
+    cache["g_global"] = _attn_cache(cfg, g, bsz, max_len, dt, device)
+    if rem:
+        cache["g_rem"] = _attn_cache(cfg, rem, bsz, w, dt, device)
+    return cache
 
 
 def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
-    layers_p = _unstack(params["blocks"], cfg.n_layers)
-    layers_m = _unstack(masks.get("blocks", {}), cfg.n_layers)
-    kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
-    for i in range(cfg.n_layers):
-        x, _ = attn_mlp_block(cfg, layers_p[i], layers_m[i], x,
-                              positions=positions, window=cfg.sliding_window,
-                              cache=(kc[i], vc[i], cache["len"]), decode=decode)
+    layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks)
+    for key, idx, window in _block_order(cfg):
+        c = cache[key]
+        x, _ = attn_mlp_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
+                              positions=positions, window=window,
+                              cache=(c["k"][idx], c["v"][idx], cache["len"]), decode=decode)
     return x
 
 
@@ -400,7 +485,8 @@ def prefill_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
 
 def decode_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
     """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, V), cache);
-    the cache, its length included, is advanced in place."""
+    the cache, its length included, is advanced in place. Under M-RoPE all
+    three position streams advance by the cache's length."""
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     positions = positions + cache["len"]
@@ -431,6 +517,9 @@ def init_paged_pool(cfg, num_blocks: int, block_size: int, device) -> dict:
     Page 0 is the reserved garbage page (``models/paged.py``): allocators
     never hand it out."""
     check_supported(cfg)
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: a paged pool serves the uniform full-attention "
+                         "blocks layout only (no windows, local/global groups or M-RoPE)")
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads_padded, cfg.head_dim)
     return {"pk": torch.zeros(shape, dtype=_dt(cfg), device=device),
             "pv": torch.zeros(shape, dtype=_dt(cfg), device=device)}

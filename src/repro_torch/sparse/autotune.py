@@ -378,7 +378,8 @@ def autotune_blocks(batch: int, d_in: int, n_out: int, k: int, *, dtype=torch.fl
                            values_dtype=values_dtype)
     b = ops_[0].shape[0]
     key = F.shape_tuning_key(d_in, n_out, k, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(), values_dtype=values_dtype)
+                             itemsize=ops_[0].element_size(),
+                             compute_dtype=ops_[0].dtype, values_dtype=values_dtype)
     cands = cm.gather_candidates(b, d_in, n_out, dtype, sm_count=_sm_count(ops_[0].device))
     return _search("condensed", key, cands, ops_, reps=reps, save=save)
 
@@ -395,7 +396,8 @@ def autotune_coa_blocks(batch: int, d_in: int, a: int, k: int, d_out: int, *,
                            values_dtype=values_dtype, d_out=d_out)
     b = ops_[0].shape[0]
     key = F.shape_tuning_key(d_in, a, k, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(), kind="coa",
+                             itemsize=ops_[0].element_size(),
+                             compute_dtype=ops_[0].dtype, kind="coa",
                              scatter_width=d_out, values_dtype=values_dtype)
     cands = cm.gather_candidates(b, d_in, a, dtype, sm_count=_sm_count(ops_[0].device))
     return _search("coa", key, cands, ops_, reps=reps, save=save)
@@ -416,7 +418,8 @@ def autotune_structured_blocks(batch: int, d_in: int, a: int, d_out: int, *,
     ops_ = structured_operands(batch, d_in, a, d_out, dtype=dtype, seed=seed, device=device)
     b = ops_[0].shape[0]
     key = F.shape_tuning_key(d_in, a, 0, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(), kind="structured",
+                             itemsize=ops_[0].element_size(),
+                             compute_dtype=ops_[0].dtype, kind="structured",
                              scatter_width=d_out, values_dtype=values_dtype)
     return _search("structured", key, sm.structured_candidates(b, d_in, a, dtype), ops_,
                    reps=reps, save=save)
@@ -461,7 +464,7 @@ def tune_registry(registry, stats: dict, *, batch: int, dtype=torch.float32, rep
                                lambda: autotune_structured_blocks(batch, s.d_in, a_pad,
                                                                   s.d_out, **kw)))
         for label, cls, tune in tuners:
-            key = cls.spec_tuning_key(spec, batch, backend=backend)
+            key = cls.spec_tuning_key(spec, batch, backend=backend, dtype=dtype)
             if key in seen:
                 continue
             seen.add(key)

@@ -214,10 +214,11 @@ def spec_for_stack(stack, stats: ExportStats, itemsize: int,
 def shape_tuning_key(d_in: int, n_out: int, k: int, batch: int, *,
                      backend: str | None = None, itemsize: int = 4,
                      kind: str = "condensed", scatter_width: int | None = None,
-                     values_dtype: str | None = None) -> str:
-    """The launch-configuration cache key of one kernel shape, the
-    reference's layout letter for letter:
-    ``{backend}/w{bits}|w{int8,fp8}/d{d_in}/n{n_out}/k{k}/b{bucket}[/{kind}-o{scatter_width}]``.
+                     values_dtype: str | None = None,
+                     compute_dtype: torch.dtype | None = None) -> str:
+    """The launch-configuration cache key of one kernel shape:
+    ``{backend}/{width}/d{d_in}/n{n_out}/k{k}/b{bucket}[/{kind}-o{scatter_width}]``,
+    ``width`` ``w{bits}`` or ``w{int8,fp8}-x{compute}``.
 
     The one definition that the formats' ``tuning_key``, ``sparse.autotune``
     (which writes entries under it) and ``kernels.ops`` (which reads them)
@@ -228,19 +229,40 @@ def shape_tuning_key(d_in: int, n_out: int, k: int, batch: int, *,
     ``kind`` keeps the kernels' key spaces apart: ``"condensed"`` (K1/K2),
     ``"coa"`` (K4/K2-coa; ``n_out``/``k`` the surviving rows' arrays) and
     ``"structured"`` (K5; ``n_out`` the padded active columns, ``k`` 0),
-    the last two with the dense output width ``scatter_width``. A quantized
-    ``values_dtype`` keys as ``wint8``/``wfp8`` in place of the bit width,
-    as in the reference, so such a key does not say the compute dtype.
+    the last two with the dense output width ``scatter_width``.
+
+    A float key is the reference's letter for letter: its width is the bit
+    width of the values, which are stored at the compute dtype. A quantized
+    ``values_dtype`` keys as ``wint8``/``wfp8`` followed by the compute
+    dtype (``compute_dtype``, required), e.g. ``wint8-xbf16``: the
+    reference's key leaves the compute dtype out, so there an entry tuned
+    in bf16 is read by an f32 run of the same shape, whose launches differ
+    (a bf16 ``block_b`` above 8 has no f32 launch).
     """
     from repro_torch.sparse import autotune as AT  # lazy: the plan imports this module
     from repro_torch.sparse.plan import batch_bucket
     backend = backend or AT.device_key()
     vd = resolve_quantize_spec(values_dtype)
-    width = f"w{vd}" if vd in QUANTIZED_DTYPES else f"w{itemsize * 8}"
+    if vd in QUANTIZED_DTYPES:
+        if compute_dtype is None:
+            raise ValueError(f"a {vd} key names the compute dtype its launch runs at "
+                             "(compute_dtype=)")
+        width = f"w{vd}-x{dtype_name(compute_dtype)}"
+    else:
+        width = f"w{itemsize * 8}"
     key = f"{backend}/{width}/d{d_in}/n{n_out}/k{k}/b{batch_bucket(batch)}"
     if kind != "condensed":
         key += f"/{kind}-o{scatter_width}"
     return key
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The short name of a torch dtype: ``VALUES_DTYPES``' where it has one
+    (``f32``, ``bf16``), else torch's (``float16``)."""
+    for name, dt in VALUES_DTYPES.items():
+        if dt == dtype:
+            return name
+    return str(dtype).removeprefix("torch.")
 
 
 def _leaf_backend(backend: str | None, t: torch.Tensor) -> str:
@@ -445,15 +467,19 @@ class SparseFormat:
         arrays): the bytes quantization shrinks."""
         return cls.estimate_weight_bytes(spec)
 
-    def tuning_key(self, batch: int, *, backend: str | None = None) -> str | None:
+    def tuning_key(self, batch: int, *, backend: str | None = None,
+                   dtype: torch.dtype | None = None) -> str | None:
         """The launch-configuration cache key of this leaf's kernel launch
         at ``batch`` (``shape_tuning_key``; ``backend`` None: the leaf's
-        device), or None where the format runs no tuned kernel."""
+        device), or None where the format runs no tuned kernel. ``dtype``
+        is the compute dtype the leaf is applied at, which a quantized
+        leaf's key names (and a float leaf's values already are)."""
         return None
 
     @classmethod
     def spec_tuning_key(cls, spec: FormatSpec, batch: int, *,
-                        backend: str | None = None) -> str | None:
+                        backend: str | None = None,
+                        dtype: torch.dtype | None = None) -> str | None:
         """``tuning_key`` from a ``FormatSpec`` alone (no tensors)."""
         return None
 
@@ -628,19 +654,20 @@ class StructuredFanIn(SparseFormat):
             vb += spec.n_replicas * a_pad * 4
         return vb
 
-    def tuning_key(self, batch, *, backend=None):
+    def tuning_key(self, batch, *, backend=None, dtype=None):
         return shape_tuning_key(
             self.d_in, self.active_index.shape[-1], 0, batch,
             backend=_leaf_backend(backend, self.active_index), itemsize=self.weight_itemsize,
             kind="structured", scatter_width=self.neuron_active.shape[-1],
-            values_dtype=self.values_dtype)
+            values_dtype=self.values_dtype, compute_dtype=dtype)
 
     @classmethod
-    def spec_tuning_key(cls, spec, batch, *, backend=None):
+    def spec_tuning_key(cls, spec, batch, *, backend=None, dtype=None):
         a_pad = padded_active_count(spec.max_active, spec.d_out)
         return shape_tuning_key(spec.d_in, a_pad, 0, batch, backend=backend,
                                 itemsize=spec.itemsize, kind="structured",
-                                scatter_width=spec.d_out, values_dtype=spec.values_dtype)
+                                scatter_width=spec.d_out, values_dtype=spec.values_dtype,
+                                compute_dtype=dtype)
 
     def donate_refresh(self, w, mask, stats=None, *, donate=True):
         """A fresh export, written into this leaf's tensors when the active
@@ -735,13 +762,25 @@ class Condensed(SparseFormat):
         ``quantize_spec`` ("int8"/"fp8") quantizes the values from ``w``'s
         float32 rows; "bf16" stores them at bf16. Otherwise ``dtype`` stores
         the values at that dtype (the serving copy's compute dtype); None
-        keeps the weight's dtype, as the reference does.
+        keeps the weight's dtype, as the reference does. A stack is
+        condensed one layer at a time, so the sort's temporaries stay at
+        one layer's size (a whole-stack sort of a full-width MLP stack takes
+        more memory than its weights), and the layers stacked.
         """
         stats = stats if stats is not None else realized_stats(mask)
         k = max(stats.k, 1)
-        values, indices = topology.dense_to_condensed(w * mask, mask, k)
         qdt = resolve_quantize_spec(quantize_spec)
-        values, scales = _store_values(values, qdt, dtype)
+        layers = []
+        for wl, ml in zip(_flat_lead(w, 2), _flat_lead(mask, 2)):
+            values, indices = topology.dense_to_condensed(wl * ml, ml, k)
+            layers.append((*_store_values(values, qdt, dtype), indices))
+
+        def stacked(i):
+            if layers[0][i] is None:
+                return None
+            t = torch.stack([layer[i] for layer in layers])
+            return t.reshape(*w.shape[:-2], *t.shape[1:])
+        values, scales, indices = map(stacked, range(3))
         return cls(values=values, indices=indices, d_in=int(w.shape[-2]), scales=scales,
                    values_dtype=qdt if scales is not None else None)
 
@@ -805,17 +844,18 @@ class Condensed(SparseFormat):
             vb += spec.n_replicas * spec.d_out * 4  # one float32 scale per neuron
         return vb
 
-    def tuning_key(self, batch, *, backend=None):
+    def tuning_key(self, batch, *, backend=None, dtype=None):
         d_out, k = self.values.shape[-2:]
         return shape_tuning_key(self.d_in, d_out, k, batch,
                                 backend=_leaf_backend(backend, self.values),
                                 itemsize=self.values.element_size(),
-                                values_dtype=self.values_dtype)
+                                values_dtype=self.values_dtype, compute_dtype=dtype)
 
     @classmethod
-    def spec_tuning_key(cls, spec, batch, *, backend=None):
+    def spec_tuning_key(cls, spec, batch, *, backend=None, dtype=None):
         return shape_tuning_key(spec.d_in, spec.d_out, spec.k, batch, backend=backend,
-                                itemsize=spec.itemsize, values_dtype=spec.values_dtype)
+                                itemsize=spec.itemsize, values_dtype=spec.values_dtype,
+                                compute_dtype=dtype)
 
     def restore_finalize(self):
         return _finalize_quantized_restore(self)
@@ -928,20 +968,21 @@ class CondensedOverActive(SparseFormat):
             vb += spec.n_replicas * spec.max_active * 4
         return vb
 
-    def tuning_key(self, batch, *, backend=None):
+    def tuning_key(self, batch, *, backend=None, dtype=None):
         a, k = self.values.shape[-2:]
         return shape_tuning_key(self.d_in, a, k, batch,
                                 backend=_leaf_backend(backend, self.values),
                                 itemsize=self.values.element_size(), kind="coa",
-                                scatter_width=self.d_out, values_dtype=self.values_dtype)
+                                scatter_width=self.d_out, values_dtype=self.values_dtype,
+                                compute_dtype=dtype)
 
     @classmethod
-    def spec_tuning_key(cls, spec, batch, *, backend=None):
+    def spec_tuning_key(cls, spec, batch, *, backend=None, dtype=None):
         # the kernel runs over the exported (max_active, k) arrays and stores
         # into the d_out-wide output: both are in its key
         return shape_tuning_key(spec.d_in, spec.max_active, spec.k, batch, backend=backend,
                                 itemsize=spec.itemsize, kind="coa", scatter_width=spec.d_out,
-                                values_dtype=spec.values_dtype)
+                                values_dtype=spec.values_dtype, compute_dtype=dtype)
 
     def restore_finalize(self):
         return _finalize_quantized_restore(self)

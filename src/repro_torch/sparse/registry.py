@@ -2,14 +2,15 @@
 
 The registry enumerates every sparse weight *stack* (a group of
 identically-shaped layers stacked on leading dims, e.g. ``("blocks",
-"w_gate")`` with ``lead=(L,)``) and solves the ERK (or uniform) densities
-over the stacks. Paper defaults: MLP and attention-output projections are
-sparse; QKV input projections, norms and embeddings stay dense.
+"w_gate")`` with ``lead=(L,)``, or gemma3's ``("g_local", "w_gate")`` with
+``lead=(g, r)``) and solves the ERK (or uniform) densities over the
+stacks. Paper defaults: MLP and attention-output projections are sparse;
+QKV input projections, norms and embeddings stay dense.
 
-Ported: the dense family's enumeration, ``k_fan_map``, the tree path
-helpers, mask initialization and the topology update over every stack
-(``dst_update``) for SRigL, RigL and SET, the ITOP tracker and
-``sparsity_summary``. The other families come with ROADMAP queue 1, item 8.
+Ported: the dense and VLM families' enumeration (the ``blocks`` layout and
+the grouped local/global one), ``k_fan_map``, the tree path helpers, mask
+initialization and the topology update over every stack (``dst_update``)
+for SRigL, RigL and SET, the ITOP tracker and ``sparsity_summary``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core import rigl as R
 from repro_torch.core import set_sparse as SS
 from repro_torch.core import srigl as S
 from repro_torch.core import topology
+from repro_torch.models import model as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +77,13 @@ def build_registry(cfg) -> list[SparseStack]:
     """All sparse stacks of ``cfg`` with ERK/uniform densities solved."""
     if cfg.sparsity.method == "dense":
         return []
-    if cfg.family != "dense" or cfg.local_global_ratio:
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (local_global_ratio="
-            f"{cfg.local_global_ratio}) is not ported yet (ROADMAP queue 1, item 8)")
-    stacks = _attn_stacks(cfg, ("blocks",), (cfg.n_layers,))
+            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP queue 1, "
+            f"item 8, steps 4-8)")
+    # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
+    # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))
+    stacks = [s for key, lead in M.block_stacks(cfg) for s in _attn_stacks(cfg, (key,), lead)]
     shapes = [D.LayerShape(s.name, s.d_in, s.d_out, s.n_replicas) for s in stacks]
     solver = D.erk_densities if cfg.sparsity.distribution == "erk" else D.uniform_densities
     dens = solver(shapes, cfg.sparsity.sparsity)

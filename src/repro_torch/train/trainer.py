@@ -80,8 +80,13 @@ def _tree(flat: dict) -> dict:
 
 
 def _split(batch: dict, n: int) -> list[dict]:
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
-            for i in range(n)]
+    """``n`` microbatches along the batch axis (axis 1 of the (3, B, T)
+    ``mrope_positions``)."""
+    def part(k, v, i):
+        if k == "mrope_positions":
+            return v.reshape(3, n, v.shape[1] // n, v.shape[-1])[:, i]
+        return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+    return [{k: part(k, v, i) for k, v in batch.items()} for i in range(n)]
 
 
 def make_train_step(cfg, registry, lr_fn: Callable, *, clip_norm: float = 1.0,

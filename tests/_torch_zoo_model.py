@@ -1,0 +1,55 @@
+"""The configs beyond qwen3-1.7b at smoke dims for the ``test_torch_zoo*``
+files: the reference's weights and SRigL masks from ``PRNGKey(0)`` and
+their port counterparts, bridged, built once per process per (arch,
+overrides). Callers must not modify what ``_model`` returns."""
+import functools
+
+import jax
+import numpy as np
+from repro import configs as JC
+from repro.models import model as JM
+from repro.sparse import registry as JR
+from repro_torch import bridge
+from repro_torch import configs as TC
+from repro_torch.sparse import registry as TR
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+# (arch, config overrides): gemma3 at smoke (rem = 0) and at 8 layers (rem = 2)
+GEMMA = [("gemma3-1b", ()), ("gemma3-1b", (("n_layers", 8),))]
+DENSE = [("internlm2-20b", ()), ("mistral-large-123b", ())]
+ALL = GEMMA + [("qwen2-vl-7b", ())] + DENSE
+
+
+def _ids(cases):
+    return ["-".join([a] + [f"{k}{v}" for k, v in kw]) for a, kw in cases]
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch: str, kw: tuple) -> dict:
+    """The reference's smoke model of ``arch`` (``kw`` overrides), and the
+    port's config, registry and the same params and masks, bridged."""
+    jcfg = JC.get_smoke_config(arch).replace(**dict(kw))
+    tcfg = TC.get_smoke_config(arch).replace(**dict(kw))
+    key = jax.random.PRNGKey(0)
+    jreg = JR.build_registry(jcfg)
+    jparams = JM.init_params(jcfg, key, JR.k_fan_map(jcfg, jreg))
+    jstate = JR.init_sparsity_state(jcfg, key, jreg)
+    return dict(jcfg=jcfg, jreg=jreg, jparams=jparams, jmasks=jstate["masks"],
+                jactive=jstate["neuron_active"], tcfg=tcfg, treg=TR.build_registry(tcfg),
+                tparams=bridge.from_jax_numpy(jax.tree.map(np.asarray, jparams)),
+                tmasks=bridge.from_jax_numpy(jax.tree.map(np.asarray, jstate["masks"])),
+                tactive=bridge.from_jax_numpy(jax.tree.map(np.asarray,
+                                                           jstate["neuron_active"])))
+
+
+def _prompts(cfg, b: int, t: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+
+
+def _assert_trees_close(jtree, ttree, **tol):
+    jflat = bridge.flatten(jax.tree.map(np.asarray, jtree))
+    tflat = bridge.flatten(ttree)
+    assert sorted(jflat) == sorted(tflat)
+    for k, v in jflat.items():
+        np.testing.assert_allclose(tflat[k].detach().float().numpy(),
+                                   np.asarray(v, np.float32), err_msg=k, **tol)

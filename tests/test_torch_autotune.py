@@ -4,8 +4,11 @@ CPU at small shapes, held to the reference (``repro.sparse.autotune``).
 
 The keys equal the reference's letter for letter (``shape_tuning_key`` for
 every kind, itemsize and values dtype; each format's ``tuning_key`` and
-``spec_tuning_key`` on leaves exported from the same masks), and so do
-``tune_registry``'s labels and written keys on the reference's three cases
+``spec_tuning_key`` on leaves exported from the same masks), but for one
+standing divergence: a quantized key names the compute dtype after the
+values' (``wint8-xbf16`` where the reference writes ``wint8``), so an entry
+tuned in bf16 is never read by an f32 run, which launches its default. So
+do ``tune_registry``'s labels and written keys on the reference's three cases
 and ``ServingEngine.autotune``'s labels on the smoke config (the
 reference's timed searches replaced by stubs that write its keys; the
 port's search runs, each candidate the plain version). The winner is its
@@ -92,18 +95,35 @@ def _stub_reference_search(monkeypatch):
 # keys
 # ---------------------------------------------------------------------------
 
+COMPUTE = {2: torch.bfloat16, 4: torch.float32}  # the compute dtype of an itemsize
+
+
+def _port_key(ref_key: str, dtype: torch.dtype) -> str:
+    """The reference's key as the port writes it: a quantized width names
+    the compute dtype too (a float key is the reference's as it is)."""
+    return re.sub(r"/w(int8|fp8)/", lambda m: f"/w{m[1]}-x{F.dtype_name(dtype)}/", ref_key)
+
 
 @pytest.mark.parametrize("values_dtype", [None, "int8", "fp8"])
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("kind,scatter", [("condensed", None), ("coa", 96), ("structured", 96)])
 def test_shape_tuning_key_equals_the_reference(monkeypatch, kind, scatter, itemsize,
                                                values_dtype):
+    dtype = COMPUTE[itemsize]
     for batch in (1, 2, 8, 9, 32, 100, 512, 3000, 9000):
         want = JF.shape_tuning_key(48, 80, 5, batch, backend="cpu", itemsize=itemsize,
                                    kind=kind, scatter_width=scatter, values_dtype=values_dtype)
-        assert F.shape_tuning_key(48, 80, 5, batch, backend="cpu", itemsize=itemsize,
-                                  kind=kind, scatter_width=scatter,
-                                  values_dtype=values_dtype) == want
+        got = F.shape_tuning_key(48, 80, 5, batch, backend="cpu", itemsize=itemsize,
+                                 kind=kind, scatter_width=scatter, values_dtype=values_dtype,
+                                 compute_dtype=dtype)
+        assert got == _port_key(want, dtype)
+        if values_dtype is None:  # float keys: the reference's, byte for byte
+            assert got == want and "-x" not in got
+        else:
+            assert f"/w{values_dtype}-x{'bf16' if itemsize == 2 else 'f32'}/" in got
+    if values_dtype is not None:  # a quantized key without its compute dtype
+        with pytest.raises(ValueError, match="compute_dtype"):
+            F.shape_tuning_key(48, 80, 5, 1, backend="cpu", values_dtype=values_dtype)
     # backend None names the card, as resolve_device does: without one it raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -140,14 +160,19 @@ def test_format_tuning_keys_equal_the_reference(quantize, ablation_only):
         jleaf = jcls.export_from_dense(jw, jm, jstats, **q)
         tleaf = tcls.export_from_dense(tw, tm, tstats, **q)
         for itemsize in (2, 4):
+            dtype = COMPUTE[itemsize]
             jspec = JF.spec_for_stack(stack, jstats, itemsize, quantize)
             tspec = F.spec_for_stack(stack, tstats, itemsize, quantize)
             for batch in (1, 4, 30, 200):
                 want = jleaf.tuning_key(batch, backend="cpu")
-                assert tleaf.tuning_key(batch, backend="cpu") == want
-                assert tleaf.tuning_key(batch) == want  # the leaf's device: the CPU
-                assert tcls.spec_tuning_key(tspec, batch, backend="cpu") == \
-                    jcls.spec_tuning_key(jspec, batch, backend="cpu")
+                if want is not None:
+                    want = _port_key(want, dtype)
+                assert tleaf.tuning_key(batch, backend="cpu", dtype=dtype) == want
+                # the leaf's device: the CPU
+                assert tleaf.tuning_key(batch, dtype=dtype) == want
+                got = tcls.spec_tuning_key(tspec, batch, backend="cpu", dtype=dtype)
+                ref = jcls.spec_tuning_key(jspec, batch, backend="cpu")
+                assert got == (None if ref is None else _port_key(ref, dtype))
         if jcls is JF.MaskedDense:
             assert tleaf.tuning_key(4) is None and tcls.spec_tuning_key(tspec, 4) is None
 
@@ -183,12 +208,14 @@ def test_tune_registry_labels_and_keys_equal_the_reference(caches, monkeypatch, 
                             values_dtype=values_dtype)
     assert set(jout) == set(tout) == labels
     keys = set(json.loads(caches[0].read_text())["kernels"])
-    assert keys == set(json.loads(caches[1].read_text())["kernels"])
+    assert keys == {_port_key(key, dtype)
+                    for key in json.loads(caches[1].read_text())["kernels"]}
     assert keys == {r.key for r in tout.values()}
     # the entries sit under the keys the formats derive, as ops reads them
     spec = F.spec_for_stack(stack, tstats["s"], torch.empty((), dtype=dtype).element_size(),
                             values_dtype)
-    assert AT.lookup_entry(F.Condensed.spec_tuning_key(spec, 1, backend="cpu")) is not None
+    assert AT.lookup_entry(F.Condensed.spec_tuning_key(spec, 1, backend="cpu",
+                                                       dtype=dtype)) is not None
     for r in tout.values():
         assert r.plain and r.us == min(r.table.values()) and r.speedup_vs_default >= 1.0
     # a second pass finds every key cached and times nothing
@@ -369,8 +396,8 @@ def test_ops_pass_the_cached_launch_to_the_wrappers(caches, monkeypatch):
     q, s = F.quantize_values(v, "int8")
     ops.condensed_linear_nd(x, q, i, scales=s)
     assert seen[-1] == (None, None)
-    _store(F.shape_tuning_key(64, 48, 4, 15, backend="cpu", itemsize=1, values_dtype="int8"),
-           4, 16)
+    _store(F.shape_tuning_key(64, 48, 4, 15, backend="cpu", values_dtype="int8",
+                              compute_dtype=torch.float32), 4, 16)
     ops.condensed_linear_nd(x, q, i, scales=s)
     assert seen[-1] == (4, 16)
     # an entry the launch does not take raises, never clamped
@@ -396,6 +423,49 @@ def test_ops_pass_the_cached_launch_to_the_wrappers(caches, monkeypatch):
     pre = _recording(monkeypatch, sm, "structured_matmul_pregathered")
     ops.structured_gathered_linear_nd(x, w[:, :128].clone(), ai[:96].clone(), 96)
     assert pre == [(None, None)]
+
+
+def test_a_quantized_entry_tuned_in_bf16_is_not_read_by_an_f32_run(caches, monkeypatch):
+    """An int8 entry tuned at bf16 compute names its dtype in its key: an
+    f32 run of the same shape finds no entry and launches its default (the
+    reference's key would hand it a 16-row tile that f32 has no launch for);
+    the bf16 run reads it. Float keys stay the reference's byte for byte."""
+    g = torch.Generator().manual_seed(0)
+    v = torch.randn(48, 4, generator=g)
+    i = torch.randint(0, 64, (48, 4), generator=g, dtype=torch.int32)
+    q, s = F.quantize_values(v, "int8")
+    x = torch.randn(15, 64, generator=g)                 # 15 rows: bucket 32
+    seen = _recording(monkeypatch, cm, "condensed_matmul")
+    key = F.shape_tuning_key(64, 48, 4, 15, backend="cpu", values_dtype="int8",
+                             compute_dtype=torch.bfloat16)
+    assert key == "cpu/wint8-xbf16/d64/n48/k4/b32"
+    _store(key, 16, 64)
+    y = ops.condensed_linear_nd(x, q, i, scales=s)
+    assert seen == [(None, None)]                        # f32: no entry, the default
+    assert torch.equal(y, cm.condensed_matmul(x, q, i, scales=s))
+    ops.condensed_linear_nd(x.to(torch.bfloat16), q, i, scales=s)
+    assert seen[-1] == (16, 64)                          # bf16 reads its own entry
+    # the reference keys both runs alike, and f32 has no 16-row launch
+    assert (JF.shape_tuning_key(64, 48, 4, 15, backend="cpu", itemsize=2, values_dtype="int8")
+            == JF.shape_tuning_key(64, 48, 4, 15, backend="cpu", itemsize=4,
+                                   values_dtype="int8"))
+    with pytest.raises(ValueError, match="block_b must be one of"):
+        cm.condensed_matmul(x, q, i, scales=s, block_b=16)
+    # what tune_registry writes at bf16 is the bf16 key; an f32 spec keys apart
+    stack = types.SimpleNamespace(name="s", d_in=64, d_out=48)
+    st = F.ExportStats(4, 48, 1.0, 4)
+    AT.tune_registry([stack], {"s": st}, batch=15, dtype=torch.bfloat16, reps=1, device="cpu",
+                     values_dtype="int8")
+    spec = F.spec_for_stack(stack, st, 2, "int8")
+    assert F.Condensed.spec_tuning_key(spec, 15, backend="cpu", dtype=torch.bfloat16) == key
+    assert AT.lookup_entry(F.Condensed.spec_tuning_key(spec, 15, backend="cpu",
+                                                       dtype=torch.float32)) is None
+    # float keys: byte-identical to the reference's
+    for itemsize, width in ((4, "w32"), (2, "w16")):
+        want = f"cpu/{width}/d64/n48/k4/b32"
+        assert F.shape_tuning_key(64, 48, 4, 15, backend="cpu", itemsize=itemsize,
+                                  compute_dtype=COMPUTE[itemsize]) == want
+        assert JF.shape_tuning_key(64, 48, 4, 15, backend="cpu", itemsize=itemsize) == want
 
 
 # ---------------------------------------------------------------------------

@@ -76,3 +76,69 @@ def test_unported_families_raise():
     cfg = tconfigs.get_smoke_config(ARCH).replace(family="moe")
     with pytest.raises(NotImplementedError):
         TR.build_registry(cfg)
+
+
+# the configs ported beyond qwen3-1.7b (its own cases are above)
+NEW_ARCHS = ("internlm2-20b", "mistral-large-123b", "gemma3-1b", "qwen2-vl-7b")
+
+
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_config_fields_equal_the_reference(arch, getter):
+    jc = getattr(jconfigs, getter)(arch)
+    tc = getattr(tconfigs, getter)(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for prop in ("vocab_padded", "n_heads_padded", "n_kv_heads_padded", "head_to_kv",
+                 "q_dim", "kv_dim", "is_moe", "d_inner", "ssm_n_heads"):
+        assert getattr(tc, prop) == getattr(jc, prop), prop
+    assert [tc.window_for_layer(i) for i in range(tc.n_layers)] == [
+        jc.window_for_layer(i) for i in range(jc.n_layers)]
+
+
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_registry_stacks_densities_and_fan_ins_equal(arch, getter):
+    jc = getattr(jconfigs, getter)(arch)
+    tc = getattr(tconfigs, getter)(arch)
+    jreg, treg = JR.build_registry(jc), TR.build_registry(tc)
+    assert [(s.path, s.d_in, s.d_out, s.lead, s.density, s.n_replicas, s.name)
+            for s in treg] == [(s.path, s.d_in, s.d_out, s.lead, s.density,
+                                s.n_replicas, s.name) for s in jreg]
+    assert TR.k_fan_map(tc, treg) == JR.k_fan_map(jc, jreg)
+
+
+def test_every_ported_arch_is_registered_with_the_references_shapes():
+    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS}
+    assert [dataclasses.asdict(s) for s in tconfigs.ALL_SHAPES] == [
+        dataclasses.asdict(s) for s in jconfigs.ALL_SHAPES]
+    assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
+    for arch in tconfigs.ALL_ARCHS:
+        cfg = tconfigs.get_config(arch)
+        got = tconfigs.shapes_for(arch, cfg.family, cfg.causal)
+        want = jconfigs.shapes_for(arch, cfg.family, cfg.causal)
+        assert [(s.name, s.seq_len, s.global_batch, s.kind, s.tokens) for s in got] == [
+            (s.name, s.seq_len, s.global_batch, s.kind, s.tokens) for s in want], arch
+    # the encoder-only and long-context branches, as the reference takes them
+    for arch, family, causal in (("vit-b16", "vit", False), ("mamba2-130m", "ssm", True)):
+        assert [s.name for s in tconfigs.shapes_for(arch, family, causal)] == [
+            s.name for s in jconfigs.shapes_for(arch, family, causal)]
+
+
+def test_full_width_fan_ins_of_the_new_configs():
+    want = {"gemma3-1b": {"wo": 443, "w_gate": 113, "w_up": 113, "w_down": 680},
+            "qwen2-vl-7b": {"wo": 622, "w_gate": 345, "w_up": 345, "w_down": 1824},
+            "internlm2-20b": {"wo": 851, "w_gate": 585, "w_up": 585, "w_down": 1560},
+            "mistral-large-123b": {"wo": 1638, "w_gate": 1170, "w_up": 1170, "w_down": 2731}}
+    for arch, fans in want.items():
+        cfg = tconfigs.get_config(arch)
+        assert TR.k_fan_map(cfg, TR.build_registry(cfg)) == fans, arch
+
+
+@pytest.mark.parametrize("family,kw", [("ssm", dict(ssm_state=16)), ("hybrid", dict(ssm_state=16)),
+                                       ("audio", dict(n_codebooks=4)),
+                                       ("vit", dict(causal=False))])
+def test_other_unported_families_raise(family, kw):
+    cfg = tconfigs.get_smoke_config(ARCH).replace(family=family, **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TR.build_registry(cfg)
