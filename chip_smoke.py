@@ -58,7 +58,13 @@ Phases, each of which raises (exit code != 0) on any failed check:
    bitwise the tiled launch, each shape's bf16 geometry printed (splits,
    passes, whether the decode kernel exists: up to d_in 6656), timed beside
    the plain version, torch.matmul on the dense masked weight and the byte
-   bound, and one decode and one tiled layer a config.
+   bound, and one decode and one tiled layer a config. Then kernel:moe: the
+   expert-grouped launches K1-moe and K2-moe (one launch for an MoE
+   layer's E experts) at granite-moe-1b's (E 32) and kimi-k2's (E 384)
+   expert stack shapes, MOE_ROWS rows an expert, bf16 and f32 (K2-moe on
+   int8 codes): bitwise equal to E single K1 (K2) launches, within TOL of
+   the plain version, timed beside it, torch.bmm over the dense masked
+   expert weights and the bound, and one decode layer's experts a config.
 3. slice: full-width qwen3-1.7b (28 layers, random weights from a seeded
    torch.Generator), SRigL ERK masks at 90%, condensed export, greedy
    generation at B=4, prompt 32, gen 16 on the condensed and the masked
@@ -218,7 +224,23 @@ Phases, each of which raises (exit code != 0) on any failed check:
    graph replays', and condensed is held to masked under the tie rule.
    Prints the layout, the depth, the graph and eager walls and
    max_memory_allocated.
-19. reference: the smoke config on the card against the port's CPU path
+19. moe: granite-moe-1b-a400m at its published width and depth (24
+   layers, 32 experts top-8), random weights and 90% SRigL masks from a
+   seeded generator, served by the paged ServingEngine with graph decode
+   (B=4, prompt 32 + 16) in bf16 on masked, condensed, int8 condensed and
+   auto: the counted request launches what its plan implies (condensed:
+   K1 24 x 17 times for wo and K1-moe 3 x 24 x 17 for the experts; int8:
+   K2 and K2-moe), a repeated request equals the one that took the same
+   bucket rows, standalone graph decode equals the eager loop bitwise.
+   Each path is held to masked's step-by-step run (int8 codes to their
+   dequantized twin's): fed masked's tokens with masked's routing replayed,
+   its logits and router logits stay within LOGIT_NOISE_BOUND (only the
+   kernels differ); run on its own, its routing may first choose other
+   experts only where that token's own router top-k gap is a near-tie, and
+   its tokens part only at a logit tie or after such a routing change.
+   Then f32 masked and condensed, where neither routing nor tokens part.
+   Prints walls, launches, the logit differences and max_memory_allocated.
+20. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched;
@@ -244,6 +266,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -282,6 +305,12 @@ KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
      "src/repro/kernels/structured_matmul.py:297"),
     ("K3", "condensed_matmul_dw", CSRC + "condensed_dw.cu",
      "src/repro/kernels/condensed_matmul.py:271"),
+    # the expert-grouped launches: the reference's jax.vmap of K1's and
+    # K2's Pallas kernels over an MoE layer's experts
+    ("K1-moe", "condensed_matmul_grouped", CSRC + "condensed_matmul_grouped.cu",
+     "src/repro/kernels/condensed_matmul.py:235"),
+    ("K2-moe", "condensed_matmul_grouped(scales=)", CSRC + "condensed_matmul_grouped.cu",
+     "src/repro/kernels/condensed_matmul.py:254"),
 )
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
 QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
@@ -401,10 +430,11 @@ def build_phase():
 # the d_in at which the C side's shared memory must equal the wrapper's
 # geometry: the CPU tests' values (tests/test_torch_condensed_matmul.py),
 # then the input widths of the zoo configs' sparse stacks (ZOO: wo, w_gate
-# and w_up, w_down)
+# and w_up, w_down), then the MoE expert stacks' (granite-moe-1b's w_gate,
+# kimi-k2's)
 GEOMETRY_D_IN = (1, 63, 64, 65, 511, 512, 513, 1000, 1001, 2048, 6144, 8192, 14336,
                  40_000, 40_001, 116_224, 1_000_000,
-                 1152, 3584, 4096, 6912, 12288, 16384, 18944, 28672)
+                 1152, 3584, 4096, 6912, 12288, 16384, 18944, 28672, 1024, 7168)
 
 
 def gather_geometry_check() -> None:
@@ -1439,7 +1469,7 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
 def _kernel_counters() -> dict:
     """Each kernel's launch counter: its wrapper function and the attribute
     the wrapper adds to (K2 and K2-coa count on K1's and K4's wrappers, K3
-    on condensed_matmul_dw)."""
+    on condensed_matmul_dw, K1-moe and K2-moe on condensed_matmul_grouped)."""
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.kernels import structured_matmul as sm
     return {"K1": (cm.condensed_matmul, "launches"),
@@ -1448,7 +1478,9 @@ def _kernel_counters() -> dict:
             "K6": (sm.structured_matmul_prefetch, "launches"),
             "K2": (cm.condensed_matmul, "scaled_launches"),
             "K2-coa": (sm.condensed_over_active_matmul, "scaled_launches"),
-            "K3": (cm.condensed_matmul_dw, "launches")}
+            "K3": (cm.condensed_matmul_dw, "launches"),
+            "K1-moe": (cm.condensed_matmul_grouped, "launches"),
+            "K2-moe": (cm.condensed_matmul_grouped, "scaled_launches")}
 
 
 def _none() -> dict:
@@ -2102,14 +2134,19 @@ def _engine_tokens(label: str, cfg, eng, reqs: dict) -> tuple[int, int]:
 def _engine_expected(eng, dispatches: dict) -> dict:
     """Kernel launches the plans' decisions imply for ``dispatches``
     ({plan key: prefill dispatches + decode steps}): each stack's kernel
-    once per layer per dispatch."""
+    once per layer per dispatch (an MoE expert stack's condensed leaf: the
+    expert-grouped launch, once per layer for all its experts)."""
+    from repro_torch.sparse import registry as REG
     quant = eng.values_dtype is not None
     kernel_of = {"condensed": "K2" if quant else "K1",
                  "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
+    experts = {s.name for s in eng.registry if REG.is_expert_stack(s, eng.cfg)}
     expected = _none()
     for key, n in dispatches.items():
-        for _, rep in key.formats:
-            if rep in kernel_of:
+        for name, rep in key.formats:
+            if name in experts and rep == "condensed":
+                expected["K2-moe" if quant else "K1-moe"] += eng.cfg.n_layers * n
+            elif rep in kernel_of:
                 expected[kernel_of[rep]] += eng.cfg.n_layers * n
     return expected
 
@@ -4205,7 +4242,9 @@ def train_reference_phase(device) -> None:
 def reference_phase(device):
     """The smoke config on the card against the port's CPU path (which the
     CPU tests hold to the JAX package), float and int8/fp8 trees alike; each
-    card run must launch the kernel its path names."""
+    card run must launch the kernel its path names. Then the MoE smoke
+    configs on condensed, float and int8 (K1-moe / K2-moe once a dispatch
+    for each of the 3 expert stacks of each layer)."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import engine as E
@@ -4250,6 +4289,27 @@ def reference_phase(device):
                                  f"cpu {cpu.tolist()}")
         print(f"[reference] smoke {ARCH} {path} on the card ({key} x {launched}) == CPU "
               f"plain path: {cpu[0, 8:].tolist()}")
+    # the MoE smoke configs: the condensed experts through K1-moe / K2-moe
+    for arch in MOE_ROWS:
+        mcfg = configs.get_smoke_config(arch)
+        mreg = REG.build_registry(mcfg)
+        mparams = M.init_params(mcfg, gen, REG.k_fan_map(mcfg, mreg))
+        mmasks = REG.init_sparsity_state(mcfg, gen, mreg)["masks"]
+        for qdt, key in ((None, "K1-moe"), ("int8", "K2-moe")):
+            tree = COND.export_condensed(mcfg, mreg, mparams, mmasks, quantize_spec=qdt)
+            cpu = E.generate(mcfg, mparams, tree, prompts, 10)
+            _zero_counts()
+            gpu = E.generate(mcfg, to_dev(mparams), to_dev(tree), prompts.to(device), 10)
+            launched = _counts()[key]
+            if not launched or launched % (3 * mcfg.n_layers):
+                raise AssertionError(f"smoke {arch} {qdt}: {key} launched {launched} times, "
+                                     f"not a positive multiple of 3 expert stacks x "
+                                     f"{mcfg.n_layers} layers")
+            if not torch.equal(gpu.cpu(), cpu):
+                raise AssertionError(f"smoke {arch} {qdt} tokens differ: card {gpu.tolist()} "
+                                     f"cpu {cpu.tolist()}")
+            print(f"[reference] smoke {arch} condensed{' ' + qdt if qdt else ''} on the card "
+                  f"({key} x {launched}) == CPU plain path: {cpu[0, 8:].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -4552,6 +4612,522 @@ def zoo_phase(device, card: str) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the MoE family ([kernel:moe], [moe])
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# rows an expert takes in one grouped launch: a decode group of B = 4 (the
+# capacity equals the group), the paged engine's bucket of 8, and
+# granite's prefill capacity at 4 x 32 tokens (one group of 128, capacity
+# 40) and at the engine's 8 x 32 (256 tokens, capacity 80); kimi-k2 at the
+# decode capacity and granite's prefill capacity only (its operands are
+# 3.4 GB a stack)
+MOE_ROWS = {"granite-moe-1b-a400m": (4, 8, 40, 80), "kimi-k2-1t-a32b": (4, 40)}
+# (kernel, x dtype, int8 codes) of each case: both kernels in both dtypes;
+# kimi-k2's K2-moe with bf16 x only
+MOE_VARIANTS = {"granite-moe-1b-a400m": (("K1-moe", "bfloat16", False),
+                                         ("K1-moe", "float32", False),
+                                         ("K2-moe", "bfloat16", True),
+                                         ("K2-moe", "float32", True)),
+                "kimi-k2-1t-a32b": (("K1-moe", "bfloat16", False),
+                                    ("K1-moe", "float32", False),
+                                    ("K2-moe", "bfloat16", True))}
+# the [moe] phase's serving paths: (path, values dtype)
+MOE_PATHS = (("masked", None), ("condensed", None), ("condensed", "int8"), ("auto", None))
+
+
+def _moe_expert_shapes() -> list:
+    """(arch, stack, E, d_in, d_out, k) of each distinct expert stack of the
+    MoE configs at their published widths, k the realized fan-in of the
+    registry's ERK densities at 90%."""
+    from repro_torch import configs
+    from repro_torch.core import distributions as D
+    from repro_torch.sparse import registry as REG
+    out, seen = [], set()
+    for arch in MOE_ROWS:
+        cfg = configs.get_config(arch)
+        for s in REG.build_registry(cfg):
+            k = D.fan_in_from_density(s.d_in, s.density)
+            if REG.is_expert_stack(s, cfg) and (arch, s.d_in, s.d_out) not in seen:
+                seen.add((arch, s.d_in, s.d_out))
+                out.append((arch, s.path[-1], cfg.n_experts, s.d_in, s.d_out, k))
+    return out
+
+
+def _moe_operands(gen, e: int, d_in: int, n_out: int, k: int, device):
+    """Random float32 values (std 1/sqrt(k)) and int32 indices (E, n_out, k),
+    each row's k distinct inputs in ascending order, as an export stores
+    them; drawn an expert at a time."""
+    import torch
+    idx = torch.empty((e, n_out, k), dtype=torch.int32, device=device)
+    for i in range(e):
+        scores = torch.rand((n_out, d_in), generator=gen, device=device)
+        idx[i] = scores.topk(k, dim=1).indices.sort(dim=1).values.to(torch.int32)
+        del scores
+    vals = torch.randn((e, n_out, k), generator=gen, device=device) / k ** 0.5
+    return vals, idx
+
+
+def _moe_dense_t(vals, idx, d_in: int):
+    """(E, n_out, d_in) dense masked expert weights at vals' dtype, built an
+    expert at a time: the transposed operand torch.bmm reads."""
+    import torch
+    e, n_out, _ = vals.shape
+    dense = torch.zeros((e, n_out, d_in), dtype=vals.dtype, device=vals.device)
+    for i in range(e):
+        dense[i].scatter_(1, idx[i].long(), vals[i])
+    return dense
+
+
+def moe_kernel_phase(device) -> list:
+    """K1-moe and K2-moe (``condensed_matmul_grouped``) at each MoE expert
+    stack's shape (granite-moe-1b E 32: 1024->512 k 103 and 512->1024 k 52;
+    kimi-k2 E 384: 7168->2048 k 718 and 2048->7168 k 205), at MOE_ROWS rows
+    an expert, MOE_VARIANTS' dtypes (bf16 and f32 values, int8 codes). Each
+    case: bitwise equal to E separate K1 (K2) launches, expert by expert;
+    within TOL of the plain version (``ref.condensed_matmul_grouped_ref``);
+    timed beside the plain version, torch.bmm over the dense masked expert
+    weights (the library call) and the bound (values, indices, scales, x and
+    y over HBM_BYTES_PER_S, or the products over the peak); operands of more
+    than 4 x L2_BYTES are timed over 3 calls a replay, the plain version
+    there over one. Operands are
+    built at those shapes directly, one stack at a time (kimi's w_gate: 1.13
+    GB of bf16 values and 2.26 GB of indices). Prints each bf16 geometry
+    and granite's decode layer (w_gate + w_up + w_down at 8 rows).
+    Returns the per-case records."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import formats as F
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    cases = []
+    for arch, name, e, d_in, n_out, k in _moe_expert_shapes():
+        geo = cm.gather_geometry(d_in, torch.bfloat16)
+        print(f"[kernel:moe] {arch} {name} E={e} {d_in}->{n_out} k={k}: bf16 geometry "
+              f"{geo.splits} splits of {geo.split_rows} inputs, decode kernel "
+              + ("yes" if geo.decode_loads else "no (M <= 8 runs gather_mma at M's tile)"))
+        vals32, idx = _moe_operands(gen, e, d_in, n_out, k, device)
+        codes, scales = F.quantize_values(vals32, "int8")
+        for label, dtype_name, quant in MOE_VARIANTS[arch]:
+            dtype = getattr(torch, dtype_name)
+            vals = codes if quant else vals32.to(dtype).contiguous()
+            sc = scales if quant else None
+            # the library's operand: the dense masked weights the codes stand for
+            wq = F.dequantize_values(codes, scales, dtype=torch.float32) if quant else vals32
+            dense_t = _moe_dense_t(wq.to(dtype), idx, d_in)
+            del wq
+            wbytes = vals.numel() * vals.element_size() + idx.numel() * 4 + (
+                sc.numel() * 4 if quant else 0)
+            big = wbytes > 4 * L2_BYTES
+            weight_sets = [(vals, idx, sc)] + [(vals.clone(), idx.clone(), sc)
+                                               for _ in range(0 if big else _copies(wbytes) - 1)]
+            dbytes = dense_t.numel() * dense_t.element_size()
+            dense_sets = [dense_t] + [dense_t.clone() for _ in range(
+                0 if dbytes > 4 * L2_BYTES else _copies(dbytes) - 1)]
+            timing = dict(reps=3, iters=3) if big else {}
+            for m in MOE_ROWS[arch]:
+                x = torch.randn((e, m, d_in), generator=gen, device=device).to(dtype)
+                y = cm.condensed_matmul_grouped(x, vals, idx, scales=sc)
+                per = torch.stack([cm.condensed_matmul(x[i], vals[i], idx[i],
+                                                       scales=None if sc is None else sc[i])
+                                   for i in range(e)])
+                if not torch.equal(y, per):
+                    raise AssertionError(f"{label} {arch} {name} {dtype_name} M={m}: the "
+                                         f"grouped launch differs from {e} single launches")
+                want = ref.condensed_matmul_grouped_ref(x, vals, idx, sc)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name])
+                err = (y.float() - want.float()).abs().max().item()
+                del per, want
+
+                def grouped(x_, v_, i_, s_):
+                    return cm.condensed_matmul_grouped(x_, v_, i_, scales=s_)
+                ms = _time_ms(grouped, [(x, v, i, s_) for v, i, s_ in weight_sets], **timing)
+                plain_ms = _time_ms(ref.condensed_matmul_grouped_ref, [(x, vals, idx, sc)],
+                                    **(dict(reps=1, iters=1) if big else dict(reps=3, iters=2)))
+                library_ms = _time_ms(lambda x_, w_: torch.bmm(x_, w_.transpose(1, 2)),
+                                      [(x, w) for w in dense_sets], **timing)
+                isz = x.element_size()
+                nbytes = wbytes + e * m * (d_in + n_out) * isz
+                ops = 2 * e * m * n_out * k
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+                launch = "decode" if m <= cm.SMALL_BATCH_MAX else "tiled"
+                rec = dict(kernel=label, arch=arch, stack=name, experts=e, d_in=d_in,
+                           n_out=n_out, k=k, dtype=dtype_name,
+                           codes="int8" if quant else None, rows=m, launch=launch, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops, max_abs_err=err,
+                           bitwise=f"== {e} {label[:2]} launches")
+                cases.append(rec)
+                print(f"[kernel:moe] {label} {arch} {name:6s} E={e} {d_in}->{n_out} k={k} "
+                      f"{dtype_name:8s}{' int8' if quant else ''} M={m:2d} {launch}: ms "
+                      f"{ms:.5f} | plain {plain_ms:.5f} | torch.bmm {library_ms:.5f} | bound "
+                      f"{rec['bound_ms']:.5f} ({rec['bound_by']}) | max_abs_err {err:.3g} | "
+                      f"== {e} single {label[:2]} launches bitwise")
+                del x, y
+            del weight_sets, dense_sets, dense_t, vals
+            torch.cuda.empty_cache()
+        del vals32, idx, codes, scales
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_layer = {"w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
+    for arch, rows in MOE_ROWS.items():
+        for label, codes in (("K1-moe", None), ("K2-moe", "int8")):
+            m = 8 if 8 in rows else rows[0]  # the engine's bucket, else the decode group
+            layer = [c for c in cases if c["arch"] == arch and c["kernel"] == label
+                     and c["dtype"] == "bfloat16" and c["rows"] == m]
+            tot = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
+                   for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"[kernel:moe] {arch} one decode layer's experts (w_gate + w_up + w_down, "
+                  f"bf16 x{', int8 codes' if codes else ''}, {m} rows an expert): {label} "
+                  f"{tot['ms'] * 1e3:.2f} us | bound {tot['bound_ms'] * 1e3:.2f} us | plain "
+                  f"{tot['plain_ms'] * 1e3:.2f} us | torch.bmm {tot['library_ms'] * 1e3:.2f} us")
+    return cases
+
+
+def _moe_run(cfg, compute, tree, prompts, gen_len: int, force=None, replay=None) -> dict:
+    """One path's greedy run, step by step and eager, reading every router
+    call. ``force`` (B, gen_len) feeds those tokens instead of the run's own;
+    ``replay`` (another run's ``routes``) makes each router call return that
+    run's (dispatch, combine, aux), so that two runs on the same tokens then
+    differ only in their linears' kernels. Returns tokens (B, gen_len), the
+    logits of each forward pass (gen_len of (B, V) float32; pass 0 the
+    prefill, pass j the decode step that produced generated token j), their
+    top-2 gaps (B, gen_len), ``routes`` (every router call's output, in
+    order) and ``passes``: per pass, per layer, the router logits (G, S, E)
+    float32, each token's top-k choice as a sorted set (G, S, k), the
+    experts that kept it within their capacity (G, S, E) and its own gap
+    between the k-th and (k+1)-th router logit (G, S)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    k = cfg.top_k_experts
+    route = MOE.route_topk
+    layers, routes = [], []
+    replayed = iter(replay) if replay is not None else None
+
+    def recording(logits, top_k, capacity):
+        lg = logits.float()
+        top = torch.sort(lg, dim=-1, descending=True).values
+        choice = MOE.top_k(torch.softmax(lg, dim=-1), k)[1].sort(dim=-1).values
+        out = route(logits, top_k, capacity) if replayed is None else next(replayed)
+        routes.append(out)
+        layers.append(dict(router=lg, choices=choice, kept=out[0].any(-1),
+                           gaps=top[..., k - 1] - top[..., k]))
+        return out
+
+    passes, logits_seen = [], []
+
+    def passed(logits) -> None:
+        logits = logits[:, :cfg.vocab_size].float()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        logits_seen.append(logits)
+        passes.append(list(layers))
+        layers.clear()
+    MOE.route_topk = recording
+    try:
+        with torch.inference_mode():
+            b, t = prompts.shape
+            cache = M.init_cache(cfg, b, t + gen_len, device=prompts.device)
+            logits, cache = M.prefill_step(cfg, compute, tree, {"tokens": prompts}, cache)
+            passed(logits)
+            toks = []
+            for step in range(gen_len):
+                cur = torch.argmax(logits_seen[-1], dim=-1).to(torch.int32)
+                toks.append(cur)
+                fed = cur if force is None else force[:, step].to(torch.int32)
+                if step + 1 < gen_len:
+                    logits, cache = M.decode_step(cfg, compute, tree, {"tokens": fed[:, None]},
+                                                  cache)
+                    passed(logits)
+    finally:
+        MOE.route_topk = route
+    top2 = torch.stack([lg.topk(2, dim=-1).values for lg in logits_seen], 1)  # (B, gen, 2)
+    return dict(tokens=torch.stack(toks, 1), logits=logits_seen,
+                gaps=top2[..., 0] - top2[..., 1], routes=routes, passes=passes)
+
+
+def _routing_parts(label: str, ref: dict, run: dict, tie: float, against: str) -> tuple:
+    """Where ``run``'s routing parts from ``ref``'s on the same inputs. A
+    token that chooses other experts while its stream's routing still
+    agrees must have had a router near-tie there (its own gap in ``ref``
+    between the k-th and (k+1)-th router logit below ``tie``), else this
+    raises. A stream's routing parts where one of its tokens is kept by
+    other experts: from its own choice, or, in the prefill, where another
+    token's choice moved it past an expert's capacity (the prefill's group
+    holds every stream). A decode group of B rows drops nothing, so there a
+    stream parts only by its own choice, looked for while its tokens still
+    agree. Returns (per stream the pass at which its routing parted, or
+    None; a description of each)."""
+    import torch
+    b, gen = ref["tokens"].shape
+    parted, seen = [None] * b, []
+
+    def near_tie(p: int, layer: int, gaps, flip, row: int) -> float:
+        gap = gaps[flip].max().item()
+        if not gap < tie:
+            raise AssertionError(f"{label}: stream {row} pass {p} layer {layer}: "
+                                 f"{int(flip.sum())} token(s) choose other experts than on "
+                                 f"{against} at a router top-k gap up to {gap:.4g}, not a "
+                                 f"near-tie (below {tie:.4g})")
+        return gap
+
+    for layer, (r, q) in enumerate(zip(ref["passes"][0], run["passes"][0])):
+        flip = (r["choices"] != q["choices"]).any(-1).reshape(b, -1)     # (B, T)
+        moved = (r["kept"] != q["kept"]).any(-1).reshape(b, -1)
+        gaps = r["gaps"].reshape(b, -1)
+        for row in range(b):
+            if parted[row] is not None:
+                continue
+            gap = near_tie(0, layer, gaps[row], flip[row], row) if flip[row].any() else None
+            if moved[row].any():
+                parted[row] = 0
+                seen.append(f"stream {row} prefill layer {layer}: {int(moved[row].sum())} "
+                            f"token(s) kept by other experts, {int(flip[row].sum())} by their "
+                            f"own choice" + (f" (own router gaps up to {gap:.3g})"
+                                             if gap is not None else ""))
+    for p in range(1, gen):
+        for row in range(b):
+            if parted[row] is not None or not torch.equal(run["tokens"][row, :p],
+                                                          ref["tokens"][row, :p]):
+                continue
+            for layer, (r, q) in enumerate(zip(ref["passes"][p], run["passes"][p])):
+                flip = (r["choices"] != q["choices"]).any(-1).reshape(-1)[row:row + 1]
+                if flip.any():
+                    gap = near_tie(p, layer, r["gaps"].reshape(-1)[row:row + 1], flip, row)
+                    parted[row] = p
+                    seen.append(f"stream {row} decode pass {p} layer {layer}: own router gap "
+                                f"{gap:.3g}")
+                    break
+    return parted, seen
+
+
+def _moe_hold(label: str, cfg, compute, tree, prompts, standalone, ref: dict, against: str,
+              card: str) -> dict:
+    """A path held to ``ref`` (masked's run, or the dequantized twin's for
+    int8 codes), in two runs of its own, step by step:
+
+    * on ref's tokens with ref's routing replayed, where only the linears'
+      kernels differ: every pass's logits and every router call's logits
+      within LOGIT_NOISE_BOUND of ref's (d and d_router, the largest
+      differences, are printed);
+    * on its own (its tokens equal to standalone graph generate's): its
+      routing may first part from ref's only at a router near-tie
+      (``_routing_parts``, below max(TIE_GAP, 2 d_router)), and a stream's
+      tokens may part only where ref's top-2 gap is below max(TIE_GAP, 2 d)
+      or after its routing parted. In float32 neither may part at all.
+
+    Returns the counts printed."""
+    import torch
+    bound = LOGIT_NOISE_BOUND[cfg.dtype]
+    rep = _moe_run(cfg, compute, tree, prompts, GEN, force=ref["tokens"], replay=ref["routes"])
+    d = max((a - r).abs().max().item() for a, r in zip(rep["logits"], ref["logits"]))
+    d_router = max((q["router"] - r["router"]).abs().max().item()
+                   for qp, rp in zip(rep["passes"], ref["passes"]) for q, r in zip(qp, rp))
+    del rep
+    if not (d <= bound and d_router <= bound):
+        raise AssertionError(f"{label}: on {against}'s tokens and routing the logits differ by "
+                             f"{d} and the router logits by {d_router}, above {bound}")
+    own = _moe_run(cfg, compute, tree, prompts, GEN)
+    if not torch.equal(own["tokens"], standalone[:, PROMPT:]):
+        raise AssertionError(f"{label}: the step-by-step run differs from graph generate")
+    tie, tie_router = max(TIE_GAP[cfg.dtype], 2 * d), max(TIE_GAP[cfg.dtype], 2 * d_router)
+    parted, seen = _routing_parts(label, ref, own, tie_router, against)
+    div = _first_divergence(own["tokens"], ref["tokens"])
+    at_tie = after_router = 0
+    for row, j in enumerate(div):
+        if j is None:
+            continue
+        gap = ref["gaps"][row, j].item()
+        if gap < tie:
+            at_tie += 1
+        elif parted[row] is not None and parted[row] <= j:
+            after_router += 1
+        else:
+            raise AssertionError(f"{label}: stream {row} parts from {against} at generated token "
+                                 f"{j}, a top-2 gap of {gap:.4g} (tie below {tie:.4g}), with "
+                                 f"its routing equal to {against}'s up to there")
+        print(f"[{label}] stream {row}: parts from {against} at generated token {j}, top-2 gap "
+              f"{gap:.3g} (tie below {tie:.3g}); its routing parted at pass {parted[row]}")
+    agree = sum(j is None for j in div)
+    if cfg.dtype == "float32" and (agree != len(div) or seen):
+        raise AssertionError(f"{label}: in float32 the tokens (first divergence {div}) or the "
+                             f"routing ({seen}) part from {against}'s")
+    print(f"[{label}] {card}: against {against}: on its tokens and routing, logits within "
+          f"{d:.4g} over the prefill and {GEN - 1} decode steps, router logits within "
+          f"{d_router:.4g} (bound {bound}); own run: streams agreeing in full "
+          f"{agree}/{len(div)}, parted at a logit tie {at_tie}, parted after a router near-tie "
+          f"{after_router}; routing parted at {seen or 'no pass'} (near-tie below "
+          f"{tie_router:.3g})")
+    return dict(agree=agree, at_tie=at_tie, after_router=after_router, d=d, d_router=d_router)
+
+
+def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, card):
+    """One paged engine on ``path``: a warm request, a counted one, two more
+    (the median wall of three), the standalone generate of its serving tree
+    (graph decode) against the eager decode loop. Returns (engine result's
+    tokens, standalone tokens, launch counts, (compute params, serving
+    tree)); the engine itself is freed."""
+    import torch
+    from repro_torch.launch import engine as E
+    eng = E.ServingEngine(cfg, params, masks, reg, path=path, values_dtype=values_dtype,
+                          block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+    if not eng.paged:
+        raise AssertionError(f"{label}: the MoE engine is not paged")
+    first, _ = _zoo_request(eng, prompts)
+    before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
+    _zero_counts()
+    res, wall = _zoo_request(eng, prompts)
+    counts = _counts()
+    dispatches = {key: r.prefills + r.steps - before.get(key, 0)
+                  for key, r in eng._runners.items()}
+    expected = _engine_expected(eng, dispatches)
+    if counts != expected or sum(dispatches.values()) != 1 + GEN:
+        raise AssertionError(f"{label}: launched {counts} over {dispatches}, expected "
+                             f"{expected}")
+    # the bucket's free rows rotate: requests 1 and 3 take rows 0-3, 2 and 4
+    # rows 4-7, and a row's place in the prefill's routing group moves which
+    # tokens overflow an expert's capacity, so a request is held to the one
+    # that took the same rows
+    walls, tokens = [wall], [first.tokens, res.tokens]
+    for _ in range(2):
+        again, wall = _zoo_request(eng, prompts)
+        walls.append(wall)
+        tokens.append(again.tokens)
+    for i in (0, 1):
+        if not torch.equal(tokens[i], tokens[i + 2]):
+            raise AssertionError(f"{label}: request {i + 3} gave other tokens than request "
+                                 f"{i + 1} on the same rows")
+    placed = "equal" if torch.equal(tokens[0], tokens[1]) else "part"
+    tree = eng.serving_tree_for(res.plan_key)
+    standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t1
+    if not torch.equal(eager, standalone):
+        raise AssertionError(f"{label}: the eager decode loop gave other tokens than the "
+                             f"graph replays")
+    reps = sorted({r for _, r in res.plan_key.formats})
+    print(f"[{label}] {card}: paged engine ({', '.join(reps)}), request {BATCH}x{PROMPT}+{GEN} "
+          f"(bucket {res.plan_key.batch_bucket}): graph wall "
+          f"{statistics.median(walls) * 1e3:.2f} ms (median of {len(walls)}; prefill "
+          f"{res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms), standalone "
+          f"eager decode loop wall {eager_wall * 1e3:.2f} ms (decode {t_dec * 1e3:.2f} ms), "
+          f"eager == graph tokens; on rows 0-3 and rows 4-7 the engine's tokens {placed}; "
+          f"dispatches {sum(dispatches.values())}, launches "
+          f"{ {n: c for n, c in counts.items() if c} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (max_memory_allocated)")
+    if path == "auto":  # what the cost model weighed for each stack at this bucket
+        plan = eng.plan_for(res.plan_key)
+        for name, dec in plan.decisions.items():
+            print(f"[{label}] plan at bucket {res.plan_key.batch_bucket}, profile "
+                  f"{plan.profile.name}: {name} -> {dec.representation} (est masked "
+                  f"{dec.est_s['masked'] * 1e6:.2f} us, condensed "
+                  f"{dec.est_s['condensed'] * 1e6:.2f} us a step)")
+        del plan
+    out = res.tokens, standalone, counts, (eng.compute, tree)
+    del eng, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(device, card: str) -> dict:
+    """granite-moe-1b-a400m at its published width and depth (24 layers,
+    d_model 1024, 32 experts top-8, d_ff 512 an expert), random weights and
+    90% SRigL ERK masks from a seeded generator, served by the paged
+    ServingEngine with graph decode at B = 4, prompt 32 + GEN new tokens:
+    bf16 on MOE_PATHS (masked, condensed, int8 condensed, auto), then f32 on
+    masked and condensed. Each engine (``_moe_engine``): a counted request
+    launching what its plan implies (condensed: K1 24 x 17 times for wo and
+    K1-moe 3 x 24 x 17 for the experts; int8: K2 and K2-moe), repeated
+    requests with the same tokens, standalone graph decode == the eager
+    loop bitwise. Each path is held to masked's step-by-step run (int8 to
+    its dequantized twin's) by ``_moe_hold``: logits within
+    LOGIT_NOISE_BOUND on the same tokens and routing, and its own routing
+    and tokens parting only at a router near-tie or a logit tie; in f32
+    nothing parts. Returns the condensed request's K1 and K1-moe launches
+    and the int8 one's K2 and K2-moe launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    reg = REG.build_registry(cfg)
+    k_fan = REG.k_fan_map(cfg, reg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, k_fan)
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    print(f"[moe] {MOE_ARCH}: {cfg.n_layers} layers (published depth), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k_experts} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, group "
+          f"{cfg.moe_group_size}, capacity factor {cfg.capacity_factor}; stacks "
+          f"{[(s.path[-1], s.lead) for s in reg]}, fan-ins {k_fan}; params {cfg.param_dtype} "
+          f"served {cfg.dtype}; prompts {BATCH}x{PROMPT} + {GEN}; init "
+          f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    launches = {}
+    for dtype_name, paths in (("bfloat16", MOE_PATHS), ("float32", MOE_PATHS[:2])):
+        run_cfg = cfg.replace(dtype=dtype_name)
+        tag = "" if dtype_name == "bfloat16" else ":f32"
+        for path, vd in paths:
+            label = f"moe:{path}" + (f":{vd}" if vd else "") + tag
+            tokens, standalone, counts, (compute, tree) = _moe_engine(
+                run_cfg, params, masks, reg, path, vd, prompts, label, card)
+            if path == "condensed" and not tag:  # wo once a layer a dispatch, the 3 expert stacks too
+                dense, grouped = ("K2", "K2-moe") if vd else ("K1", "K1-moe")
+                want = {dense: cfg.n_layers * (1 + GEN), grouped: 3 * cfg.n_layers * (1 + GEN)}
+                if {n: counts[n] for n in want} != want:
+                    raise AssertionError(f"{label}: launched {counts}, expected {want}")
+                launches.update(want)
+            if path == "masked":
+                # masked's own run, which every other path of this dtype is held to
+                masked = _moe_run(run_cfg, compute, tree, prompts, GEN)
+                if not torch.equal(masked["tokens"], standalone[:, PROMPT:]):
+                    raise AssertionError(f"{label}: the step-by-step run differs from generate")
+                masked_engine = tokens
+                print(f"[{label}] {card}: first stream {masked['tokens'][0].tolist()}, "
+                      f"{len(set(masked['tokens'].reshape(-1).tolist()))} distinct tokens over "
+                      f"the {BATCH} streams")
+            else:
+                ref, against = masked, "masked"
+                if vd:  # codes are held to their dequantized twin (K1-moe), as in [quant]
+                    twin = _dequantized_twin(types.SimpleNamespace(registry=reg,
+                                                                   serving_tree=tree),
+                                             getattr(torch, dtype_name))
+                    ref, against = _moe_run(run_cfg, compute, twin, prompts, GEN), "the twin"
+                    del twin
+                _moe_hold(label, run_cfg, compute, tree, prompts, standalone, ref, against, card)
+                engine_agree = sum(j is None for j in _first_divergence(
+                    tokens[:, PROMPT:], masked_engine[:, PROMPT:]))
+                print(f"[{label}] {card}: engine streams equal to the masked engine's "
+                      f"{engine_agree}/{BATCH}")
+                del ref
+            del compute, tree
+            gc.collect()
+            torch.cuda.empty_cache()
+        del masked
+    print(f"[moe] {card}: peak memory over the phase "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (max_memory_allocated)")
+    del params, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4603,6 +5179,7 @@ def main() -> int:
     layer_cases = timed("gather_layer", gather_layer_phase, device,
                         ((TRAIN_TOKENS, "grad"),), ("K1", "K4"))
     zoo_cases = timed("kernel_zoo", zoo_kernel_phase, device)
+    moe_cases = timed("kernel_moe", moe_kernel_phase, device)
     setup = timed("model_setup", model_setup, device)
     launches = {"K1": timed("slice", slice_phase, setup, card)}
     ablation = timed("ablation", ablation_phase, setup, card)
@@ -4639,6 +5216,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["K1"] += timed("zoo", zoo_phase, device, card)
+    moe = timed("moe", moe_phase, device, card)
+    launches["K1"] += moe["K1"]
+    launches["K2"] += moe["K2"]
+    launches.update({"K1-moe": moe["K1-moe"], "K2-moe": moe["K2-moe"]})
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 
@@ -4647,11 +5228,18 @@ def main() -> int:
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
                     "rigl_cases": rigl_cases, "spec_cases": spec_cases,
-                    "autotune_cases": autotune_cases, "zoo_cases": zoo_cases}, indent=1))
+                    "autotune_cases": autotune_cases, "zoo_cases": zoo_cases,
+                    "moe_cases": moe_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:
-        if key == "K3":  # the training layer: every stack's full row count
+        if key in ("K1-moe", "K2-moe"):  # an MoE decode layer's expert stacks
+            layer = [c for c in moe_cases if c["kernel"] == key and c["arch"] == MOE_ARCH
+                     and c["dtype"] == "bfloat16" and c["rows"] == 8]
+            shape = (f"one decode layer's experts of {MOE_ARCH}: w_gate + w_up + w_down, "
+                     f"32 experts of 8 rows (the paged engine's bucket at B=4), bfloat16 x"
+                     + (", int8 codes" if key == "K2-moe" else ""))
+        elif key == "K3":  # the training layer: every stack's full row count
             layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
                      and c["batch"] == TRAIN_TOKENS and c["rows"] == c["d_out"]]
             shape = (f"one training layer: wo + w_gate + w_up + w_down, B*T={TRAIN_TOKENS}, "

@@ -4,7 +4,9 @@ Only the architectures the port serves so far are listed.
 """
 from repro_torch.configs import (
     gemma3_1b,
+    granite_moe_1b,
     internlm2_20b,
+    kimi_k2_1t,
     mistral_large_123b,
     qwen2_vl_7b,
     qwen3_1_7b,
@@ -18,6 +20,8 @@ _MODULES = {
     "gemma3-1b": gemma3_1b,
     "internlm2-20b": internlm2_20b,
     "qwen2-vl-7b": qwen2_vl_7b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "kimi-k2-1t-a32b": kimi_k2_1t,
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -15,6 +15,14 @@ any d_in runs), every split of 16 or 8 neurons in one block at decode up
 to d_in 6656; in float32 a warp per neuron gathers on the CUDA cores.
 ``ref.condensed_matmul_ref`` and ``ref.condensed_matmul_scaled_ref`` are
 the plain versions.
+K1-moe / K2-moe (``condensed_matmul_grouped``): K1 / K2 over an MoE
+layer's E experts in one launch, x (E, M, d_in) and values, indices (E,
+n_out, k) (scales (E, n_out)), the function of the reference's ``jax.vmap``
+of ``_fwd_kernel`` / ``_fwd_scaled_kernel`` over the experts. The expert is
+a grid axis of its own and each expert runs the one-expert launch's chains,
+so the grouped launch equals E launches of K1 (K2) bitwise; its source is
+``csrc/condensed_matmul_grouped.cu`` (the grouped instantiations of the same
+bodies) and ``ref.condensed_matmul_grouped_ref`` is the plain version.
 K3 (``condensed_matmul_dw``): the values gradient,
 ``dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, indices[n, k]])`` in float32,
 the function of ``_dw_kernel``; its source is ``csrc/condensed_dw.cu`` and
@@ -32,8 +40,9 @@ one shape is bitwise equal to every other, so the launch is a knob that
 ``sparse.autotune`` searches over ``gather_candidates``.
 
 ``condensed_matmul.launches`` counts K1's launches,
-``condensed_matmul.scaled_launches`` K2's and ``condensed_matmul_dw.launches``
-K3's (never plain-version calls), so a run can show that its sparse linears
+``condensed_matmul.scaled_launches`` K2's, ``condensed_matmul_grouped.launches``
+and ``.scaled_launches`` K1-moe's and K2-moe's and
+``condensed_matmul_dw.launches`` K3's (never plain-version calls), so a run can show that its sparse linears
 went through the kernel it expects; ``counters`` counts a launch captured in
 a CUDA graph once for each replay.
 """
@@ -205,6 +214,17 @@ def _lib() -> ctypes.CDLL:
     lib.condensed_matmul_smem_bytes.restype = ctypes.c_longlong
     lib.condensed_matmul_error_string.argtypes = [ctypes.c_int]
     lib.condensed_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _grouped_lib() -> ctypes.CDLL:
+    lib = _build.load("condensed_matmul_grouped")
+    fn = lib.condensed_matmul_grouped_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.condensed_matmul_grouped_error_string.argtypes = [ctypes.c_int]
+    lib.condensed_matmul_grouped_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -460,6 +480,68 @@ def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
     if x.device.type == "cpu":
         return _plain(x, values, indices, scales)
     return _launch(x, values, indices, scales, tile, block_n)
+
+
+def _check_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                   scales: torch.Tensor | None) -> None:
+    if x.ndim != 3 or values.ndim != 3 or indices.shape != values.shape or (
+            x.shape[0] != values.shape[0]) or x.shape[0] == 0:
+        raise ValueError(f"need x (E, M, d_in) and values/indices (E, n_out, k), E >= 1; got "
+                         f"{tuple(x.shape)}, {tuple(values.shape)}, {tuple(indices.shape)}")
+    if scales is not None and scales.shape != values.shape[:2]:
+        raise TypeError(f"scales must be float32 of shape {tuple(values.shape[:2])}; got "
+                        f"{scales.dtype} {tuple(scales.shape)}")
+    # one expert's slices pass the one-expert checks (dtypes, devices,
+    # contiguity of the whole tensors)
+    _check(x[0], values[0], indices[0], None if scales is None else scales[0])
+    if not (x.is_contiguous() and values.is_contiguous() and indices.is_contiguous()
+            and (scales is None or scales.is_contiguous())):
+        raise ValueError("x, values, indices and scales must be contiguous")
+
+
+def condensed_matmul_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                             *, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Expert-grouped condensed matmul (K1-moe; K2-moe with ``scales``).
+    x (E, M, d_in); values, indices (E, n_out, k); scales (E, n_out)
+    float32 -> y (E, M, n_out), y[e] == ``condensed_matmul(x[e], values[e],
+    indices[e], scales=scales[e])``, bitwise on the card.
+
+    One launch for every expert: the launch of one expert's shape
+    (``gather_geometry`` of d_in; the decode launch for M <= SMALL_BATCH_MAX,
+    which past d_in 6656 runs gather_mma at M's tile, else the tiled
+    launch), at the wrapper's default blocks, the expert a grid axis of its
+    own. The default neurons a block count every expert's rows, which moves
+    no reduction order.
+    """
+    _check_grouped(x, values, indices, scales)
+    e, m, d_in = x.shape
+    tile = decode_rows(m) if m <= SMALL_BATCH_MAX else TILED_ROWS[x.dtype]
+    if x.device.type == "cpu":
+        return ref.condensed_matmul_grouped_ref(x, values, indices, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"the condensed_matmul kernel runs on CUDA tensors, not {x.device}")
+    n_out, k = values.shape[1:]
+    y = torch.empty((e, m, n_out), dtype=x.dtype, device=x.device)
+    if m == 0 or n_out == 0:
+        return y
+    args = launch_args(x[0], e * n_out, tile, _sm_count(x.device.index or 0))
+    lib = _grouped_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.condensed_matmul_grouped_fwd(
+            x.data_ptr(), values.data_ptr(), indices.data_ptr(),
+            None if scales is None else scales.data_ptr(), y.data_ptr(), e, m, d_in, n_out, k,
+            _DTYPE_CODES[x.dtype], 0 if scales is None else _VALUE_CODES[values.dtype], *args,
+            stream)
+    if err:
+        raise RuntimeError("condensed_matmul_grouped kernel launch failed: "
+                           + lib.condensed_matmul_grouped_error_string(err).decode())
+    counters.add(condensed_matmul_grouped, "launches" if scales is None else "scaled_launches")
+    return y
+
+
+condensed_matmul_grouped.launches = 0
+condensed_matmul_grouped.scaled_launches = 0
 
 
 @functools.cache

@@ -1,7 +1,8 @@
 """Kernel launch counters that see through CUDA-graph capture.
 
 Each kernel wrapper counts its launches on an attribute of its own function
-(``condensed_matmul.launches``, ``condensed_matmul.scaled_launches``, ...)
+(``condensed_matmul.launches``, ``condensed_matmul.scaled_launches``,
+``condensed_matmul_grouped.launches`` for the expert-grouped K1-moe, ...)
 through ``add``, where it launches the kernel and nowhere else. A launch
 issued while a graph is being captured under ``recording()`` runs nothing
 yet: it goes to that capture's tally instead, and ``replayed`` adds the

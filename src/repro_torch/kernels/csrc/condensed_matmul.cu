@@ -11,7 +11,9 @@
 // K1 replaces the TPU kernel repro/kernels/condensed_matmul.py::_fwd_kernel
 // and K2 its quantized variant _fwd_scaled_kernel, each in both launches:
 // _fwd_decode (B <= 8, batch staged whole, grid over neuron tiles) and
-// _fwd_tiled (grid over batch tiles x neuron tiles).
+// _fwd_tiled (grid over batch tiles x neuron tiles). K1-moe and K2-moe, the
+// same kernels over an MoE layer's experts in one launch, are built from
+// condensed_matmul_grouped.cu.
 //
 // Bound: the bytes of the slots (values or codes, and indices) at decode
 // and at B = 128 alike: 25.2 MB for a qwen3-1.7b layer in bf16 (9.7 us at

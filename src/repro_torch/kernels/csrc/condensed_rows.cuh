@@ -123,6 +123,20 @@
 // bitwise, and a code converts to float32 exactly, so K2(x, q, idx, s) is
 // bitwise K1(x, f32(q), idx) * s. Duplicate indices simply add.
 //
+// Expert-grouped launch (K1-moe, K2-moe: an MoE layer's expert stack, the
+// reference's jax.vmap of _fwd_kernel / _fwd_scaled_kernel over the experts).
+// `experts` problems of one shape (B, d_in, n_rows, k) in one launch: expert
+// e reads x + e * B * d_in, values and idx + e * n_rows * k and scales + e *
+// n_rows, and writes y + e * B * ld_y (a Group of element strides). The
+// expert is a grid axis that no cluster spans: z in gather_rows_kernel and
+// gather_mma_decode, z = expert * batch tiles + batch tile in gather_mma.
+// Each block offsets its pointers and then runs the body as it stands, so
+// every output's chain is the one-expert launch's: the grouped launch equals
+// E separate launches bitwise. Grouping is a template argument (kGrouped,
+// dispatch<true>): a plain launch (dispatch<false>, kOne) compiles to the
+// one-expert kernels with no expert offset, the grouped entry point lives in
+// a translation unit of its own (condensed_matmul_grouped.cu).
+//
 // The kernels allocate nothing and launch on the caller's stream.
 #pragma once
 
@@ -147,6 +161,25 @@ constexpr int kThreads = kWarps * 32;
 // dynamic shared memory a Hopper block may opt into (227 KB)
 constexpr int kSmemMax = 232448;
 
+// Element strides between the experts of a grouped launch (see the header
+// note); a plain launch passes kOne, which its kernels never read.
+struct Group {
+  int experts;
+  long long x, slots, rows, y;  // x (B * d_in), values and idx, scales, y
+};
+constexpr Group kOne = {1, 0, 0, 0, 0};
+// A block's pointers moved to expert `e`'s problem (written out in each
+// kernel, whose parameters are __restrict__ pointers).
+#define CONDENSED_ROWS_TO_EXPERT(grp, e)                  \
+  do {                                                    \
+    const long long e_ = (e);                             \
+    x += e_ * (grp).x;                                    \
+    values += e_ * (grp).slots;                           \
+    idx += e_ * (grp).slots;                              \
+    if (scales != nullptr) scales += e_ * (grp).rows;     \
+    y += e_ * (grp).y;                                    \
+  } while (0)
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
@@ -167,16 +200,17 @@ struct alignas(sizeof(T) * BT < 16 ? sizeof(T) * BT : 16) Column {
   T v[BT];
 };
 
-// grid: (ceil(n_rows / (kWarps * rows_per_warp)), ceil(B / BT)); block: kThreads.
-// Dynamic shared memory: d_in Columns (BT * d_in elements of T).
-template <typename T, typename V, int BT>
+// grid: (ceil(n_rows / (kWarps * rows_per_warp)), ceil(B / BT), experts); block:
+// kThreads. Dynamic shared memory: d_in Columns (BT * d_in elements of T).
+template <typename T, typename V, int BT, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const T* __restrict__ x, const V* __restrict__ values,
                    const int32_t* __restrict__ idx, const float* __restrict__ scales,
                    const int32_t* __restrict__ out_index, T* __restrict__ y, int batch,
-                   int d_in, int n_rows, int k, int ld_y, int rows_per_warp) {
+                   int d_in, int n_rows, int k, int ld_y, int rows_per_warp, Group grp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Column<T, BT>* cols = reinterpret_cast<Column<T, BT>*>(smem_raw);
+  if constexpr (kGrouped) CONDENSED_ROWS_TO_EXPERT(grp, blockIdx.z);
 
   const int b0 = blockIdx.y * BT;
   const int nb = min(BT, batch - b0);
@@ -236,12 +270,12 @@ gather_rows_kernel(const T* __restrict__ x, const V* __restrict__ values,
   }
 }
 
-template <typename V, int BT>
+template <typename V, int BT, bool kGrouped>
 cudaError_t launch_rows(const void* x, const void* values, const void* idx, const float* scales,
                         const void* out_index, void* y, int batch, int d_in, int n_rows, int k,
-                        int ld_y, int rows_per_warp, cudaStream_t stream) {
+                        int ld_y, int rows_per_warp, const Group& grp, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(BT) * d_in * sizeof(float);
-  auto kernel = gather_rows_kernel<float, V, BT>;
+  auto kernel = gather_rows_kernel<float, V, BT, kGrouped>;
   // Opt in above the 48 KB default once per instantiation and size.
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
@@ -251,29 +285,29 @@ cudaError_t launch_rows(const void* x, const void* values, const void* idx, cons
     opted_in = smem;
   }
   const int per_block = kWarps * rows_per_warp;
-  const dim3 grid((n_rows + per_block - 1) / per_block, (batch + BT - 1) / BT);
+  const dim3 grid((n_rows + per_block - 1) / per_block, (batch + BT - 1) / BT, grp.experts);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const V*>(values),
       static_cast<const int32_t*>(idx), scales, static_cast<const int32_t*>(out_index),
-      static_cast<float*>(y), batch, d_in, n_rows, k, ld_y, rows_per_warp);
+      static_cast<float*>(y), batch, d_in, n_rows, k, ld_y, rows_per_warp, grp);
   return cudaGetLastError();
 }
 
-template <typename V>
+template <typename V, bool kGrouped>
 cudaError_t dispatch_f32(int block_rows, const void* x, const void* values, const void* idx,
                          const float* scales, const void* out_index, void* y, int batch,
                          int d_in, int n_rows, int k, int ld_y, int rows_per_warp,
-                         cudaStream_t stream) {
+                         const Group& grp, cudaStream_t stream) {
   if (rows_per_warp <= 0) return cudaErrorInvalidValue;
   switch (block_rows) {
-    case 1: return launch_rows<V, 1>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
-                                     k, ld_y, rows_per_warp, stream);
-    case 2: return launch_rows<V, 2>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
-                                     k, ld_y, rows_per_warp, stream);
-    case 4: return launch_rows<V, 4>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
-                                     k, ld_y, rows_per_warp, stream);
-    case 8: return launch_rows<V, 8>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
-                                     k, ld_y, rows_per_warp, stream);
+    case 1: return launch_rows<V, 1, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
+                                     k, ld_y, rows_per_warp, grp, stream);
+    case 2: return launch_rows<V, 2, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
+                                     k, ld_y, rows_per_warp, grp, stream);
+    case 4: return launch_rows<V, 4, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
+                                     k, ld_y, rows_per_warp, grp, stream);
+    case 8: return launch_rows<V, 8, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
+                                     k, ld_y, rows_per_warp, grp, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -385,23 +419,24 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
 }
 
 
-// grid: (splits, ceil(n_rows / kM), ceil(B / tile_rows)), a cluster of the
-// `splits` blocks of a neuron tile and batch tile; block: kThreads; dynamic
-// shared memory mma_smem(...). Block (s, t, z) multiplies rows [s *
-// split_rows, +split_rows) of d_in for neurons [kM t, +kM) and batch rows
-// [z * tile_rows, +tile_rows) (1 to 128: up to 16 n8 tiles). Its panel
+// grid: (splits, ceil(n_rows / kM), experts * ceil(B / tile_rows)), a cluster
+// of the `splits` blocks of a neuron tile and batch tile; block: kThreads;
+// dynamic shared memory mma_smem(...). Block (s, t, z) multiplies rows [s *
+// split_rows, +split_rows) of d_in for neurons [kM t, +kM) of expert z /
+// ceil(B / tile_rows) and its batch rows [(z % ceil(B / tile_rows)) *
+// tile_rows, +tile_rows) (1 to 128: up to 16 n8 tiles). Its panel
 // holds pass_rows inputs of the split (a multiple of 64): where that is
 // less than the split, the block densifies and multiplies the split in
 // passes of pass_rows inputs, the chain carried over from pass to pass
 // (through the stash), so the chain is the one-pass chain. vec_x: x by
 // 16-byte cp.async (d_in % 8 == 0, x 16-byte aligned), else element loads.
-template <typename V, int kMT>
+template <typename V, int kMT, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 2)
 gather_mma(const __nv_bfloat16* __restrict__ x, const V* __restrict__ values,
            const int32_t* __restrict__ idx, const float* __restrict__ scales,
            const int32_t* __restrict__ out_index, __nv_bfloat16* __restrict__ y, int batch,
            int d_in, int n_rows, int k, int ld_y, int split_rows, int pass_rows, int tile_rows,
-           bool vec_x) {
+           bool vec_x, Group grp) {
   constexpr int kM = kMT * 16;
   constexpr int kMW = kMT >= 2 ? 2 : 1;               // m16 tiles a warp
   constexpr int kMG = kMT / kMW;                      // warps along the neurons
@@ -431,7 +466,14 @@ gather_mma(const __nv_bfloat16* __restrict__ x, const V* __restrict__ values,
   // the same in every block; more than one only in the 16-neuron tile
   const int passes = kMT == 1 ? (split_rows + pass_rows - 1) / pass_rows : 1;
   const int n0 = blockIdx.y * kM;
-  const int b0 = blockIdx.z * tile_rows;
+  int tile_z = blockIdx.z;
+  if constexpr (kGrouped) {
+    const int z_tiles = (batch + tile_rows - 1) / tile_rows;
+    const int expert = tile_z / z_tiles;
+    CONDENSED_ROWS_TO_EXPERT(grp, expert);
+    tile_z -= expert * z_tiles;
+  }
+  const int b0 = tile_z * tile_rows;
   const int nb = min(tile_rows, batch - b0);
   const int n8 = (nb + 7) >> 3;  // n8 tiles holding this block's batch rows
   const int stage_bytes = ((tile_rows + 7) & ~7) * kXRowBytes;
@@ -818,15 +860,16 @@ gather_mma(const __nv_bfloat16* __restrict__ x, const V* __restrict__ values,
   cluster.sync();  // no block leaves while another reads its partial tile
 }
 
-template <typename V, int kLoads>
+template <typename V, int kLoads, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 1)
 gather_mma_decode(const __nv_bfloat16* __restrict__ x, const V* __restrict__ values,
                   const int32_t* __restrict__ idx, const float* __restrict__ scales,
                   const int32_t* __restrict__ out_index, __nv_bfloat16* __restrict__ y,
                   int batch, int d_in, int n_rows, int k, int ld_y, int split_rows,
-                  int tile_rows, int rows, bool vec_x) {
+                  int tile_rows, int rows, bool vec_x, Group grp) {
   constexpr int kM = kDecodeNeurons;  // the panel's rows; the block's neurons fill `rows`
   extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (kGrouped) CONDENSED_ROWS_TO_EXPERT(grp, blockIdx.z);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -974,37 +1017,37 @@ gather_mma_decode(const __nv_bfloat16* __restrict__ x, const V* __restrict__ val
   }
 }
 
-template <typename V, int kLoads>
+template <typename V, int kLoads, bool kGrouped>
 cudaError_t launch_decode(const void* x, const void* values, const void* idx,
                           const float* scales, const void* out_index, void* y, int batch,
                           int d_in, int n_rows, int k, int ld_y, int split_rows, int tile_rows,
-                          int rows, size_t smem, cudaStream_t stream) {
-  auto kernel = gather_mma_decode<V, kLoads>;
+                          int rows, size_t smem, const Group& grp, cudaStream_t stream) {
+  auto kernel = gather_mma_decode<V, kLoads, kGrouped>;
   static const cudaError_t opted =  // above the 48 KB default, once
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (opted != cudaSuccess) return opted;
-  const dim3 grid((n_rows + rows - 1) / rows, (batch + tile_rows - 1) / tile_rows);
+  const dim3 grid((n_rows + rows - 1) / rows, (batch + tile_rows - 1) / tile_rows, grp.experts);
   const bool vec_x = d_in % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const V*>(values),
       static_cast<const int32_t*>(idx), scales, static_cast<const int32_t*>(out_index),
       static_cast<__nv_bfloat16*>(y), batch, d_in, n_rows, k, ld_y, split_rows, tile_rows, rows,
-      vec_x);
+      vec_x, grp);
   return cudaGetLastError();
 }
 
-template <typename V, int kMT>
+template <typename V, int kMT, bool kGrouped>
 cudaError_t launch_mma(const void* x, const void* values, const void* idx, const float* scales,
                        const void* out_index, void* y, int batch, int d_in, int n_rows, int k,
                        int ld_y, int split_rows, int pass_rows, int splits, int tile_rows,
-                       size_t smem, cudaStream_t stream) {
-  auto kernel = gather_mma<V, kMT>;
+                       size_t smem, const Group& grp, cudaStream_t stream) {
+  auto kernel = gather_mma<V, kMT, kGrouped>;
   static const cudaError_t opted =  // above the 48 KB default, once
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (opted != cudaSuccess) return opted;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(splits, (n_rows + kMT * 16 - 1) / (kMT * 16),
-                        (batch + tile_rows - 1) / tile_rows);
+                        grp.experts * ((batch + tile_rows - 1) / tile_rows));
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
@@ -1020,18 +1063,22 @@ cudaError_t launch_mma(const void* x, const void* values, const void* idx, const
                             static_cast<const V*>(values), static_cast<const int32_t*>(idx),
                             scales, static_cast<const int32_t*>(out_index),
                             static_cast<__nv_bfloat16*>(y), batch, d_in, n_rows, k, ld_y,
-                            split_rows, pass_rows, tile_rows, vec_x);
+                            split_rows, pass_rows, tile_rows, vec_x, grp);
 }
 
 // The launch condensed_matmul.launch_args chose; this side only checks that
 // it fits (shared memory, the outbox's bits) and launches it.
-template <typename V>
+template <typename V, bool kGrouped>
 cudaError_t dispatch_bf16(int block_rows, int split_rows, int pass_rows, int neurons,
                           int decode_loads, const void* x, const void* values, const void* idx,
                           const float* scales, const void* out_index, void* y, int batch,
-                          int d_in, int n_rows, int k, int ld_y, cudaStream_t s) {
+                          int d_in, int n_rows, int k, int ld_y, const Group& grp,
+                          cudaStream_t s) {
   if (block_rows <= 0 || block_rows > kMaxTileRows || (block_rows & (block_rows - 1)) != 0 ||
       split_rows <= 0 || split_rows % kChunk != 0)
+    return cudaErrorInvalidValue;
+  // the expert axis shares grid z with gather_mma's batch tiles
+  if (static_cast<long long>(grp.experts) * ((batch + block_rows - 1) / block_rows) > 65535)
     return cudaErrorInvalidValue;
   const int splits = (d_in + split_rows - 1) / split_rows;
   if (splits > kMaxSplits) return cudaErrorInvalidValue;
@@ -1040,13 +1087,13 @@ cudaError_t dispatch_bf16(int block_rows, int split_rows, int pass_rows, int neu
     if (block_rows > 8 || (neurons != 8 && neurons != kDecodeNeurons) || smem > kSmemMax)
       return cudaErrorInvalidValue;
     if (decode_loads == kBatch)
-      return launch_decode<V, kBatch>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
+      return launch_decode<V, kBatch, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows,
                                       k, ld_y, split_rows, block_rows, neurons,
-                                      static_cast<size_t>(smem), s);
+                                      static_cast<size_t>(smem), grp, s);
     if (decode_loads == 2 * kBatch)
-      return launch_decode<V, 2 * kBatch>(x, values, idx, scales, out_index, y, batch, d_in,
+      return launch_decode<V, 2 * kBatch, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in,
                                           n_rows, k, ld_y, split_rows, block_rows, neurons,
-                                          static_cast<size_t>(smem), s);
+                                          static_cast<size_t>(smem), grp, s);
     return cudaErrorInvalidValue;
   }
   if (pass_rows <= 0 || pass_rows % kChunk != 0 || pass_rows > split_rows)
@@ -1058,15 +1105,15 @@ cudaError_t dispatch_bf16(int block_rows, int split_rows, int pass_rows, int neu
   if (smem > kSmemMax || scatter_rows(neurons, splits) > (1 << (16 - col_bits(pass_rows))))
     return cudaErrorInvalidValue;
   switch (neurons) {
-    case 16: return launch_mma<V, 1>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
+    case 16: return launch_mma<V, 1, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
                                      ld_y, split_rows, pass_rows, splits, block_rows,
-                                     static_cast<size_t>(smem), s);
-    case 32: return launch_mma<V, 2>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
+                                     static_cast<size_t>(smem), grp, s);
+    case 32: return launch_mma<V, 2, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
                                      ld_y, split_rows, pass_rows, splits, block_rows,
-                                     static_cast<size_t>(smem), s);
-    case 64: return launch_mma<V, 4>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
+                                     static_cast<size_t>(smem), grp, s);
+    case 64: return launch_mma<V, 4, kGrouped>(x, values, idx, scales, out_index, y, batch, d_in, n_rows, k,
                                      ld_y, split_rows, pass_rows, splits, block_rows,
-                                     static_cast<size_t>(smem), s);
+                                     static_cast<size_t>(smem), grp, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1080,37 +1127,42 @@ cudaError_t dispatch_bf16(int block_rows, int split_rows, int pass_rows, int neu
 // multiple of 64, at most 8 splits); decode_loads 0 for the cluster kernel
 // (neurons 16, 32 or 64 a block, a panel of pass_rows inputs), else the
 // decode kernel with that many slot loads a thread in flight (20 or 40;
-// neurons 8 or 16 a block).
+// neurons 8 or 16 a block). kGrouped, grp: the experts of a grouped launch
+// (a plain launch: false, kOne).
+template <bool kGrouped = false>
 cudaError_t dispatch(int dtype, int vtype, int block_rows, int rows_per_warp, int split_rows,
                      int pass_rows, int neurons, int decode_loads, const void* x,
                      const void* values, const void* idx, const float* scales,
                      const void* out_index, void* y, int batch, int d_in, int n_rows, int k,
-                     int ld_y, cudaStream_t stream) {
-  if ((vtype == 0) != (scales == nullptr) || batch <= 0 || n_rows <= 0 || d_in <= 0 || k < 0)
+                     int ld_y, cudaStream_t stream, const Group& grp = kOne) {
+  if ((vtype == 0) != (scales == nullptr) || batch <= 0 || n_rows <= 0 || d_in <= 0 || k < 0 ||
+      grp.experts <= 0 || grp.experts > 65535)
     return cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (vtype) {
-      case 0: return dispatch_f32<float>(block_rows, x, values, idx, scales, out_index, y, batch,
-                                         d_in, n_rows, k, ld_y, rows_per_warp, stream);
-      case 1: return dispatch_f32<int8_t>(block_rows, x, values, idx, scales, out_index, y,
-                                          batch, d_in, n_rows, k, ld_y, rows_per_warp, stream);
-      case 2: return dispatch_f32<__nv_fp8_e4m3>(block_rows, x, values, idx, scales, out_index,
-                                                 y, batch, d_in, n_rows, k, ld_y, rows_per_warp,
-                                                 stream);
+      case 0: return dispatch_f32<float, kGrouped>(block_rows, x, values, idx, scales,
+                                                   out_index, y, batch, d_in, n_rows, k, ld_y,
+                                                   rows_per_warp, grp, stream);
+      case 1: return dispatch_f32<int8_t, kGrouped>(block_rows, x, values, idx, scales,
+                                                    out_index, y, batch, d_in, n_rows, k, ld_y,
+                                                    rows_per_warp, grp, stream);
+      case 2: return dispatch_f32<__nv_fp8_e4m3, kGrouped>(block_rows, x, values, idx, scales,
+                                                           out_index, y, batch, d_in, n_rows, k,
+                                                           ld_y, rows_per_warp, grp, stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (vtype) {
-      case 0: return dispatch_bf16<__nv_bfloat16>(block_rows, split_rows, pass_rows, neurons,
-                                                  decode_loads, x, values, idx, scales, out_index,
-                                                  y, batch, d_in, n_rows, k, ld_y, stream);
-      case 1: return dispatch_bf16<int8_t>(block_rows, split_rows, pass_rows, neurons,
-                                           decode_loads, x, values, idx, scales, out_index, y,
-                                           batch, d_in, n_rows, k, ld_y, stream);
-      case 2: return dispatch_bf16<__nv_fp8_e4m3>(block_rows, split_rows, pass_rows, neurons,
-                                                  decode_loads, x, values, idx, scales, out_index,
-                                                  y, batch, d_in, n_rows, k, ld_y, stream);
+      case 0: return dispatch_bf16<__nv_bfloat16, kGrouped>(
+          block_rows, split_rows, pass_rows, neurons, decode_loads, x, values, idx, scales,
+          out_index, y, batch, d_in, n_rows, k, ld_y, grp, stream);
+      case 1: return dispatch_bf16<int8_t, kGrouped>(
+          block_rows, split_rows, pass_rows, neurons, decode_loads, x, values, idx, scales,
+          out_index, y, batch, d_in, n_rows, k, ld_y, grp, stream);
+      case 2: return dispatch_bf16<__nv_fp8_e4m3, kGrouped>(
+          block_rows, split_rows, pass_rows, neurons, decode_loads, x, values, idx, scales,
+          out_index, y, batch, d_in, n_rows, k, ld_y, grp, stream);
       default: return cudaErrorInvalidValue;
     }
   }

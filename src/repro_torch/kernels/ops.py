@@ -20,6 +20,9 @@ only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
 
 * ``condensed_linear_nd`` — the condensed gather (K1; K2 with ``scales=``,
   inference only);
+* ``condensed_linear_grouped`` — an MoE layer's expert stack in one
+  expert-grouped launch (K1-moe; K2-moe with ``scales=``; inference
+  only, at the wrapper's default blocks);
 * ``condensed_over_active_linear_nd`` — the gather over surviving rows,
   written through ``out_index`` (K4; K2-coa with ``scales=``, inference
   only);
@@ -183,6 +186,24 @@ def condensed_linear_nd(x: torch.Tensor, values: torch.Tensor, indices: torch.Te
                                  values_dtype=_quantized_name(values))
         y = cm.condensed_matmul(x2, values, indices, scales=scales, block_b=bb, block_n=bn)
     return y.reshape(*x.shape[:-1], values.shape[0])
+
+
+def condensed_linear_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
+                             scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The experts' condensed linear: x (E, ..., d_in), values and indices
+    (E, n_out, k) -> (E, ..., n_out), expert e's rows through expert e's
+    weights (the reference's ``jax.vmap`` of ``condensed_linear_nd`` over the
+    experts). ``scales`` (E, n_out) marks ``values`` as codes (K2-moe).
+    Inference only, as K2 is; the launch takes the wrapper's default blocks
+    (the search does not cover expert stacks yet)."""
+    if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
+        raise RuntimeError("the expert-grouped condensed launch is inference-only: the "
+                           "condensed experts' backward (a grouped K3) is not ported yet "
+                           "(ROADMAP queue 1, item 8)")
+    e, d_in = x.shape[0], x.shape[-1]
+    y = cm.condensed_matmul_grouped(x.reshape(e, -1, d_in).contiguous(), values, indices,
+                                    scales=scales)
+    return y.reshape(*x.shape[:-1], values.shape[-2])
 
 
 def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,

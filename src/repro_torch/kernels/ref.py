@@ -47,6 +47,29 @@ def condensed_matmul_scaled_ref(x: torch.Tensor, q: torch.Tensor, indices: torch
     return (_gather_sum(x, q, indices) * scales.float()[None]).to(x.dtype)
 
 
+def condensed_matmul_grouped_ref(x: torch.Tensor, values: torch.Tensor,
+                                 indices: torch.Tensor,
+                                 scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The expert-grouped condensed matmul (K1-moe; K2-moe with ``scales``).
+
+    x       : (E, M, d_in)
+    values  : (E, n_out, k)   values, or int8 / float8_e4m3fn codes
+    indices : (E, n_out, k)
+    scales  : (E, n_out)      float32 per-neuron scale of the codes, or None
+    returns : (E, M, n_out)   y[e] = condensed_matmul_ref(x[e], values[e], indices[e])
+                              (times scales[e] after the k-sum)
+
+    Expert by expert the one-expert plain version, so each expert's output
+    is exactly that version's: f32 accumulate, the scale after the k-sum,
+    one cast to ``x.dtype``.
+    """
+    if scales is None:
+        return torch.stack([condensed_matmul_ref(xe, v, i)
+                            for xe, v, i in zip(x, values, indices)])
+    return torch.stack([condensed_matmul_scaled_ref(xe, q, i, s)
+                        for xe, q, i, s in zip(x, values, indices, scales)])
+
+
 def condensed_over_active_matmul_ref(x: torch.Tensor, values: torch.Tensor,
                                      indices: torch.Tensor, out_index: torch.Tensor,
                                      d_out: int) -> torch.Tensor:

@@ -74,9 +74,16 @@ local/global layout with its ring caches, qwen2-vl's M-RoPE) are served by
 the slab path, as in the reference; a paged or speculative engine for them
 is refused.
 
+The MoE family serves on the paged engine like the dense one (its routing
+runs inside the captured decode step, the experts through the
+expert-grouped condensed launch). Its dispatches route their padding rows
+too, as the reference's do, so an MoE request's tokens can depend on the
+bucket it is padded to.
+
 Not ported: tensor parallelism (``mesh``) and ``abstract_plan_key``
-(ROADMAP queue 1), and ``refresh``, sync and ``autotune`` on the grouped
-local/global layout, which raise.
+(ROADMAP queue 1), and ``refresh``, sync and ``autotune`` on stacks with
+two leading axes (the grouped local/global layout, the MoE expert stacks)
+and speculative decoding on MoE, which raise.
 """
 from __future__ import annotations
 
@@ -996,10 +1003,16 @@ def _not_ported(what: str, item: int):
                                f"(ROADMAP queue 1, item {item})")
 
 
-def _check_flat_layout(cfg, what: str) -> None:
-    """Refuse ``what`` on gemma3's grouped local/global layout."""
+def _check_one_lead_axis(cfg, what: str) -> None:
+    """Refuse ``what`` on stacks with two leading axes: gemma3's grouped
+    local/global layout (``g_local``, lead (g, r)) and an MoE config's
+    expert stacks (lead (L, E))."""
     if cfg.local_global_ratio:
-        raise _not_ported(f"{what} on the grouped local/global layout ({cfg.name})", 8)
+        raise _not_ported(f"{what} on the grouped local/global layout ({cfg.name}), whose "
+                          f"g_local stacks have two leading axes", 8)
+    if cfg.family == "moe":
+        raise _not_ported(f"{what} on the MoE expert stacks ({cfg.name}), which have two "
+                          f"leading axes", 8)
 
 
 class ServingEngine:
@@ -1068,6 +1081,10 @@ class ServingEngine:
                     "speculative decoding runs on the paged scheduler (draft overshoot "
                     "rollback is a page-table edit); this configuration only supports "
                     "the slab path")
+            if cfg.family == "moe":
+                # a verify routes bucket x (gamma + 1) rows as one group, whose
+                # capacity drops would part it from plain greedy decode
+                raise _not_ported(f"speculative decoding on the MoE family ({cfg.name})", 8)
         if paged is None:
             paged = M.supports_paged(cfg)
         elif paged and not M.supports_paged(cfg):
@@ -1423,8 +1440,9 @@ class ServingEngine:
         (or ``donate=False``) rebuilds the leaf, and the graphs that read it
         are recaptured at their next chunk. The versions are fetched once;
         the engine keeps them as host ints. Returns each plan key's
-        re-exported stack names. Not on the grouped local/global layout."""
-        _check_flat_layout(self.cfg, "ServingEngine.refresh")
+        re-exported stack names. Not on stacks with two leading axes (the
+        grouped local/global layout, the MoE expert stacks)."""
+        _check_one_lead_axis(self.cfg, "ServingEngine.refresh")
         versions = PLAN._host_versions(mask_versions)
         # a cached draft's out_index follows the old saliency: derive anew
         self._drop_drafts()
@@ -1449,8 +1467,9 @@ class ServingEngine:
         ``structured`` and ``auto`` plans read the params at execution time,
         which a stream of exported leaves does not carry. ``donate=False``
         rebuilds every adopted tensor instead (its graphs recapture). Not
-        on the grouped local/global layout."""
-        _check_flat_layout(self.cfg, "live sync")
+        on stacks with two leading axes (the grouped local/global layout,
+        the MoE expert stacks)."""
+        _check_one_lead_axis(self.cfg, "live sync")
         if self.path not in ("condensed", "condensed_over_active"):
             raise ValueError(f"attach_subscriber requires a condensed-family path; "
                              f"path={self.path!r} reads the params at execution time")
@@ -1589,9 +1608,10 @@ class ServingEngine:
         serving dtype (``cfg.dtype``: an f32 entry is never read by a bf16
         serving run) and at the engine's ``values_dtype``, on the engine's
         device. A decode graph captured before this call keeps the launch
-        it captured; later captures read the new entries. Not on the grouped
-        local/global layout."""
-        _check_flat_layout(self.cfg, "ServingEngine.autotune")
+        it captured; later captures read the new entries. Not on stacks with
+        two leading axes (the grouped local/global layout, the MoE expert
+        stacks)."""
+        _check_one_lead_axis(self.cfg, "ServingEngine.autotune")
         dtype = getattr(torch, self.cfg.dtype) if dtype is None else dtype
         return AT.tune_registry(self.registry, self.stats(), batch=batch_size, dtype=dtype,
                                 reps=reps, device=self.device, values_dtype=self.values_dtype,

@@ -1,4 +1,4 @@
-"""Decoder LM, dense and VLM families (port of ``repro/models/model.py``).
+"""Decoder LM, dense, VLM and MoE families (port of ``repro/models/model.py``).
 
 Parameters are a nested dict with the reference's paths and stacked layout:
 ``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0, or, for
@@ -16,16 +16,21 @@ Ported so far: the dense family (GQA with optional qk-norm, RoPE, SwiGLU,
 sliding windows and the grouped local/global layout, whose local layers
 keep ring caches of the window's size) and the VLM family (M-RoPE over
 three position streams, precomputed frontend embeddings added to the
-token embeddings): ``init_params``, ``prefill_step``, ``decode_step`` and
-their pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
+token embeddings) and the MoE family (attention, then a top-k MoE of SwiGLU
+experts, ``models/moe.py``; the blocks' expert stacks have leads (L, E),
+the backbone sums the routers' load-balance losses and ``loss_fn`` adds
+0.01 of it): ``init_params``, ``prefill_step``, ``decode_step`` and their
+pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
 ``loss_fn`` for training. ``remat="block"`` recomputes each block and
 each cross-entropy chunk in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 ``supports_paged``, ``init_paged_pool``, ``paged_prefill_step``,
 ``paged_decode_step`` and ``paged_verify_step`` (the speculative verify)
 serve the continuous-batching engine from a shared page pool, for the
-uniform full-attention ``blocks`` layout only, as in the reference.
-MoE, SSM, hybrid, audio and the encoder-only ViT are not ported
+uniform full-attention ``blocks`` layout only, as in the reference (the
+MoE family included, but not its speculative verify, whose groups of B *
+(gamma + 1) rows would route and drop tokens other than plain decode's).
+SSM, hybrid, audio and the encoder-only ViT are not ported
 (``check_supported`` refuses them).
 """
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.sparse import formats as F
 
 Params = dict
@@ -55,11 +61,12 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    if cfg.family not in ("dense", "vlm") or not cfg.causal or cfg.is_moe:
+    if (cfg.family not in ("dense", "vlm", "moe") or not cfg.causal
+            or cfg.is_moe != (cfg.family == "moe")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (causal={cfg.causal}) is not ported to "
-            f"repro_torch yet; the dense and vlm families are (MoE, SSM, hybrid, audio "
-            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 4-8)")
+            f"repro_torch yet; the dense, vlm and moe families are (SSM, hybrid, audio "
+            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 5-8)")
 
 
 def group_counts(cfg) -> tuple[int, int, int]:
@@ -129,6 +136,18 @@ def _init_attn_block(generator: torch.Generator, cfg, dtype, k_fan: dict,
     return p
 
 
+def _init_moe_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
+                    lead: tuple[int, ...] = ()) -> dict:
+    """An MoE block: attention without the MLP, ``ln2``, then the router and
+    the experts' stacks (``moe.init_moe_params``)."""
+    p = _init_attn_block(generator, cfg, dtype, k_fan, with_mlp=False, lead=lead)
+    p["ln2"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=generator.device)
+    moe = MOE.init_moe_params(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                              {k: v for k, v in k_fan.items() if v}, dtype, lead=lead)
+    p.update(moe._asdict())
+    return p
+
+
 def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> Params:
     """Initialize the parameter tree for ``cfg`` on ``generator``'s device.
 
@@ -143,8 +162,9 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
     params["embed"] = L.embed_init(generator, vp, d, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, d, vp, dtype)
+    init = _init_moe_block if cfg.family == "moe" else _init_attn_block
     for key, lead in block_stacks(cfg):
-        params[key] = _init_attn_block(generator, cfg, dtype, k_fan, lead=lead)
+        params[key] = init(generator, cfg, dtype, k_fan, lead=lead)
     return params
 
 
@@ -280,6 +300,14 @@ def mlp_sublayer(cfg, p: dict, m: dict, x: torch.Tensor) -> torch.Tensor:
     return L.linear(L.swiglu(gate, up), p["w_down"], m.get("w_down"))
 
 
+def moe_sublayer(cfg, p: dict, m: dict, x: torch.Tensor):
+    """Pre-norm MoE sublayer: (y, aux_loss), residual added by the caller."""
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    moe_p = MOE.MoEParams(router=p["router"], w_gate=p["w_gate"], w_up=p["w_up"],
+                          w_down=p["w_down"])
+    return MOE.moe_block(cfg, moe_p, h, m, group_size=cfg.moe_group_size)
+
+
 def attn_mlp_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
                    decode=False, paged=None):
     a, new_cache = attn_sublayer(cfg, p, m, x, positions=positions, window=window,
@@ -287,6 +315,24 @@ def attn_mlp_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
     x = x + a
     x = x + mlp_sublayer(cfg, p, m, x)
     return x, new_cache
+
+
+def attn_moe_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
+                   decode=False, paged=None):
+    """The MoE family's block: (x, new_cache, aux_loss)."""
+    a, new_cache = attn_sublayer(cfg, p, m, x, positions=positions, window=window,
+                                 q_offset=q_offset, cache=cache, decode=decode, paged=paged)
+    x = x + a
+    y, aux = moe_sublayer(cfg, p, m, x)
+    return x + y, new_cache, aux
+
+
+def _serve_block(cfg, p, m, x, **kw):
+    """One block for serving, (x, new_cache): the MoE block's aux loss is
+    dropped, as the reference's serving scans drop it."""
+    if cfg.family == "moe":
+        return attn_moe_block(cfg, p, m, x, **kw)[:2]
+    return attn_mlp_block(cfg, p, m, x, **kw)
 
 
 # ===========================================================================
@@ -303,7 +349,11 @@ def _maybe_remat(cfg, fn):
 
 
 def _train_block(cfg, p, m, x, positions, window):
-    return attn_mlp_block(cfg, p, m, x, positions=positions, window=window)[0]
+    """One block for training: (x, aux_loss), the aux 0 off the MoE family."""
+    if cfg.family == "moe":
+        x, _, aux = attn_moe_block(cfg, p, m, x, positions=positions, window=window)
+        return x, aux
+    return attn_mlp_block(cfg, p, m, x, positions=positions, window=window)[0], None
 
 
 def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
@@ -317,10 +367,13 @@ def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
     check_supported(cfg)
     layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks or {})
     block = _maybe_remat(cfg, _train_block)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for key, idx, window in _block_order(cfg):
-        x = block(cfg, layers_p[key, idx], layers_m[key, idx], x, positions, window)
+        x, aux = block(cfg, layers_p[key, idx], layers_m[key, idx], x, positions, window)
+        if aux is not None:  # the MoE family: the routers' load-balance losses
+            aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 # ===========================================================================
@@ -396,8 +449,9 @@ def cross_entropy_chunked(hidden: torch.Tensor, lm_head: torch.Tensor,
 def loss_fn(cfg, params: Params, masks: Masks, batch: dict):
     """Training loss: next-token cross-entropy of the (tied) head.
 
-    Returns (total, {"loss": ..., "aux_loss": ...}); the dense family's aux
-    loss is 0, so total == loss.
+    Returns (total, {"loss": ..., "aux_loss": ...}) with total = loss + 0.01
+    * aux_loss; the aux loss (the MoE routers' load-balance losses summed
+    over the blocks) is 0 off the MoE family, so there total == loss.
     """
     x, positions = embed_inputs(cfg, params, batch)
     hidden, aux = backbone(cfg, params, masks, x, positions=positions)
@@ -464,9 +518,9 @@ def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
     layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks)
     for key, idx, window in _block_order(cfg):
         c = cache[key]
-        x, _ = attn_mlp_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
-                              positions=positions, window=window,
-                              cache=(c["k"][idx], c["v"][idx], cache["len"]), decode=decode)
+        x, _ = _serve_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
+                            positions=positions, window=window,
+                            cache=(c["k"][idx], c["v"][idx], cache["len"]), decode=decode)
     return x
 
 
@@ -532,9 +586,9 @@ def _paged_run_blocks(cfg, params, masks, x, pool, block_table, lengths, positio
     layers_p = _unstack(params["blocks"], cfg.n_layers)
     layers_m = _unstack(masks.get("blocks", {}), cfg.n_layers)
     for i in range(cfg.n_layers):
-        x, _ = attn_mlp_block(cfg, layers_p[i], layers_m[i], x, positions=positions,
-                              window=0, decode=decode,
-                              paged=(pool["pk"][i], pool["pv"][i], block_table, lengths))
+        x, _ = _serve_block(cfg, layers_p[i], layers_m[i], x, positions=positions,
+                            window=0, decode=decode,
+                            paged=(pool["pk"][i], pool["pv"][i], block_table, lengths))
     return x
 
 
@@ -588,7 +642,14 @@ def paged_verify_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict
     ``lengths`` is read, not advanced. Returns (logits (B, T, V), pool);
     ``argmax(logits[:, i])`` is the model's next token after consuming
     ``batch["tokens"][:, :i + 1]``.
+
+    Refused on the MoE family: its B * T rows route as groups other than
+    the T decode steps' and may drop tokens that those keep.
     """
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the speculative verify on the MoE family is not ported to "
+            f"repro_torch yet (ROADMAP queue 1, item 8)")
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     positions = positions + lengths[:, None]

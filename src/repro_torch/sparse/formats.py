@@ -409,6 +409,13 @@ def _revalue(leaf, w, mask, donate: bool, *stored) -> "SparseFormat":
     return dataclasses.replace(leaf, **targets)
 
 
+def _expert_leaf(fmt: str) -> NotImplementedError:
+    """The refusal of a format that has no expert-grouped launch yet."""
+    return NotImplementedError(
+        f"{fmt} on an MoE expert stack is not ported to repro_torch yet: K4, K2-coa, K5 and "
+        f"K6 have no expert-grouped launch (ROADMAP queue 1, item 8)")
+
+
 class SparseFormat:
     """Base of the serving formats (see the module docstring).
 
@@ -590,6 +597,8 @@ class StructuredFanIn(SparseFormat):
                                                         "values_dtype")
 
     def apply(self, x, w=None):
+        if self.active_index.ndim == 2:
+            raise _expert_leaf("structured (and its prefetch variant)")
         if self.values is not None:
             panel = (self.values if self.scales is None else
                      dequantize_values(self.values, self.scales, axis=-2, dtype=x.dtype))
@@ -732,7 +741,10 @@ class Condensed(SparseFormat):
     ``values`` and ``indices`` are (*lead, d_out, k); ``d_in`` is the dense
     fan-in the indices address. A quantized export stores ``values`` as
     int8/fp8 codes with a per-neuron float32 ``scales`` (*lead, d_out); the
-    kernel (K2) applies the scale once per output, after the k-sum.
+    kernel (K2) applies the scale once per output, after the k-sum. One
+    layer of an MoE expert stack keeps the expert axis, values (E, d_out,
+    k), and ``apply`` takes x (E, ..., d_in) through the expert-grouped
+    launch (K1-moe / K2-moe).
     """
 
     values: torch.Tensor
@@ -746,6 +758,12 @@ class Condensed(SparseFormat):
     _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "values_dtype")
 
     def apply(self, x: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+        if self.values.ndim == 3:
+            # an MoE layer's experts, values (E, n, k) against x (E, M, d):
+            # one expert-grouped launch (K1-moe, K2-moe with the scales)
+            return ops.condensed_linear_grouped(
+                x, self.values if self.scales is not None else self.values.to(x.dtype),
+                self.indices, scales=self.scales)
         if self.scales is not None:  # codes and scales go to K2 untouched
             return ops.condensed_linear_nd(x, self.values, self.indices, scales=self.scales)
         # the values' cast to the activation dtype is a no-op when the export
@@ -763,23 +781,24 @@ class Condensed(SparseFormat):
         float32 rows; "bf16" stores them at bf16. Otherwise ``dtype`` stores
         the values at that dtype (the serving copy's compute dtype); None
         keeps the weight's dtype, as the reference does. A stack is
-        condensed one layer at a time, so the sort's temporaries stay at
-        one layer's size (a whole-stack sort of a full-width MLP stack takes
-        more memory than its weights), and the layers stacked.
+        condensed one slab of its first leading axis at a time (a layer, or
+        an MoE layer's (E, d_in, d_out) experts), so the sort's temporaries
+        stay at one slab's size (a whole-stack sort of a full-width MLP
+        stack takes more memory than its weights), and the slabs stacked.
         """
         stats = stats if stats is not None else realized_stats(mask)
         k = max(stats.k, 1)
         qdt = resolve_quantize_spec(quantize_spec)
-        layers = []
-        for wl, ml in zip(_flat_lead(w, 2), _flat_lead(mask, 2)):
+        stack = w.ndim > 2
+        slabs = []
+        for wl, ml in (zip(w, mask) if stack else [(w, mask)]):
             values, indices = topology.dense_to_condensed(wl * ml, ml, k)
-            layers.append((*_store_values(values, qdt, dtype), indices))
+            slabs.append((*_store_values(values, qdt, dtype), indices))
 
         def stacked(i):
-            if layers[0][i] is None:
+            if slabs[0][i] is None:
                 return None
-            t = torch.stack([layer[i] for layer in layers])
-            return t.reshape(*w.shape[:-2], *t.shape[1:])
+            return torch.stack([slab[i] for slab in slabs]) if stack else slabs[0][i]
         values, scales, indices = map(stacked, range(3))
         return cls(values=values, indices=indices, d_in=int(w.shape[-2]), scales=scales,
                    values_dtype=qdt if scales is not None else None)
@@ -885,6 +904,8 @@ class CondensedOverActive(SparseFormat):
     _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "d_out", "values_dtype")
 
     def apply(self, x, w=None):
+        if self.values.ndim == 3:
+            raise _expert_leaf("condensed_over_active")
         if self.scales is not None:
             return ops.condensed_over_active_linear_nd(x, self.values, self.indices,
                                                        self.out_index, self.d_out,

@@ -2,13 +2,14 @@
 
 The registry enumerates every sparse weight *stack* (a group of
 identically-shaped layers stacked on leading dims, e.g. ``("blocks",
-"w_gate")`` with ``lead=(L,)``, or gemma3's ``("g_local", "w_gate")`` with
-``lead=(g, r)``) and solves the ERK (or uniform) densities over the
+"w_gate")`` with ``lead=(L,)``, gemma3's ``("g_local", "w_gate")`` with
+``lead=(g, r)``, or an MoE expert stack ``("blocks", "w_gate")`` with
+``lead=(L, E)``) and solves the ERK (or uniform) densities over the
 stacks. Paper defaults: MLP and attention-output projections are sparse;
 QKV input projections, norms and embeddings stay dense.
 
-Ported: the dense and VLM families' enumeration (the ``blocks`` layout and
-the grouped local/global one), ``k_fan_map``, the tree path helpers, mask
+Ported: the dense, VLM and MoE families' enumeration (the ``blocks``
+layout, the grouped local/global one and the expert stacks), ``k_fan_map``, the tree path helpers, mask
 initialization and the topology update over every stack (``dst_update``)
 for SRigL, RigL and SET, the ITOP tracker and ``sparsity_summary``.
 """
@@ -33,7 +34,7 @@ class SparseStack:
     path: tuple[str, ...]       # location in the params tree
     d_in: int
     d_out: int
-    lead: tuple[int, ...]       # leading (stack) dims, e.g. (L,)
+    lead: tuple[int, ...]       # leading (stack) dims, e.g. (L,) or (L, E)
     density: float = 1.0        # filled by the ERK solve
 
     @property
@@ -73,17 +74,39 @@ def _attn_stacks(cfg, prefix: tuple, lead: tuple, with_mlp=True) -> list[SparseS
     return out
 
 
+def _moe_stacks(cfg, prefix: tuple, lead: tuple) -> list[SparseStack]:
+    """The MoE block's stacks: wo over ``lead``, the experts' SwiGLU over
+    ``lead + (E,)`` (each expert its own constant fan-in matrix)."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    out = _attn_stacks(cfg, prefix, lead, with_mlp=False)
+    out += [
+        SparseStack(prefix + ("w_gate",), d, ff, lead + (e,)),
+        SparseStack(prefix + ("w_up",), d, ff, lead + (e,)),
+        SparseStack(prefix + ("w_down",), ff, d, lead + (e,)),
+    ]
+    return out
+
+
+def is_expert_stack(stack: SparseStack, cfg) -> bool:
+    """Whether ``stack`` holds an MoE block's experts (lead ``(L, E)``)."""
+    return getattr(cfg, "family", None) == "moe" and len(stack.lead) == 2
+
+
 def build_registry(cfg) -> list[SparseStack]:
     """All sparse stacks of ``cfg`` with ERK/uniform densities solved."""
     if cfg.sparsity.method == "dense":
         return []
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"item 8, steps 4-8)")
-    # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
-    # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))
-    stacks = [s for key, lead in M.block_stacks(cfg) for s in _attn_stacks(cfg, (key,), lead)]
+            f"item 8, steps 5-8)")
+    if cfg.family == "moe":
+        stacks = _moe_stacks(cfg, ("blocks",), (cfg.n_layers,))
+    else:
+        # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
+        # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))
+        stacks = [s for key, lead in M.block_stacks(cfg)
+                  for s in _attn_stacks(cfg, (key,), lead)]
     shapes = [D.LayerShape(s.name, s.d_in, s.d_out, s.n_replicas) for s in stacks]
     solver = D.erk_densities if cfg.sparsity.distribution == "erk" else D.uniform_densities
     dens = solver(shapes, cfg.sparsity.sparsity)

@@ -73,13 +73,16 @@ def test_invalid_sparsity_raises_as_in_the_reference():
 
 
 def test_unported_families_raise():
-    cfg = tconfigs.get_smoke_config(ARCH).replace(family="moe")
+    # the moe family is ported (tests/test_torch_moe_model.py); ssm is not
+    cfg = tconfigs.get_smoke_config(ARCH).replace(family="ssm", ssm_state=16)
     with pytest.raises(NotImplementedError):
         TR.build_registry(cfg)
 
 
-# the configs ported beyond qwen3-1.7b (its own cases are above)
+# the configs ported beyond qwen3-1.7b (its own cases are above; the MoE
+# configs' fields and registries are held in tests/test_torch_moe_model.py)
 NEW_ARCHS = ("internlm2-20b", "mistral-large-123b", "gemma3-1b", "qwen2-vl-7b")
+MOE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -108,7 +111,7 @@ def test_new_registry_stacks_densities_and_fan_ins_equal(arch, getter):
 
 
 def test_every_ported_arch_is_registered_with_the_references_shapes():
-    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS}
+    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS}
     assert [dataclasses.asdict(s) for s in tconfigs.ALL_SHAPES] == [
         dataclasses.asdict(s) for s in jconfigs.ALL_SHAPES]
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == {

@@ -77,13 +77,17 @@ def test_profile_measured_round_trips_through_the_cache(tmp_path, monkeypatch):
         assert _line(second, "[serve] calibrated profile") == calibrated
         assert torch.equal(again, tokens)
 
-        # a changed measurement setting in the cache: measured again
+        # a changed measurement setting in the cache: measured again. The
+        # stored entry says so (its settings are back to reps 5 and its rate
+        # is no longer the planted 1.0 FLOP/s); the printed line does not,
+        # because a loaded CPU may measure under 0.05 GFLOP/s, which prints
+        # as the planted rate does ("gather 0.0->")
         entry["params"]["reps"] = 4
         entry["gather_flops_per_s"] = 1.0
         cache.write_text(json.dumps({"version": 1, "profiles": {"cpu": entry}}))
         AT.reset_cache_state()
         third, _ = _in_process(argv)
-        assert "gather 0.0->" not in _line(third, "[serve] calibrated profile")
+        assert _line(third, "[serve] calibrated profile measured-cpu:")
         stored = json.loads(cache.read_text())["profiles"]["cpu"]
         assert stored["params"]["reps"] == 5 and stored["gather_flops_per_s"] != 1.0
     finally:
