@@ -240,10 +240,40 @@ Phases, each of which raises (exit code != 0) on any failed check:
    its tokens part only at a logit tie or after such a routing change.
    Then f32 masked and condensed, where neither routing nor tokens part.
    Prints walls, launches, the logit differences and max_memory_allocated.
-20. reference: the smoke config on the card against the port's CPU path
+20. ssm: mamba2-130m at its published width and depth (24 layers, d_model
+   768, d_inner 1536, 24 SSD heads of 64, state 128), random weights and
+   90% SRigL masks from a seeded generator, served by the slab
+   ServingEngine with graph decode (B=4, prompts of 200 tokens: four
+   64-token SSD chunks, the last padded; 16 new tokens) in bf16 on masked,
+   condensed, int8 condensed and auto, and in f32 on masked and condensed:
+   the counted request launches what its plan implies (condensed: K1 3 x
+   24 x 17 times, int8: K2), repeated requests equal, the engine ==
+   standalone generate == the eager decode loop, each path held to masked's
+   tokens under the tie rule (int8 to its dequantized twin's). Prints the
+   walls and max_memory_allocated. Its kernel phase (kernel:ssm, after
+   kernel:moe): K1 and K2 at mamba2's three stack shapes at decode B=4 and
+   the prefill's B*T = 800, against the plain version, beside torch.matmul
+   and the bound.
+21. lead2: refresh and live sync on stacks with two leading axes, at the
+   published width and depth: gemma3-1b's g_local (4, 5) on the slab engine
+   and granite-moe-1b's expert stack (24, 32) on the paged one, one stack
+   rewired and every param scaled by 1.01: the refresh lands after a
+   request's first chunk (paged) or between requests (slab), then a sync
+   drain of the same generation into an engine built from the stream;
+   every leaf written in place, no graph recaptured, tokens equal a fresh
+   gen-2 engine's (and the drained engine's the refreshed one's). Then
+   autotune:moe: every K1-moe / K2-moe candidate at granite's expert keys,
+   buckets 8 and 32, bitwise the default grouped launch, which is bitwise
+   E single launches; ServingEngine.autotune at both buckets in bf16 and
+   int8, the winners held to the plain version, tuned tokens == untuned
+   request by request at B=4 and B=12 (bucket 32, its padding rows routing
+   into the real rows' capacity), and which grouped launches of a request
+   read an entry.
+22. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
-   int8 and fp8 values: identical tokens, and the path's kernel launched;
+   int8 and fp8 values: identical tokens, and the path's kernel launched
+   (and the MoE and SSM smoke configs on condensed, float and int8);
    the smoke trainer (6 steps, delta_t=3) card vs CPU, a TrainState
    checkpoint round trip on the card, and the condensed loss's values
    gradient (K3) card vs CPU.
@@ -2739,10 +2769,12 @@ AUTOTUNE_BATCHES = (BATCH, 32, 128)
 
 
 def _rows_bitwise(got, want) -> int:
-    """The rows of ``got`` whose bits equal ``want``'s."""
+    """The rows of ``got`` whose bits equal ``want``'s (leading dims
+    flattened: an (E, M, n) grouped output has E * M rows)."""
     import torch
     view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
-    return int((got.contiguous().view(view) == want.contiguous().view(view)).all(dim=1).sum())
+    got, want = (t.reshape(-1, t.shape[-1]).contiguous().view(view) for t in (got, want))
+    return int((got == want).all(dim=1).sum())
 
 
 def _autotune_key(label: str, kind: str, cands, operands, plain, search) -> dict:
@@ -4310,6 +4342,29 @@ def reference_phase(device):
                                      f"cpu {cpu.tolist()}")
             print(f"[reference] smoke {arch} condensed{' ' + qdt if qdt else ''} on the card "
                   f"({key} x {launched}) == CPU plain path: {cpu[0, 8:].tolist()}")
+    # the SSM smoke config: its three stacks through K1 / K2, its SSD scan,
+    # conv and gated norm in plain torch on both sides
+    scfg = configs.get_smoke_config(SSM_ARCH)
+    sreg = REG.build_registry(scfg)
+    sparams = M.init_params(scfg, gen, REG.k_fan_map(scfg, sreg))
+    smasks = REG.init_sparsity_state(scfg, gen, sreg)["masks"]
+    sprompts = torch.randint(0, scfg.vocab_size, (2, 21), generator=gen, dtype=torch.int32)
+    for qdt, key in ((None, "K1"), ("int8", "K2")):
+        tree = COND.export_condensed(scfg, sreg, sparams, smasks, quantize_spec=qdt)
+        cpu = E.generate(scfg, sparams, tree, sprompts, 10)
+        _zero_counts()
+        gpu = E.generate(scfg, to_dev(sparams), to_dev(tree), sprompts.to(device), 10)
+        launched = _counts()[key]
+        if not launched or launched % (len(sreg) * scfg.n_layers):
+            raise AssertionError(f"smoke {SSM_ARCH} {qdt}: {key} launched {launched} times, "
+                                 f"not a positive multiple of 3 stacks x {scfg.n_layers} "
+                                 f"layers")
+        if not torch.equal(gpu.cpu(), cpu):
+            raise AssertionError(f"smoke {SSM_ARCH} {qdt} tokens differ: card {gpu.tolist()} "
+                                 f"cpu {cpu.tolist()}")
+        print(f"[reference] smoke {SSM_ARCH} condensed{' ' + qdt if qdt else ''} on the card "
+              f"({key} x {launched}) == CPU plain path (prompts 2 x 21: two 16-token SSD "
+              f"chunks, the last padded): {cpu[0, 21:].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -5128,6 +5183,669 @@ def moe_phase(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the SSM family ([kernel:ssm], [ssm:*])
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-130m"
+# prompts of 200 tokens: four 64-token SSD chunks, the last one padded
+SSM_PROMPT = 200
+# (dtype, path, values dtype) served by [ssm:*]
+SSM_PATHS = (("bfloat16", "masked", None), ("bfloat16", "condensed", None),
+             ("bfloat16", "condensed", "int8"), ("bfloat16", "auto", None),
+             ("float32", "masked", None), ("float32", "condensed", None))
+
+
+def _ssm_shapes() -> dict:
+    """{(d_in, d_out, k): [stack names]}: mamba2-130m's sparse stacks at the
+    fan-ins their 90% ERK densities realize (in_z and in_x share one)."""
+    from repro_torch import configs
+    from repro_torch.sparse import registry as REG
+    cfg = configs.get_config(SSM_ARCH)
+    reg = REG.build_registry(cfg)
+    k_fan = REG.k_fan_map(cfg, reg)
+    shapes: dict = {}
+    for s in reg:
+        shapes.setdefault((s.d_in, s.d_out, k_fan[s.path[-1]]), []).append(s.path[-1])
+    return shapes
+
+
+def ssm_kernel_phase(device) -> list:
+    """K1 and K2 (int8 codes) at mamba2-130m's three stack shapes (in_z and
+    in_x 768 -> 1536 k 77, out_proj 1536 -> 768 k 154), bf16, at the
+    decode's B=4 and the prefill's tiled B*T = 4 x 200 rows: held to the
+    plain version within TOL, the decode launch bitwise the tiled launch's
+    rows, timed beside the plain version, torch.matmul on the dense masked
+    weight and the bound; then one decode and one prefill layer (in_z +
+    in_x + out_proj). Returns the per-case records."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.sparse import formats as F
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    bf16 = torch.bfloat16
+    cases = []
+    for (d_in, n_out, k), names in _ssm_shapes().items():
+        mask = topology.random_constant_fan_in_mask(gen, d_in, n_out, k)
+        w = torch.randn((d_in, n_out), generator=gen, device=device) / k ** 0.5
+        vals32, idx = topology.dense_to_condensed(w * mask, mask, k)
+        del mask, w
+        dense = topology.condensed_to_dense(vals32, idx, d_in).to(bf16).contiguous()
+        dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * 2))]
+        for kern in ("K1", "K2"):
+            if kern == "K1":
+                vals, scales = vals32.to(bf16).contiguous(), None
+            else:
+                vals, scales = F.quantize_values(vals32, "int8")
+                vals, scales = vals.contiguous(), scales.contiguous()
+            wbytes = n_out * k * (vals.element_size() + 4) + (0 if scales is None else 4 * n_out)
+            weight_sets = [(vals.clone(), idx.clone(), None if scales is None else scales.clone())
+                           for _ in range(_copies(wbytes))]
+            for b, launch in ((BATCH, "decode"), (BATCH * SSM_PROMPT, "tiled")):
+                x = torch.randn((b, d_in), generator=gen, device=device).to(bf16)
+                y = cm.condensed_matmul(x, vals, idx, scales=scales)
+                y_ref = cm._plain(x, vals, idx, scales)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), y_ref.float(), **TOL["bfloat16"])
+                err = (y.float() - y_ref.float()).abs().max().item()
+                tiled = cm.TILED_ROWS[bf16]
+                if launch == "decode":
+                    same = torch.equal(cm.condensed_matmul_decode(x, vals, idx, scales=scales),
+                                       cm.condensed_matmul(x, vals, idx, scales=scales,
+                                                           block_b=tiled))
+                    pair = f"decode == tiled({tiled})"
+                else:
+                    same = torch.equal(cm.condensed_matmul_decode(x[:BATCH], vals, idx,
+                                                                  scales=scales), y[:BATCH])
+                    pair = f"decode(first {BATCH} rows) == tiled({tiled})"
+                if not same:
+                    raise AssertionError(f"[kernel:ssm] {kern} {d_in}->{n_out} B={b}: {pair} "
+                                         f"is not bitwise")
+
+                def call(x_, v_, i_, s_):
+                    return cm.condensed_matmul(x_, v_, i_, scales=s_)
+                ms = _time_ms(call, [(x, v, i, s) for v, i, s in weight_sets])
+                plain_ms = _time_ms(cm._plain, [(x, vals, idx, scales)], reps=3, iters=3)
+                library_ms = _time_ms(torch.matmul, [(x, wd) for wd in dense_sets])
+                nbytes = wbytes + b * d_in * 2 + b * n_out * 2
+                ops = 2 * b * n_out * k
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+                rec = dict(kernel=kern, arch=SSM_ARCH, stack="/".join(names), d_in=d_in,
+                           n_out=n_out, k=k, dtype="bfloat16", batch=b, launch=launch, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair,
+                           layers=len(names))
+                cases.append(rec)
+                print(f"[kernel:ssm] {kern} {'/'.join(names):10s} {d_in}->{n_out} k={k} bf16 "
+                      f"B={b:3d} {launch:6s}: us {ms * 1e3:.2f} | plain {plain_ms * 1e3:.2f} | "
+                      f"torch.matmul {library_ms * 1e3:.2f} | bound {rec['bound_ms'] * 1e3:.2f} "
+                      f"({rec['bound_by']}) | max_abs_err {err:.3g} | {pair}: bitwise")
+            del weight_sets
+        del vals32, idx, dense_sets
+        torch.cuda.empty_cache()
+    for kern in ("K1", "K2"):
+        for launch in ("decode", "tiled"):
+            layer = [c for c in cases if c["kernel"] == kern and c["launch"] == launch]
+            tot = {t: sum(c[t] * c["layers"] for c in layer)
+                   for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"[kernel:ssm] {SSM_ARCH} one {launch} layer (in_z + in_x + out_proj, bf16"
+                  f"{', int8 codes' if kern == 'K2' else ''}, B={layer[0]['batch']}): {kern} "
+                  f"{tot['ms'] * 1e3:.2f} us | bound {tot['bound_ms'] * 1e3:.2f} us | plain "
+                  f"{tot['plain_ms'] * 1e3:.2f} us | torch.matmul {tot['library_ms'] * 1e3:.2f} us")
+    return cases
+
+
+def ssm_phase(device, card: str) -> dict:
+    """mamba2-130m at its published width and depth (24 layers, d_model
+    768, d_inner 1536, 24 SSD heads of 64, state 128, vocab 50 280, tied),
+    random weights and 90% SRigL ERK masks from a seeded generator, served
+    by the slab ServingEngine (paged=None: SSM state has no paged form) with
+    graph decode, B=4, prompts of SSM_PROMPT + GEN new tokens, on SSM_PATHS:
+    the counted request launches what its plan implies (condensed: K1 3 x
+    24 x (1 + GEN) times; int8: K2 as often), repeated requests give the
+    same tokens (each prefill zeroes the decode state the graph reads), the
+    engine's tokens equal standalone generate's and the eager decode loop's.
+    Each path is held to masked's tokens of its dtype under the tie rule
+    (int8 codes to their dequantized twin's). Prints the graph wall (median
+    of 3) with its prefill and decode parts, the eager loop's wall, the
+    launches and max_memory_allocated. Returns the condensed request's K1
+    launches and the int8 one's K2 launches."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch import configs
+    from repro_torch.launch import engine as E
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    reg = REG.build_registry(cfg)
+    k_fan = REG.k_fan_map(cfg, reg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, k_fan)
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, SSM_PROMPT), generator=gen,
+                            device=device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    passes = 1 + GEN
+    print(f"[ssm] {SSM_ARCH}: {cfg.n_layers} layers (published depth), d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, {cfg.ssm_n_heads} SSD heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, conv width {cfg.ssm_conv_width}, ssd_chunk {cfg.ssd_chunk}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.vocab_padded}), tied head; stacks "
+          f"{[(s.path[-1], s.d_in, s.d_out, s.lead) for s in reg]}, fan-ins {k_fan}; params "
+          f"{cfg.param_dtype}; prompts {BATCH}x{SSM_PROMPT} + {GEN} "
+          f"({-(-SSM_PROMPT // cfg.ssd_chunk)} chunks, the last padded); init "
+          f"{time.perf_counter() - t0:.1f}s")
+    launches = {"K1": 0, "K2": 0}
+    refs: dict = {}
+    for dtype_name, path, vd in SSM_PATHS:
+        run_cfg = cfg.replace(dtype=dtype_name)
+        label = (f"ssm:{path}" + (f":{vd}" if vd else "")
+                 + ("" if dtype_name == "bfloat16" else ":f32"))
+        compute = M.serving_params(run_cfg, params)
+        torch.cuda.reset_peak_memory_stats(device)
+        eng = E.ServingEngine(run_cfg, compute, masks, reg, path=path, values_dtype=vd,
+                              block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+        if eng.paged:
+            raise AssertionError(f"{label}: the SSM engine is paged")
+        first, _ = _zoo_request(eng, prompts)
+        _zero_counts()
+        res, wall = _zoo_request(eng, prompts)
+        counts = _counts()
+        want = _engine_expected(eng, {res.plan_key: passes})
+        if counts != want:
+            raise AssertionError(f"{label}: launched {counts}, expected {want}")
+        if path == "condensed":
+            key = "K2" if vd else "K1"
+            if counts[key] != len(reg) * cfg.n_layers * passes:
+                raise AssertionError(f"{label}: {key} x {counts[key]}, expected "
+                                     f"{len(reg)} x {cfg.n_layers} x {passes}")
+            if dtype_name == "bfloat16":
+                launches[key] += counts[key]
+        walls = [wall]
+        for _ in range(2):
+            again, wall = _zoo_request(eng, prompts)
+            walls.append(wall)
+            if not torch.equal(again.tokens, res.tokens):
+                raise AssertionError(f"{label}: a repeated request gave other tokens")
+        if not torch.equal(first.tokens, res.tokens):
+            raise AssertionError(f"{label}: the warm request gave other tokens")
+        tree = eng.serving_tree_for(res.plan_key)
+        standalone = E.generate(run_cfg, compute, tree, prompts, GEN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager, _, t_dec, _ = E._serve_eager(run_cfg, compute, tree, prompts, GEN)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t1
+        if not (torch.equal(eager, standalone) and torch.equal(res.tokens, standalone)):
+            raise AssertionError(f"{label}: engine, graph decode and the eager loop disagree")
+        peak = torch.cuda.max_memory_allocated(device)
+        model = SimpleNamespace(compute=compute, serving=tree)
+        if path == "masked":
+            toks_m, gaps = _masked_gaps(run_cfg, model, prompts, GEN)
+            if not torch.equal(toks_m, standalone[:, SSM_PROMPT:]):
+                raise AssertionError(f"{label}: the step-by-step run differs from generate")
+            refs[dtype_name] = (model, toks_m, gaps)
+            held = (f"first stream {toks_m[0].tolist()}, "
+                    f"{len(set(toks_m.reshape(-1).tolist()))} distinct tokens")
+        else:
+            ref_model, toks_r, gaps_r = refs[dtype_name]
+            against = "masked"
+            if vd:  # codes are held to their dequantized twin (K1), as in [quant]
+                twin = _dequantized_twin(SimpleNamespace(registry=reg, serving_tree=tree),
+                                         getattr(torch, dtype_name))
+                ref_model = SimpleNamespace(compute=compute, serving=twin)
+                toks_r, gaps_r = _masked_gaps(run_cfg, ref_model, prompts, GEN)
+                against = "the twin"
+            tie = _tie_threshold(label, run_cfg, model, ref_model, prompts, against)
+            agree = _check_ties(label, run_cfg, standalone, toks_r, gaps_r, tie,
+                                against=against, prompt=SSM_PROMPT)
+            held = (f"streams agreeing in full with {against} {agree}/{BATCH} (tie below "
+                    f"{tie:.3g}, min top-2 gap {gaps_r.min().item():.3g})")
+        reps = sorted({r for _, r in res.plan_key.formats})
+        print(f"[{label}] {card}: slab engine ({', '.join(reps)}), request "
+              f"{BATCH}x{SSM_PROMPT}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
+              f"(median of {len(walls)}; prefill {res.prefill_s * 1e3:.2f} ms, decode "
+              f"{res.decode_s * 1e3:.2f} ms), eager decode loop wall {eager_wall * 1e3:.2f} ms "
+              f"(decode {t_dec * 1e3:.2f} ms); launches "
+              f"{ {n: c for n, c in counts.items() if c} } (3 stacks x {cfg.n_layers} layers x "
+              f"{passes} passes where condensed); engine == generate == eager tokens; {held}; "
+              f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+        del eng, tree, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del refs, params, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# refresh, sync and the launch search on stacks with two leading axes
+# ([refresh:lead2], [sync:lead2], [autotune:moe])
+# ---------------------------------------------------------------------------
+
+# (arch, the two-axis stack rewired): gemma3's g_local (g, r) = (4, 5) on the
+# slab engine, granite's expert stack (L, E) = (24, 32) on the paged one
+LEAD2 = (("gemma3-1b", "g_local/w_down"), (MOE_ARCH, "blocks/w_gate"))
+# [autotune:moe]: the requests' batches (buckets 8 and 32). B=12 leaves 20
+# padding rows in bucket 32, whose decode groups of 32 tokens have a
+# capacity of 10 an expert: the padding rows, reading the garbage page they
+# all write, route into the real rows' capacity, so their tokens repeat
+# only if page 0's contents are fixed (``attention.last_writer``)
+MOE_TUNE_BATCHES = (BATCH, 12)
+
+
+def _lead2_generations(device, arch: str, name: str) -> tuple:
+    """``arch`` at its published width and depth, seeded random weights and
+    90% SRigL masks (gen-1), and gen-2: stack ``name``'s mask rolled by one
+    input row over all its leading axes (a rewire at an unchanged fan-in),
+    every float param times 1.01, that stack's version bumped. Returns
+    (cfg, reg, gen-1, gen-2), each (params, masks, versions)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+    cfg = configs.get_config(arch)
+    reg = REG.build_registry(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    s = next(s for s in reg if s.name == name)
+    if len(s.lead) != 2:
+        raise AssertionError(f"{arch} {name}: lead {s.lead}, not two axes")
+    masks2 = _map_leaves(masks, lambda m: m)
+    REG.set_path(masks2, s.path, torch.roll(REG.get_path(masks, s.path), 1, dims=-2))
+    params2 = _map_leaves(params, lambda t: t * 1.01)
+    versions = {x.name: 0 for x in reg}
+    return cfg, reg, (params, masks, versions), (params2, masks2, dict(versions, **{name: 1}))
+
+
+def _decoder_ids(eng) -> dict:
+    """The slab engine's captured decode steps, by plan key and signature."""
+    return {(key, sig): id(dec) for key, decs in eng._legacy_decoders.items()
+            for sig, dec in decs.items()}
+
+
+def _lead2_first(eng, prompts):
+    """Request A: one chunk on the paged engine (the rest is served after
+    the refresh or the drain), the whole request on the slab engine, which
+    serves a request in one dispatch. Returns (request id, its Result or
+    None while it runs)."""
+    rid = eng.submit(prompts, GEN)
+    eng.step(max_chunks=1)
+    return (rid, None) if eng.paged else (rid, eng.retire(rid)[0])
+
+
+def _lead2_finish(eng, rid, res_a, prompts2):
+    """Request A's rest (paged), then request B to the end: both Results."""
+    if res_a is None:
+        eng.step()
+        [res_a] = eng.retire(rid)
+    rid_b = eng.submit(prompts2, GEN)
+    eng.step()
+    [res_b] = eng.retire(rid_b)
+    return res_a, res_b
+
+
+def _lead2_kernels(cfg, counts: dict) -> None:
+    want = {"K1", "K1-moe"} if cfg.family == "moe" else {"K1"}
+    if {k for k, n in counts.items() if n} != want:
+        raise AssertionError(f"{cfg.name}: launched {counts}, expected {sorted(want)}")
+
+
+def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
+    """[refresh:lead2] and [sync:lead2] on one config (LEAD2), condensed,
+    bf16. Refresh: request A (B=4, prompt 32, 16 new tokens; chunks of 8 on
+    the paged engine, one dispatch on the slab one) starts on gen-1,
+    refresh(gen-2) lands after its first chunk (paged) or after it
+    (slab), then A's rest and request B. Gates: exactly the rewired stack
+    re-exported; every leaf kept its shapes and data_ptr; no decode graph
+    recaptured (paged: captures; slab: the captured steps kept) and B not
+    cold; B's tokens equal those of a fresh engine built from gen-2 (on the
+    paged engine after a request on the same rows, which the bucket's rows
+    rotate through). Sync: a Publisher sends gen-1 (a snapshot) and gen-2
+    (a topology delta) over a QueueChannel to an engine_from_snapshot
+    serving the same requests, drained at A's chunk boundary (paged) or at
+    the top of B's step (slab): the same gates, and A's and B's tokens
+    equal the refreshed engine's bitwise. Prints the refresh and drain
+    seconds and the record bytes."""
+    import torch
+    from repro_torch.launch import engine as E
+    from repro_torch.sync import Publisher, QueueChannel, Subscriber, engine_from_snapshot
+
+    t0 = time.perf_counter()
+    cfg, reg, g1, g2 = _lead2_generations(device, arch, name)
+    cfg = cfg.replace(dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    prompts2 = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                             dtype=torch.int32)
+    lead = next(s.lead for s in reg if s.name == name)
+    torch.cuda.synchronize()
+    print(f"[refresh:lead2] {arch}: {cfg.n_layers} layers at the published width, stacks "
+          f"{[(s.name, s.lead) for s in reg]}; gen-2 rewires {name} (lead {lead}) and scales "
+          f"every param by 1.01; init {time.perf_counter() - t0:.1f}s")
+
+    def engine(g):
+        return E.ServingEngine(cfg, g[0], g[1], reg, path="condensed", block_size=ENGINE_BLOCK,
+                               gen_chunk=REFRESH_CHUNK, mask_versions=g[2])
+
+    def gates(label, eng, before, captures, decoders, res_b):
+        after = _leaf_storage(eng)
+        if after != before:
+            moved = [k for k in after if after[k] != before.get(k)]
+            raise AssertionError(f"[{label}] leaves moved or were rebuilt: {moved}")
+        if eng.captures != captures or _decoder_ids(eng) != decoders or res_b.cold:
+            raise AssertionError(f"[{label}] a decode graph was recaptured (captures "
+                                 f"{captures} -> {eng.captures}, cold {res_b.cold})")
+        return len(after)
+
+    # refresh
+    eng = engine(g1)
+    _zero_counts()
+    rid, res_a = _lead2_first(eng, prompts)
+    before, captures = _leaf_storage(eng), eng.captures
+    decoders = _decoder_ids(eng)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    changed = eng.refresh(g2[0], g2[1], g2[2])
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t1
+    if [sorted(v) for v in changed.values()] != [[name]]:
+        raise AssertionError(f"[refresh:lead2:{arch}] re-exported {changed}")
+    res_a, res_b = _lead2_finish(eng, rid, res_a, prompts2)
+    _lead2_kernels(cfg, _counts())
+    n_leaves = gates(f"refresh:lead2:{arch}", eng, before, captures, decoders, res_b)
+    paged = eng.paged
+    refreshed = (res_a.tokens, res_b.tokens)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = engine(g2)
+    if paged:  # B took the bucket's rows 4-7: the fresh engine's request on them
+        rid = fresh.submit(prompts, GEN)
+        fresh.step()
+        fresh.retire(rid)
+    rid = fresh.submit(prompts2, GEN)
+    fresh.step()
+    [res_f] = fresh.retire(rid)
+    if not torch.equal(res_f.tokens, refreshed[1]):
+        raise AssertionError(f"[refresh:lead2:{arch}] a fresh gen-2 engine serves other tokens "
+                             f"than the refreshed one")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = "after request A's first chunk" if paged else "between requests A and B"
+    print(f"[refresh:lead2:{arch}] {card}: {'paged' if paged else 'slab'} engine, condensed "
+          f"bf16: refresh {refresh_s:.3f}s (host clock, synchronised) {where}; re-exported "
+          f"{name} only; leaves copied in place {n_leaves}/{n_leaves}; graphs recaptured 0; "
+          f"B == a fresh gen-2 engine's tokens bitwise")
+
+    # sync
+    ch = QueueChannel()
+    pub = Publisher(cfg, reg, ch, path="condensed", batch_size=BATCH, arch=arch)
+    snap = pub.publish(params=g1[0], masks=g1[1], mask_versions=g1[2])
+    sub = Subscriber(ch.subscribe("replica"), name="replica")
+    eng = engine_from_snapshot(cfg, sub, registry=reg, device=device, block_size=ENGINE_BLOCK,
+                               gen_chunk=REFRESH_CHUNK)
+    _zero_counts()
+    rid, res_a = _lead2_first(eng, prompts)
+    before, captures = _leaf_storage(eng), eng.captures
+    decoders = _decoder_ids(eng)
+    topo = pub.publish(params=g2[0], masks=g2[1], mask_versions=g2[2])
+    if topo["topology"] != [name]:
+        raise AssertionError(f"[sync:lead2:{arch}] topology delta for {topo['topology']}")
+    res_a, res_b = _lead2_finish(eng, rid, res_a, prompts2)
+    _lead2_kernels(cfg, _counts())
+    if eng._sync_generation != 2:
+        raise AssertionError(f"[sync:lead2:{arch}] drained to gen {eng._sync_generation}")
+    gates(f"sync:lead2:{arch}", eng, before, captures, decoders, res_b)
+    if not (torch.equal(res_a.tokens, refreshed[0]) and torch.equal(res_b.tokens, refreshed[1])):
+        raise AssertionError(f"[sync:lead2:{arch}] drained tokens differ from "
+                             f"[refresh:lead2]'s")
+    where = "at request A's chunk boundary" if paged else "at the top of B's step"
+    print(f"[sync:lead2:{arch}] {card}: snapshot {snap['bytes']} B (encode "
+          f"{snap['encode_s']:.3f}s), topology delta {topo['bytes']} B ({topo['topology']}; "
+          f"encode {topo['encode_s']:.3f}s); drain {eng.last_drain_s:.3f}s {where}; leaves "
+          f"written in place {n_leaves}/{n_leaves}; no graph recaptured; A and B == "
+          f"[refresh:lead2]'s tokens bitwise")
+    del eng, pub, sub, ch, g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _recorded_resolutions():
+    """Record every launch resolution the kernel wrappers make while the
+    block runs (``ops._resolve_blocks``; graph captures included, a replay
+    makes none): a list of (rows, d_in, n_out, k, block_b, block_n). An
+    expert-grouped launch resolves at one expert's rows (x's middle dims)."""
+    from repro_torch.kernels import ops
+    real, seen = ops._resolve_blocks, []
+
+    def spy(x, n_out, k, block_b, block_n, **kw):
+        out = real(x, n_out, k, block_b, block_n, **kw)
+        seen.append((x.shape[0], x.shape[-1], n_out, k, *out))
+        return out
+    ops._resolve_blocks = spy
+    try:
+        yield seen
+    finally:
+        ops._resolve_blocks = real
+
+
+def _moe_requests(eng, prompt_sets) -> list:
+    """Each prompt set served to the end twice on a fresh engine: the
+    tokens of every request, in order. A bucket's free rows rotate (a
+    retired request's rows go to the back), so the second request of a set
+    may sit on other rows, and in other places of its routing groups, than
+    the first: two engines are compared request by request."""
+    out = []
+    for prompts in prompt_sets:
+        for _ in range(2):
+            rid = eng.submit(prompts, GEN)
+            eng.step()
+            [res] = eng.retire(rid)
+            out.append(res.tokens)
+    return out
+
+
+def autotune_moe_phase(device, card: str) -> list:
+    """The launch search on granite's expert stacks (E 32; w_gate / w_up
+    1024 -> 512 k 103, w_down 512 -> 1024 k 52), bf16, at buckets 8 and 32,
+    on K1-moe and on K2-moe (int8 codes): every candidate of one expert's
+    key (``gather_candidates`` over E * n_out rows) launched as one grouped
+    launch, each bitwise, row by row, the default grouped launch, and the
+    default bitwise E single K1 (K2) launches. Then, with
+    $REPRO_TORCH_AUTOTUNE_CACHE on a file of its own, per values dtype:
+    an untuned condensed engine serves requests of B=4 (bucket 8) and B=12
+    (bucket 32, 20 padding rows routing into the real rows' capacity) twice
+    each, a second engine runs ServingEngine.autotune(4) and autotune(12)
+    (each expert key timed on the grouped launch) and serves them the same
+    way: every request's tokens equal the untuned engine's bitwise (every
+    launch of a key is bitwise the default, so this is also the gate that
+    two engines serving B=12 at bucket 32 agree); each key's winner, run
+    on the seeded operands, is held to the plain version; every grouped
+    decode launch captured reads its key's entry (rows an expert: the
+    bucket's 8 at bucket 8, capacity 10 at bucket 32), and the lines list
+    which of a request's grouped launches read an entry (the prefill's
+    capacity rows, 80 and 320 an expert, bucket past the tuned ones, do
+    not). Returns the per-key records."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.launch import engine as E
+    from repro_torch.models import model as M
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sparse import formats as F
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(MOE_ARCH).replace(dtype="bfloat16")
+    e = cfg.n_experts
+    reg = REG.build_registry(cfg)
+    k_fan = REG.k_fan_map(cfg, reg)
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = {}
+    for s in reg:
+        if REG.is_expert_stack(s, cfg):
+            shapes.setdefault((s.d_in, s.d_out, k_fan[s.path[-1]]), s.path[-1])
+    buckets = tuple(PLAN.batch_bucket(b) for b in MOE_TUNE_BATCHES)
+    keys = {}
+    for vd in (None, "int8"):
+        kern = "K2-moe" if vd else "K1-moe"
+        for bucket in buckets:
+            for (d_in, n_out, k), stack in shapes.items():
+                cands = cm.gather_candidates(bucket, d_in, e * n_out, bf16, sm_count=sms)
+                ops_ = AT.grouped_operands(e, bucket, d_in, n_out, k, dtype=bf16,
+                                           device=device, values_dtype=vd)
+                outs = [AT.candidate_call("grouped", *c)(*ops_) for c in cands]
+                singles = torch.stack([cm.condensed_matmul(
+                    ops_[0][i], ops_[1][i], ops_[2][i],
+                    scales=None if ops_[3] is None else ops_[3][i]) for i in range(e)])
+                torch.cuda.synchronize()
+                rows = e * bucket
+                for c, out in zip(cands, outs):
+                    same = _rows_bitwise(out, outs[0])
+                    if same != rows:
+                        raise AssertionError(f"[autotune:moe] {kern} {stack} bucket {bucket}: "
+                                             f"launch {AT._label(*c)} equals the default in "
+                                             f"{same}/{rows} rows")
+                if _rows_bitwise(singles, outs[0]) != rows:
+                    raise AssertionError(f"[autotune:moe] {kern} {stack} bucket {bucket}: the "
+                                         f"default grouped launch differs from {e} single "
+                                         f"launches")
+                key = F.shape_tuning_key(d_in, n_out, k, bucket, backend=AT.device_key(device),
+                                         itemsize=2, values_dtype=vd, compute_dtype=bf16)
+                keys[key] = dict(kernel=kern, stack=stack, bucket=bucket, cands=cands,
+                                 operands=ops_, outs=outs, d_in=d_in, n_out=n_out, k=k)
+                print(f"[autotune:moe] {kern} {stack} {d_in}->{n_out} k={k} x {e} experts, "
+                      f"bucket {bucket}: {len(cands)} candidates, each bitwise the default "
+                      f"grouped launch in all {rows} rows; the default == {e} single launches "
+                      f"bitwise")
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    cache = REPO / "build" / "autotune_moe.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    AT.reset_cache_state()
+    records = []
+    try:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = M.serving_params(cfg, M.init_params(cfg, gen, k_fan))
+        masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+        prompt_sets = [torch.randint(0, cfg.vocab_size, (b, PROMPT), generator=gen,
+                                     device=device, dtype=torch.int32)
+                       for b in MOE_TUNE_BATCHES]
+        for vd in (None, "int8"):
+            kern = "K2-moe" if vd else "K1-moe"
+
+            def engine():
+                return E.ServingEngine(cfg, params, masks, reg, path="condensed",
+                                       values_dtype=vd, block_size=ENGINE_BLOCK,
+                                       gen_chunk=ENGINE_CHUNK)
+            untuned = engine()
+            toks_u = _moe_requests(untuned, prompt_sets)
+            del untuned
+            gc.collect()
+            eng = engine()
+            t0 = time.perf_counter()
+            tuned = {}
+            for b in MOE_TUNE_BATCHES:
+                tuned.update({(PLAN.batch_bucket(b), n): r
+                              for n, r in eng.autotune(b).items()})
+            took = time.perf_counter() - t0
+            for (bucket, stack), res in tuned.items():
+                rec = dict(kernel=kern if stack != "blocks/wo" else ("K2" if vd else "K1"),
+                           stack=stack, bucket=bucket, key=res.key, default_us=res.default_us,
+                           us=res.us, best=res.label, candidates=len(res.table))
+                info = keys.get(res.key)
+                if info is not None:
+                    if list(res.table) != [AT._label(*c) for c in info["cands"]]:
+                        raise AssertionError(f"[autotune:moe] {res.key}: timed "
+                                             f"{list(res.table)}, listed {info['cands']}")
+                    won = info["outs"][info["cands"].index((res.block_b, res.block_n))].float()
+                    want = ref.condensed_matmul_grouped_ref(*info["operands"]).float()
+                    torch.testing.assert_close(won, want, **TOL["bfloat16"])
+                    rec["max_abs_err"] = (won - want).abs().max().item()
+                records.append(rec)
+                print(f"[autotune:moe] {card}: {rec['kernel']} {stack} bucket {bucket}: "
+                      f"default {res.default_us:.2f} us, best {res.label} {res.us:.2f} us "
+                      f"({res.speedup_vs_default:.3f}x), {len(res.table)} candidates timed"
+                      + (f"; winner vs plain max_abs_err {rec['max_abs_err']:.3g}"
+                         if "max_abs_err" in rec else "") + f"; key {res.key}")
+            with _recorded_resolutions() as seen:
+                toks_t = _moe_requests(eng, prompt_sets)
+            for i, (tu, tt) in enumerate(zip(toks_u, toks_t)):
+                if not torch.equal(tu, tt):
+                    same = sum(torch.equal(a, b) for a, b in zip(tu, tt))
+                    raise AssertionError(f"[autotune:moe] {kern} B={tu.shape[0]}, request "
+                                         f"{i % 2 + 1}: tuned tokens differ from untuned in "
+                                         f"{tu.shape[0] - same}/{tu.shape[0]} streams")
+            reads = {}
+            experts = {(d_in, n_out) for d_in, n_out, _ in shapes}
+            for rows, d_in, n_out, k, bb, bn in seen:
+                if (d_in, n_out) not in experts:
+                    continue
+                key = F.shape_tuning_key(d_in, n_out, k, rows, backend=AT.device_key(device),
+                                         itemsize=2, values_dtype=vd, compute_dtype=bf16)
+                entry = AT.lookup_entry(key)
+                if entry is not None and (bb, bn) != (entry["block_b"], entry["block_n"]):
+                    raise AssertionError(f"[autotune:moe] {kern} {rows} rows an expert, "
+                                         f"{d_in}->{n_out}: launched {(bb, bn)}, the entry "
+                                         f"is {entry}")
+                if entry is None and (bb, bn) != (None, None):
+                    raise AssertionError(f"[autotune:moe] {kern}: blocks {(bb, bn)} without "
+                                         f"an entry at {key}")
+                reads[(rows, d_in, n_out)] = (
+                    f"entry b{PLAN.batch_bucket(rows)} {AT._label(bb, bn)}" if entry
+                    else f"no entry (b{PLAN.batch_bucket(rows)}), default")
+            decode_rows = {r for r, *_ in seen if r <= 16}
+            if not all(v.startswith("entry") for (r, _, _), v in reads.items()
+                       if r in decode_rows):
+                raise AssertionError(f"[autotune:moe] {kern}: a decode launch read no entry: "
+                                     f"{reads}")
+            batches = ", ".join(map(str, MOE_TUNE_BATCHES))
+            print(f"[autotune:moe] {card}: {kern} engine: autotune({batches}) "
+                  f"{took:.2f}s; tuned tokens == untuned bitwise at B = "
+                  f"{MOE_TUNE_BATCHES}; grouped launches of a request (rows an expert, "
+                  f"d_in->n_out): "
+                  + "; ".join(f"{r} rows {d}->{n}: {v}"
+                              for (r, d, n), v in sorted(reads.items())))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params, masks
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old
+        AT.reset_cache_state()
+    del keys
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def lead2_phase(device, card: str) -> list:
+    """[refresh:lead2] and [sync:lead2] on gemma3-1b and granite-moe-1b
+    (``lead2_refresh_sync``), then [autotune:moe]. Returns the latter's
+    records."""
+    for arch, name in LEAD2:
+        t0 = time.perf_counter()
+        lead2_refresh_sync(device, card, arch, name)
+        print(f"[time] lead2:{arch}: {time.perf_counter() - t0:.1f}s")
+    return autotune_moe_phase(device, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5180,6 +5898,7 @@ def main() -> int:
                         ((TRAIN_TOKENS, "grad"),), ("K1", "K4"))
     zoo_cases = timed("kernel_zoo", zoo_kernel_phase, device)
     moe_cases = timed("kernel_moe", moe_kernel_phase, device)
+    ssm_cases = timed("kernel_ssm", ssm_kernel_phase, device)
     setup = timed("model_setup", model_setup, device)
     launches = {"K1": timed("slice", slice_phase, setup, card)}
     ablation = timed("ablation", ablation_phase, setup, card)
@@ -5220,6 +5939,13 @@ def main() -> int:
     launches["K1"] += moe["K1"]
     launches["K2"] += moe["K2"]
     launches.update({"K1-moe": moe["K1-moe"], "K2-moe": moe["K2-moe"]})
+    ssm = timed("ssm", ssm_phase, device, card)
+    launches["K1"] += ssm["K1"]
+    launches["K2"] += ssm["K2"]
+    autotune_moe_cases = timed("lead2", lead2_phase, device, card)
+    if AT.cache_path() != str(cache) or AT.has_kernel_entries():
+        raise AssertionError(f"after [autotune:moe] the wrappers read {AT.cache_path()}, "
+                             f"which must be {cache} with no launch entries")
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 
@@ -5229,7 +5955,8 @@ def main() -> int:
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
                     "rigl_cases": rigl_cases, "spec_cases": spec_cases,
                     "autotune_cases": autotune_cases, "zoo_cases": zoo_cases,
-                    "moe_cases": moe_cases}, indent=1))
+                    "moe_cases": moe_cases, "ssm_cases": ssm_cases,
+                    "autotune_moe_cases": autotune_moe_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

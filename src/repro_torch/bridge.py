@@ -6,6 +6,10 @@ leaf flattens to its array fields (``…/values``, ``…/indices``). The port
 keeps the same paths and the same stacked layout, so a tree converts leaf
 for leaf. This module imports no JAX: the caller turns JAX arrays into
 numpy arrays (``np.asarray``) before handing them over.
+
+Every leaf crosses at its own dtype, so a block's params need nothing of
+their own here: the SSM mixer's ``a_log``, ``d_skip`` and ``dt_bias`` stay
+float32 in a bf16 model, as the reference keeps them.
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ from repro_torch.configs import (
     granite_moe_1b,
     internlm2_20b,
     kimi_k2_1t,
+    mamba2_130m,
     mistral_large_123b,
     qwen2_vl_7b,
     qwen3_1_7b,
@@ -22,6 +23,7 @@ _MODULES = {
     "qwen2-vl-7b": qwen2_vl_7b,
     "granite-moe-1b-a400m": granite_moe_1b,
     "kimi-k2-1t-a32b": kimi_k2_1t,
+    "mamba2-130m": mamba2_130m,
 }
 
 ALL_ARCHS = tuple(_MODULES)

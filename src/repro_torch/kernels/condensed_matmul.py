@@ -500,22 +500,31 @@ def _check_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
 
 
 def condensed_matmul_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-                             *, scales: torch.Tensor | None = None) -> torch.Tensor:
+                             *, scales: torch.Tensor | None = None,
+                             block_b: int | None = None,
+                             block_n: int | None = None) -> torch.Tensor:
     """Expert-grouped condensed matmul (K1-moe; K2-moe with ``scales``).
     x (E, M, d_in); values, indices (E, n_out, k); scales (E, n_out)
     float32 -> y (E, M, n_out), y[e] == ``condensed_matmul(x[e], values[e],
     indices[e], scales=scales[e])``, bitwise on the card.
 
     One launch for every expert: the launch of one expert's shape
-    (``gather_geometry`` of d_in; the decode launch for M <= SMALL_BATCH_MAX,
-    which past d_in 6656 runs gather_mma at M's tile, else the tiled
-    launch), at the wrapper's default blocks, the expert a grid axis of its
-    own. The default neurons a block count every expert's rows, which moves
-    no reduction order.
+    (``gather_geometry`` of d_in), the expert a grid axis of its own.
+    ``block_b`` and ``block_n`` are ``condensed_matmul``'s and apply to
+    every expert alike: ``block_b=None`` is the decode launch for M <=
+    SMALL_BATCH_MAX (past d_in 6656 gather_mma at M's tile), else the tiled
+    launch at ``TILED_ROWS``. The default neurons a block count every
+    expert's rows. No choice moves a reduction order, so every launch of
+    one shape is bitwise every other.
     """
     _check_grouped(x, values, indices, scales)
+    check_block_b(block_b, x.dtype)
     e, m, d_in = x.shape
-    tile = decode_rows(m) if m <= SMALL_BATCH_MAX else TILED_ROWS[x.dtype]
+    if block_b is None:
+        tile = decode_rows(m) if m <= SMALL_BATCH_MAX else TILED_ROWS[x.dtype]
+    else:
+        tile = block_b
+    check_block_n(block_n, tile, d_in, x.dtype)
     if x.device.type == "cpu":
         return ref.condensed_matmul_grouped_ref(x, values, indices, scales)
     if x.device.type != "cuda":
@@ -524,7 +533,7 @@ def condensed_matmul_grouped(x: torch.Tensor, values: torch.Tensor, indices: tor
     y = torch.empty((e, m, n_out), dtype=x.dtype, device=x.device)
     if m == 0 or n_out == 0:
         return y
-    args = launch_args(x[0], e * n_out, tile, _sm_count(x.device.index or 0))
+    args = launch_args(x[0], e * n_out, tile, _sm_count(x.device.index or 0), block_n)
     lib = _grouped_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

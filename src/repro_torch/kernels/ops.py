@@ -22,7 +22,7 @@ only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
   inference only);
 * ``condensed_linear_grouped`` — an MoE layer's expert stack in one
   expert-grouped launch (K1-moe; K2-moe with ``scales=``; inference
-  only, at the wrapper's default blocks);
+  only), its blocks read at one expert's key;
 * ``condensed_over_active_linear_nd`` — the gather over surviving rows,
   written through ``out_index`` (K4; K2-coa with ``scales=``, inference
   only);
@@ -194,15 +194,19 @@ def condensed_linear_grouped(x: torch.Tensor, values: torch.Tensor, indices: tor
     (E, n_out, k) -> (E, ..., n_out), expert e's rows through expert e's
     weights (the reference's ``jax.vmap`` of ``condensed_linear_nd`` over the
     experts). ``scales`` (E, n_out) marks ``values`` as codes (K2-moe).
-    Inference only, as K2 is; the launch takes the wrapper's default blocks
-    (the search does not cover expert stacks yet)."""
+    Inference only, as K2 is. The launch is resolved at the key the
+    reference's wrapper reads under its ``vmap``: one expert's shape
+    (d_in, n_out, k) at its rows (x's middle dims flattened, G * C for a
+    routed layer), bucketed; the blocks apply to every expert."""
     if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
         raise RuntimeError("the expert-grouped condensed launch is inference-only: the "
                            "condensed experts' backward (a grouped K3) is not ported yet "
                            "(ROADMAP queue 1, item 8)")
     e, d_in = x.shape[0], x.shape[-1]
-    y = cm.condensed_matmul_grouped(x.reshape(e, -1, d_in).contiguous(), values, indices,
-                                    scales=scales)
+    x3 = x.reshape(e, -1, d_in).contiguous()
+    bb, bn = _resolve_blocks(x3[0], *values.shape[1:], None, None,
+                             values_dtype=None if scales is None else _quantized_name(values))
+    y = cm.condensed_matmul_grouped(x3, values, indices, scales=scales, block_b=bb, block_n=bn)
     return y.reshape(*x.shape[:-1], values.shape[-2])
 
 

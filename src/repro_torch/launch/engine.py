@@ -78,12 +78,20 @@ The MoE family serves on the paged engine like the dense one (its routing
 runs inside the captured decode step, the experts through the
 expert-grouped condensed launch). Its dispatches route their padding rows
 too, as the reference's do, so an MoE request's tokens can depend on the
-bucket it is padded to.
+bucket it is padded to, and on what the padding rows read from the
+garbage page they all write: of colliding writes the last is kept, as in
+the reference (``attention.paged_cache_write``), on any device.
+
+The SSM family (mamba2) serves on the slab path too, its decode state
+(conv_x, conv_bc, h per layer) in the contiguous cache: a captured decode
+step reads and writes it in place, and each prefill starts it from zeros
+(``models.model.reset_cache``).
+
+``refresh``, sync and ``autotune`` take stacks with two leading axes
+(gemma3's ``g_local`` (g, r), the MoE expert stacks (L, E)) as any other.
 
 Not ported: tensor parallelism (``mesh``) and ``abstract_plan_key``
-(ROADMAP queue 1), and ``refresh``, sync and ``autotune`` on stacks with
-two leading axes (the grouped local/global layout, the MoE expert stacks)
-and speculative decoding on MoE, which raise.
+(ROADMAP queue 1), and speculative decoding on MoE, which raise.
 """
 from __future__ import annotations
 
@@ -311,7 +319,7 @@ def _timed_serve(cfg, params, masks, prompts: torch.Tensor, gen_len: int, *,
     dec = _contiguous_decoder(cfg, params, masks, b, t + gen_len, prompts.device,
                               decoders=decoders, pool=pool, eager=eager)
     st = dec.state
-    st.cache["len"].zero_()
+    M.reset_cache(cfg, st.cache)
 
     t0 = time.perf_counter()
     logits, _ = _prefill(cfg, params, masks, {"tokens": prompts}, st.cache)
@@ -1003,18 +1011,6 @@ def _not_ported(what: str, item: int):
                                f"(ROADMAP queue 1, item {item})")
 
 
-def _check_one_lead_axis(cfg, what: str) -> None:
-    """Refuse ``what`` on stacks with two leading axes: gemma3's grouped
-    local/global layout (``g_local``, lead (g, r)) and an MoE config's
-    expert stacks (lead (L, E))."""
-    if cfg.local_global_ratio:
-        raise _not_ported(f"{what} on the grouped local/global layout ({cfg.name}), whose "
-                          f"g_local stacks have two leading axes", 8)
-    if cfg.family == "moe":
-        raise _not_ported(f"{what} on the MoE expert stacks ({cfg.name}), which have two "
-                          f"leading axes", 8)
-
-
 class ServingEngine:
     """Plan-keyed batch serving over a trained (params, masks) pair.
 
@@ -1440,9 +1436,9 @@ class ServingEngine:
         (or ``donate=False``) rebuilds the leaf, and the graphs that read it
         are recaptured at their next chunk. The versions are fetched once;
         the engine keeps them as host ints. Returns each plan key's
-        re-exported stack names. Not on stacks with two leading axes (the
-        grouped local/global layout, the MoE expert stacks)."""
-        _check_one_lead_axis(self.cfg, "ServingEngine.refresh")
+        re-exported stack names. A stack with two leading axes (gemma3's
+        ``g_local`` (g, r), an MoE expert stack (L, E)) is written one slab
+        of its first axis at a time, as any other."""
         versions = PLAN._host_versions(mask_versions)
         # a cached draft's out_index follows the old saliency: derive anew
         self._drop_drafts()
@@ -1466,10 +1462,7 @@ class ServingEngine:
         Only the condensed-family fixed paths can subscribe: ``masked``,
         ``structured`` and ``auto`` plans read the params at execution time,
         which a stream of exported leaves does not carry. ``donate=False``
-        rebuilds every adopted tensor instead (its graphs recapture). Not
-        on stacks with two leading axes (the grouped local/global layout,
-        the MoE expert stacks)."""
-        _check_one_lead_axis(self.cfg, "live sync")
+        rebuilds every adopted tensor instead (its graphs recapture)."""
         if self.path not in ("condensed", "condensed_over_active"):
             raise ValueError(f"attach_subscriber requires a condensed-family path; "
                              f"path={self.path!r} reads the params at execution time")
@@ -1608,11 +1601,12 @@ class ServingEngine:
         serving dtype (``cfg.dtype``: an f32 entry is never read by a bf16
         serving run) and at the engine's ``values_dtype``, on the engine's
         device. A decode graph captured before this call keeps the launch
-        it captured; later captures read the new entries. Not on stacks with
-        two leading axes (the grouped local/global layout, the MoE expert
-        stacks)."""
-        _check_one_lead_axis(self.cfg, "ServingEngine.autotune")
+        it captured; later captures read the new entries. An MoE expert
+        stack is tuned under the reference's key (one expert's shape at the
+        bucket) on the expert-grouped launch over its E experts; its
+        wrapper reads that key at its own rows an expert
+        (``kernels.ops.condensed_linear_grouped``)."""
         dtype = getattr(torch, self.cfg.dtype) if dtype is None else dtype
         return AT.tune_registry(self.registry, self.stats(), batch=batch_size, dtype=dtype,
                                 reps=reps, device=self.device, values_dtype=self.values_dtype,
-                                tp=self.tp)
+                                tp=self.tp, cfg=self.cfg)

@@ -246,15 +246,34 @@ def paged_cache_write(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.T
     block_table: (B, NB) int32; positions: (B, T) absolute token slots.
     Positions past a stream's table extent clamp into its last table
     entry: idle rows keep an all-zero table, so their writes land in the
-    reserved garbage page 0 and never touch a live stream's pages. Returns
-    the (same) pools.
+    reserved garbage page 0 and never touch a live stream's pages.
+
+    Several writes may hit one slot (every idle row writes page 0). The
+    last of them in (B, T) order wins, as in the reference's scatter on the
+    CPU: each write carries the values of its slot's last writer, so the
+    result does not depend on the order a device applies them in. Idle
+    rows then read a page whose contents are fixed, and, since an MoE
+    layer routes them into the real rows' capacity, the real rows' tokens
+    are fixed too. Returns the (same) pools.
     """
     bs = k_pool.shape[1]
     nb = block_table.shape[1]
     positions = positions.long()
     page = torch.clamp(positions // bs, max=nb - 1)                  # (B, T)
-    blk = torch.gather(block_table.long(), 1, page)                  # (B, T)
-    off = positions % bs
-    k_pool[blk, off] = k_new.to(k_pool.dtype)
-    v_pool[blk, off] = v_new.to(v_pool.dtype)
+    blk = torch.gather(block_table.long(), 1, page).reshape(-1)      # (B*T,)
+    off = (positions % bs).reshape(-1)
+    src = last_writer(blk * bs + off, k_pool.shape[0] * bs)
+    k_pool[blk, off] = k_new.reshape(-1, *k_new.shape[2:])[src].to(k_pool.dtype)
+    v_pool[blk, off] = v_new.reshape(-1, *v_new.shape[2:])[src].to(v_pool.dtype)
     return k_pool, v_pool
+
+
+def last_writer(slots: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """For each write ``i`` to ``slots[i]`` (a flat slot id below
+    ``n_slots``), the index of the last write to the same slot. No host
+    sync: a max-scatter of the write indices, which is exact in any
+    order."""
+    order = torch.arange(slots.numel(), device=slots.device)
+    last = torch.full((n_slots,), -1, dtype=torch.long, device=slots.device)
+    last.scatter_reduce_(0, slots, order, reduce="amax")
+    return last[slots]

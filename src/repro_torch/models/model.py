@@ -1,4 +1,4 @@
-"""Decoder LM, dense, VLM and MoE families (port of ``repro/models/model.py``).
+"""Decoder LM, dense, VLM, MoE and SSM families (port of ``repro/models/model.py``).
 
 Parameters are a nested dict with the reference's paths and stacked layout:
 ``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0, or, for
@@ -19,7 +19,10 @@ three position streams, precomputed frontend embeddings added to the
 token embeddings) and the MoE family (attention, then a top-k MoE of SwiGLU
 experts, ``models/moe.py``; the blocks' expert stacks have leads (L, E),
 the backbone sums the routers' load-balance losses and ``loss_fn`` adds
-0.01 of it): ``init_params``, ``prefill_step``, ``decode_step`` and their
+0.01 of it) and the SSM family (a Mamba2 / SSD mixer a layer,
+``models/ssm.py``, its decode state (conv_x, conv_bc, h) kept per layer in
+the cache and written in place): ``init_params``, ``prefill_step``,
+``decode_step`` and their
 pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
 ``loss_fn`` for training. ``remat="block"`` recomputes each block and
 each cross-entropy chunk in the backward pass
@@ -30,7 +33,7 @@ serve the continuous-batching engine from a shared page pool, for the
 uniform full-attention ``blocks`` layout only, as in the reference (the
 MoE family included, but not its speculative verify, whose groups of B *
 (gamma + 1) rows would route and drop tokens other than plain decode's).
-SSM, hybrid, audio and the encoder-only ViT are not ported
+The hybrid, audio and encoder-only ViT families are not ported
 (``check_supported`` refuses them).
 """
 from __future__ import annotations
@@ -41,15 +44,21 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.sparse import formats as F
 
 Params = dict
 Masks = dict
 
-# weights consumed by a matmul; ``serving_params`` stores them at the
-# compute dtype once instead of casting them on every call
+# weights consumed at the compute dtype (by a matmul, or the SSM mixer's
+# depthwise conv); ``serving_params`` stores them at that dtype once instead
+# of casting them on every call
 MATMUL_WEIGHTS = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
-                            "w_gate", "w_up", "w_down"})
+                            "w_gate", "w_up", "w_down",
+                            "in_z", "in_x", "in_bc", "in_dt", "out_proj",
+                            "conv_x", "conv_bc", "conv_b", "conv_bc_b"})
+# the SSM decode state a layer keeps in the cache
+SSM_STATE = ("conv_x", "conv_bc", "h")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -61,12 +70,12 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    if (cfg.family not in ("dense", "vlm", "moe") or not cfg.causal
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm") or not cfg.causal
             or cfg.is_moe != (cfg.family == "moe")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (causal={cfg.causal}) is not ported to "
-            f"repro_torch yet; the dense, vlm and moe families are (SSM, hybrid, audio "
-            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 5-8)")
+            f"repro_torch yet; the dense, vlm, moe and ssm families are (hybrid, audio "
+            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 6-8)")
 
 
 def group_counts(cfg) -> tuple[int, int, int]:
@@ -148,6 +157,18 @@ def _init_moe_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
     return p
 
 
+def _init_ssm_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
+                    lead: tuple[int, ...] = ()) -> dict:
+    """An SSM block: the mixer's params (``ssm.init_ssm_params``) and its
+    pre-norm scale ``ln``."""
+    p = SSM.init_ssm_params(generator, cfg, dtype, k_fan, lead=lead)._asdict()
+    p["ln"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=generator.device)
+    return p
+
+
+_BLOCK_INIT = {"moe": _init_moe_block, "ssm": _init_ssm_block}
+
+
 def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> Params:
     """Initialize the parameter tree for ``cfg`` on ``generator``'s device.
 
@@ -162,7 +183,7 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
     params["embed"] = L.embed_init(generator, vp, d, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, d, vp, dtype)
-    init = _init_moe_block if cfg.family == "moe" else _init_attn_block
+    init = _BLOCK_INIT.get(cfg.family, _init_attn_block)
     for key, lead in block_stacks(cfg):
         params[key] = init(generator, cfg, dtype, k_fan, lead=lead)
     return params
@@ -327,6 +348,20 @@ def attn_moe_block(cfg, p, m, x, *, positions, window, q_offset=0, cache=None,
     return x + y, new_cache, aux
 
 
+def ssm_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, state=None,
+                 decode: bool = False):
+    """Pre-norm SSM sublayer: (y, new_state), residual added by the caller."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    sp = SSM.SSMParams(**{f: p[f] for f in SSM.SSMParams._fields})
+    return SSM.ssm_block(cfg, sp, h, m, state=state, chunk=cfg.ssd_chunk, decode=decode)
+
+
+def ssm_res_block(cfg, p, m, x, *, state=None, decode=False):
+    """The SSM family's block: (x + mixer(x), new_state)."""
+    y, new_state = ssm_sublayer(cfg, p, m, x, state=state, decode=decode)
+    return x + y, new_state
+
+
 def _serve_block(cfg, p, m, x, **kw):
     """One block for serving, (x, new_cache): the MoE block's aux loss is
     dropped, as the reference's serving scans drop it."""
@@ -349,7 +384,9 @@ def _maybe_remat(cfg, fn):
 
 
 def _train_block(cfg, p, m, x, positions, window):
-    """One block for training: (x, aux_loss), the aux 0 off the MoE family."""
+    """One block for training: (x, aux_loss), the aux None off the MoE family."""
+    if cfg.family == "ssm":
+        return ssm_res_block(cfg, p, m, x)[0], None
     if cfg.family == "moe":
         x, _, aux = attn_moe_block(cfg, p, m, x, positions=positions, window=window)
         return x, aux
@@ -482,6 +519,16 @@ def _attn_cache(cfg, n: int, bsz: int, s: int, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _ssm_cache(cfg, n: int, bsz: int, dtype, device):
+    """n layers' SSM decode state: the conv inputs' last width - 1 steps at
+    the compute dtype, h in float32."""
+    w = cfg.ssm_conv_width - 1
+    return {"conv_x": torch.zeros((n, bsz, w, cfg.d_inner), dtype=dtype, device=device),
+            "conv_bc": torch.zeros((n, bsz, w, 2 * cfg.ssm_state), dtype=dtype, device=device),
+            "h": torch.zeros((n, bsz, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=torch.float32, device=device)}
+
+
 def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     """Decode state for ``bsz`` streams of up to ``max_len`` tokens.
 
@@ -496,10 +543,16 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     max_len) slots for ``g_local`` (lead (g, r)) and ``g_rem``, and full
     caches for ``g_global``: a local layer's slot ``j`` holds the newest
     position t with t % window == j.
+
+    The SSM family keeps no KV cache: ``blocks`` holds each layer's
+    ``SSM_STATE`` (``_ssm_cache``), of a size independent of ``max_len``.
     """
     check_supported(cfg)
     dt = _dt(cfg)
     cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        cache["blocks"] = _ssm_cache(cfg, cfg.n_layers, bsz, dt, device)
+        return cache
     if not cfg.local_global_ratio:
         s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
         cache["blocks"] = _attn_cache(cfg, cfg.n_layers, bsz, s, dt, device)
@@ -514,10 +567,30 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     return cache
 
 
+@torch.no_grad()
+def reset_cache(cfg, cache: dict) -> None:
+    """Make ``cache`` what ``init_cache`` gives, in place, for a new
+    prefill: the length to 0 and the SSM state to zeros (a KV cache past
+    the length is never read, so it is left as it is)."""
+    cache["len"].zero_()
+    if cfg.family == "ssm":
+        for f in SSM_STATE:
+            cache["blocks"][f].zero_()
+
+
 def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
     layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks)
     for key, idx, window in _block_order(cfg):
         c = cache[key]
+        if cfg.family == "ssm":
+            # the layer's state read from the cache and the new one written
+            # back in place (a captured decode step's static buffers)
+            state = tuple(c[f][idx] for f in SSM_STATE)
+            x, new_state = ssm_res_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
+                                         state=state, decode=decode)
+            for buf, v in zip(state, new_state):
+                buf.copy_(v)
+            continue
         x, _ = _serve_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
                             positions=positions, window=window,
                             cache=(c["k"][idx], c["v"][idx], cache["len"]), decode=decode)

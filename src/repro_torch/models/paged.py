@@ -16,8 +16,9 @@ chunks: streams are admitted and retired without copying anyone's KV state.
   edit, never a device copy of the pool.
 * **Page 0 is reserved** as a garbage page: idle rows of a bucket-padded
   dispatch point their whole table at it, so their writes land harmlessly
-  and their reads are masked by ``lengths``. Real streams never hold page
-  0, which is what makes bucket padding exact.
+  (the last of colliding writes kept, ``attention.paged_cache_write``) and
+  a real stream's reads of it are masked by ``lengths``. Real streams never
+  hold page 0, which is what makes bucket padding exact.
 
 The device-side read/write primitives are in ``repro_torch.models.attention``
 (``paged_decode_attention``, ``paged_cache_write``).

@@ -20,6 +20,10 @@ launch is a measured property of the card:
 * ``tune_registry`` tunes every distinct launch a registry's stacks make at
   one batch bucket, under the keys the formats' ``spec_tuning_key`` give
   (``formats.shape_tuning_key``), which are the keys ``kernels.ops`` reads.
+  An MoE expert stack keys as the reference's does (one expert's shape at
+  the bucket) and is timed on the expert-grouped launch (K1-moe / K2-moe)
+  over its E experts, ``experts=E`` in ``autotune_blocks``: the launch
+  that reads the entry.
 * ``lookup_entry`` / ``lookup_blocks`` read the in-memory view of the
   cache, never the disk on each call.
 
@@ -251,7 +255,13 @@ def candidate_call(kind: str, block_b: int | None, block_n: int | None):
     K2 with scales) takes ``(x, values, indices, scales)``, "coa" (K4,
     K2-coa) ``(x, values, indices, out_index, d_out, scales)`` and
     "structured" (K5 over a gathered panel) ``(x, panel, active_index,
-    d_out)``; ``block_b`` None is the decode launch."""
+    d_out)`` and "grouped" (K1-moe, K2-moe with scales) ``(x, values,
+    indices, scales)`` with the experts first; ``block_b`` None is the
+    decode launch."""
+    if kind == "grouped":
+        return lambda x, v, i, s: cm.condensed_matmul_grouped(x, v, i, scales=s,
+                                                              block_b=block_b,
+                                                              block_n=block_n)
     if kind == "condensed":
         if block_b is None:
             return lambda x, v, i, s: cm.condensed_matmul_decode(x, v, i, scales=s,
@@ -307,6 +317,19 @@ def _sorted_active_index(gen, a: int, d_out: int, device) -> torch.Tensor:
     out = torch.full((a,), d_out, dtype=torch.int32, device=device)
     out[:a_real] = ai.to(torch.int32)
     return out
+
+
+def grouped_operands(experts: int, batch: int, d_in: int, rows: int, k: int, *,
+                     dtype=torch.float32, seed: int = 0, device=None,
+                     values_dtype: str | None = None) -> tuple:
+    """Seeded operands of K1-moe (K2-moe with a quantized ``values_dtype``):
+    ``experts`` experts' ``gather_operands`` (seeds ``seed`` + e), stacked
+    as ``(x (E, bucket, d_in), values, indices (E, rows, k), scales (E,
+    rows) or None)``."""
+    each = [gather_operands(batch, d_in, rows, k, dtype=dtype, seed=seed + e, device=device,
+                            values_dtype=values_dtype) for e in range(experts)]
+    return tuple(None if parts[0] is None else torch.stack(parts).contiguous()
+                 for parts in zip(*each))
 
 
 def gather_operands(batch: int, d_in: int, rows: int, k: int, *, dtype=torch.float32,
@@ -367,21 +390,33 @@ def _search(kind: str, key: str, cands, operands, *, reps: int, save: bool) -> T
 
 def autotune_blocks(batch: int, d_in: int, n_out: int, k: int, *, dtype=torch.float32,
                     reps: int = 3, seed: int = 0, device=None,
-                    values_dtype: str | None = None, save: bool = True) -> TuneResult:
+                    values_dtype: str | None = None, save: bool = True,
+                    experts: int = 0) -> TuneResult:
     """The search for K1 (K2 with a quantized ``values_dtype``, on the codes
     a quantized export stores) at the bucket of ``batch`` over every
     ``condensed_matmul.gather_candidates`` launch, its entry kept under the
     ``Condensed`` key. The representative batch is the bucket's top: an
-    entry serves every batch of its bucket."""
+    entry serves every batch of its bucket. ``experts`` > 0 times the
+    expert-grouped launch (K1-moe / K2-moe) over that many experts of this
+    shape instead, under the same key (the launch of an expert stack reads
+    it for every expert); the baseline is the grouped default, whose
+    neurons a block count every expert's rows."""
     from repro_torch.sparse import formats as F  # lazy: formats reaches this module
-    ops_ = gather_operands(batch, d_in, n_out, k, dtype=dtype, seed=seed, device=device,
-                           values_dtype=values_dtype)
-    b = ops_[0].shape[0]
-    key = F.shape_tuning_key(d_in, n_out, k, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(),
-                             compute_dtype=ops_[0].dtype, values_dtype=values_dtype)
-    cands = cm.gather_candidates(b, d_in, n_out, dtype, sm_count=_sm_count(ops_[0].device))
-    return _search("condensed", key, cands, ops_, reps=reps, save=save)
+    if experts:
+        ops_ = grouped_operands(experts, batch, d_in, n_out, k, dtype=dtype, seed=seed,
+                                device=device, values_dtype=values_dtype)
+    else:
+        ops_ = gather_operands(batch, d_in, n_out, k, dtype=dtype, seed=seed, device=device,
+                               values_dtype=values_dtype)
+    x0 = ops_[0][0] if experts else ops_[0]
+    b = x0.shape[0]
+    key = F.shape_tuning_key(d_in, n_out, k, b, backend=device_key(x0.device),
+                             itemsize=x0.element_size(),
+                             compute_dtype=x0.dtype, values_dtype=values_dtype)
+    cands = cm.gather_candidates(b, d_in, n_out * max(experts, 1), dtype,
+                                 sm_count=_sm_count(x0.device))
+    return _search("grouped" if experts else "condensed", key, cands, ops_, reps=reps,
+                   save=save)
 
 
 def autotune_coa_blocks(batch: int, d_in: int, a: int, k: int, d_out: int, *,
@@ -425,8 +460,8 @@ def autotune_structured_blocks(batch: int, d_in: int, a: int, d_out: int, *,
                    reps=reps, save=save)
 
 
-def tune_registry(registry, stats: dict, *, batch: int, dtype=torch.float32, reps: int = 3,
-                  device=None, values_dtype: str | None = None,
+def tune_registry(registry, stats: dict, *, cfg, batch: int, dtype=torch.float32,
+                  reps: int = 3, device=None, values_dtype: str | None = None,
                   tp: int = 1) -> dict[str, TuneResult]:
     """Tune every distinct launch ``registry``'s stacks make at ``batch``'s
     bucket, at their realized fan-in (``stats`` from
@@ -437,8 +472,12 @@ def tune_registry(registry, stats: dict, *, batch: int, dtype=torch.float32, rep
     on K5 (``name@structured``). The keys are the formats'
     ``spec_tuning_key``, which ``kernels.ops`` reads; a key already cached
     is skipped. ``values_dtype`` ("int8"/"fp8") tunes K2 / K2-coa on codes
-    under the quantized keys."""
+    under the quantized keys. An MoE expert stack of ``cfg``
+    (``registry.is_expert_stack``) has its ``Condensed`` key timed on the
+    expert-grouped launch over its E experts (``autotune_blocks(experts=E)``),
+    the launch that reads it."""
     from repro_torch.sparse import formats as F  # lazy: formats reaches this module
+    from repro_torch.sparse import registry as REG
     if int(tp) > 1:
         raise NotImplementedError("tensor-parallel tuning (tp > 1) is not ported to "
                                   "repro_torch yet (ROADMAP queue 1, item 9)")
@@ -453,8 +492,10 @@ def tune_registry(registry, stats: dict, *, batch: int, dtype=torch.float32, rep
         st = stats[s.name]
         spec = F.spec_for_stack(s, st, itemsize, vd)
         a = spec.max_active
+        experts = s.lead[-1] if REG.is_expert_stack(s, cfg) else 0
         tuners = [(s.name, F.Condensed,
-                   lambda: autotune_blocks(batch, s.d_in, s.d_out, spec.k, **kw))]
+                   lambda: autotune_blocks(batch, s.d_in, s.d_out, spec.k, experts=experts,
+                                           **kw))]
         if a < s.d_out:
             tuners.append((f"{s.name}@a{a}", F.CondensedOverActive,
                            lambda: autotune_coa_blocks(batch, s.d_in, a, spec.k, s.d_out, **kw)))

@@ -8,8 +8,9 @@ identically-shaped layers stacked on leading dims, e.g. ``("blocks",
 stacks. Paper defaults: MLP and attention-output projections are sparse;
 QKV input projections, norms and embeddings stay dense.
 
-Ported: the dense, VLM and MoE families' enumeration (the ``blocks``
-layout, the grouped local/global one and the expert stacks), ``k_fan_map``, the tree path helpers, mask
+Ported: the dense, VLM, MoE and SSM families' enumeration (the ``blocks``
+layout, the grouped local/global one, the expert stacks and the SSM
+mixers' ``in_z`` / ``in_x`` / ``out_proj``), ``k_fan_map``, the tree path helpers, mask
 initialization and the topology update over every stack (``dst_update``)
 for SRigL, RigL and SET, the ITOP tracker and ``sparsity_summary``.
 """
@@ -87,6 +88,17 @@ def _moe_stacks(cfg, prefix: tuple, lead: tuple) -> list[SparseStack]:
     return out
 
 
+def _ssm_stacks(cfg, prefix: tuple, lead: tuple) -> list[SparseStack]:
+    """The SSM mixer's sparse linears: the z and x input projections and
+    the output projection (B, C and dt stay dense)."""
+    d, di = cfg.d_model, cfg.d_inner
+    return [
+        SparseStack(prefix + ("in_z",), d, di, lead),
+        SparseStack(prefix + ("in_x",), d, di, lead),
+        SparseStack(prefix + ("out_proj",), di, d, lead),
+    ]
+
+
 def is_expert_stack(stack: SparseStack, cfg) -> bool:
     """Whether ``stack`` holds an MoE block's experts (lead ``(L, E)``)."""
     return getattr(cfg, "family", None) == "moe" and len(stack.lead) == 2
@@ -96,12 +108,14 @@ def build_registry(cfg) -> list[SparseStack]:
     """All sparse stacks of ``cfg`` with ERK/uniform densities solved."""
     if cfg.sparsity.method == "dense":
         return []
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"item 8, steps 5-8)")
+            f"item 8, steps 6-8)")
     if cfg.family == "moe":
         stacks = _moe_stacks(cfg, ("blocks",), (cfg.n_layers,))
+    elif cfg.family == "ssm":
+        stacks = _ssm_stacks(cfg, ("blocks",), (cfg.n_layers,))
     else:
         # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
         # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))

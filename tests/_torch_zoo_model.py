@@ -5,6 +5,7 @@ overrides). Callers must not modify what ``_model`` returns."""
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 from repro import configs as JC
 from repro.models import model as JM
@@ -53,3 +54,22 @@ def _assert_trees_close(jtree, ttree, **tol):
     for k, v in jflat.items():
         np.testing.assert_allclose(tflat[k].detach().float().numpy(),
                                    np.asarray(v, np.float32), err_msg=k, **tol)
+
+
+def rewired_generation(m: dict, name: str):
+    """A training job's next generation for ``m``: stack ``name``'s mask
+    rolled by one input row over all its leading axes (a rewire at an
+    unchanged fan-in and column activity), every float param times 1.01,
+    the stack's version bumped. Returns (versions, params, masks,
+    versions') as reference trees."""
+    s = next(s for s in m["jreg"] if s.name == name)
+    masks = jax.tree.map(lambda x: x, m["jmasks"])
+    JR.set_path(masks, s.path, jnp.roll(JR.get_path(m["jmasks"], s.path), 1, axis=-2))
+    params = jax.tree.map(lambda x: x * 1.01, m["jparams"])
+    versions = {s.name: 0 for s in m["jreg"]}
+    return versions, params, masks, dict(versions, **{name: 1})
+
+
+def to_port(tree) -> dict:
+    """A reference tree as the port's tensors."""
+    return bridge.from_jax_numpy(jax.tree.map(np.asarray, tree))

@@ -35,6 +35,7 @@ from repro.launch import engine as JE  # noqa: E402
 from repro.sparse import autotune as JAT  # noqa: E402
 from repro.sparse import formats as JF  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as TC  # noqa: E402
 from repro_torch.kernels import condensed_matmul as cm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import structured_matmul as sm  # noqa: E402
@@ -44,51 +45,8 @@ from repro_torch.sparse import autotune as AT  # noqa: E402
 from repro_torch.sparse import formats as F  # noqa: E402
 from repro_torch.sparse.plan import batch_bucket  # noqa: E402
 
+from _torch_autotune_stubs import _stub_reference_search, caches  # noqa: E402,F401
 from _torch_smoke_model import smoke_masks, smoke_model  # noqa: E402
-
-
-@pytest.fixture()
-def caches(tmp_path, monkeypatch):
-    """The port's and the reference's cache files, each in its own place."""
-    port, ref = tmp_path / "port.json", tmp_path / "reference.json"
-    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(port))
-    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(ref))
-    AT.reset_cache_state()
-    JAT.reset_cache_state()
-    yield port, ref
-    AT.reset_cache_state()
-    JAT.reset_cache_state()
-
-
-def _stub_reference_search(monkeypatch):
-    """The reference's three searches as stubs that keep one entry under
-    the key each would write (its interpret-mode timing is not needed to
-    hold the keys and labels)."""
-    def keep(key):
-        return JAT._finish_result(key, [(128, 128)], {"128x128": 1.0}, default_label="128x128",
-                                  interpret=True, save=True)
-
-    def blocks(batch, d_in, n_out, k, *, dtype=jnp.float32, backend=None, values_dtype=None,
-               **_):
-        return keep(JF.shape_tuning_key(d_in, n_out, k, batch, backend=backend,
-                                        itemsize=jnp.dtype(dtype).itemsize,
-                                        values_dtype=values_dtype))
-
-    def coa(batch, d_in, a, k, d_out, *, dtype=jnp.float32, backend=None, values_dtype=None,
-            **_):
-        return keep(JF.shape_tuning_key(d_in, a, k, batch, backend=backend,
-                                        itemsize=jnp.dtype(dtype).itemsize, kind="coa",
-                                        scatter_width=d_out, values_dtype=values_dtype))
-
-    def structured(batch, d_in, a, d_out, *, dtype=jnp.float32, backend=None,
-                   values_dtype=None, **_):
-        return keep(JF.shape_tuning_key(d_in, a, 0, batch, backend=backend,
-                                        itemsize=jnp.dtype(dtype).itemsize, kind="structured",
-                                        scatter_width=d_out, values_dtype=values_dtype))
-
-    monkeypatch.setattr(JAT, "autotune_blocks", blocks)
-    monkeypatch.setattr(JAT, "autotune_coa_blocks", coa)
-    monkeypatch.setattr(JAT, "autotune_structured_blocks", structured)
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +54,7 @@ def _stub_reference_search(monkeypatch):
 # ---------------------------------------------------------------------------
 
 COMPUTE = {2: torch.bfloat16, 4: torch.float32}  # the compute dtype of an itemsize
+DENSE = TC.get_smoke_config("qwen3-1.7b")  # tune_registry's cfg: no stack holds experts
 
 
 def _port_key(ref_key: str, dtype: torch.dtype) -> str:
@@ -204,8 +163,8 @@ def test_tune_registry_labels_and_keys_equal_the_reference(caches, monkeypatch, 
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jout = JAT.tune_registry([stack], jstats, batch=1, dtype=jdt, reps=1,
                              values_dtype=values_dtype)
-    tout = AT.tune_registry([stack], tstats, batch=1, dtype=dtype, reps=1, device="cpu",
-                            values_dtype=values_dtype)
+    tout = AT.tune_registry([stack], tstats, cfg=DENSE, batch=1, dtype=dtype, reps=1,
+                            device="cpu", values_dtype=values_dtype)
     assert set(jout) == set(tout) == labels
     keys = set(json.loads(caches[0].read_text())["kernels"])
     assert keys == {_port_key(key, dtype)
@@ -219,10 +178,10 @@ def test_tune_registry_labels_and_keys_equal_the_reference(caches, monkeypatch, 
     for r in tout.values():
         assert r.plain and r.us == min(r.table.values()) and r.speedup_vs_default >= 1.0
     # a second pass finds every key cached and times nothing
-    assert AT.tune_registry([stack], tstats, batch=1, dtype=dtype, reps=1, device="cpu",
-                            values_dtype=values_dtype) == {}
+    assert AT.tune_registry([stack], tstats, cfg=DENSE, batch=1, dtype=dtype, reps=1,
+                            device="cpu", values_dtype=values_dtype) == {}
     with pytest.raises(NotImplementedError, match="item 9"):
-        AT.tune_registry([stack], tstats, batch=1, tp=2, device="cpu")
+        AT.tune_registry([stack], tstats, cfg=DENSE, batch=1, tp=2, device="cpu")
 
 
 @pytest.mark.parametrize("masks", ["plain", "ablation_only"])
@@ -309,8 +268,8 @@ def test_searches_without_a_device_need_a_card(caches, monkeypatch):
              lambda: AT.autotune_blocks(8, 64, 48, 3, reps=1),
              lambda: AT.autotune_coa_blocks(8, 64, 24, 3, 48, reps=1),
              lambda: AT.autotune_structured_blocks(8, 64, 128, 48, reps=1),
-             lambda: AT.tune_registry([stack], {"s": F.ExportStats(4, 64, 0.66, 4)}, batch=1,
-                                      reps=1))
+             lambda: AT.tune_registry([stack], {"s": F.ExportStats(4, 64, 0.66, 4)}, cfg=DENSE,
+                                      batch=1, reps=1))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -454,8 +413,8 @@ def test_a_quantized_entry_tuned_in_bf16_is_not_read_by_an_f32_run(caches, monke
     # what tune_registry writes at bf16 is the bf16 key; an f32 spec keys apart
     stack = types.SimpleNamespace(name="s", d_in=64, d_out=48)
     st = F.ExportStats(4, 48, 1.0, 4)
-    AT.tune_registry([stack], {"s": st}, batch=15, dtype=torch.bfloat16, reps=1, device="cpu",
-                     values_dtype="int8")
+    AT.tune_registry([stack], {"s": st}, cfg=DENSE, batch=15, dtype=torch.bfloat16, reps=1,
+                     device="cpu", values_dtype="int8")
     spec = F.spec_for_stack(stack, st, 2, "int8")
     assert F.Condensed.spec_tuning_key(spec, 15, backend="cpu", dtype=torch.bfloat16) == key
     assert AT.lookup_entry(F.Condensed.spec_tuning_key(spec, 15, backend="cpu",

@@ -73,16 +73,20 @@ def test_invalid_sparsity_raises_as_in_the_reference():
 
 
 def test_unported_families_raise():
-    # the moe family is ported (tests/test_torch_moe_model.py); ssm is not
-    cfg = tconfigs.get_smoke_config(ARCH).replace(family="ssm", ssm_state=16)
+    # the moe and ssm families are ported (tests/test_torch_moe_model.py,
+    # tests/test_torch_ssm.py); the hybrid is not
+    cfg = tconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16)
     with pytest.raises(NotImplementedError):
         TR.build_registry(cfg)
+    ssm = tconfigs.get_smoke_config(ARCH).replace(family="ssm", ssm_state=16)
+    assert [s.path[-1] for s in TR.build_registry(ssm)] == ["in_z", "in_x", "out_proj"]
 
 
 # the configs ported beyond qwen3-1.7b (its own cases are above; the MoE
 # configs' fields and registries are held in tests/test_torch_moe_model.py)
 NEW_ARCHS = ("internlm2-20b", "mistral-large-123b", "gemma3-1b", "qwen2-vl-7b")
 MOE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
+SSM_ARCHS = ("mamba2-130m",)  # fields and registry: tests/test_torch_ssm.py
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -111,7 +115,7 @@ def test_new_registry_stacks_densities_and_fan_ins_equal(arch, getter):
 
 
 def test_every_ported_arch_is_registered_with_the_references_shapes():
-    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS}
+    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS, *SSM_ARCHS}
     assert [dataclasses.asdict(s) for s in tconfigs.ALL_SHAPES] == [
         dataclasses.asdict(s) for s in jconfigs.ALL_SHAPES]
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == {
@@ -143,5 +147,8 @@ def test_full_width_fan_ins_of_the_new_configs():
                                        ("vit", dict(causal=False))])
 def test_other_unported_families_raise(family, kw):
     cfg = tconfigs.get_smoke_config(ARCH).replace(family=family, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    if family == "ssm":  # ported since item 8 step 5 (tests/test_torch_ssm*.py)
+        assert [s.lead for s in TR.build_registry(cfg)] == [(cfg.n_layers,)] * 3
+        return
+    with pytest.raises(NotImplementedError, match="item 8, steps 6-8"):
         TR.build_registry(cfg)

@@ -338,7 +338,8 @@ def test_engine_refuses_what_is_not_ported(smoke):
     # (tests/test_torch_speculative.py), and autotune on one device
     # (tests/test_torch_autotune.py); its tensor-parallel shapes are not
     with pytest.raises(NotImplementedError, match="item 9"):
-        autotune.tune_registry(eng.registry, eng.stats(), batch=1, tp=2, device="cpu")
+        autotune.tune_registry(eng.registry, eng.stats(), cfg=eng.cfg, batch=1, tp=2,
+                               device="cpu")
     with pytest.raises(ValueError, match="paged serving requires"):
         TE.ServingEngine(smoke["tcfg"].replace(sliding_window=16), smoke["tparams"],
                          smoke["tmasks"], smoke["treg"], paged=True)

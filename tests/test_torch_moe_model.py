@@ -289,9 +289,15 @@ def test_the_serve_cli_streams_equal_on_masked_and_condensed(capsys):
 # what this slice refuses
 # ---------------------------------------------------------------------------
 
-def test_engine_refusals_name_their_roadmap_item(capsys):
+def test_engine_refusals_name_their_roadmap_item(capsys, tmp_path, monkeypatch):
+    """Speculation on MoE is refused, naming item 8; refresh, live sync and
+    the launch search, refused on the (L, E) expert stacks until item 8's
+    two-leading-axes step, now run (their parity with the reference is in
+    ``tests/test_torch_lead2*.py``)."""
     from repro_torch.launch import serve as TSv
     from repro_torch.launch.speculative import SpecConfig
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sync import DirChannel, Publisher, Subscriber
     m = _model(GRANITE, ())
     args = (m["tcfg"], m["tparams"], m["tmasks"], m["treg"])
     with pytest.raises(NotImplementedError, match="speculative decoding on the MoE.*item 8"):
@@ -299,13 +305,26 @@ def test_engine_refusals_name_their_roadmap_item(capsys):
     with pytest.raises(NotImplementedError, match="speculative decoding on the MoE.*item 8"):
         TSv.main(["--arch", GRANITE, "--smoke", "--device", "cpu", "--path", "condensed",
                   "--speculative"])
-    eng = TE.ServingEngine(*args, path="condensed")
-    with pytest.raises(NotImplementedError, match="MoE expert stacks.*two leading axes.*item 8"):
-        eng.refresh(m["tparams"], m["tmasks"], {s.name: 1 for s in m["treg"]})
-    with pytest.raises(NotImplementedError, match="MoE expert stacks.*item 8"):
-        eng.autotune(1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE expert stacks.*item 8"):
-        eng.attach_subscriber(object())
+    eng = TE.ServingEngine(*args, path="condensed",
+                           mask_versions={s.name: 0 for s in m["treg"]})
+    eng.plan_for(eng.plan_key(1))
+    changed = eng.refresh(m["tparams"], m["tmasks"], {s.name: 1 for s in m["treg"]})
+    assert [sorted(names) for names in changed.values()] == [
+        sorted(s.name for s in m["treg"])]
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    AT.reset_cache_state()
+    try:
+        assert {"blocks/w_gate", "blocks/w_down"} <= set(eng.autotune(1, dtype=torch.float32,
+                                                                      reps=1))
+    finally:
+        AT.reset_cache_state()
+    pub = Publisher(m["tcfg"], m["treg"], DirChannel(str(tmp_path / "sync")), path="condensed")
+    pub.publish(params=m["tparams"], masks=m["tmasks"],
+                mask_versions={s.name: 1 for s in m["treg"]})
+    sub = Subscriber(DirChannel(str(tmp_path / "sync")).subscribe("r"))
+    sub.poll()
+    eng.attach_subscriber(sub)
+    assert eng._sync_generation == sub.generation == 1
     pool = TM.init_paged_pool(m["tcfg"], 4, 4, "cpu")
     with pytest.raises(NotImplementedError, match="speculative verify on the MoE.*item 8"):
         TM.paged_verify_step(m["tcfg"], m["tparams"], m["tmasks"],

@@ -230,6 +230,15 @@ def test_grouped_train_state_round_trips_through_both_checkpoints(tmp_path):
     ("vit", dict(causal=False))])
 def test_unported_families_are_refused_naming_item_8(family, kw):
     cfg = TC.get_smoke_config("qwen3-1.7b").replace(family=family, **kw)
+    if family == "ssm":
+        # ported since item 8 step 5 (the rest: tests/test_torch_ssm*.py)
+        TM.check_supported(cfg)
+        params = TM.init_params(cfg, torch.Generator())
+        assert params["blocks"]["in_x"].shape == (cfg.n_layers, cfg.d_model, cfg.d_inner)
+        assert [s.name for s in TR.build_registry(cfg)] == [
+            "blocks/in_z", "blocks/in_x", "blocks/out_proj"]
+        TD.SyntheticLM(vocab_size=16, seq_len=4, batch_size=1, family=family)
+        return
     if family == "moe":
         # ported since item 8 step 4, but for its speculative verify, which
         # still names the item (the rest: tests/test_torch_moe_model.py)

@@ -80,7 +80,7 @@ def test_paged_engine_tokens_equal_the_reference_engine(arch, path):
         np.testing.assert_array_equal(t, j)
 
 
-def test_engines_refuse_what_the_grouped_and_mrope_layouts_do_not_take():
+def test_engines_refuse_what_the_grouped_and_mrope_layouts_do_not_take(tmp_path, monkeypatch):
     from repro_torch.launch.speculative import SpecConfig
     for arch, kw in (GEMMA[0], ("qwen2-vl-7b", ())):
         m = _model(arch, kw)
@@ -91,14 +91,30 @@ def test_engines_refuse_what_the_grouped_and_mrope_layouts_do_not_take():
             TE.ServingEngine(*args, path="condensed", speculative=SpecConfig())
         with pytest.raises(ValueError, match="paged pool serves"):
             TM.init_paged_pool(m["tcfg"], 4, 4, "cpu")
+    # refresh, live sync and the launch search run on the grouped layout's
+    # (g, r) stacks (parity with the reference: tests/test_torch_lead2*.py)
+    from repro_torch.sparse import autotune as AT
+    from repro_torch.sync import DirChannel, Publisher, Subscriber
     m = _model(*GEMMA[0])
-    eng = TE.ServingEngine(m["tcfg"], m["tparams"], m["tmasks"], m["treg"], path="condensed")
-    with pytest.raises(NotImplementedError, match="grouped local/global layout.*item 8"):
-        eng.refresh(m["tparams"], m["tmasks"], {s.name: 1 for s in m["treg"]})
-    with pytest.raises(NotImplementedError, match="grouped local/global layout.*item 8"):
-        eng.autotune(1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="grouped local/global layout.*item 8"):
-        eng.attach_subscriber(object())
+    eng = TE.ServingEngine(m["tcfg"], m["tparams"], m["tmasks"], m["treg"], path="condensed",
+                           mask_versions={s.name: 0 for s in m["treg"]})
+    eng.plan_for(eng.plan_key(1))
+    changed = eng.refresh(m["tparams"], m["tmasks"], {s.name: 1 for s in m["treg"]})
+    assert [sorted(names) for names in changed.values()] == [
+        sorted(s.name for s in m["treg"])]
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    AT.reset_cache_state()
+    try:
+        assert "g_local/w_down" in eng.autotune(1, dtype=torch.float32, reps=1)
+    finally:
+        AT.reset_cache_state()
+    pub = Publisher(m["tcfg"], m["treg"], DirChannel(str(tmp_path / "sync")), path="condensed")
+    pub.publish(params=m["tparams"], masks=m["tmasks"],
+                mask_versions={s.name: 1 for s in m["treg"]})
+    sub = Subscriber(DirChannel(str(tmp_path / "sync")).subscribe("r"))
+    sub.poll()
+    eng.attach_subscriber(sub)
+    assert eng._sync_generation == sub.generation == 1
 
 
 def test_vlm_generate_equals_the_reference():
