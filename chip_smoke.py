@@ -269,7 +269,26 @@ Phases, each of which raises (exit code != 0) on any failed check:
    request by request at B=4 and B=12 (bucket 32, its padding rows routing
    into the real rows' capacity), and which grouped launches of a request
    read an entry.
-22. reference: the smoke config on the card against the port's CPU path
+22. hybrid: zamba2-7b at its published width and depth (81 Mamba2 layers,
+   d_model 3584, d_inner 7168; one shared attention + MLP block after
+   every 6th layer, 13 applications, whose stacks have no leading axis),
+   random weights and 90% SRigL masks drawn on the card, served by the slab
+   ServingEngine with graph decode (B=4, prompts of 300 tokens: two
+   256-token SSD chunks, the second padded; 16 new tokens) in bf16 on
+   masked, condensed, int8 condensed and auto, then in f32 on masked,
+   condensed and int8 condensed at a 15-layer cut (two groups and the 3
+   m_rem layers): launches as the plan implies (condensed: K1 (3 x 81 + 4
+   x 13) x 17 times), repeated requests equal, engine == standalone
+   generate == the eager loop, each of the 13 shared KV slabs written,
+   each path held to masked's tokens under the tie rule (int8 to its
+   dequantized twin's), the bf16 noise bound at this depth
+   HYBRID_NOISE_BOUND. Its kernel phase (kernel:hybrid, after kernel:ssm):
+   K1 and K2 at zamba2's six stack shapes, decode B=4 and the prefill's
+   1200 rows, against the plain version, beside torch.matmul and the
+   bound, with a line per decode layer of each kind. Then hybrid_sync:
+   lead2's refresh and sync at the 15-layer cut with one shared stack
+   (lead ()) and one m_groups stack (lead (2, 6)) rewired.
+23. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched
@@ -277,6 +296,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    the smoke trainer (6 steps, delta_t=3) card vs CPU, a TrainState
    checkpoint round trip on the card, and the condensed loss's values
    gradient (K3) card vs CPU.
+
+Every phase prints a [time] line, then its sub-stamps ([time:<phase>:<part>]:
+setup, capture, serve, eager, checks, profile, release and so on, from
+_part), and the script its total.
 
 Imports only torch, numpy, the standard library and repro_torch. Prints
 the card's name and power limit, a JSON line describing each kernel, and
@@ -299,13 +322,14 @@ import time
 import types
 from pathlib import Path
 
+_T_START = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2**20
 ARCH = "qwen3-1.7b"
 BATCH, PROMPT, GEN = 4, 32, 16
-REPEATS = 5  # timed generate runs per path and dtype (tokens must repeat exactly)
+REPEATS = 3  # timed generate runs per path and dtype (tokens must repeat exactly)
 # kernel vs plain version: the k-sum runs in another order (f32 rounding),
 # and a bf16 output may then round to the neighbouring value (one ulp)
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=8e-3, atol=1e-5)}
@@ -364,6 +388,35 @@ ENGINE_MIX = ((1, 20, 8), (2, 37, 40), (3, 64, 16), (4, 120, 24),
               (1, 90, 33), (2, 50, 12), (3, 100, 8), (4, 25, 20))
 
 
+# the running phase's sub-stamps: the seconds since the previous mark, summed
+# by part (main() resets it as each phase starts and prints it as it ends)
+_PARTS: dict = {"t": 0.0, "parts": {}}
+
+
+def _part(name: str) -> None:
+    """Add the seconds since the previous mark to part ``name`` of the
+    running phase, printed as a ``[time:<phase>:<part>]`` line after the
+    phase's ``[time]`` line. The helpers mark what precedes them as
+    "setup" (inits, masks, exports, engine builds: what no other part
+    claims) and their own span as capture, serve, eager, checks, profile
+    and so on."""
+    now = time.perf_counter()
+    _PARTS["parts"][name] = _PARTS["parts"].get(name, 0.0) + now - _PARTS["t"]
+    _PARTS["t"] = now
+
+
+def _release() -> None:
+    """Collect what the caller dropped, then hand the card's cached free
+    blocks back (the graphs and pools of freed engines included), timed as
+    the parts release:gc and release:cache."""
+    import torch
+    _part("setup")
+    gc.collect()
+    _part("release:gc")
+    torch.cuda.empty_cache()
+    _part("release:cache")
+
+
 def _time_ms(fn, arg_sets, reps: int = 5, iters: int = 30) -> float:
     """Device ms per call: ``iters`` calls cycling through ``arg_sets``
     (copies of the operands, so L2 stays cold) are captured in one CUDA
@@ -392,6 +445,22 @@ def _time_ms(fn, arg_sets, reps: int = 5, iters: int = 30) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def _timed_call(fn, *args):
+    """(``fn(*args)``, the device ms of that one call by CUDA events): the
+    plain version timed on the very call that holds a kernel to it, where
+    it takes milliseconds and a graph of repeated calls would only repeat
+    it."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _call_ms(fn, args, iters: int = 50) -> float:
@@ -1426,16 +1495,18 @@ def dw_kernel_phase(device):
 
 def _device_profile(fn, label: str, what: str = f"generate {BATCH}x{PROMPT}+{GEN}") -> None:
     """Device busy share and the kernels that take the device time of one
-    call of ``fn`` (``what`` names it), from torch.profiler (wall time from
-    an unprofiled call)."""
+    call of ``fn`` (``what`` names it), from torch.profiler tracing the
+    device activity only (the host-side events were never read; tracing
+    them cost seconds a call), wall time from an unprofiled call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    _part("setup")
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
@@ -1445,6 +1516,7 @@ def _device_profile(fn, label: str, what: str = f"generate {BATCH}x{PROMPT}+{GEN
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
     rows = [(name, ms, count) for name, (ms, count) in by_name.items()]
+    _part("profile")
     if not rows:
         print(f"[profile:{label}] device time not measured (no CUDA events)")
         return
@@ -1477,6 +1549,7 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
     top-2 logit gap at each generated position."""
     import torch
     from repro_torch.models import model as M
+    _part("setup")
     with torch.inference_mode():
         b, t = prompts.shape
         cache = M.init_cache(cfg, b, t + gen_len, device=prompts.device)
@@ -1493,7 +1566,9 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
             if step + 1 < gen_len:
                 logits, cache = M.decode_step(cfg, model.compute, model.serving,
                                               {"tokens": cur}, cache)
-        return torch.stack(toks, 1), torch.stack(gaps, 1)
+        out = torch.stack(toks, 1), torch.stack(gaps, 1)
+    _part("checks")
+    return out
 
 
 def _kernel_counters() -> dict:
@@ -1610,6 +1685,8 @@ def slice_phase(setup: dict, card: str):
         masked_model = ServingModel(cfg, params, masks)
         cond_model.generate(prompts, GEN)  # warm-up outside the counted run
         masked_model.generate(prompts, GEN)
+        torch.cuda.synchronize()
+        _part("capture")
 
         _zero_counts()
         out_c, tok_s_c, wall_c = _timed_generate(cond_model, prompts, "condensed")
@@ -1633,6 +1710,7 @@ def slice_phase(setup: dict, card: str):
                     raise AssertionError(f"{path}: a repeated run gave other tokens")
                 tok_s[path].append(rate)
                 walls[path].append(wall)
+        _part("serve")
         _eager_wall(f"slice:{dtype_name}:condensed", cond_model, prompts, out_c,
                     walls["condensed"], tok_s["condensed"])
         setup["report"][f"condensed_wall:{dtype_name}"] = statistics.median(walls["condensed"])
@@ -1653,12 +1731,13 @@ def slice_phase(setup: dict, card: str):
 
 
 def _tie_threshold(label: str, cfg, model, masked_model, prompts,
-                   against: str = "masked") -> float:
+                   against: str = "masked", bound: dict = LOGIT_NOISE_BOUND) -> float:
     """max(TIE_GAP, 2 * d), d the largest |logit difference| between a path
     and masked (or the path ``against`` names) on the same prefill; d must
-    stay below LOGIT_NOISE_BOUND."""
+    stay below ``bound`` at the dtype (LOGIT_NOISE_BOUND by default)."""
     import torch
     from repro_torch.models import model as M
+    _part("setup")
     logits = []
     with torch.inference_mode():
         for m in (model, masked_model):
@@ -1666,12 +1745,13 @@ def _tie_threshold(label: str, cfg, model, masked_model, prompts,
             lg, _ = M.prefill_step(cfg, m.compute, m.serving, {"tokens": prompts}, cache)
             logits.append(lg[:, :cfg.vocab_size])
         d = (logits[0] - logits[1]).abs().max().item()
-    if not d <= LOGIT_NOISE_BOUND[cfg.dtype]:
+    if not d <= bound[cfg.dtype]:
         raise AssertionError(f"{label}: prefill logits differ from {against} by {d}, above "
-                             f"{LOGIT_NOISE_BOUND[cfg.dtype]}")
+                             f"{bound[cfg.dtype]}")
     tie = max(TIE_GAP[cfg.dtype], 2 * d)
     print(f"[{label}] prefill logits differ from {against} by at most {d:.4g}: tie below "
           f"{tie:.4g}")
+    _part("checks")
     return tie
 
 
@@ -1698,7 +1778,10 @@ def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = RE
     (``_eager_wall``). Returns (tokens, tok/s list, the counted run's launch
     counts); the runs' walls (s) go to ``walls_out`` if given."""
     import torch
+    _part("setup")
     model.generate(prompts, GEN)
+    torch.cuda.synchronize()
+    _part("capture")
     _zero_counts()
     out, rate, wall = _timed_generate(model, prompts, label)
     counts = _counts()
@@ -1711,6 +1794,7 @@ def _serve_counted(label: str, model, prompts, expected: dict, repeats: int = RE
             raise AssertionError(f"{label}: a repeated run gave other tokens")
         rates.append(rate)
         walls.append(wall)
+    _part("serve")
     if eager:
         _eager_wall(label, model, prompts, out, walls, rates)
     if walls_out is not None:
@@ -1735,6 +1819,7 @@ def _eager_wall(label: str, model, prompts, out, walls: list, rates: list) -> No
     import torch
     from repro_torch.launch import engine as E
     torch.cuda.synchronize()
+    _part("setup")
     t0 = time.perf_counter()
     got, _, t_dec, _ = E._serve_eager(model.cfg, model.compute, model.serving, prompts, GEN)
     torch.cuda.synchronize()
@@ -1747,6 +1832,7 @@ def _eager_wall(label: str, model, prompts, out, walls: list, rates: list) -> No
           f"{statistics.median(walls) * 1e3:.2f} ms (median of {len(walls)}; decode "
           f"{graph_dec * 1e3:.2f} ms), eager decode loop wall {wall * 1e3:.2f} ms (decode "
           f"{t_dec * 1e3:.2f} ms); eager tokens == graph tokens")
+    _part("eager")
 
 
 def ablation_phase(setup: dict, card: str) -> dict:
@@ -1777,15 +1863,15 @@ def ablation_phase(setup: dict, card: str) -> dict:
         cfg = base.replace(dtype=dtype_name)
         tok_s, masked = {}, {}
         for set_name, m in sets.items():
+            # the masked path's eager loop and device profile are [slice]'s:
+            # ablating neurons changes its numbers, not its code path
             model = ServingModel(cfg, params, m)
             label = f"masked/{set_name}"
-            out, tok_s[label], _ = _serve_counted(label, model, prompts, none)
+            out, tok_s[label], _ = _serve_counted(label, model, prompts, none, eager=False)
             toks_m, gaps = _masked_gaps(cfg, model, prompts, GEN)
             if not torch.equal(toks_m, out[:, PROMPT:]):
                 raise AssertionError(f"{label}: step-by-step run differs from generate")
             masked[set_name] = (model, toks_m, gaps)
-            if dtype_name == "bfloat16":
-                _device_profile(lambda: model.generate(prompts, GEN), label)
         outs = {}
         for label, set_name, path, prefetch, expected in runs:
             with _prefetch_gather(prefetch):
@@ -1797,8 +1883,9 @@ def ablation_phase(setup: dict, card: str) -> dict:
                 outs[label], tok_s[label], counts = _serve_counted(label, model, prompts,
                                                                    expected)
                 if dtype_name == "bfloat16":
+                    # no device profile: K4, K5 and K6 take their [kernel]
+                    # times, the rest of the request is [slice]'s profile
                     launches[label] = counts
-                    _device_profile(lambda: model.generate(prompts, GEN), label)
                 masked_model, toks_m, gaps = masked[set_name]
                 name = f"ablation:{dtype_name}:{label}"
                 tie = _tie_threshold(name, cfg, model, masked_model, prompts)
@@ -1897,13 +1984,17 @@ def quant_phase(setup: dict, card: str) -> dict:
                     raise AssertionError(f"{label}: the model keeps values_dtype "
                                          f"{model.values_dtype}")
                 with _prefetch_gather(False):
+                    # fp8 codes run the int8 path's wrapper and body (another
+                    # code type): int8's eager loop holds it to the graph
                     out, rates, counts = _serve_counted(label, model, prompts,
                                                         {**_none(), key: per_request},
-                                                        repeats=QUANT_REPEATS)
+                                                        repeats=QUANT_REPEATS,
+                                                        eager=qdt != "fp8")
                     if dtype_name == "bfloat16" and qdt == "int8":
+                        # no device profile: K2 and K2-coa run K1's and K4's
+                        # bodies in the same request ([slice] and [ablation]
+                        # profile those); their own time is [kernel]'s
                         launches[key] = counts[key]
-                        if key != "K5":
-                            _device_profile(lambda: model.generate(prompts, GEN), label)
                     twin = ServingModel(cfg, params, _dequantized_twin(plan, getattr(torch,
                                                                                      dtype_name)))
                     out_t, _, _ = _serve_counted(f"{label}:twin", twin, prompts,
@@ -2119,11 +2210,14 @@ def _engine_noise(cfg, eng, key, tree, prompts) -> float:
     return (paged[:b, :v] - alone[:, :v]).abs().max().item()
 
 
-def _engine_tokens(label: str, cfg, eng, reqs: dict) -> tuple[int, int]:
+def _engine_tokens(label: str, cfg, eng, reqs: dict, graphs: dict) -> tuple[int, int]:
     """Each request's tokens against a standalone ``generate`` of it on the
     same serving tree: equal, or parting only at a logit near-tie of the
     standalone run (its top-2 gap below max(TIE_GAP, 2 * the prefill noise
-    of ``_engine_noise``)). Returns (streams bitwise equal, streams)."""
+    of ``_engine_noise``)). The standalone runs of one plan key keep their
+    captured decode graphs in ``graphs`` (one per (B, max_len), as a
+    ``ServingModel`` keeps them), so a later wave of the same shapes replays
+    them. Returns (streams bitwise equal, streams)."""
     import torch
     from types import SimpleNamespace
     from repro_torch.launch import engine as E
@@ -2132,7 +2226,9 @@ def _engine_tokens(label: str, cfg, eng, reqs: dict) -> tuple[int, int]:
         b, t = p.shape
         tree = eng.serving_tree_for(res.plan_key)
         prompts = p.to(eng.device)
-        ref = E.generate(cfg, eng.compute, tree, prompts, g)
+        ref, _ = E.serve_once(cfg, eng.compute, tree, prompts, g, "generate", quiet=True,
+                              decoders=graphs.setdefault(res.plan_key, {}),
+                              pool=graphs.setdefault("pool", E._graph_pool(eng.device)))
         got = res.tokens
         if got.shape != (b, t + g) or not torch.equal(got[:, :t], prompts) or not bool(
                 ((got >= 0) & (got < cfg.vocab_size)).all()):
@@ -2161,23 +2257,38 @@ def _engine_tokens(label: str, cfg, eng, reqs: dict) -> tuple[int, int]:
     return equal, total
 
 
+def _applications(cfg, stack) -> int:
+    """How often one forward pass runs ``stack``'s kernel: once per layer
+    of its leading dims; an MoE expert stack (L, E) once per layer for all
+    its experts; the hybrid's shared block (no leading axis) once per
+    group it follows."""
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+    if REG.is_expert_stack(stack, cfg):
+        return stack.lead[0]
+    if not stack.lead:
+        return M.hybrid_counts(cfg)[0]
+    return stack.n_replicas
+
+
 def _engine_expected(eng, dispatches: dict) -> dict:
     """Kernel launches the plans' decisions imply for ``dispatches``
     ({plan key: prefill dispatches + decode steps}): each stack's kernel
-    once per layer per dispatch (an MoE expert stack's condensed leaf: the
-    expert-grouped launch, once per layer for all its experts)."""
+    ``_applications`` times per dispatch (an MoE expert stack's condensed
+    leaf: the expert-grouped launch)."""
     from repro_torch.sparse import registry as REG
     quant = eng.values_dtype is not None
     kernel_of = {"condensed": "K2" if quant else "K1",
                  "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
-    experts = {s.name for s in eng.registry if REG.is_expert_stack(s, eng.cfg)}
+    stacks = {s.name: s for s in eng.registry}
     expected = _none()
     for key, n in dispatches.items():
         for name, rep in key.formats:
-            if name in experts and rep == "condensed":
-                expected["K2-moe" if quant else "K1-moe"] += eng.cfg.n_layers * n
+            runs = _applications(eng.cfg, stacks[name]) * n
+            if REG.is_expert_stack(stacks[name], eng.cfg) and rep == "condensed":
+                expected["K2-moe" if quant else "K1-moe"] += runs
             elif rep in kernel_of:
-                expected[kernel_of[rep]] += eng.cfg.n_layers * n
+                expected[kernel_of[rep]] += runs
     return expected
 
 
@@ -2208,11 +2319,14 @@ def engine_phase(setup: dict, card: str) -> None:
                  + (":f32" if dtype_name == "float32" else ""))
         eng = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
                               gen_chunk=ENGINE_CHUNK, values_dtype=vd)
+        _part("setup")
         first, wall1 = _engine_wave(label, eng, mix, seed=1, replay_check=True)
+        _part("capture")
         programs = {k: eng.program_count(k) for k in ("prefill", "decode")}
         before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
         _zero_counts()
         second, wall2 = _engine_wave(label, eng, mix, seed=2)
+        _part("serve")
         counts = _counts()
         after = {k: eng.program_count(k) for k in ("prefill", "decode")}
         if after != programs:
@@ -2227,8 +2341,11 @@ def engine_phase(setup: dict, card: str) -> None:
         if counts != expected:
             raise AssertionError(f"{label}: the second wave launched {counts}, its plans imply "
                                  f"{expected}")
-        equal, total = (a + b for a, b in zip(_engine_tokens(label, cfg, eng, first),
-                                              _engine_tokens(label, cfg, eng, second)))
+        graphs: dict = {}
+        equal, total = (a + b for a, b in zip(_engine_tokens(label, cfg, eng, first, graphs),
+                                              _engine_tokens(label, cfg, eng, second, graphs)))
+        del graphs
+        _part("checks")
         tokens = sum(b * g for b, _, g in mix)
         groups = ", ".join(f"{k.describe()}: {r.prefills} prefills, {r.steps} decode steps"
                            for k, r in eng._runners.items())
@@ -2239,8 +2356,7 @@ def engine_phase(setup: dict, card: str) -> None:
               f"as the plans imply; streams bitwise equal to standalone generate "
               f"{equal}/{total}")
         del eng, first, second
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
 
 
 # ---------------------------------------------------------------------------
@@ -2518,8 +2634,7 @@ def profile_phase(setup: dict, card: str):
                 walls[name] = time.perf_counter() - t1
             toks[name] = res.tokens
             del eng
-            gc.collect()
-            torch.cuda.empty_cache()
+            _release()
         print(f"[profile:measured] {label} masks, bucket {SPEC_BUCKET} served end to end "
               f"(B={BATCH}, prompt {PROMPT}, {GEN} new tokens, bf16, --path auto): default "
               f"wall {walls['default'] * 1e3:.2f} ms, measured wall "
@@ -2617,9 +2732,11 @@ def spec_phase(setup: dict, card: str, measured) -> None:
             gc.collect()
             plain = E.ServingEngine(cfg, params, m, reg, path=path, block_size=ENGINE_BLOCK,
                                     gen_chunk=ENGINE_CHUNK)
+            _part("setup")
             _engine_wave(label + ":plain", plain, ENGINE_MIX, seed=1)
             plain_res, plain_wall = _engine_wave(label + ":plain", plain, ENGINE_MIX, seed=2)
             plain_step_ms = _replay_ms(plain._runners[plain.plan_key(SPEC_BUCKET)].decoder)
+            _part("plain")
             plain_runs[(path, mk, dtype_name)] = (plain, plain_res, plain_wall, plain_step_ms)
         plain, plain_res, plain_wall, plain_step_ms = plain_runs[(path, mk, dtype_name)]
 
@@ -2627,7 +2744,9 @@ def spec_phase(setup: dict, card: str, measured) -> None:
                               gen_chunk=ENGINE_CHUNK,
                               speculative=SP.SpecConfig(gamma=gamma, draft_ablation=ablation,
                                                         force=True))
+        _part("setup")
         _engine_wave(label, eng, ENGINE_MIX, seed=1)
+        _part("capture")
         programs = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
         if not programs["draft"] or programs["draft"] != programs["verify"] or \
                 eng.program_count("decode"):
@@ -2640,6 +2759,7 @@ def spec_phase(setup: dict, card: str, measured) -> None:
                   for key, r in eng._runners.items()}
         _zero_counts()
         res, wall = _engine_wave(label, eng, ENGINE_MIX, seed=2)
+        _part("serve")
         counts = _counts()
         after = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
         if after != programs:
@@ -2692,6 +2812,7 @@ def spec_phase(setup: dict, card: str, measured) -> None:
                 if gap >= tie:
                     raise AssertionError(f"{label}: request {rid} differs from plain decode "
                                          f"at a gap of {gap}")
+        _part("checks")
         stats = [r.spec for _, _, r in res.values()]
         drafted = sum(s["drafted"] for s in stats)
         matched = sum(s["matched"] for s in stats)
@@ -2718,12 +2839,14 @@ def spec_phase(setup: dict, card: str, measured) -> None:
             print(f"[{label}] draft ablation 0.0: {len(rejects)} rejections in "
                   f"{drafted} drafts, each at a tie (largest gap {largest:.3g}); acceptance "
                   f"{acceptance:.4f}")
+        _part("checks")
         runner8 = eng._runners[key8]
         _, rounds0, draft0, verify0 = before.get(key8, (0,) * 4)
         draft_ms = (runner8.draft_s - draft0) / (runner8.rounds - rounds0) * 1e3
         verify_ms = (runner8.verify_s - verify0) / (runner8.rounds - rounds0) * 1e3
         draft_step_ms = _replay_ms(runner8.draft)
         verify_step_ms = _replay_ms(runner8.verify)
+        _part("timing")
         ests = {name: PLAN.price_speculation(reg, target, draft, batch_size=SPEC_BUCKET,
                                              gamma=gamma, acceptance=a, profile=p)
                 for name, p, a in (("default", PLAN.DEFAULT_PROFILE, 0.7),
@@ -2753,11 +2876,9 @@ def spec_phase(setup: dict, card: str, measured) -> None:
         print(f"[{label}] SpecEstimate at bucket {SPEC_BUCKET}: {est_s}")
         print(f"[time] {label}: {time.perf_counter() - t_run:.1f}s")
         del eng, plain, res, plain_res
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     plain_runs.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
 
 # ---------------------------------------------------------------------------
@@ -2996,8 +3117,7 @@ def autotune_phase(setup: dict, card: str, smi: str) -> list:
                           f"{with_term * 1e6:.3f} us with the one-hot epilogue term, "
                           f"{without * 1e6:.3f} us without")
             del jobs
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
 
     old = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
     cache = REPO / "build" / "autotune_phase.json"
@@ -3105,8 +3225,7 @@ def autotune_phase(setup: dict, card: str, smi: str) -> list:
               f"entries ({best}) vs {verify_u:.3f} ms without, replayed in turns; tokens "
               f"equal")
         del eng, untuned
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     finally:
         if old is None:
             os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
@@ -3364,8 +3483,7 @@ def train_phase(device, card: str) -> list:
           f"{time.perf_counter() - t0:.1f}s with init; params and moments finite; masked-dense "
           f"path, no port kernel launched")
     del state
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
     torch.cuda.reset_peak_memory_stats()
     base = configs.get_config(ARCH)
@@ -3432,8 +3550,7 @@ def train_phase(device, card: str) -> list:
     _device_profile(lambda: step_fn(state, batch), "train",
                     f"train step {TRAIN_BATCH}x{TRAIN_SEQ}")
     del state, trainer, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return dst_times
 
 
@@ -3472,8 +3589,7 @@ def _unstructured_cli(method: str, steps: int) -> None:
           f"{TRAIN_BATCH} --seq {TRAIN_SEQ}: {time.perf_counter() - t0:.1f}s with init; params "
           f"and moments finite, every layer at its target nnz; no port kernel launched")
     del state
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
 
 def _method_cfg(method: str, delta_t: int | None = None):
@@ -3683,8 +3799,7 @@ def rigl_phase(device, card: str, report: dict, srigl_cases: list) -> list:
           f"; moments 0 off the mask after the next step")
     params, masks = state.params, state.masks
     del state, step_fn, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
     cfg = cfg.replace(dtype="bfloat16")
     cond = COND.export_condensed(cfg, reg, params, masks)
@@ -3725,8 +3840,7 @@ def rigl_phase(device, card: str, report: dict, srigl_cases: list) -> list:
     cond32 = COND.export_condensed(cfg.replace(dtype="float32"), reg, params, masks)
     cases = rigl_kernel_phase(device, cond32, masks, reg, srigl_cases)
     del cond32, params, masks
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return cases
 
 
@@ -3777,8 +3891,7 @@ def set_phase(device, card: str) -> None:
           f"prune_survivors' in every layer; grown positions all inactive before, as many as "
           f"pruned; the same seed and step regrew the same masks twice")
     del state, pre, seen, again
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
 
 # [grad:structured]: dx and dW through K5 and the structured backward
@@ -3947,8 +4060,7 @@ def _generations(device) -> dict:
     versions2[s0.name] += 1
     gen2 = (state.params, masks2, versions2)
     del state, step, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     moved = sorted(k for k in versions2 if versions2[k] != gen1[2][k])
     print(f"[refresh] gen-2: 2 train steps, one DST update and {s0.name} rolled by one input "
           f"row; mask versions moved for {len(moved)}/{len(reg)} stacks {moved}")
@@ -4033,15 +4145,18 @@ def refresh_phase(gens: dict, card: str) -> dict:
             plan_bytes = _leaf_bytes(eng)
             masks2 = _gen_masks(gens, "gen2", ablated)
             torch.cuda.synchronize()
+            _part("setup")
             mem0 = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             changed = eng.refresh(gens["gen2"][0], masks2, gens["gen2"][2], donate=donate)
             torch.cuda.synchronize()
             refresh_s = time.perf_counter() - t0
+            _part("refresh")
             peak = torch.cuda.max_memory_allocated()
             eng.step()
             [res] = eng.retire(rid)
+            _part("serve")
             _launched(label, _counts())
             out[donate] = res.tokens.cpu()
             after = _leaf_storage(eng)
@@ -4084,19 +4199,19 @@ def refresh_phase(gens: dict, card: str) -> dict:
                 [res2] = eng.retire(second)
                 second = res2.tokens.cpu()
             del eng, res, masks2
-            gc.collect()
-            torch.cuda.empty_cache()
+            _release()
         if not torch.equal(out[True], out[False]):
             raise AssertionError(f"[refresh:{label}] in-place and donate=False tokens differ")
+        _part("setup")
         fresh = engine("gen2")
         rid = _serve_chunks(fresh, prompts2, None)
         [res] = fresh.retire(rid)
+        _part("fresh")
         if not torch.equal(res.tokens.cpu(), second):
             raise AssertionError(f"[refresh:{label}] a fresh gen-2 engine serves other tokens "
                                  "than the refreshed one")
         del fresh, res
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
         tokens[label] = out[True]
         print(f"[refresh:{label}] in-place tokens == donate=False tokens bitwise; a fresh gen-2 "
               f"engine == the refreshed engine bitwise at bucket 8")
@@ -4114,39 +4229,40 @@ def sync_phase(gens: dict, refreshed: dict, card: str) -> None:
     snapshot and the values-only one smaller than the topology one."""
     import torch
     from repro_torch.sync import QueueChannel, Publisher, Subscriber, engine_from_snapshot
-    from repro_torch.sync import delta as D
 
     cfg, reg, device = gens["cfg"], gens["reg"], gens["device"]
     gen = torch.Generator(device=device).manual_seed(3)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
                             dtype=torch.int32)
     for label, vd in (("condensed", None), ("condensed:int8", "int8")):
+        _part("setup")
         ch = QueueChannel()
         pub = Publisher(cfg, reg, ch, path="condensed", values_dtype=vd, batch_size=BATCH,
                         arch=ARCH)
         snap = pub.publish(params=gens["gen1"][0], masks=gens["gen1"][1],
                            mask_versions=gens["gen1"][2])
+        _part("publish")
         sub = Subscriber(ch.subscribe("replica"), name="replica")
         t0 = time.perf_counter()
         sub.poll()
         snap_decode = time.perf_counter() - t0
+        _part("poll")
         eng = engine_from_snapshot(cfg, sub, registry=reg, device=device,
                                    block_size=ENGINE_BLOCK, gen_chunk=REFRESH_CHUNK)
+        _part("setup")
         _zero_counts()
         rid = _serve_chunks(eng, prompts, 1)
+        _part("serve")
         before = _leaf_storage(eng)
         captures, programs = eng.captures, eng.program_count("decode")
         topo = pub.publish(params=gens["gen2"][0], masks=gens["gen2"][1],
                            mask_versions=gens["gen2"][2])
         vals = pub.publish(params=gens["gen2"][0], masks=gens["gen2"][1],
                            mask_versions=gens["gen2"][2])
-        decode_s = []
-        for _, blob in ch._log[-2:]:
-            t0 = time.perf_counter()
-            D.decode(blob)
-            decode_s.append(time.perf_counter() - t0)
+        _part("publish")
         eng.step()
         [res] = eng.retire(rid)
+        _part("drain+serve")
         _launched(label, _counts())
         after = _leaf_storage(eng)
         if eng._sync_generation != 3:
@@ -4165,14 +4281,13 @@ def sync_phase(gens: dict, refreshed: dict, card: str) -> None:
         in_place = sum(a == before[k] for k, a in after.items())
         print(f"[sync:{label}] {card}: snapshot {snap['bytes']} B (encode "
               f"{snap['encode_s']:.3f}s, decode {snap_decode:.3f}s); topology delta "
-              f"{topo['bytes']} B ({len(topo['topology'])} stacks; encode {topo['encode_s']:.3f}s, "
-              f"decode {decode_s[0]:.3f}s); values-only delta {vals['bytes']} B (encode "
-              f"{vals['encode_s']:.3f}s, decode {decode_s[1]:.3f}s); drain of both at the chunk "
-              f"boundary {eng.last_drain_s:.3f}s; leaves written in place {in_place}/"
-              f"{len(after)}; no graph recaptured; tokens == [refresh]'s bitwise")
+              f"{topo['bytes']} B ({len(topo['topology'])} stacks; encode "
+              f"{topo['encode_s']:.3f}s); values-only delta {vals['bytes']} B (encode "
+              f"{vals['encode_s']:.3f}s); drain of both at the chunk boundary "
+              f"{eng.last_drain_s:.3f}s (decoding them included); leaves written in place "
+              f"{in_place}/{len(after)}; no graph recaptured; tokens == [refresh]'s bitwise")
         del eng, pub, sub, ch, res
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
 
 
 def _leaf_list(tree) -> list:
@@ -4384,16 +4499,17 @@ ZOO = (("gemma3-1b", None, 600), ("qwen2-vl-7b", None, PROMPT),
 PLAIN_CHUNK_BYTES = 1 << 30
 
 
-def _plain_k1(x, vals, idx):
-    """K1's plain version (``ref.condensed_matmul_ref``) over neuron chunks
-    whose gathered float32 block stays within PLAIN_CHUNK_BYTES: the same
-    function, output by output, at widths where one gather of the whole
-    (B, n_out, k) block would not fit the card."""
+def _plain_gather(x, vals, idx, scales=None):
+    """K1's (K2's, with ``scales``) plain version (``condensed_matmul._plain``)
+    over neuron chunks whose gathered float32 block stays within
+    PLAIN_CHUNK_BYTES: the same function, output by output, at widths where
+    one gather of the whole (B, n_out, k) block would not fit the card."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import condensed_matmul as cm
     n_out, k = vals.shape
     step = max(1, PLAIN_CHUNK_BYTES // (4 * x.shape[0] * k))
-    return torch.cat([ref.condensed_matmul_ref(x, vals[i:i + step], idx[i:i + step])
+    return torch.cat([cm._plain(x, vals[i:i + step], idx[i:i + step],
+                                None if scales is None else scales[i:i + step])
                       for i in range(0, n_out, step)], dim=1)
 
 
@@ -4452,8 +4568,7 @@ def zoo_kernel_phase(device) -> list:
             for b, launch in ((BATCH, "decode"), (BATCH * PROMPT, "tiled")):
                 x = torch.randn((b, d_in), generator=gen, device=device).to(dtype)
                 y = cm.condensed_matmul(x, vals, idx)
-                y_ref = _plain_k1(x, vals, idx)
-                torch.cuda.synchronize()
+                y_ref, plain_ms = _timed_call(_plain_gather, x, vals, idx)
                 torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype_name])
                 err = (y.float() - y_ref.float()).abs().max().item()
                 del y_ref
@@ -4470,8 +4585,6 @@ def zoo_kernel_phase(device) -> list:
                     raise AssertionError(f"K1 {arch} {name} {dtype_name} B={b}: {pair} is not "
                                          f"bitwise")
                 ms = _time_ms(cm.condensed_matmul, [(x, v, i) for v, i in weight_sets])
-                plain_ms = _time_ms(_plain_k1, [(x, v, i) for v, i in weight_sets[:1]],
-                                    reps=3, iters=3)
                 library_ms = _time_ms(torch.matmul, [(x, wd) for wd in dense_sets])
                 nbytes = n_out * k * (isz + 4) + b * d_in * isz + b * n_out * isz
                 ops = 2 * b * n_out * k
@@ -4512,11 +4625,13 @@ def _zoo_request(eng, prompts):
     Result, the wall seconds from submit to retire)."""
     import torch
     torch.cuda.synchronize()
+    _part("setup")
     t0 = time.perf_counter()
     rid = eng.submit(prompts, GEN)
     eng.step()
     [res] = eng.retire(rid)
     torch.cuda.synchronize()
+    _part("serve")
     return res, time.perf_counter() - t0
 
 
@@ -4619,7 +4734,8 @@ def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> 
             raise AssertionError(f"{name}: the eager decode loop gave other tokens than the "
                                  f"graph replays")
         if eng.paged:
-            equal, total = _engine_tokens(name, cfg, eng, {res.id: (prompts.cpu(), GEN, res)})
+            equal, total = _engine_tokens(name, cfg, eng, {res.id: (prompts.cpu(), GEN, res)},
+                                          {})
             agree = f"engine streams bitwise equal to standalone generate {equal}/{total}"
         elif not torch.equal(res.tokens, standalone):
             raise AssertionError(f"{name}: the slab engine's tokens differ from standalone "
@@ -4636,8 +4752,7 @@ def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> 
         if path == "condensed":
             launches, cond_tree = counts["K1"], tree
         del eng, tree
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     masked = SimpleNamespace(compute=compute, serving=masks)
     toks_m, gaps = _masked_gaps(cfg, masked, prompts, GEN)
     if not torch.equal(toks_m, outs["masked"][:, prompt:]):
@@ -4661,8 +4776,7 @@ def zoo_phase(device, card: str) -> int:
     for arch, depth, prompt in ZOO:
         t0 = time.perf_counter()
         total += _zoo_serve(device, card, arch, depth, prompt)
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
         print(f"[time] zoo:{arch}: {time.perf_counter() - t0:.1f}s")
     return total
 
@@ -4791,8 +4905,7 @@ def moe_kernel_phase(device) -> list:
                 if not torch.equal(y, per):
                     raise AssertionError(f"{label} {arch} {name} {dtype_name} M={m}: the "
                                          f"grouped launch differs from {e} single launches")
-                want = ref.condensed_matmul_grouped_ref(x, vals, idx, sc)
-                torch.cuda.synchronize()
+                want, plain_ms = _timed_call(ref.condensed_matmul_grouped_ref, x, vals, idx, sc)
                 torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name])
                 err = (y.float() - want.float()).abs().max().item()
                 del per, want
@@ -4800,8 +4913,6 @@ def moe_kernel_phase(device) -> list:
                 def grouped(x_, v_, i_, s_):
                     return cm.condensed_matmul_grouped(x_, v_, i_, scales=s_)
                 ms = _time_ms(grouped, [(x, v, i, s_) for v, i, s_ in weight_sets], **timing)
-                plain_ms = _time_ms(ref.condensed_matmul_grouped_ref, [(x, vals, idx, sc)],
-                                    **(dict(reps=1, iters=1) if big else dict(reps=3, iters=2)))
                 library_ms = _time_ms(lambda x_, w_: torch.bmm(x_, w_.transpose(1, 2)),
                                       [(x, w) for w in dense_sets], **timing)
                 isz = x.element_size()
@@ -4828,8 +4939,7 @@ def moe_kernel_phase(device) -> list:
             del weight_sets, dense_sets, dense_t, vals
             torch.cuda.empty_cache()
         del vals32, idx, codes, scales
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     per_layer = {"w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     for arch, rows in MOE_ROWS.items():
         for label, codes in (("K1-moe", None), ("K2-moe", "int8")):
@@ -4861,6 +4971,7 @@ def _moe_run(cfg, compute, tree, prompts, gen_len: int, force=None, replay=None)
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    _part("setup")
     k = cfg.top_k_experts
     route = MOE.route_topk
     layers, routes = [], []
@@ -4904,8 +5015,10 @@ def _moe_run(cfg, compute, tree, prompts, gen_len: int, force=None, replay=None)
     finally:
         MOE.route_topk = route
     top2 = torch.stack([lg.topk(2, dim=-1).values for lg in logits_seen], 1)  # (B, gen, 2)
-    return dict(tokens=torch.stack(toks, 1), logits=logits_seen,
-                gaps=top2[..., 0] - top2[..., 1], routes=routes, passes=passes)
+    out = dict(tokens=torch.stack(toks, 1), logits=logits_seen,
+               gaps=top2[..., 0] - top2[..., 1], routes=routes, passes=passes)
+    _part("checks")
+    return out
 
 
 def _routing_parts(label: str, ref: dict, run: dict, tie: float, against: str) -> tuple:
@@ -5063,10 +5176,12 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
     tree = eng.serving_tree_for(res.plan_key)
     standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
     torch.cuda.synchronize()
+    _part("standalone")
     t1 = time.perf_counter()
     eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
     torch.cuda.synchronize()
     eager_wall = time.perf_counter() - t1
+    _part("eager")
     if not torch.equal(eager, standalone):
         raise AssertionError(f"{label}: the eager decode loop gave other tokens than the "
                              f"graph replays")
@@ -5090,8 +5205,7 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
         del plan
     out = res.tokens, standalone, counts, (eng.compute, tree)
     del eng, tree
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return out
 
 
@@ -5172,14 +5286,12 @@ def moe_phase(device, card: str) -> dict:
                       f"{engine_agree}/{BATCH}")
                 del ref
             del compute, tree
-            gc.collect()
-            torch.cuda.empty_cache()
+            _release()
         del masked
     print(f"[moe] {card}: peak memory over the phase "
           f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (max_memory_allocated)")
     del params, masks
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return launches
 
 
@@ -5191,48 +5303,57 @@ SSM_ARCH = "mamba2-130m"
 # prompts of 200 tokens: four 64-token SSD chunks, the last one padded
 SSM_PROMPT = 200
 # (dtype, path, values dtype) served by [ssm:*]
-SSM_PATHS = (("bfloat16", "masked", None), ("bfloat16", "condensed", None),
-             ("bfloat16", "condensed", "int8"), ("bfloat16", "auto", None),
-             ("float32", "masked", None), ("float32", "condensed", None))
+SSM_PATHS = (("bfloat16", "masked", None, None), ("bfloat16", "condensed", None, None),
+             ("bfloat16", "condensed", "int8", None), ("bfloat16", "auto", None, None),
+             ("float32", "masked", None, None), ("float32", "condensed", None, None))
+# a Mamba2 decode layer's sparse stacks
+MAMBA2_LAYER = ("in_z", "in_x", "out_proj")
 
 
-def _ssm_shapes() -> dict:
-    """{(d_in, d_out, k): [stack names]}: mamba2-130m's sparse stacks at the
-    fan-ins their 90% ERK densities realize (in_z and in_x share one)."""
+def _arch_shapes(arch: str) -> dict:
+    """{(d_in, d_out, k): [stack names]}: ``arch``'s sparse stacks at the
+    fan-ins their 90% ERK densities realize (stacks of one shape and fan-in
+    share an entry: in_z and in_x; m_groups and m_rem)."""
     from repro_torch import configs
     from repro_torch.sparse import registry as REG
-    cfg = configs.get_config(SSM_ARCH)
+    cfg = configs.get_config(arch)
     reg = REG.build_registry(cfg)
     k_fan = REG.k_fan_map(cfg, reg)
     shapes: dict = {}
     for s in reg:
-        shapes.setdefault((s.d_in, s.d_out, k_fan[s.path[-1]]), []).append(s.path[-1])
+        names = shapes.setdefault((s.d_in, s.d_out, k_fan[s.path[-1]]), [])
+        if s.path[-1] not in names:
+            names.append(s.path[-1])
     return shapes
 
 
-def ssm_kernel_phase(device) -> list:
-    """K1 and K2 (int8 codes) at mamba2-130m's three stack shapes (in_z and
-    in_x 768 -> 1536 k 77, out_proj 1536 -> 768 k 154), bf16, at the
-    decode's B=4 and the prefill's tiled B*T = 4 x 200 rows: held to the
-    plain version within TOL, the decode launch bitwise the tiled launch's
-    rows, timed beside the plain version, torch.matmul on the dense masked
-    weight and the bound; then one decode and one prefill layer (in_z +
-    in_x + out_proj). Returns the per-case records."""
+def _family_kernel_phase(device, tag: str, arch: str, prompt: int, layers: dict,
+                         seed: int) -> list:
+    """K1 and K2 (int8 codes) at each distinct stack shape of ``arch``, bf16,
+    at the decode's B=4 and the prefill's B*T = 4 x ``prompt`` rows: held to
+    the plain version within TOL, the decode launch bitwise the tiled
+    launch's rows, timed beside the plain version, torch.matmul on the
+    dense masked weight and the bound; whether the decode kernel exists at
+    the shape's d_in (past 6656, B <= 8 runs gather_mma at the batch's
+    tile). Then one decode and one prefill layer of each kind in ``layers``
+    ({kind: its stacks}). Prints [kernel:<tag>] lines; returns the records."""
     import torch
     from repro_torch.core import topology
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.sparse import formats as F
 
-    gen = torch.Generator(device=device).manual_seed(5)
+    gen = torch.Generator(device=device).manual_seed(seed)
     bf16 = torch.bfloat16
     cases = []
-    for (d_in, n_out, k), names in _ssm_shapes().items():
+    for (d_in, n_out, k), names in _arch_shapes(arch).items():
+        decode = cm.gather_geometry(d_in, bf16).decode_loads is not None
         mask = topology.random_constant_fan_in_mask(gen, d_in, n_out, k)
         w = torch.randn((d_in, n_out), generator=gen, device=device) / k ** 0.5
         vals32, idx = topology.dense_to_condensed(w * mask, mask, k)
         del mask, w
         dense = topology.condensed_to_dense(vals32, idx, d_in).to(bf16).contiguous()
         dense_sets = [dense.clone() for _ in range(_copies(dense.numel() * 2))]
+        del dense
         for kern in ("K1", "K2"):
             if kern == "K1":
                 vals, scales = vals32.to(bf16).contiguous(), None
@@ -5242,13 +5363,13 @@ def ssm_kernel_phase(device) -> list:
             wbytes = n_out * k * (vals.element_size() + 4) + (0 if scales is None else 4 * n_out)
             weight_sets = [(vals.clone(), idx.clone(), None if scales is None else scales.clone())
                            for _ in range(_copies(wbytes))]
-            for b, launch in ((BATCH, "decode"), (BATCH * SSM_PROMPT, "tiled")):
+            for b, launch in ((BATCH, "decode"), (BATCH * prompt, "tiled")):
                 x = torch.randn((b, d_in), generator=gen, device=device).to(bf16)
                 y = cm.condensed_matmul(x, vals, idx, scales=scales)
-                y_ref = cm._plain(x, vals, idx, scales)
-                torch.cuda.synchronize()
+                y_ref, plain_ms = _timed_call(_plain_gather, x, vals, idx, scales)
                 torch.testing.assert_close(y.float(), y_ref.float(), **TOL["bfloat16"])
                 err = (y.float() - y_ref.float()).abs().max().item()
+                del y_ref
                 tiled = cm.TILED_ROWS[bf16]
                 if launch == "decode":
                     same = torch.equal(cm.condensed_matmul_decode(x, vals, idx, scales=scales),
@@ -5260,98 +5381,171 @@ def ssm_kernel_phase(device) -> list:
                                                                   scales=scales), y[:BATCH])
                     pair = f"decode(first {BATCH} rows) == tiled({tiled})"
                 if not same:
-                    raise AssertionError(f"[kernel:ssm] {kern} {d_in}->{n_out} B={b}: {pair} "
-                                         f"is not bitwise")
+                    raise AssertionError(f"[kernel:{tag}] {kern} {d_in}->{n_out} B={b}: "
+                                         f"{pair} is not bitwise")
 
                 def call(x_, v_, i_, s_):
                     return cm.condensed_matmul(x_, v_, i_, scales=s_)
-                ms = _time_ms(call, [(x, v, i, s) for v, i, s in weight_sets])
-                plain_ms = _time_ms(cm._plain, [(x, vals, idx, scales)], reps=3, iters=3)
+                ms = _time_ms(call, [(x, v, i, s_) for v, i, s_ in weight_sets])
                 library_ms = _time_ms(torch.matmul, [(x, wd) for wd in dense_sets])
                 nbytes = wbytes + b * d_in * 2 + b * n_out * 2
                 ops = 2 * b * n_out * k
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-                rec = dict(kernel=kern, arch=SSM_ARCH, stack="/".join(names), d_in=d_in,
+                rec = dict(kernel=kern, arch=arch, stack="/".join(names), d_in=d_in,
                            n_out=n_out, k=k, dtype="bfloat16", batch=b, launch=launch, ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
                            bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair,
-                           layers=len(names))
+                           layers=len(names), names=list(names), decode_kernel=decode)
                 cases.append(rec)
-                print(f"[kernel:ssm] {kern} {'/'.join(names):10s} {d_in}->{n_out} k={k} bf16 "
-                      f"B={b:3d} {launch:6s}: us {ms * 1e3:.2f} | plain {plain_ms * 1e3:.2f} | "
-                      f"torch.matmul {library_ms * 1e3:.2f} | bound {rec['bound_ms'] * 1e3:.2f} "
-                      f"({rec['bound_by']}) | max_abs_err {err:.3g} | {pair}: bitwise")
+                print(f"[kernel:{tag}] {kern} {'/'.join(names):12s} {d_in}->{n_out} k={k} "
+                      f"bf16 B={b:4d} {launch:6s}: us {ms * 1e3:.2f} | plain "
+                      f"{plain_ms * 1e3:.2f} | torch.matmul {library_ms * 1e3:.2f} | bound "
+                      f"{rec['bound_ms'] * 1e3:.2f} ({rec['bound_by']}) | max_abs_err "
+                      f"{err:.3g} | {pair}: bitwise | decode kernel "
+                      f"{'yes' if decode else 'no (gather_mma at the batch tile)'}")
             del weight_sets
         del vals32, idx, dense_sets
         torch.cuda.empty_cache()
     for kern in ("K1", "K2"):
         for launch in ("decode", "tiled"):
-            layer = [c for c in cases if c["kernel"] == kern and c["launch"] == launch]
-            tot = {t: sum(c[t] * c["layers"] for c in layer)
-                   for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
-            print(f"[kernel:ssm] {SSM_ARCH} one {launch} layer (in_z + in_x + out_proj, bf16"
-                  f"{', int8 codes' if kern == 'K2' else ''}, B={layer[0]['batch']}): {kern} "
-                  f"{tot['ms'] * 1e3:.2f} us | bound {tot['bound_ms'] * 1e3:.2f} us | plain "
-                  f"{tot['plain_ms'] * 1e3:.2f} us | torch.matmul {tot['library_ms'] * 1e3:.2f} us")
+            for kind, stacks in layers.items():
+                # each case once for every stack of the layer that has its shape
+                layer = [(c, len(set(c["names"]) & set(stacks))) for c in cases
+                         if c["kernel"] == kern and c["launch"] == launch]
+                tot = {t: sum(c[t] * n for c, n in layer)
+                       for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                print(f"[kernel:{tag}] {arch} one {launch} {kind} layer ({' + '.join(stacks)}, "
+                      f"bf16{', int8 codes' if kern == 'K2' else ''}, B={layer[0][0]['batch']}): "
+                      f"{kern} {tot['ms'] * 1e3:.2f} us | bound {tot['bound_ms'] * 1e3:.2f} us "
+                      f"| plain {tot['plain_ms'] * 1e3:.2f} us | torch.matmul "
+                      f"{tot['library_ms'] * 1e3:.2f} us")
     return cases
 
 
-def ssm_phase(device, card: str) -> dict:
-    """mamba2-130m at its published width and depth (24 layers, d_model
-    768, d_inner 1536, 24 SSD heads of 64, state 128, vocab 50 280, tied),
-    random weights and 90% SRigL ERK masks from a seeded generator, served
-    by the slab ServingEngine (paged=None: SSM state has no paged form) with
-    graph decode, B=4, prompts of SSM_PROMPT + GEN new tokens, on SSM_PATHS:
-    the counted request launches what its plan implies (condensed: K1 3 x
-    24 x (1 + GEN) times; int8: K2 as often), repeated requests give the
-    same tokens (each prefill zeroes the decode state the graph reads), the
-    engine's tokens equal standalone generate's and the eager decode loop's.
-    Each path is held to masked's tokens of its dtype under the tie rule
-    (int8 codes to their dequantized twin's). Prints the graph wall (median
-    of 3) with its prefill and decode parts, the eager loop's wall, the
-    launches and max_memory_allocated. Returns the condensed request's K1
-    launches and the int8 one's K2 launches."""
+def ssm_kernel_phase(device) -> list:
+    """[kernel:ssm]: ``_family_kernel_phase`` at mamba2-130m's three stack
+    shapes (in_z and in_x 768 -> 1536 k 77, out_proj 1536 -> 768 k 154),
+    the prefill's 4 x 200 rows."""
+    return _family_kernel_phase(device, "ssm", SSM_ARCH, SSM_PROMPT,
+                                {"Mamba2": MAMBA2_LAYER}, seed=5)
+
+
+def _family_model(device, arch: str, depth: int | None, dtype_name: str,
+                  prompt: int) -> tuple:
+    """``arch`` at its published width (``depth`` layers, or its own):
+    seeded random weights and 90% SRigL ERK masks drawn on the card, then
+    B=4 prompts of ``prompt`` tokens from the same generator, the params
+    cast to ``dtype_name`` for serving (the float32 draw freed). Returns
+    (cfg, reg, k_fan, compute params, masks, prompts)."""
     import torch
-    from types import SimpleNamespace
     from repro_torch import configs
-    from repro_torch.launch import engine as E
     from repro_torch.models import model as M
     from repro_torch.sparse import registry as REG
-
-    cfg = configs.get_config(SSM_ARCH)
-    t0 = time.perf_counter()
+    cfg = configs.get_config(arch)
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    cfg = cfg.replace(dtype=dtype_name)
     reg = REG.build_registry(cfg)
     k_fan = REG.k_fan_map(cfg, reg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(cfg, gen, k_fan)
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, SSM_PROMPT), generator=gen,
-                            device=device, dtype=torch.int32)
-    torch.cuda.synchronize()
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen, device=device,
+                            dtype=torch.int32)
+    compute = M.serving_params(cfg, params)
+    del params
+    _release()
+    return cfg, reg, k_fan, compute, masks, prompts
+
+
+def _shared_caches_written(label: str, eng, key, positions: int) -> int:
+    """Every application of the hybrid's shared block wrote its own KV slab
+    at each of the request's ``positions``: the slab engine's cache after
+    a request. Returns the slab count."""
+    decs = eng._legacy_decoders[key]
+    if len(decs) != 1:
+        raise AssertionError(f"{label}: {len(decs)} decode signatures, expected 1")
+    cache = next(iter(decs.values())).state.cache
+    n = int(cache["len"])
+    k = cache["shared_attn"]["k"]
+    written = k[:, :, :n].abs().amax(dim=(-1, -2)) > 0          # (g, B, n)
+    if n != positions or not bool(written.all()) or bool(k[:, :, n:].any()):
+        raise AssertionError(f"{label}: the shared block's KV slabs are not each written at "
+                             f"the request's {positions} positions (len {n})")
+    return k.shape[0]
+
+
+def _family_phase(device, card: str, tag: str, arch: str, prompt: int, paths: tuple,
+                  bound: dict) -> dict:
+    """``arch`` (the SSM or hybrid family) at its published width, random
+    weights and 90% SRigL masks (``_family_model``, one per (dtype, depth)
+    of ``paths``: (dtype, path, values dtype, depth or None)), served by the
+    slab ServingEngine (paged=None: SSM state has no paged form) with graph
+    decode, B=4, prompts of ``prompt`` tokens + GEN new ones. Gates: the counted request
+    launches what its plan implies (condensed: each stack's K1 once per
+    application a pass, 1 + GEN passes; int8: K2 as often), repeated
+    requests give the same tokens (each prefill zeroes the decode state
+    the graph reads), the engine's tokens equal standalone generate's and
+    the eager decode loop's, the hybrid's shared KV slabs are each written,
+    and each path is held to masked's tokens of its dtype and depth under
+    the tie rule, its prefill logits within ``bound`` (int8 codes to their
+    dequantized twin's). Prints the graph wall (median of 3) with its
+    prefill and decode parts, the eager loop's wall, the launches and
+    max_memory_allocated; each path's engine is freed before the next.
+    Returns the bf16 condensed request's K1 launches and the int8 one's K2
+    launches."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch import configs
+    from repro_torch.launch import engine as E
+    from repro_torch.models import model as M
+
     passes = 1 + GEN
-    print(f"[ssm] {SSM_ARCH}: {cfg.n_layers} layers (published depth), d_model {cfg.d_model}, "
-          f"d_inner {cfg.d_inner}, {cfg.ssm_n_heads} SSD heads of {cfg.ssm_head_dim}, state "
-          f"{cfg.ssm_state}, conv width {cfg.ssm_conv_width}, ssd_chunk {cfg.ssd_chunk}, vocab "
-          f"{cfg.vocab_size} (padded {cfg.vocab_padded}), tied head; stacks "
-          f"{[(s.path[-1], s.d_in, s.d_out, s.lead) for s in reg]}, fan-ins {k_fan}; params "
-          f"{cfg.param_dtype}; prompts {BATCH}x{SSM_PROMPT} + {GEN} "
-          f"({-(-SSM_PROMPT // cfg.ssd_chunk)} chunks, the last padded); init "
-          f"{time.perf_counter() - t0:.1f}s")
     launches = {"K1": 0, "K2": 0}
     refs: dict = {}
-    for dtype_name, path, vd in SSM_PATHS:
-        run_cfg = cfg.replace(dtype=dtype_name)
-        label = (f"ssm:{path}" + (f":{vd}" if vd else "")
+    model_of: tuple | None = None
+    for dtype_name, path, vd, depth in paths:
+        if model_of is None or model_of[0] != (dtype_name, depth):
+            model_of = compute = masks = None
+            refs.clear()
+            _release()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            cfg, reg, k_fan, compute, masks, prompts = _family_model(device, arch, depth,
+                                                                     dtype_name, prompt)
+            torch.cuda.synchronize()
+            _part("init")
+            model_of = ((dtype_name, depth), cfg, reg, compute, masks, prompts)
+            full = ("published depth" if depth is None else
+                    f"of the published {configs.get_config(arch).n_layers}; depth cut")
+            shared = ""
+            if cfg.family == "hybrid":
+                g, r, rem = M.hybrid_counts(cfg)
+                full += "" if depth is None else f": {g} groups + {rem} m_rem"
+                shared = (f"; shared block ({cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+                          f"{cfg.d_ff}) after every {r} layers, {g} applications")
+            print(f"[{tag}] {arch}: {cfg.n_layers} Mamba2 layers ({full}), d_model "
+                  f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_n_heads} SSD heads of "
+                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv width "
+                  f"{cfg.ssm_conv_width}, ssd_chunk {cfg.ssd_chunk}{shared}; vocab "
+                  f"{cfg.vocab_size} (padded {cfg.vocab_padded}); stacks "
+                  f"{[(s.name, s.lead) for s in reg]}, fan-ins {k_fan}; served {dtype_name}; "
+                  f"prompts {BATCH}x{prompt} + {GEN} ({-(-prompt // cfg.ssd_chunk)} chunks, "
+                  f"the last padded); init "
+                  f"{time.perf_counter() - t0:.1f}s, "
+                  f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+        _, cfg, reg, compute, masks, prompts = model_of
+        label = (f"{tag}:{path}" + (f":{vd}" if vd else "")
                  + ("" if dtype_name == "bfloat16" else ":f32"))
-        compute = M.serving_params(run_cfg, params)
+        per_pass = sum(_applications(cfg, s) for s in reg)
         torch.cuda.reset_peak_memory_stats(device)
-        eng = E.ServingEngine(run_cfg, compute, masks, reg, path=path, values_dtype=vd,
+        eng = E.ServingEngine(cfg, compute, masks, reg, path=path, values_dtype=vd,
                               block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
         if eng.paged:
-            raise AssertionError(f"{label}: the SSM engine is paged")
+            raise AssertionError(f"{label}: the {cfg.family} engine is paged")
         first, _ = _zoo_request(eng, prompts)
         _zero_counts()
         res, wall = _zoo_request(eng, prompts)
@@ -5361,11 +5555,16 @@ def ssm_phase(device, card: str) -> dict:
             raise AssertionError(f"{label}: launched {counts}, expected {want}")
         if path == "condensed":
             key = "K2" if vd else "K1"
-            if counts[key] != len(reg) * cfg.n_layers * passes:
-                raise AssertionError(f"{label}: {key} x {counts[key]}, expected "
-                                     f"{len(reg)} x {cfg.n_layers} x {passes}")
+            if counts[key] != per_pass * passes:
+                raise AssertionError(f"{label}: {key} x {counts[key]}, expected {per_pass} "
+                                     f"a pass x {passes}")
             if dtype_name == "bfloat16":
                 launches[key] += counts[key]
+        slabs = ""
+        if cfg.family == "hybrid":
+            g = M.hybrid_counts(cfg)[0]
+            n = _shared_caches_written(label, eng, res.plan_key, prompt + GEN)
+            slabs = f"; shared KV slabs written {n}/{g}"
         walls = [wall]
         for _ in range(2):
             again, wall = _zoo_request(eng, prompts)
@@ -5375,53 +5574,63 @@ def ssm_phase(device, card: str) -> dict:
         if not torch.equal(first.tokens, res.tokens):
             raise AssertionError(f"{label}: the warm request gave other tokens")
         tree = eng.serving_tree_for(res.plan_key)
-        standalone = E.generate(run_cfg, compute, tree, prompts, GEN)
+        standalone = E.generate(cfg, compute, tree, prompts, GEN)
         torch.cuda.synchronize()
+        _part("standalone")
         t1 = time.perf_counter()
-        eager, _, t_dec, _ = E._serve_eager(run_cfg, compute, tree, prompts, GEN)
+        eager, _, t_dec, _ = E._serve_eager(cfg, compute, tree, prompts, GEN)
         torch.cuda.synchronize()
         eager_wall = time.perf_counter() - t1
+        _part("eager")
         if not (torch.equal(eager, standalone) and torch.equal(res.tokens, standalone)):
             raise AssertionError(f"{label}: engine, graph decode and the eager loop disagree")
         peak = torch.cuda.max_memory_allocated(device)
         model = SimpleNamespace(compute=compute, serving=tree)
         if path == "masked":
-            toks_m, gaps = _masked_gaps(run_cfg, model, prompts, GEN)
-            if not torch.equal(toks_m, standalone[:, SSM_PROMPT:]):
+            toks_m, gaps = _masked_gaps(cfg, model, prompts, GEN)
+            if not torch.equal(toks_m, standalone[:, prompt:]):
                 raise AssertionError(f"{label}: the step-by-step run differs from generate")
-            refs[dtype_name] = (model, toks_m, gaps)
+            refs["masked"] = (model, toks_m, gaps)
             held = (f"first stream {toks_m[0].tolist()}, "
                     f"{len(set(toks_m.reshape(-1).tolist()))} distinct tokens")
         else:
-            ref_model, toks_r, gaps_r = refs[dtype_name]
+            ref_model, toks_r, gaps_r = refs["masked"]
             against = "masked"
             if vd:  # codes are held to their dequantized twin (K1), as in [quant]
                 twin = _dequantized_twin(SimpleNamespace(registry=reg, serving_tree=tree),
                                          getattr(torch, dtype_name))
                 ref_model = SimpleNamespace(compute=compute, serving=twin)
-                toks_r, gaps_r = _masked_gaps(run_cfg, ref_model, prompts, GEN)
+                toks_r, gaps_r = _masked_gaps(cfg, ref_model, prompts, GEN)
                 against = "the twin"
-            tie = _tie_threshold(label, run_cfg, model, ref_model, prompts, against)
-            agree = _check_ties(label, run_cfg, standalone, toks_r, gaps_r, tie,
-                                against=against, prompt=SSM_PROMPT)
+            tie = _tie_threshold(label, cfg, model, ref_model, prompts, against, bound)
+            agree = _check_ties(label, cfg, standalone, toks_r, gaps_r, tie,
+                                against=against, prompt=prompt)
             held = (f"streams agreeing in full with {against} {agree}/{BATCH} (tie below "
                     f"{tie:.3g}, min top-2 gap {gaps_r.min().item():.3g})")
-        reps = sorted({r for _, r in res.plan_key.formats})
-        print(f"[{label}] {card}: slab engine ({', '.join(reps)}), request "
-              f"{BATCH}x{SSM_PROMPT}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
+        reps = sorted({rp for _, rp in res.plan_key.formats})
+        cut = "" if depth is None else f", {cfg.n_layers}-layer cut"
+        print(f"[{label}] {card}: slab engine ({', '.join(reps)}){cut}, request "
+              f"{BATCH}x{prompt}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
               f"(median of {len(walls)}; prefill {res.prefill_s * 1e3:.2f} ms, decode "
               f"{res.decode_s * 1e3:.2f} ms), eager decode loop wall {eager_wall * 1e3:.2f} ms "
               f"(decode {t_dec * 1e3:.2f} ms); launches "
-              f"{ {n: c for n, c in counts.items() if c} } (3 stacks x {cfg.n_layers} layers x "
-              f"{passes} passes where condensed); engine == generate == eager tokens; {held}; "
-              f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
-        del eng, tree, model
-        gc.collect()
-        torch.cuda.empty_cache()
-    del refs, params, masks
-    gc.collect()
-    torch.cuda.empty_cache()
+              f"{ {n: c for n, c in counts.items() if c} } ({per_pass} sparse linears a pass x "
+              f"{passes} passes where condensed){slabs}; engine == generate == eager tokens; "
+              f"{held}; peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+        del eng, tree, model, standalone, eager
+        _release()
+    del model_of, refs
+    _release()
     return launches
+
+
+def ssm_phase(device, card: str) -> dict:
+    """[ssm:*]: ``_family_phase`` on mamba2-130m at its published width and
+    depth (24 layers, d_model 768, d_inner 1536, 24 SSD heads of 64, state
+    128, vocab 50 280, tied), prompts of SSM_PROMPT tokens, on SSM_PATHS:
+    condensed launches K1 3 x 24 x (1 + GEN) times, int8 K2 as often."""
+    return _family_phase(device, card, "ssm", SSM_ARCH, SSM_PROMPT, SSM_PATHS,
+                         LOGIT_NOISE_BOUND)
 
 
 # ---------------------------------------------------------------------------
@@ -5431,7 +5640,7 @@ def ssm_phase(device, card: str) -> dict:
 
 # (arch, the two-axis stack rewired): gemma3's g_local (g, r) = (4, 5) on the
 # slab engine, granite's expert stack (L, E) = (24, 32) on the paged one
-LEAD2 = (("gemma3-1b", "g_local/w_down"), (MOE_ARCH, "blocks/w_gate"))
+LEAD2 = (("gemma3-1b", ("g_local/w_down",)), (MOE_ARCH, ("blocks/w_gate",)))
 # [autotune:moe]: the requests' batches (buckets 8 and 32). B=12 leaves 20
 # padding rows in bucket 32, whose decode groups of 32 tokens have a
 # capacity of 10 an expert: the padding rows, reading the garbage page they
@@ -5440,29 +5649,27 @@ LEAD2 = (("gemma3-1b", "g_local/w_down"), (MOE_ARCH, "blocks/w_gate"))
 MOE_TUNE_BATCHES = (BATCH, 12)
 
 
-def _lead2_generations(device, arch: str, name: str) -> tuple:
-    """``arch`` at its published width and depth, seeded random weights and
-    90% SRigL masks (gen-1), and gen-2: stack ``name``'s mask rolled by one
-    input row over all its leading axes (a rewire at an unchanged fan-in),
-    every float param times 1.01, that stack's version bumped. Returns
-    (cfg, reg, gen-1, gen-2), each (params, masks, versions)."""
+def _lead2_generations(device, cfg, names: tuple) -> tuple:
+    """``cfg`` at its width, seeded random weights and 90% SRigL masks
+    (gen-1), and gen-2: the masks of the stacks ``names`` rolled by one
+    input row over all their leading axes (a rewire at an unchanged
+    fan-in), every float param times 1.01, those stacks' versions bumped.
+    Returns (reg, gen-1, gen-2), each (params, masks, versions)."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.sparse import registry as REG
-    cfg = configs.get_config(arch)
     reg = REG.build_registry(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
     masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
-    s = next(s for s in reg if s.name == name)
-    if len(s.lead) != 2:
-        raise AssertionError(f"{arch} {name}: lead {s.lead}, not two axes")
     masks2 = _map_leaves(masks, lambda m: m)
-    REG.set_path(masks2, s.path, torch.roll(REG.get_path(masks, s.path), 1, dims=-2))
+    for s in reg:
+        if s.name in names:
+            REG.set_path(masks2, s.path, torch.roll(REG.get_path(masks, s.path), 1, dims=-2))
     params2 = _map_leaves(params, lambda t: t * 1.01)
     versions = {x.name: 0 for x in reg}
-    return cfg, reg, (params, masks, versions), (params2, masks2, dict(versions, **{name: 1}))
+    return reg, (params, masks, versions), (params2, masks2,
+                                            dict(versions, **{n: 1 for n in names}))
 
 
 def _decoder_ids(eng) -> dict:
@@ -5498,12 +5705,14 @@ def _lead2_kernels(cfg, counts: dict) -> None:
         raise AssertionError(f"{cfg.name}: launched {counts}, expected {sorted(want)}")
 
 
-def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
-    """[refresh:lead2] and [sync:lead2] on one config (LEAD2), condensed,
+def lead2_refresh_sync(device, card: str, arch: str, names: tuple, *,
+                       depth: int | None = None, tag: str = "lead2") -> None:
+    """[refresh:<tag>] and [sync:<tag>] on one config (LEAD2, or the
+    hybrid's at a ``depth`` cut), the stacks ``names`` rewired, condensed,
     bf16. Refresh: request A (B=4, prompt 32, 16 new tokens; chunks of 8 on
     the paged engine, one dispatch on the slab one) starts on gen-1,
     refresh(gen-2) lands after its first chunk (paged) or after it
-    (slab), then A's rest and request B. Gates: exactly the rewired stack
+    (slab), then A's rest and request B. Gates: exactly the rewired stacks
     re-exported; every leaf kept its shapes and data_ptr; no decode graph
     recaptured (paged: captures; slab: the captured steps kept) and B not
     cold; B's tokens equal those of a fresh engine built from gen-2 (on the
@@ -5515,22 +5724,30 @@ def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
     equal the refreshed engine's bitwise. Prints the refresh and drain
     seconds and the record bytes."""
     import torch
+    from repro_torch import configs
     from repro_torch.launch import engine as E
     from repro_torch.sync import Publisher, QueueChannel, Subscriber, engine_from_snapshot
 
     t0 = time.perf_counter()
-    cfg, reg, g1, g2 = _lead2_generations(device, arch, name)
+    _part("setup")
+    cfg = configs.get_config(arch)
+    full = cfg.n_layers
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    reg, g1, g2 = _lead2_generations(device, cfg, names)
     cfg = cfg.replace(dtype="bfloat16")
+    names = sorted(names)
     gen = torch.Generator(device=device).manual_seed(3)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
                             dtype=torch.int32)
     prompts2 = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
                              dtype=torch.int32)
-    lead = next(s.lead for s in reg if s.name == name)
+    leads = {s.name: s.lead for s in reg if s.name in names}
     torch.cuda.synchronize()
-    print(f"[refresh:lead2] {arch}: {cfg.n_layers} layers at the published width, stacks "
-          f"{[(s.name, s.lead) for s in reg]}; gen-2 rewires {name} (lead {lead}) and scales "
-          f"every param by 1.01; init {time.perf_counter() - t0:.1f}s")
+    depth_s = ("" if depth is None else f" of the published {full} (depth cut)")
+    print(f"[refresh:{tag}] {arch}: {cfg.n_layers} layers{depth_s} at the published width, "
+          f"stacks {[(s.name, s.lead) for s in reg]}; gen-2 rewires {names} (leads {leads}) "
+          f"and scales every param by 1.01; init {time.perf_counter() - t0:.1f}s")
 
     def engine(g):
         return E.ServingEngine(cfg, g[0], g[1], reg, path="condensed", block_size=ENGINE_BLOCK,
@@ -5547,9 +5764,11 @@ def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
         return len(after)
 
     # refresh
+    _part("init")
     eng = engine(g1)
     _zero_counts()
     rid, res_a = _lead2_first(eng, prompts)
+    _part("serve")
     before, captures = _leaf_storage(eng), eng.captures
     decoders = _decoder_ids(eng)
     torch.cuda.synchronize()
@@ -5557,16 +5776,18 @@ def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
     changed = eng.refresh(g2[0], g2[1], g2[2])
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t1
-    if [sorted(v) for v in changed.values()] != [[name]]:
-        raise AssertionError(f"[refresh:lead2:{arch}] re-exported {changed}")
+    if [sorted(v) for v in changed.values()] != [names]:
+        raise AssertionError(f"[refresh:{tag}:{arch}] re-exported {changed}")
+    _part("refresh")
     res_a, res_b = _lead2_finish(eng, rid, res_a, prompts2)
+    _part("serve")
     _lead2_kernels(cfg, _counts())
-    n_leaves = gates(f"refresh:lead2:{arch}", eng, before, captures, decoders, res_b)
+    n_leaves = gates(f"refresh:{tag}:{arch}", eng, before, captures, decoders, res_b)
     paged = eng.paged
     refreshed = (res_a.tokens, res_b.tokens)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
+    _part("setup")
     fresh = engine(g2)
     if paged:  # B took the bucket's rows 4-7: the fresh engine's request on them
         rid = fresh.submit(prompts, GEN)
@@ -5575,49 +5796,54 @@ def lead2_refresh_sync(device, card: str, arch: str, name: str) -> None:
     rid = fresh.submit(prompts2, GEN)
     fresh.step()
     [res_f] = fresh.retire(rid)
+    _part("fresh")
     if not torch.equal(res_f.tokens, refreshed[1]):
-        raise AssertionError(f"[refresh:lead2:{arch}] a fresh gen-2 engine serves other tokens "
+        raise AssertionError(f"[refresh:{tag}:{arch}] a fresh gen-2 engine serves other tokens "
                              f"than the refreshed one")
     del fresh
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     where = "after request A's first chunk" if paged else "between requests A and B"
-    print(f"[refresh:lead2:{arch}] {card}: {'paged' if paged else 'slab'} engine, condensed "
+    print(f"[refresh:{tag}:{arch}] {card}: {'paged' if paged else 'slab'} engine, condensed "
           f"bf16: refresh {refresh_s:.3f}s (host clock, synchronised) {where}; re-exported "
-          f"{name} only; leaves copied in place {n_leaves}/{n_leaves}; graphs recaptured 0; "
+          f"{names} only; leaves copied in place {n_leaves}/{n_leaves}; graphs recaptured 0; "
           f"B == a fresh gen-2 engine's tokens bitwise")
 
     # sync
+    _part("setup")
     ch = QueueChannel()
     pub = Publisher(cfg, reg, ch, path="condensed", batch_size=BATCH, arch=arch)
     snap = pub.publish(params=g1[0], masks=g1[1], mask_versions=g1[2])
+    _part("publish")
     sub = Subscriber(ch.subscribe("replica"), name="replica")
     eng = engine_from_snapshot(cfg, sub, registry=reg, device=device, block_size=ENGINE_BLOCK,
                                gen_chunk=REFRESH_CHUNK)
+    _part("sync_setup")
     _zero_counts()
     rid, res_a = _lead2_first(eng, prompts)
+    _part("serve")
     before, captures = _leaf_storage(eng), eng.captures
     decoders = _decoder_ids(eng)
     topo = pub.publish(params=g2[0], masks=g2[1], mask_versions=g2[2])
-    if topo["topology"] != [name]:
-        raise AssertionError(f"[sync:lead2:{arch}] topology delta for {topo['topology']}")
+    _part("publish")
+    if sorted(topo["topology"]) != names:
+        raise AssertionError(f"[sync:{tag}:{arch}] topology delta for {topo['topology']}")
     res_a, res_b = _lead2_finish(eng, rid, res_a, prompts2)
+    _part("drain+serve")
     _lead2_kernels(cfg, _counts())
     if eng._sync_generation != 2:
-        raise AssertionError(f"[sync:lead2:{arch}] drained to gen {eng._sync_generation}")
-    gates(f"sync:lead2:{arch}", eng, before, captures, decoders, res_b)
+        raise AssertionError(f"[sync:{tag}:{arch}] drained to gen {eng._sync_generation}")
+    gates(f"sync:{tag}:{arch}", eng, before, captures, decoders, res_b)
     if not (torch.equal(res_a.tokens, refreshed[0]) and torch.equal(res_b.tokens, refreshed[1])):
-        raise AssertionError(f"[sync:lead2:{arch}] drained tokens differ from "
-                             f"[refresh:lead2]'s")
+        raise AssertionError(f"[sync:{tag}:{arch}] drained tokens differ from "
+                             f"[refresh:{tag}]'s")
     where = "at request A's chunk boundary" if paged else "at the top of B's step"
-    print(f"[sync:lead2:{arch}] {card}: snapshot {snap['bytes']} B (encode "
+    print(f"[sync:{tag}:{arch}] {card}: snapshot {snap['bytes']} B (encode "
           f"{snap['encode_s']:.3f}s), topology delta {topo['bytes']} B ({topo['topology']}; "
           f"encode {topo['encode_s']:.3f}s); drain {eng.last_drain_s:.3f}s {where}; leaves "
           f"written in place {n_leaves}/{n_leaves}; no graph recaptured; A and B == "
-          f"[refresh:lead2]'s tokens bitwise")
+          f"[refresh:{tag}]'s tokens bitwise")
     del eng, pub, sub, ch, g1, g2
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
 
 @contextlib.contextmanager
@@ -5820,8 +6046,7 @@ def autotune_moe_phase(device, card: str) -> list:
                   + "; ".join(f"{r} rows {d}->{n}: {v}"
                               for (r, d, n), v in sorted(reads.items())))
             del eng
-            gc.collect()
-            torch.cuda.empty_cache()
+            _release()
         del params, masks
     finally:
         if old is None:
@@ -5830,8 +6055,7 @@ def autotune_moe_phase(device, card: str) -> list:
             os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old
         AT.reset_cache_state()
     del keys
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return records
 
 
@@ -5839,11 +6063,75 @@ def lead2_phase(device, card: str) -> list:
     """[refresh:lead2] and [sync:lead2] on gemma3-1b and granite-moe-1b
     (``lead2_refresh_sync``), then [autotune:moe]. Returns the latter's
     records."""
-    for arch, name in LEAD2:
+    for arch, names in LEAD2:
         t0 = time.perf_counter()
-        lead2_refresh_sync(device, card, arch, name)
+        lead2_refresh_sync(device, card, arch, names)
         print(f"[time] lead2:{arch}: {time.perf_counter() - t0:.1f}s")
     return autotune_moe_phase(device, card)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family ([kernel:hybrid], [hybrid:*], [refresh:hybrid],
+# [sync:hybrid])
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-7b"
+# prompts of 300 tokens: two 256-token SSD chunks, the second padded
+HYBRID_PROMPT = 300
+# the depth of the f32 pair and of [refresh:hybrid] / [sync:hybrid]: two
+# groups of 6 Mamba2 layers, each followed by the shared block, then the 3
+# m_rem layers, so every stack kind is present
+HYBRID_CUT = 15
+# (dtype, path, values dtype, depth) served by [hybrid:*]
+HYBRID_PATHS = (("bfloat16", "masked", None, None), ("bfloat16", "condensed", None, None),
+                ("bfloat16", "condensed", "int8", None), ("bfloat16", "auto", None, None),
+                ("float32", "masked", None, HYBRID_CUT),
+                ("float32", "condensed", None, HYBRID_CUT),
+                ("float32", "condensed", "int8", HYBRID_CUT))
+# the largest |prefill logit difference| two correct paths may show at the
+# hybrid's depth (LOGIT_NOISE_BOUND's role): bf16 rounding, amplified
+# through 81 Mamba2 layers and 13 shared-block applications (94 blocks, the
+# 28 of qwen3-1.7b's LOGIT_NOISE_BOUND), reached 0.21 (condensed against
+# masked) and 0.33 (int8 codes against their dequantized twin) on the card;
+# a wrong kernel moves the logits by their own scale. f32 as everywhere.
+HYBRID_NOISE_BOUND = {"bfloat16": 0.5, "float32": LOGIT_NOISE_BOUND["float32"]}
+# [refresh:hybrid] / [sync:hybrid]: one stack of the shared block (no
+# leading axis) and one Mamba2 group stack (lead (g, r)) rewired together
+HYBRID_REWIRED = ("shared_attn/w_down", "m_groups/in_x")
+# zamba2's decode layers: a Mamba2 layer's stacks and the shared block's
+HYBRID_LAYERS = {"Mamba2": MAMBA2_LAYER, "shared-block": ("wo", "w_gate", "w_up", "w_down")}
+
+
+def hybrid_kernel_phase(device) -> list:
+    """[kernel:hybrid]: ``_family_kernel_phase`` at zamba2-7b's six stack
+    shapes (in_z and in_x 3584 -> 7168 k 360, out_proj 7168 -> 3584 k 719,
+    wo 3584 -> 3584 k 479, w_gate and w_up 3584 -> 14336 k 300, w_down
+    14336 -> 3584 k 1199; out_proj and w_down past d_in 6656, where no
+    decode kernel exists), the prefill's 4 x HYBRID_PROMPT rows, one
+    Mamba2 and one shared-block decode layer."""
+    return _family_kernel_phase(device, "hybrid", HYBRID_ARCH, HYBRID_PROMPT, HYBRID_LAYERS,
+                                seed=6)
+
+
+def hybrid_phase(device, card: str) -> dict:
+    """[hybrid:*]: ``_family_phase`` on zamba2-7b at its published width
+    and depth (81 Mamba2 layers, d_model 3584, d_inner 7168, 112 SSD heads
+    of 64, state 64; one shared attention + MLP block, 32 heads of 112 and
+    d_ff 14336, after every 6th layer, 13 times), prompts of HYBRID_PROMPT
+    tokens, on HYBRID_PATHS (f32 at the HYBRID_CUT depth), held at
+    HYBRID_NOISE_BOUND: condensed launches K1 (3 x 81 + 4 x 13) x (1 + GEN)
+    times, int8 K2 as often, and each of the 13 shared KV slabs is written."""
+    return _family_phase(device, card, "hybrid", HYBRID_ARCH, HYBRID_PROMPT, HYBRID_PATHS,
+                         HYBRID_NOISE_BOUND)
+
+
+def hybrid_refresh_sync_phase(device, card: str) -> None:
+    """[refresh:hybrid] and [sync:hybrid]: ``lead2_refresh_sync`` on
+    zamba2-7b at HYBRID_CUT layers of its published width, condensed, bf16,
+    one stack of the shared block (no leading axis) and one Mamba2 group
+    stack (lead (g, r)) rewired (HYBRID_REWIRED)."""
+    lead2_refresh_sync(device, card, HYBRID_ARCH, HYBRID_REWIRED, depth=HYBRID_CUT,
+                       tag="hybrid")
 
 
 def main() -> int:
@@ -5880,10 +6168,17 @@ def main() -> int:
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        _PARTS.update(t=t0, parts={})
         out = fn(*args)
+        _part("setup")
         print(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+        for part, sec in sorted(_PARTS["parts"].items(), key=lambda kv: -kv[1]):
+            if sec >= 0.05:
+                print(f"[time:{name}:{part}] {sec:.1f}s")
         return out
 
+    print(f"[time] start: {time.perf_counter() - _T_START:.1f}s (imports, nvidia-smi, "
+          f"the card's first use)")
     timed("build", build_phase)
     cases = timed("kernel", kernel_phase, device)
     cases += timed("ablation_kernel", ablation_kernel_phase, device)
@@ -5899,6 +6194,7 @@ def main() -> int:
     zoo_cases = timed("kernel_zoo", zoo_kernel_phase, device)
     moe_cases = timed("kernel_moe", moe_kernel_phase, device)
     ssm_cases = timed("kernel_ssm", ssm_kernel_phase, device)
+    hybrid_cases = timed("kernel_hybrid", hybrid_kernel_phase, device)
     setup = timed("model_setup", model_setup, device)
     launches = {"K1": timed("slice", slice_phase, setup, card)}
     ablation = timed("ablation", ablation_phase, setup, card)
@@ -5922,8 +6218,7 @@ def main() -> int:
     timed("grad_structured", structured_grad_phase, setup)
     report = setup["report"]
     del setup
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     report["srigl_dst_s"] = timed("train", train_phase, device, card)
     rigl_cases = timed("rigl", rigl_phase, device, card, report,
                        [c for c in cases if c["kernel"] == "K1"])
@@ -5932,8 +6227,7 @@ def main() -> int:
     refreshed = timed("refresh", refresh_phase, gens, card)
     timed("sync", sync_phase, gens, refreshed, card)
     del gens
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     launches["K1"] += timed("zoo", zoo_phase, device, card)
     moe = timed("moe", moe_phase, device, card)
     launches["K1"] += moe["K1"]
@@ -5946,6 +6240,10 @@ def main() -> int:
     if AT.cache_path() != str(cache) or AT.has_kernel_entries():
         raise AssertionError(f"after [autotune:moe] the wrappers read {AT.cache_path()}, "
                              f"which must be {cache} with no launch entries")
+    hybrid = timed("hybrid", hybrid_phase, device, card)
+    launches["K1"] += hybrid["K1"]
+    launches["K2"] += hybrid["K2"]
+    timed("hybrid_sync", hybrid_refresh_sync_phase, device, card)
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 
@@ -5956,7 +6254,8 @@ def main() -> int:
                     "rigl_cases": rigl_cases, "spec_cases": spec_cases,
                     "autotune_cases": autotune_cases, "zoo_cases": zoo_cases,
                     "moe_cases": moe_cases, "ssm_cases": ssm_cases,
-                    "autotune_moe_cases": autotune_moe_cases}, indent=1))
+                    "autotune_moe_cases": autotune_moe_cases,
+                    "hybrid_cases": hybrid_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:
@@ -5995,6 +6294,7 @@ def main() -> int:
             "library_ms": total["library_ms"],
             "shape": shape,
         })
+    print(f"[time] total: {time.perf_counter() - _T_START:.1f}s from the script's start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

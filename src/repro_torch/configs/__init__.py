@@ -11,6 +11,7 @@ from repro_torch.configs import (
     mistral_large_123b,
     qwen2_vl_7b,
     qwen3_1_7b,
+    zamba2_7b,
 )
 from repro_torch.configs.base import ArchConfig, ShapeConfig, SparsityConfig  # noqa: F401
 from repro_torch.configs.shapes import ALL_SHAPES, SHAPES, shapes_for  # noqa: F401
@@ -24,6 +25,7 @@ _MODULES = {
     "granite-moe-1b-a400m": granite_moe_1b,
     "kimi-k2-1t-a32b": kimi_k2_1t,
     "mamba2-130m": mamba2_130m,
+    "zamba2-7b": zamba2_7b,
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -20,14 +20,14 @@ import numpy as np
 import torch
 
 
-# the moe and ssm families' batches are the dense family's
-_FAMILIES = ("dense", "vlm", "moe", "ssm")
+# the moe, ssm and hybrid families' batches are the dense family's
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _check_family(family: str) -> None:
     if family not in _FAMILIES:
         raise NotImplementedError(f"family {family!r} batches are not ported yet "
-                                  f"(ROADMAP queue 1, item 8, steps 6-8)")
+                                  f"(ROADMAP queue 1, item 8, steps 7-8)")
 
 
 @dataclasses.dataclass

@@ -85,7 +85,9 @@ the reference (``attention.paged_cache_write``), on any device.
 The SSM family (mamba2) serves on the slab path too, its decode state
 (conv_x, conv_bc, h per layer) in the contiguous cache: a captured decode
 step reads and writes it in place, and each prefill starts it from zeros
-(``models.model.reset_cache``).
+(``models.model.reset_cache``). So does the hybrid (zamba2): the SSM state
+of its Mamba2 layers, and one KV slab for each application of its shared
+attention block, whose stacks have no leading axis.
 
 ``refresh``, sync and ``autotune`` take stacks with two leading axes
 (gemma3's ``g_local`` (g, r), the MoE expert stacks (L, E)) as any other.

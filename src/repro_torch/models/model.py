@@ -1,4 +1,4 @@
-"""Decoder LM, dense, VLM, MoE and SSM families (port of ``repro/models/model.py``).
+"""Decoder LM, dense, VLM, MoE, SSM and hybrid families (port of ``repro/models/model.py``).
 
 Parameters are a nested dict with the reference's paths and stacked layout:
 ``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0, or, for
@@ -7,6 +7,11 @@ layout: ``g_local`` with lead (g, r), ``g_global`` with lead (g,) and
 ``g_rem`` with lead (rem,), where g = n_layers // (r + 1) and rem the layers
 left over. Each group runs its r local layers at ``cfg.sliding_window``,
 then its global layer at window 0; ``g_rem`` runs last, at the window. The
+hybrid family (zamba2, r = ``cfg.hybrid_attn_every``) has g = n_layers // r
+groups of r Mamba2 layers, ``m_groups`` with lead (g, r), each followed by
+one *shared* attention + MLP block, ``shared_attn``, whose params have no
+leading axis (one block applied g times; its KV cache has lead (g,), one
+slab an application), then ``m_rem`` with lead (rem,). The
 reference scans over the stacks with ``lax.scan``; here a Python loop
 slices one layer at a time. Sparse linears receive their serving leaf (a
 bool mask or a ``formats.SparseFormat``) from the ``masks`` tree, whose
@@ -21,7 +26,8 @@ experts, ``models/moe.py``; the blocks' expert stacks have leads (L, E),
 the backbone sums the routers' load-balance losses and ``loss_fn`` adds
 0.01 of it) and the SSM family (a Mamba2 / SSD mixer a layer,
 ``models/ssm.py``, its decode state (conv_x, conv_bc, h) kept per layer in
-the cache and written in place): ``init_params``, ``prefill_step``,
+the cache and written in place) and the hybrid family (Mamba2 layers and
+the shared block, above): ``init_params``, ``prefill_step``,
 ``decode_step`` and their
 pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
 ``loss_fn`` for training. ``remat="block"`` recomputes each block and
@@ -33,7 +39,7 @@ serve the continuous-batching engine from a shared page pool, for the
 uniform full-attention ``blocks`` layout only, as in the reference (the
 MoE family included, but not its speculative verify, whose groups of B *
 (gamma + 1) rows would route and drop tokens other than plain decode's).
-The hybrid, audio and encoder-only ViT families are not ported
+The audio and encoder-only ViT families are not ported
 (``check_supported`` refuses them).
 """
 from __future__ import annotations
@@ -70,12 +76,12 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    if (cfg.family not in ("dense", "vlm", "moe", "ssm") or not cfg.causal
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") or not cfg.causal
             or cfg.is_moe != (cfg.family == "moe")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (causal={cfg.causal}) is not ported to "
-            f"repro_torch yet; the dense, vlm, moe and ssm families are (hybrid, audio "
-            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 6-8)")
+            f"repro_torch yet; the dense, vlm, moe, ssm and hybrid families are (audio "
+            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 7-8)")
 
 
 def group_counts(cfg) -> tuple[int, int, int]:
@@ -86,26 +92,60 @@ def group_counts(cfg) -> tuple[int, int, int]:
     return g, r, cfg.n_layers - g * (r + 1)
 
 
+def hybrid_counts(cfg) -> tuple[int, int, int]:
+    """(g, r, rem) of the hybrid layout: g groups of r Mamba2 layers, each
+    followed by the shared block, then rem Mamba2 layers."""
+    r = cfg.hybrid_attn_every
+    g = cfg.n_layers // r
+    return g, r, cfg.n_layers - g * r
+
+
 def block_stacks(cfg) -> list[tuple[str, tuple[int, ...]]]:
     """(params key, leading dims) of each block stack."""
+    if cfg.family == "hybrid":
+        g, r, rem = hybrid_counts(cfg)
+        return ([("m_groups", (g, r))] + ([("m_rem", (rem,))] if rem else [])
+                + [("shared_attn", ())])
     if not cfg.local_global_ratio:
         return [("blocks", (cfg.n_layers,))]
     g, r, rem = group_counts(cfg)
     return [("g_local", (g, r)), ("g_global", (g,))] + ([("g_rem", (rem,))] if rem else [])
 
 
-def _block_order(cfg) -> list[tuple[str, tuple[int, ...], int]]:
-    """Each layer's (stack key, index in the stack's leading dims, window)
-    in execution order."""
+def _block_entries(cfg) -> list[tuple[str, tuple[int, ...], tuple[int, ...], int]]:
+    """Each block application's (stack key, params index, cache index,
+    window) in execution order. The two indices differ only for the hybrid's
+    shared block: its params have no leading axis (index ``()``), its i-th
+    application keeps its own KV slab (cache index ``(i,)``). The shared
+    block attends at window 0 (the reference's training scan passes
+    ``cfg.sliding_window``, which no hybrid config sets)."""
     w = cfg.sliding_window
+    if cfg.family == "hybrid":
+        g, r, rem = hybrid_counts(cfg)
+        out = []
+        for i in range(g):
+            out += [("m_groups", (i, j), (i, j), w) for j in range(r)]
+            out.append(("shared_attn", (), (i,), 0))
+        return out + [("m_rem", (i,), (i,), w) for i in range(rem)]
     if not cfg.local_global_ratio:
-        return [("blocks", (i,), w) for i in range(cfg.n_layers)]
+        return [("blocks", (i,), (i,), w) for i in range(cfg.n_layers)]
     g, r, rem = group_counts(cfg)
     out = []
     for i in range(g):
-        out += [("g_local", (i, j), w) for j in range(r)]
-        out.append(("g_global", (i,), 0))
-    return out + [("g_rem", (i,), w) for i in range(rem)]
+        out += [("g_local", (i, j), (i, j), w) for j in range(r)]
+        out.append(("g_global", (i,), (i,), 0))
+    return out + [("g_rem", (i,), (i,), w) for i in range(rem)]
+
+
+def _block_order(cfg) -> list[tuple[str, tuple[int, ...], int]]:
+    """Each block application's (stack key, params index, window) in
+    execution order."""
+    return [(key, idx, w) for key, idx, _, w in _block_entries(cfg)]
+
+
+def _is_ssm_stack(cfg, key: str) -> bool:
+    """Whether the blocks of stack ``key`` are Mamba2 (SSM) blocks."""
+    return cfg.family == "ssm" or (cfg.family == "hybrid" and key != "shared_attn")
 
 
 # ===========================================================================
@@ -166,7 +206,7 @@ def _init_ssm_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
     return p
 
 
-_BLOCK_INIT = {"moe": _init_moe_block, "ssm": _init_ssm_block}
+_BLOCK_INIT = {"moe": _init_moe_block, "ssm": _init_ssm_block, "hybrid": _init_ssm_block}
 
 
 def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> Params:
@@ -185,7 +225,9 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
         params["lm_head"] = L.dense_init(generator, d, vp, dtype)
     init = _BLOCK_INIT.get(cfg.family, _init_attn_block)
     for key, lead in block_stacks(cfg):
-        params[key] = init(generator, cfg, dtype, k_fan, lead=lead)
+        # the hybrid's shared block is an attention + MLP block
+        block_init = _init_attn_block if key == "shared_attn" else init
+        params[key] = block_init(generator, cfg, dtype, k_fan, lead=lead)
     return params
 
 
@@ -227,9 +269,15 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 def _layer_trees(cfg, tree: dict) -> dict:
     """{(stack key, index): one layer's tree} of a params or serving tree
     (a stack the tree lacks gives empty trees). A (g, r) stack splits twice:
-    into its g groups, each keeping the inner r dim, then into layers."""
+    into its g groups, each keeping the inner r dim, then into layers. A
+    stack with no leading axis (the hybrid's shared block) is one layer,
+    index ``()``, the tree itself: never split, so each application reads
+    the same tensors and autograd sums their gradients."""
     out = {}
     for key, lead in block_stacks(cfg):
+        if not lead:
+            out[key, ()] = tree.get(key, {})
+            continue
         for i, t in enumerate(_unstack(tree.get(key, {}), lead[0])):
             if len(lead) == 1:
                 out[key, (i,)] = t
@@ -383,9 +431,10 @@ def _maybe_remat(cfg, fn):
                                     preserve_rng_state=False)
 
 
-def _train_block(cfg, p, m, x, positions, window):
-    """One block for training: (x, aux_loss), the aux None off the MoE family."""
-    if cfg.family == "ssm":
+def _train_block(cfg, key, p, m, x, positions, window):
+    """One block of stack ``key`` for training: (x, aux_loss), the aux None
+    off the MoE family."""
+    if _is_ssm_stack(cfg, key):
         return ssm_res_block(cfg, p, m, x)[0], None
     if cfg.family == "moe":
         x, _, aux = attn_moe_block(cfg, p, m, x, positions=positions, window=window)
@@ -406,7 +455,7 @@ def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
     block = _maybe_remat(cfg, _train_block)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for key, idx, window in _block_order(cfg):
-        x, aux = block(cfg, layers_p[key, idx], layers_m[key, idx], x, positions, window)
+        x, aux = block(cfg, key, layers_p[key, idx], layers_m[key, idx], x, positions, window)
         if aux is not None:  # the MoE family: the routers' load-balance losses
             aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -546,12 +595,23 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
 
     The SSM family keeps no KV cache: ``blocks`` holds each layer's
     ``SSM_STATE`` (``_ssm_cache``), of a size independent of ``max_len``.
+    The hybrid keeps the SSM state of ``m_groups`` with lead (g, r) and of
+    ``m_rem`` with lead (rem,), and full KV caches for the shared block's g
+    applications, ``shared_attn`` with lead (g,).
     """
     check_supported(cfg)
     dt = _dt(cfg)
     cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
         cache["blocks"] = _ssm_cache(cfg, cfg.n_layers, bsz, dt, device)
+        return cache
+    if cfg.family == "hybrid":
+        g, r, rem = hybrid_counts(cfg)
+        cache["m_groups"] = {k: v.reshape(g, r, *v.shape[1:])
+                             for k, v in _ssm_cache(cfg, g * r, bsz, dt, device).items()}
+        if rem:
+            cache["m_rem"] = _ssm_cache(cfg, rem, bsz, dt, device)
+        cache["shared_attn"] = _attn_cache(cfg, g, bsz, max_len, dt, device)
         return cache
     if not cfg.local_global_ratio:
         s = min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
@@ -573,19 +633,20 @@ def reset_cache(cfg, cache: dict) -> None:
     prefill: the length to 0 and the SSM state to zeros (a KV cache past
     the length is never read, so it is left as it is)."""
     cache["len"].zero_()
-    if cfg.family == "ssm":
-        for f in SSM_STATE:
-            cache["blocks"][f].zero_()
+    for key, _ in block_stacks(cfg):
+        if _is_ssm_stack(cfg, key):
+            for f in SSM_STATE:
+                cache[key][f].zero_()
 
 
 def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
     layers_p, layers_m = _layer_trees(cfg, params), _layer_trees(cfg, masks)
-    for key, idx, window in _block_order(cfg):
+    for key, idx, cidx, window in _block_entries(cfg):
         c = cache[key]
-        if cfg.family == "ssm":
+        if _is_ssm_stack(cfg, key):
             # the layer's state read from the cache and the new one written
             # back in place (a captured decode step's static buffers)
-            state = tuple(c[f][idx] for f in SSM_STATE)
+            state = tuple(c[f][cidx] for f in SSM_STATE)
             x, new_state = ssm_res_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
                                          state=state, decode=decode)
             for buf, v in zip(state, new_state):
@@ -593,7 +654,7 @@ def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
             continue
         x, _ = _serve_block(cfg, layers_p[key, idx], layers_m[key, idx], x,
                             positions=positions, window=window,
-                            cache=(c["k"][idx], c["v"][idx], cache["len"]), decode=decode)
+                            cache=(c["k"][cidx], c["v"][cidx], cache["len"]), decode=decode)
     return x
 
 

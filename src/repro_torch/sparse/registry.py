@@ -3,16 +3,20 @@
 The registry enumerates every sparse weight *stack* (a group of
 identically-shaped layers stacked on leading dims, e.g. ``("blocks",
 "w_gate")`` with ``lead=(L,)``, gemma3's ``("g_local", "w_gate")`` with
-``lead=(g, r)``, or an MoE expert stack ``("blocks", "w_gate")`` with
-``lead=(L, E)``) and solves the ERK (or uniform) densities over the
-stacks. Paper defaults: MLP and attention-output projections are sparse;
-QKV input projections, norms and embeddings stay dense.
+``lead=(g, r)``, an MoE expert stack ``("blocks", "w_gate")`` with
+``lead=(L, E)``, or the hybrid's shared block ``("shared_attn",
+"w_gate")`` with no leading axis, ``lead=()``) and solves the ERK (or
+uniform) densities over the stacks. Paper defaults: MLP and
+attention-output projections are sparse; QKV input projections, norms and
+embeddings stay dense.
 
-Ported: the dense, VLM, MoE and SSM families' enumeration (the ``blocks``
-layout, the grouped local/global one, the expert stacks and the SSM
-mixers' ``in_z`` / ``in_x`` / ``out_proj``), ``k_fan_map``, the tree path helpers, mask
-initialization and the topology update over every stack (``dst_update``)
-for SRigL, RigL and SET, the ITOP tracker and ``sparsity_summary``.
+Ported: the dense, VLM, MoE, SSM and hybrid families' enumeration (the
+``blocks`` layout, the grouped local/global one, the expert stacks, the SSM
+mixers' ``in_z`` / ``in_x`` / ``out_proj``, and the hybrid's ``m_groups``
+(g, r), ``m_rem`` (rem,) and ``shared_attn`` ()), ``k_fan_map``, the tree
+path helpers, mask initialization and the topology update over every
+stack (``dst_update``) for SRigL, RigL and SET, the ITOP tracker and
+``sparsity_summary``.
 """
 from __future__ import annotations
 
@@ -108,14 +112,19 @@ def build_registry(cfg) -> list[SparseStack]:
     """All sparse stacks of ``cfg`` with ERK/uniform densities solved."""
     if cfg.sparsity.method == "dense":
         return []
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"item 8, steps 6-8)")
+            f"item 8, steps 7-8)")
     if cfg.family == "moe":
         stacks = _moe_stacks(cfg, ("blocks",), (cfg.n_layers,))
     elif cfg.family == "ssm":
         stacks = _ssm_stacks(cfg, ("blocks",), (cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        # the Mamba2 stacks (m_groups, then m_rem), then the shared block's
+        stacks = [s for key, lead in M.block_stacks(cfg)
+                  for s in (_attn_stacks(cfg, (key,), lead) if key == "shared_attn"
+                            else _ssm_stacks(cfg, (key,), lead))]
     else:
         # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
         # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))
@@ -176,7 +185,8 @@ def init_sparsity_state(cfg, generator: torch.Generator,
 def _map_over_lead(fn, n_lead: int, *args):
     """``fn`` on one layer slab at a time along the FIRST leading axis (the
     reference's ``lax.map``), its (state, stats) stacked; inner leading axes
-    go to ``fn`` whole. Selection temporaries then stay at one slab's size."""
+    go to ``fn`` whole. Selection temporaries then stay at one slab's size.
+    A stack with no leading axis (the hybrid's shared block) is one slab."""
     if n_lead == 0:
         return fn(*args)
     return R.stack_stats([fn(*xs) for xs in zip(*args)])

@@ -73,11 +73,21 @@ def test_invalid_sparsity_raises_as_in_the_reference():
 
 
 def test_unported_families_raise():
-    # the moe and ssm families are ported (tests/test_torch_moe_model.py,
-    # tests/test_torch_ssm.py); the hybrid is not
-    cfg = tconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16)
-    with pytest.raises(NotImplementedError):
-        TR.build_registry(cfg)
+    # the moe, ssm and hybrid families are ported (tests/test_torch_moe_model.py,
+    # tests/test_torch_ssm.py, tests/test_torch_hybrid.py); audio is not
+    cfg = tconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16,
+                                                  hybrid_attn_every=1)
+    assert [(s.name, s.lead) for s in TR.build_registry(cfg)] == [
+        ("m_groups/in_z", (2, 1)), ("m_groups/in_x", (2, 1)), ("m_groups/out_proj", (2, 1)),
+        ("shared_attn/wo", ()), ("shared_attn/w_gate", ()), ("shared_attn/w_up", ()),
+        ("shared_attn/w_down", ())]
+    assert [(s.name, s.lead) for s in TR.build_registry(cfg)] == [
+        (s.name, s.lead) for s in JR.build_registry(
+            jconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16,
+                                                    hybrid_attn_every=1))]
+    with pytest.raises(NotImplementedError, match="item 8, steps 7-8"):
+        TR.build_registry(tconfigs.get_smoke_config(ARCH).replace(family="audio",
+                                                                  n_codebooks=4))
     ssm = tconfigs.get_smoke_config(ARCH).replace(family="ssm", ssm_state=16)
     assert [s.path[-1] for s in TR.build_registry(ssm)] == ["in_z", "in_x", "out_proj"]
 
@@ -87,6 +97,7 @@ def test_unported_families_raise():
 NEW_ARCHS = ("internlm2-20b", "mistral-large-123b", "gemma3-1b", "qwen2-vl-7b")
 MOE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 SSM_ARCHS = ("mamba2-130m",)  # fields and registry: tests/test_torch_ssm.py
+HYBRID_ARCHS = ("zamba2-7b",)  # fields and registry: tests/test_torch_hybrid.py
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -115,7 +126,8 @@ def test_new_registry_stacks_densities_and_fan_ins_equal(arch, getter):
 
 
 def test_every_ported_arch_is_registered_with_the_references_shapes():
-    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS, *SSM_ARCHS}
+    assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS, *SSM_ARCHS,
+                                       *HYBRID_ARCHS}
     assert [dataclasses.asdict(s) for s in tconfigs.ALL_SHAPES] == [
         dataclasses.asdict(s) for s in jconfigs.ALL_SHAPES]
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == {
@@ -150,5 +162,13 @@ def test_other_unported_families_raise(family, kw):
     if family == "ssm":  # ported since item 8 step 5 (tests/test_torch_ssm*.py)
         assert [s.lead for s in TR.build_registry(cfg)] == [(cfg.n_layers,)] * 3
         return
-    with pytest.raises(NotImplementedError, match="item 8, steps 6-8"):
+    if family == "hybrid":  # ported since item 8 step 6 (tests/test_torch_hybrid*.py)
+        # 2 layers at hybrid_attn_every 6: no group, two m_rem layers, and
+        # the shared block's stacks with no leading axis, as in the reference
+        assert [s.lead for s in TR.build_registry(cfg)] == [(0, 6)] * 3 + [(2,)] * 3 + [()] * 4
+        assert [s.lead for s in TR.build_registry(cfg)] == [
+            s.lead for s in JR.build_registry(jconfigs.get_smoke_config(ARCH).replace(
+                family=family, **kw))]
+        return
+    with pytest.raises(NotImplementedError, match="item 8, steps 7-8"):
         TR.build_registry(cfg)

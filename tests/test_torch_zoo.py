@@ -230,6 +230,17 @@ def test_grouped_train_state_round_trips_through_both_checkpoints(tmp_path):
     ("vit", dict(causal=False))])
 def test_unported_families_are_refused_naming_item_8(family, kw):
     cfg = TC.get_smoke_config("qwen3-1.7b").replace(family=family, **kw)
+    if family == "hybrid":
+        # ported since item 8 step 6 (the rest: tests/test_torch_hybrid*.py);
+        # two groups of one Mamba2 layer, each followed by the shared block
+        cfg = cfg.replace(hybrid_attn_every=1)
+        TM.check_supported(cfg)
+        params = TM.init_params(cfg, torch.Generator())
+        assert params["m_groups"]["in_x"].shape == (2, 1, cfg.d_model, cfg.d_inner)
+        assert params["shared_attn"]["w_gate"].shape == (cfg.d_model, cfg.d_ff)
+        assert [s.name for s in TR.build_registry(cfg)][-1] == "shared_attn/w_down"
+        TD.SyntheticLM(vocab_size=16, seq_len=4, batch_size=1, family=family)
+        return
     if family == "ssm":
         # ported since item 8 step 5 (the rest: tests/test_torch_ssm*.py)
         TM.check_supported(cfg)
