@@ -288,7 +288,34 @@ Phases, each of which raises (exit code != 0) on any failed check:
    bound, with a line per decode layer of each kind. Then hybrid_sync:
    lead2's refresh and sync at the 15-layer cut with one shared stack
    (lead ()) and one m_groups stack (lead (2, 6)) rewired.
-23. reference: the smoke config on the card against the port's CPU path
+23. vit: vit-b16 (the paper's own transformer: encoder-only, no RoPE, a
+   class head over mean-pooled hidden states, uniform 90% densities) at
+   its published width and depth, random weights and SRigL masks drawn on
+   the card, its classification forward on frontend_embeds (256, 197,
+   768) over plans built at the forward's 50,432 rows: bf16 masked,
+   condensed (K1), int8 condensed (K2), condensed_over_active on half-
+   ablated masks (K4), structured on their ablation-only projection (K5)
+   and auto, then f32 masked / condensed at B=32: 48 launches of the
+   path's kernel a forward, class logits held to masked's (int8: its
+   dequantized twin's) within the measured bound and top-1 classes under
+   the tie rule, repeated forwards bitwise; walls, images/s, peak memory.
+   Then vit_train: the Trainer at full width, 32 images a step, 3 AdamW
+   steps with one SRigL update (gamma_sal 0.95, ablation on). Its kernel
+   phase (kernel:vit, after kernel:hybrid): K1, K2, K4 and K5 at its three
+   stack shapes at 256 rows (the paper's batch-256 layer) and 50,432 (the
+   first 4096 rows bitwise a 4096-row launch, that launch held to the
+   plain version), beside torch.matmul and the bound.
+24. audio: musicgen-medium (4 codebooks: embeddings summed, a head each)
+   at its published width and depth (48 layers), random weights and 90%
+   SRigL ERK masks drawn on the card, B=4 prompts (4, 4, 32) and 16 greedy
+   tokens a codebook by prefill_step and 16 decode_steps (no serving loop
+   takes audio prompts, as in the reference), bf16 masked, condensed, int8
+   condensed and auto, f32 masked and condensed: K1 (K2) 4 x 48 x 17 =
+   3264 launches a condensed (int8) request, repeated requests equal, every
+   codebook's tokens held to masked's (int8: its twin's) under the tie
+   rule. Its kernel phase (kernel:audio, after kernel:vit): K1 and K2 at
+   its stack shapes, decode B=4 and the prefill's 128 rows.
+25. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched
@@ -6134,6 +6161,635 @@ def hybrid_refresh_sync_phase(device, card: str) -> None:
                        tag="hybrid")
 
 
+# ---------------------------------------------------------------------------
+# the encoder-only ViT (vit-b16, the paper's own transformer) and the audio
+# family (musicgen-medium's codebooks): [kernel:vit], [kernel:audio],
+# [vit:*], [vit:train], [audio:*]
+# ---------------------------------------------------------------------------
+
+VIT_ARCH = "vit-b16"
+AUDIO_ARCH = "musicgen-medium"
+# a B=256 forward: 256 images of 196 patches + the CLS slot, every linear at
+# 256 x 197 = 50,432 rows; the paper's GPU figure is one 90% sparse linear
+# at batch 256 (1.7x over dense, 13.0x over CSR)
+VIT_BATCH, VIT_TOKENS = 256, 197
+VIT_ROWS = (VIT_BATCH, VIT_BATCH * VIT_TOKENS)
+# the rows of a full launch held bitwise against a launch of their own,
+# which is held to the plain version (whose gather of (rows, n, k) at the
+# full rows would take ~24 GB for w_gate)
+VIT_HELD_ROWS = 4096
+# the f32 masked / condensed pair runs a smaller batch
+VIT_F32_BATCH = 32
+# [vit:train]: 32 images a step, 3 AdamW steps, the SRigL update after the
+# second (delta_t 2; gamma_sal 0.95, the paper's ViT recipe)
+VIT_TRAIN_BATCH = 32
+VIT_LAYER = ("wo", "w_gate", "w_up", "w_down")
+# [audio:*]: B=4 prompts of (4 codebooks, 32 tokens) + GEN greedy tokens a
+# codebook, by prefill_step and GEN decode_steps (no serving loop takes
+# (B, K, T) prompts, as in the reference)
+AUDIO_PATHS = (("bfloat16", "masked", None), ("bfloat16", "condensed", None),
+               ("bfloat16", "condensed", "int8"), ("bfloat16", "auto", None),
+               ("float32", "masked", None), ("float32", "condensed", None))
+
+
+def _vit_operands(gen, d_in: int, d_out: int, k: int, device) -> dict:
+    """One ViT stack shape's operands, bf16: K1's values and indices, K2's
+    int8 codes and scales, K4's export of the mask with half its neurons
+    ablated, K5's panel of the ablation-only mask; and the weight each is
+    timed against with torch.matmul (the dense masked weight; K5's panel,
+    whose product ``index_copy_`` places). Returns them by kernel, and K4's
+    surviving rows and K5's padded column count."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+    bf16 = torch.bfloat16
+    mask = topology.random_constant_fan_in_mask(gen, d_in, d_out, k)
+    w = torch.randn((d_in, d_out), generator=gen, device=device) / k ** 0.5
+    vals32, idx = topology.dense_to_condensed(w * mask, mask, k)
+    codes, scales = F.quantize_values(vals32, "int8")
+    ablated = _ablated(mask, ABLATION)
+    stats = F.realized_stats(ablated)
+    coa = F.CondensedOverActive.export_from_dense(w, ablated, stats)
+    ai = F.StructuredFanIn.from_mask(_ablated(torch.ones_like(mask), ABLATION)).active_index
+    masked = (w * mask).to(bf16).contiguous()
+    out = dict(
+        K1=dict(args=(vals32.to(bf16).contiguous(), idx), kw={}, library=masked),
+        K2=dict(args=(codes.contiguous(), idx), kw=dict(scales=scales.contiguous()),
+                library=masked),
+        K4=dict(args=(coa.values.to(bf16).contiguous(), coa.indices, coa.out_index), kw={},
+                library=(w * ablated).to(bf16).contiguous()))
+    panel = sm._gather_columns(w.to(bf16), ai)
+    out["K5"] = dict(args=(panel, ai), kw={}, library=panel)  # then index_copy_
+    return out, (int(stats.max_active), int(ai.numel()))
+
+
+def _vit_call(kern: str, d_out: int):
+    """The wrapper of ``kern`` as f(x, *operands)."""
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import structured_matmul as sm
+    if kern in ("K1", "K2"):
+        return lambda x, v, i, s=None: cm.condensed_matmul(x, v, i, scales=s)
+    if kern == "K4":
+        return lambda x, v, i, o: sm.condensed_over_active_matmul(x, v, i, o, d_out)
+    return lambda x, p, a: sm.structured_matmul_pregathered(x, p, a, d_out)
+
+
+def _vit_plain(kern: str, d_out: int):
+    """The plain version of ``kern`` as f(x, *operands)."""
+    from repro_torch.kernels import ref
+    if kern in ("K1", "K2"):
+        return lambda x, v, i, s=None: _plain_gather(x, v, i, s)
+    if kern == "K4":
+        return lambda x, v, i, o: ref.condensed_over_active_matmul_ref(x, v, i, o, d_out)
+    return lambda x, p, a: ref.structured_matmul_ref(x, p, a, d_out)
+
+
+def vit_kernel_phase(device) -> list:
+    """[kernel:vit]: K1, K2 (int8 codes), K4 and K5 (half the neurons
+    ablated, ablation-only for K5) at each of vit-b16's stack shapes (wo
+    1024 -> 768 k 102 with 4 of its 16 heads padding, w_gate / w_up 768 ->
+    3072 k 77, w_down 3072 -> 768 k 307: the uniform 90% densities), bf16,
+    at the paper's batch-256 layer (256 rows) and a B=256 forward's 50,432
+    rows. At 256 rows each launch is held to its plain version within TOL
+    (K1 and K2 also decode(first 4 rows) == tiled bitwise); at 50,432 the
+    first VIT_HELD_ROWS rows are held bitwise against a launch of those
+    rows, itself held to the plain version. Each is timed beside
+    torch.matmul on the dense weight it computes (K5: on its panel, then
+    index_copy_) and the bound; then a layer (wo + w_gate + w_up + w_down)
+    a kernel and row count. Prints [kernel:vit] lines; returns the
+    records."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(11)
+    cases = []
+    for (d_in, d_out, k), names in _arch_shapes(VIT_ARCH).items():
+        ops_of, (a, a_pad) = _vit_operands(gen, d_in, d_out, k, device)
+        print(f"[kernel:vit] {'/'.join(names)} {d_in}->{d_out}: k {k}; half the neurons "
+              f"ablated: a {a}, a_pad {a_pad}")
+        for kern, o in ops_of.items():
+            args = o["args"] + tuple(o["kw"].values())
+            wbytes = sum(t.numel() * t.element_size() for t in args)
+            weight_sets = [tuple(t.clone() for t in args) for _ in range(_copies(wbytes))]
+            lib_w = o["library"]
+            lib_sets = [lib_w.clone() for _ in range(_copies(lib_w.numel() * 2))]
+            call, plain = _vit_call(kern, d_out), _vit_plain(kern, d_out)
+            if kern == "K5":
+                ai_long = args[1].long()
+
+                def library(x_, p_):  # a sentinel column lands in the spare one
+                    return torch.zeros((x_.shape[0], d_out + 1), dtype=bf16, device=device
+                                       ).index_copy_(1, ai_long, torch.matmul(x_, p_))[:, :d_out]
+            else:
+                library = torch.matmul
+            # the work this call's data needs: the k-sums of its stored
+            # rows (K4: the surviving rows; K5: the panel's columns)
+            macs_row = args[0].numel()
+            for rows in VIT_ROWS:
+                x = torch.randn((rows, d_in), generator=gen, device=device).to(bf16)
+                y = call(x, *args)
+                held = min(rows, VIT_HELD_ROWS)
+                if rows > held:
+                    part = call(x[:held], *args)
+                    if not torch.equal(y[:held], part):
+                        raise AssertionError(f"[kernel:vit] {kern} {d_in}->{d_out}: the "
+                                             f"first {held} of {rows} rows are not bitwise "
+                                             f"a {held}-row launch")
+                    pair = f"first {held} of {rows} rows == a {held}-row launch"
+                else:
+                    part = y
+                    pair = ""
+                want, plain_ms = _timed_call(plain, x[:held], *args)
+                torch.testing.assert_close(part.float(), want.float(), **TOL["bfloat16"])
+                err = (part.float() - want.float()).abs().max().item()
+                del want
+                if kern in ("K1", "K2") and rows == VIT_BATCH:
+                    if not torch.equal(cm.condensed_matmul_decode(x[:BATCH], *o["args"],
+                                                                  **o["kw"]), y[:BATCH]):
+                        raise AssertionError(f"[kernel:vit] {kern} {d_in}->{d_out}: "
+                                             f"decode(first {BATCH} rows) != tiled")
+                    pair = f"decode(first {BATCH} rows) == tiled"
+                big = rows > VIT_HELD_ROWS
+                ms = _time_ms(call, [(x, *w_) for w_ in weight_sets],
+                              reps=3 if big else 5, iters=6 if big else 30)
+                library_ms = _time_ms(library, [(x, w_) for w_ in lib_sets],
+                                      reps=3 if big else 5, iters=6 if big else 30)
+                nbytes = wbytes + rows * d_in * 2 + rows * d_out * 2
+                ops = 2 * rows * macs_row
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+                rec = dict(kernel=kern, arch=VIT_ARCH, stack="/".join(names),
+                           names=list(names), d_in=d_in, n_out=d_out, k=k, dtype="bfloat16",
+                           batch=rows, launch="tiled", ms=ms,
+                           plain_ms=plain_ms if not big else None,
+                           plain_rows=held, plain_held_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=nbytes, ops=ops, max_abs_err=err, bitwise=pair)
+                cases.append(rec)
+                print(f"[kernel:vit] {kern} {'/'.join(names):12s} {d_in}->{d_out} k={k} bf16 "
+                      f"rows={rows:5d}: us {ms * 1e3:.2f} | plain {plain_ms * 1e3:.2f}"
+                      f"{'' if not big else f' (its first {held} rows)'} | torch.matmul "
+                      f"{library_ms * 1e3:.2f} | bound {rec['bound_ms'] * 1e3:.2f} "
+                      f"({rec['bound_by']}) | max_abs_err {err:.3g}"
+                      + (f" | {pair}: bitwise" if pair else ""))
+                del x, y, part
+            del weight_sets, lib_sets
+        del ops_of
+        torch.cuda.empty_cache()
+    for kern in ("K1", "K2", "K4", "K5"):
+        for rows in VIT_ROWS:
+            layer = [(c, len(c["names"])) for c in cases
+                     if c["kernel"] == kern and c["batch"] == rows]
+            tot = {t: sum(c[t] * n for c, n in layer)
+                   for t in ("ms", "plain_held_ms", "library_ms", "bound_ms")}
+            print(f"[kernel:vit] {VIT_ARCH} one layer ({' + '.join(VIT_LAYER)}, bf16"
+                  f"{', int8 codes' if kern == 'K2' else ''}"
+                  f"{', half the neurons ablated' if kern in ('K4', 'K5') else ''}, "
+                  f"rows={rows}): {kern} {tot['ms'] * 1e3:.2f} us | bound "
+                  f"{tot['bound_ms'] * 1e3:.2f} us | plain {tot['plain_held_ms'] * 1e3:.2f} us"
+                  f"{'' if rows <= VIT_HELD_ROWS else f' (at {VIT_HELD_ROWS} rows)'} | "
+                  f"torch.matmul {tot['library_ms'] * 1e3:.2f} us | kernel / torch.matmul "
+                  f"{tot['ms'] / tot['library_ms']:.2f}")
+    return cases
+
+
+def audio_kernel_phase(device) -> list:
+    """[kernel:audio]: ``_family_kernel_phase`` at musicgen-medium's stack
+    shapes (wo 2048 -> 1536 k 276 with 8 of its 32 heads padding, w_gate /
+    w_up 1536 -> 6144 k 148, w_down 6144 -> 1536 k 591: every d_in within
+    K1's decode kernel), decode B=4 and the prefill's 4 x 32 rows."""
+    return _family_kernel_phase(device, "audio", AUDIO_ARCH, PROMPT,
+                                {"attn+MLP": VIT_LAYER}, seed=13)
+
+
+def _plan_expected(cfg, plan, passes: int) -> dict:
+    """Kernel launches ``passes`` forward passes over ``plan``'s tree imply:
+    each stack's kernel once a layer a pass (quantized values: K2 /
+    K2-coa)."""
+    quant = plan.values_dtype is not None
+    kernel_of = {"condensed": "K2" if quant else "K1",
+                 "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
+    expected = _none()
+    for s in plan.registry:
+        rep = plan.representation_of(s.name)
+        if rep in kernel_of:
+            expected[kernel_of[rep]] += _applications(cfg, s) * passes
+    return expected
+
+
+def _vit_forward(cfg, compute, tree, x):
+    """vit-b16's classification forward: ``frontend_embeds`` x (B, T, d)
+    through the backbone over serving tree ``tree``, then the class head
+    (``class_logits``): (B, n_classes) float32."""
+    import torch
+    from repro_torch.models import model as M
+    with torch.inference_mode():
+        h, pos = M.embed_inputs(cfg, compute, {"frontend_embeds": x})
+        hidden, _ = M.backbone(cfg, compute, tree, h, positions=pos)
+        return M.class_logits(cfg, compute, hidden)
+
+
+def _class_ties(label: str, logits, ref_logits, tie: float, against: str) -> int:
+    """Top-1 classes against ``against``'s: they may part only where its
+    top-2 gap is below ``tie``. Returns the images that agree."""
+    import torch
+    top2 = ref_logits.topk(2, dim=-1).values
+    gaps = top2[:, 0] - top2[:, 1]
+    differ = logits.argmax(-1) != ref_logits.argmax(-1)
+    if bool((differ & (gaps >= tie)).any()):
+        worst = gaps[differ].max().item()
+        raise AssertionError(f"{label}: a top-1 class differs from {against} at a top-2 gap "
+                             f"of {worst:.4g} (tie below {tie:.4g})")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite class logits")
+    return int((~differ).sum())
+
+
+def vit_phase(device, card: str) -> dict:
+    """[vit:*]: vit-b16 at its published width and depth (12 layers, d_model
+    768, 12 heads of 64 padded to 16, d_ff 3072, 1000 classes), seeded
+    random weights and 90% uniform SRigL masks drawn on the card, the
+    classification forward on frontend_embeds (256, 197, 768) over plans
+    built at its 50,432 rows: bf16 masked, condensed (K1), int8 condensed
+    (K2), condensed_over_active on the masks with half the neurons ablated
+    (K4), structured on their ablation-only projection (K5), auto (on the
+    ablated masks; its choices printed); then f32 masked / condensed at
+    B=32. Gates: a path's forward launches its kernel 12 x 4 = 48 times
+    (auto: as its plan implies); its class logits within the measured
+    difference from masked's on the same masks (int8: its dequantized
+    twin's), below LOGIT_NOISE_BOUND (f32: 1e-3), and its top-1 classes
+    masked's but at a top-2 gap below max(TIE_GAP, 2 x that difference);
+    repeated forwards bitwise. Prints the forward's wall (median of 3),
+    images/s and max_memory_allocated. Returns the bf16 K1, K2, K4 and K5
+    launches of one forward each."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    launches = {"K1": 0, "K2": 0, "K4": 0, "K5": 0}
+    rows = VIT_BATCH * VIT_TOKENS
+    for dtype_name in ("bfloat16", "float32"):
+        cfg = configs.get_config(VIT_ARCH).replace(dtype=dtype_name)
+        reg = REG.build_registry(cfg)
+        k_fan = REG.k_fan_map(cfg, reg)
+        if k_fan != {"wo": 102, "w_gate": 77, "w_up": 77, "w_down": 307}:
+            raise AssertionError(f"vit-b16 fan-ins {k_fan}")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = M.init_params(cfg, gen, k_fan)
+        masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+        b = VIT_BATCH if dtype_name == "bfloat16" else VIT_F32_BATCH
+        x = torch.randn((b, VIT_TOKENS, cfg.d_model), generator=gen, device=device)
+        compute = M.serving_params(cfg, params)
+        torch.cuda.synchronize()
+        _part("init")
+        print(f"[vit] {VIT_ARCH}: {cfg.n_layers} layers (published depth), d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} padded to "
+              f"{cfg.n_heads_padded}, d_ff {cfg.d_ff}, {cfg.n_classes} classes, causal "
+              f"{cfg.causal} (no RoPE); {cfg.sparsity.distribution} densities at "
+              f"{cfg.sparsity.sparsity}, fan-ins {k_fan}; frontend_embeds {b}x{VIT_TOKENS}x"
+              f"{cfg.d_model} ({b * VIT_TOKENS} rows a linear); {dtype_name}; init "
+              f"{time.perf_counter() - t0:.1f}s")
+        ablated = _ablate_masks(reg, masks, ABLATION)
+        only = _ablation_only(reg, masks, ABLATION)
+        if dtype_name == "bfloat16":
+            runs = (("masked", masks, "masked", None, None),
+                    ("condensed", masks, "condensed", None, "masked"),
+                    ("condensed:int8", masks, "condensed", "int8", "twin"),
+                    ("masked:ablated", ablated, "masked", None, None),
+                    ("condensed_over_active", ablated, "condensed_over_active", None,
+                     "masked:ablated"),
+                    ("auto", ablated, "auto", None, "masked:ablated"),
+                    ("masked:ablation-only", only, "masked", None, None),
+                    ("structured", only, "structured", None, "masked:ablation-only"))
+        else:
+            runs = (("masked", masks, "masked", None, None),
+                    ("condensed", masks, "condensed", None, "masked"))
+        refs: dict = {}
+        for name, m, path, vd, against in runs:
+            label = f"vit:{name}" + ("" if dtype_name == "bfloat16" else ":f32")
+            t0 = time.perf_counter()
+            if path == "masked":
+                plan, tree = None, m
+            else:
+                plan = PLAN.build_plan(cfg, reg, params, m, batch_size=b * VIT_TOKENS,
+                                       path=path, values_dtype=vd)
+                tree = plan.serving_tree
+            torch.cuda.synchronize()
+            export_s = time.perf_counter() - t0
+            _part("export")
+            torch.cuda.reset_peak_memory_stats(device)
+            _vit_forward(cfg, compute, tree, x)  # warm
+            torch.cuda.synchronize()
+            _zero_counts()
+            logits = _vit_forward(cfg, compute, tree, x)
+            torch.cuda.synchronize()
+            counts = _counts()
+            want = _none() if plan is None else _plan_expected(cfg, plan, 1)
+            if counts != want:
+                raise AssertionError(f"{label}: launched {counts}, expected {want}")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                again = _vit_forward(cfg, compute, tree, x)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+                if not torch.equal(again, logits):
+                    raise AssertionError(f"{label}: a repeated forward gave other logits")
+            peak = torch.cuda.max_memory_allocated(device)
+            _part("forward")
+            if path == "masked":
+                refs[name] = logits
+                held = (f"{len(set(logits.argmax(-1).tolist()))} distinct top-1 classes of "
+                        f"{b}")
+            else:
+                ref = refs[against] if against != "twin" else _vit_forward(
+                    cfg, compute, _dequantized_twin(plan, getattr(torch, dtype_name)), x)
+                who = "the dequantized twin (K1)" if against == "twin" else against
+                d = (logits - ref).abs().max().item()
+                bound = LOGIT_NOISE_BOUND["bfloat16"] if dtype_name == "bfloat16" else 1e-3
+                if not d <= bound:
+                    raise AssertionError(f"{label}: class logits differ from {who} by {d}, "
+                                         f"above {bound}")
+                tie = max(TIE_GAP[dtype_name], 2 * d)
+                agree = _class_ties(label, logits, ref, tie, who)
+                held = (f"class logits within {d:.4g} of {who} (bound {bound}); top-1 "
+                        f"equal in {agree}/{b} (the rest at a top-2 gap below {tie:.4g})")
+                _part("checks")
+            if plan is not None and dtype_name == "bfloat16" and path != "auto":
+                for key, n in counts.items():
+                    if key in launches:
+                        launches[key] += n
+            chose = ""
+            if path == "auto":
+                chose = "; chose " + ", ".join(f"{s.name} {plan.representation_of(s.name)}"
+                                              for s in reg)
+            wall = statistics.median(walls)
+            print(f"[{label}] {card}: forward {b}x{VIT_TOKENS} wall {wall * 1e3:.2f} ms "
+                  f"(median of {len(walls)}), {b / wall:.1f} images/s; export "
+                  f"{export_s:.2f}s; launches { {n: c for n, c in counts.items() if c} }"
+                  f"{chose}; {held}; peak memory {peak / 2**30:.3f} GiB "
+                  f"(max_memory_allocated)")
+            del plan, tree, logits, again
+        del params, masks, compute, x, refs, ablated, only
+        _release()
+    return launches
+
+
+def vit_train_phase(device, card: str) -> None:
+    """[vit:train]: ``launch/train.py``'s Trainer on vit-b16 at its
+    published width and depth from a seeded init, bf16 compute,
+    VIT_TRAIN_BATCH images of 197 patch embeddings a step (SyntheticLM's vit
+    branch, as the train CLI builds it), 3 AdamW steps with the SRigL
+    update (gamma_sal 0.95, ablation on) after the second: every loss
+    finite, the update's invariants (an active neuron's fan-in its layer's
+    k', an ablated neuron's column empty, grown weights 0). Prints each
+    step's seconds, the DST step's and n_ablated per stack. It launches no
+    port kernel (masked-dense training)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import Trainer
+
+    base = configs.get_config(VIT_ARCH)
+    cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=2))
+    trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 3), log_every=1)
+    reg = trainer.registry
+    dst_times: list = []
+    _timed_dst(trainer, dst_times)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    data = SyntheticLM(vocab_size=max(cfg.vocab_size, 2), seq_len=VIT_TOKENS,
+                       batch_size=VIT_TRAIN_BATCH, seed=0, family=cfg.family,
+                       n_codebooks=cfg.n_codebooks, d_model=cfg.d_model)
+    batches = Prefetcher(data.iterate(), depth=2, pin=True)
+    _zero_counts()
+    _part("setup")
+    logs: list = []
+    try:
+        for i in range(3):
+            old_masks = state.masks
+            old_versions = {k: int(v) for k, v in state.mask_versions.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, batches, 1, log_fn=logs.append)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            loss = float(trainer.last_metrics["loss"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"[vit:train] step {i}: loss {loss}")
+            dst = i == 1
+            print(f"[vit:train] step {i}: loss {loss:.4f}, {dt * 1e3:.1f} ms"
+                  + (" with the SRigL update" if dst else ""))
+            if dst:
+                _check_dst(cfg, reg, state, old_masks, old_versions)
+                ablated = {s.name: int((~REG.get_path(state.neuron_active, s.path)).sum())
+                           for s in reg}
+            del old_masks
+    finally:
+        batches.close()
+    if _counts() != _none():
+        raise AssertionError(f"[vit:train] the masked-dense trainer launched {_counts()}")
+    _part("train")
+    print(f"[vit:train] {card}: {VIT_TRAIN_BATCH}x{VIT_TOKENS} rows a step, bf16; SRigL DST "
+          f"step {[round(t * 1e3, 1) for t in dst_times]} ms; n_ablated {ablated} (of "
+          f"{cfg.n_layers} x d_out neurons a stack); every loss finite, fan-in constant, "
+          f"ablated columns empty")
+    del state, trainer
+    _release()
+
+
+def _audio_run(cfg, compute, tree, prompts, gen_len: int):
+    """musicgen's serving loop: ``prefill_step`` on prompts (B, K, T), then
+    ``gen_len`` ``decode_step``s, each feeding the tokens just chosen (each
+    codebook's argmax) into the cache, as a serving loop's decode does.
+    Returns (tokens (B, K, gen_len), the top-2 gaps they were chosen at,
+    the prefill's logits (B, K, V), prefill s, decode s)."""
+    import torch
+    from repro_torch.models import model as M
+    b, _, t = prompts.shape
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = M.init_cache(cfg, b, t + gen_len, prompts.device)
+        logits, cache = M.prefill_step(cfg, compute, tree, {"tokens": prompts}, cache)
+        first = logits[..., :cfg.vocab_size]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, gaps = [], []
+        for step in range(gen_len):
+            lg = logits[..., :cfg.vocab_size]
+            top2 = lg.topk(2, dim=-1).values
+            gaps.append(top2[..., 0] - top2[..., 1])
+            cur = lg.argmax(-1).to(torch.int32)                        # (B, K)
+            toks.append(cur)
+            logits, cache = M.decode_step(cfg, compute, tree, {"tokens": cur[..., None]},
+                                          cache)
+        out = torch.stack(toks, -1), torch.stack(gaps, -1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (*out, first, t1 - t0, t2 - t1)
+
+
+def audio_phase(device, card: str) -> dict:
+    """[audio:*]: musicgen-medium at its published width and depth (48
+    layers, d_model 1536, 24 heads of 64 padded to 32, d_ff 6144, 4
+    codebooks of 2048), seeded random weights and 90% SRigL ERK masks drawn
+    on the card, B=4 prompts (4, 4, 32) + GEN greedy tokens a codebook
+    (``_audio_run``), in bf16 on masked, condensed (K1), int8 condensed (K2)
+    and auto, then f32 masked and condensed, each path's plan built at the
+    request's bucket. Gates: a condensed request launches K1 4 x 48 x (1 +
+    GEN) = 3264 times (int8: K2), auto as its plan implies; repeated
+    requests give the same tokens; every codebook's tokens equal masked's
+    (int8: its dequantized twin's) up to a stream's first differing
+    position, where each codebook that differs has a top-2 gap below
+    max(TIE_GAP, 2 d), d the prefill logits' difference, itself below
+    LOGIT_NOISE_BOUND (a stream's codebooks share its next input). Prints
+    the wall (median of 3) with its prefill and decode parts, ms a decode
+    step and max_memory_allocated; each dtype's model is freed before the
+    next. Returns the bf16 K1 and K2 launches of one request each."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    passes = 1 + GEN  # the prefill and GEN decode steps
+    launches = {"K1": 0, "K2": 0}
+    model_of = None
+    for dtype_name, path, vd in AUDIO_PATHS:
+        if model_of is None or model_of[0] != dtype_name:
+            model_of = params = compute = masks = None
+            _release()
+            t0 = time.perf_counter()
+            cfg = configs.get_config(AUDIO_ARCH).replace(dtype=dtype_name)
+            reg = REG.build_registry(cfg)
+            k_fan = REG.k_fan_map(cfg, reg)
+            if k_fan != {"wo": 276, "w_gate": 148, "w_up": 148, "w_down": 591}:
+                raise AssertionError(f"musicgen-medium fan-ins {k_fan}")
+            gen = torch.Generator(device=device).manual_seed(0)
+            params = M.init_params(cfg, gen, k_fan)
+            masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+            prompts = torch.randint(0, cfg.vocab_size, (BATCH, cfg.n_codebooks, PROMPT),
+                                    generator=gen, device=device, dtype=torch.int32)
+            compute = M.serving_params(cfg, params)
+            torch.cuda.synchronize()
+            _part("init")
+            n_par = sum(v.numel() for v in _leaf_list(params))
+            print(f"[audio] {AUDIO_ARCH}: {cfg.n_layers} layers (published depth), d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} padded to "
+                  f"{cfg.n_heads_padded}, d_ff {cfg.d_ff}, {cfg.n_codebooks} codebooks of "
+                  f"{cfg.vocab_size} (embed {tuple(params['embed'].shape)}, lm_head "
+                  f"{tuple(params['lm_head'].shape)}); {n_par / 1e9:.3f} B params; fan-ins "
+                  f"{k_fan}; served {dtype_name}; prompts {tuple(prompts.shape)} + {GEN}; "
+                  f"init {time.perf_counter() - t0:.1f}s, "
+                  f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+            model_of = (dtype_name,)
+            refs: dict = {}
+        label = (f"audio:{path}" + (f":{vd}" if vd else "")
+                 + ("" if dtype_name == "bfloat16" else ":f32"))
+        t0 = time.perf_counter()
+        if path == "masked":
+            plan, tree = None, masks
+        else:
+            plan = PLAN.build_plan(cfg, reg, params, masks,
+                                   batch_size=PLAN.batch_bucket(BATCH), path=path,
+                                   values_dtype=vd)
+            tree = plan.serving_tree
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        _part("export")
+        torch.cuda.reset_peak_memory_stats(device)
+        first = _audio_run(cfg, compute, tree, prompts, GEN)
+        _zero_counts()
+        run = _audio_run(cfg, compute, tree, prompts, GEN)
+        counts = _counts()
+        want = _none() if plan is None else _plan_expected(cfg, plan, passes)
+        if counts != want:
+            raise AssertionError(f"{label}: launched {counts}, expected {want}")
+        if path == "condensed":
+            key = "K2" if vd else "K1"
+            if counts[key] != len(reg) * cfg.n_layers * passes:
+                raise AssertionError(f"{label}: {key} x {counts[key]}, expected "
+                                     f"{len(reg)} x {cfg.n_layers} x {passes}")
+            if dtype_name == "bfloat16":
+                launches[key] += counts[key]
+        runs = [first, run, _audio_run(cfg, compute, tree, prompts, GEN)]
+        for r in runs[:-1]:
+            if not torch.equal(r[0], runs[-1][0]):
+                raise AssertionError(f"{label}: a repeated request gave other tokens")
+        peak = torch.cuda.max_memory_allocated(device)
+        _part("serve")
+        toks, gaps, logits0 = run[0], run[1], run[2]
+        if not (toks.shape == (BATCH, cfg.n_codebooks, GEN)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+            raise AssertionError(f"{label}: bad tokens {tuple(toks.shape)}")
+        if path == "masked":
+            refs["masked"] = (toks, gaps, logits0)
+            held = (f"codebook 0 of stream 0 {toks[0, 0].tolist()}, "
+                    f"{len(set(toks.reshape(-1).tolist()))} distinct tokens")
+        else:
+            against = "masked"
+            r_toks, r_gaps, r_logits = refs["masked"]
+            if vd:  # codes held to their dequantized twin (K1), as in [quant]
+                r_toks, r_gaps, r_logits = _audio_run(
+                    cfg, compute, _dequantized_twin(plan, getattr(torch, dtype_name)),
+                    prompts, GEN)[:3]
+                against = "the twin"
+            d = (logits0 - r_logits).abs().max().item()
+            if not d <= LOGIT_NOISE_BOUND[dtype_name]:
+                raise AssertionError(f"{label}: prefill logits differ from {against} by {d}, "
+                                     f"above {LOGIT_NOISE_BOUND[dtype_name]}")
+            tie = max(TIE_GAP[dtype_name], 2 * d)
+            # a stream's codebooks share its next input (their embeddings
+            # are summed), so a stream may part at its first differing
+            # position only where every codebook that differs there is a
+            # tie; after it the whole stream is free
+            agree = 0
+            for bi in range(BATCH):
+                differ = toks[bi] != r_toks[bi]                          # (K, GEN)
+                if not bool(differ.any()):
+                    agree += 1
+                    continue
+                j = int(differ.any(0).nonzero()[0])
+                for ki in differ[:, j].nonzero()[:, 0].tolist():
+                    gap = r_gaps[bi, ki, j].item()
+                    print(f"[{label}] stream {bi}: codebook {ki} parts from {against} at "
+                          f"generated token {j}, top-2 gap {gap:.3g} (tie below {tie:.3g})")
+                    if gap >= tie:
+                        raise AssertionError(f"{label}: tokens differ from {against} at a "
+                                             f"gap of {gap}")
+            held = (f"prefill logits within {d:.4g} of {against}; streams agreeing in "
+                    f"full, every codebook, {agree}/{BATCH} (tie below {tie:.3g})")
+            _part("checks")
+        chose = ""
+        if path == "auto":
+            chose = "; chose " + ", ".join(f"{s.name} {plan.representation_of(s.name)}"
+                                          for s in reg)
+        mid = sorted(runs, key=lambda r: r[3] + r[4])[1]
+        print(f"[{label}] {card}: prefill_step + {GEN} decode_steps, {BATCH}x"
+              f"{cfg.n_codebooks}x{PROMPT} + {GEN}: wall {(mid[3] + mid[4]) * 1e3:.2f} ms "
+              f"(median of 3; prefill {mid[3] * 1e3:.2f} ms, decode {mid[4] * 1e3:.2f} ms, "
+              f"{mid[4] / GEN * 1e3:.2f} ms a decode step, eager); export "
+              f"{export_s:.2f}s; launches { {n: c for n, c in counts.items() if c} }{chose}; "
+              f"{held}; peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+        del plan, tree, runs, first, run
+        _release()
+    del params, compute, masks, refs
+    _release()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6195,6 +6851,8 @@ def main() -> int:
     moe_cases = timed("kernel_moe", moe_kernel_phase, device)
     ssm_cases = timed("kernel_ssm", ssm_kernel_phase, device)
     hybrid_cases = timed("kernel_hybrid", hybrid_kernel_phase, device)
+    vit_cases = timed("kernel_vit", vit_kernel_phase, device)
+    audio_cases = timed("kernel_audio", audio_kernel_phase, device)
     setup = timed("model_setup", model_setup, device)
     launches = {"K1": timed("slice", slice_phase, setup, card)}
     ablation = timed("ablation", ablation_phase, setup, card)
@@ -6244,6 +6902,13 @@ def main() -> int:
     launches["K1"] += hybrid["K1"]
     launches["K2"] += hybrid["K2"]
     timed("hybrid_sync", hybrid_refresh_sync_phase, device, card)
+    vit = timed("vit", vit_phase, device, card)
+    for key in ("K1", "K2", "K4", "K5"):
+        launches[key] += vit[key]
+    timed("vit_train", vit_train_phase, device, card)
+    audio = timed("audio", audio_phase, device, card)
+    launches["K1"] += audio["K1"]
+    launches["K2"] += audio["K2"]
     timed("reference", reference_phase, device)
     timed("train_reference", train_reference_phase, device)
 
@@ -6255,7 +6920,8 @@ def main() -> int:
                     "autotune_cases": autotune_cases, "zoo_cases": zoo_cases,
                     "moe_cases": moe_cases, "ssm_cases": ssm_cases,
                     "autotune_moe_cases": autotune_moe_cases,
-                    "hybrid_cases": hybrid_cases}, indent=1))
+                    "hybrid_cases": hybrid_cases, "vit_cases": vit_cases,
+                    "audio_cases": audio_cases}, indent=1))
     per_layer = {"wo": 1, "w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
     kernels = []
     for key, name, source, replaces in KERNELS:

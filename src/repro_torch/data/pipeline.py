@@ -4,7 +4,9 @@
 Batches are seeded by (run seed, step), so a restarted job regenerates
 exactly the batch it would have seen. The token stream is the reference's
 order-2 Markov chain over the vocab, drawn with numpy from the same seeds,
-so ``SyntheticLM.batch`` gives the reference's arrays bit for bit. A
+so ``SyntheticLM.batch`` gives the reference's arrays bit for bit, for
+every family: audio draws B * K streams, one a codebook; a ViT batch holds
+no tokens, only patch embeddings and class labels. A
 background thread (``Prefetcher``) keeps ``depth`` batches ahead of the
 training loop as pinned CPU tensors; the copy to the card is the caller's,
 explicit and non-blocking.
@@ -20,15 +22,6 @@ import numpy as np
 import torch
 
 
-# the moe, ssm and hybrid families' batches are the dense family's
-_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-
-
-def _check_family(family: str) -> None:
-    if family not in _FAMILIES:
-        raise NotImplementedError(f"family {family!r} batches are not ported yet "
-                                  f"(ROADMAP queue 1, item 8, steps 7-8)")
-
 
 @dataclasses.dataclass
 class SyntheticLM:
@@ -36,17 +29,23 @@ class SyntheticLM:
     ``tokens`` and ``targets``, (B, T) int32; a ``vlm`` batch adds the
     frontend stub's ``frontend_embeds`` (B, T, d_model) float32 and
     ``mrope_positions`` (3, B, T) int32, drawn after the tokens from the
-    same generator, as the reference draws them."""
+    same generator, as the reference draws them. An ``audio`` batch's
+    tokens and targets are (B, K, T), K = ``n_codebooks``: B * K streams
+    drawn as one, row b * K + k codebook k of sequence b. A ``vit`` batch
+    is ``frontend_embeds`` (B, T, d_model) float32 (standard normal) and
+    ``labels`` (B,) int32 in [0, max(vocab_size, 2)): the train CLI passes
+    ``vocab_size=max(cfg.vocab_size, 2)``, 2 for vit, so its labels are 0
+    or 1, as the reference's are."""
 
     vocab_size: int
     seq_len: int
     batch_size: int
     seed: int = 0
     family: str = "dense"
-    d_model: int = 0         # the frontend embeddings' width (vlm)
+    d_model: int = 0         # the frontend embeddings' width (vlm, vit)
+    n_codebooks: int = 0     # the audio family's streams a sequence
 
     def __post_init__(self):
-        _check_family(self.family)
         rng = np.random.default_rng(self.seed)
         v = self.vocab_size
         succ = min(8, v)  # each token has ~8 successors
@@ -56,12 +55,24 @@ class SyntheticLM:
     def batch(self, step: int) -> dict:
         rng = np.random.default_rng((self.seed * 1_000_003 + step) % (2**63))
         b, t, v = self.batch_size, self.seq_len, self.vocab_size
-        toks = np.empty((b, t + 1), np.int32)
-        toks[:, 0] = rng.integers(0, v, size=b)
-        for i in range(t):
-            cur = toks[:, i]
-            choice = (rng.random(b)[:, None] < np.cumsum(self._succ_p[cur], -1)).argmax(-1)
-            toks[:, i + 1] = self._succ_idx[cur, choice]
+
+        def stream(n):
+            toks = np.empty((n, t + 1), np.int32)
+            toks[:, 0] = rng.integers(0, v, size=n)
+            for i in range(t):
+                cur = toks[:, i]
+                choice = (rng.random(n)[:, None] < np.cumsum(self._succ_p[cur], -1)).argmax(-1)
+                toks[:, i + 1] = self._succ_idx[cur, choice]
+            return toks
+
+        if self.family == "audio":
+            s = stream(b * self.n_codebooks).reshape(b, self.n_codebooks, t + 1)
+            return {"tokens": s[..., :-1], "targets": s[..., 1:]}
+        if self.family == "vit":
+            return {"frontend_embeds": rng.standard_normal((b, t, self.d_model))
+                    .astype(np.float32),
+                    "labels": rng.integers(0, max(v, 2), size=b).astype(np.int32)}
+        toks = stream(b)
         batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
         if self.family == "vlm":
             batch["frontend_embeds"] = (
@@ -82,11 +93,20 @@ def make_train_batch(cfg, generator: torch.Generator, batch_size: int, seq_len: 
     and ``targets`` (B, T) int32, uniform over the vocab, ``targets`` the
     tokens shifted by one; a ``vlm`` batch adds ``frontend_embeds``
     (standard normal x 0.02, float32) and ``mrope_positions`` (three copies
-    of ``arange(T)``), as the reference's."""
-    _check_family(cfg.family)
+    of ``arange(T)``); audio's are (B, K, T); a ``vit`` batch is
+    ``frontend_embeds`` (B, T, d_model) standard normal float32 and
+    ``labels`` (B,) int32 in [0, max(n_classes, 2)), as the reference's."""
     dev = generator.device
-    toks = torch.randint(0, cfg.vocab_size, (batch_size, seq_len + 1), generator=generator,
+    if cfg.family == "vit":
+        return {"frontend_embeds": torch.randn((batch_size, seq_len, cfg.d_model),
+                                               generator=generator, device=dev),
+                "labels": torch.randint(0, max(cfg.n_classes, 2), (batch_size,),
+                                        generator=generator, device=dev, dtype=torch.int32)}
+    lead = (batch_size, cfg.n_codebooks) if cfg.family == "audio" else (batch_size,)
+    toks = torch.randint(0, cfg.vocab_size, (*lead, seq_len + 1), generator=generator,
                          device=dev, dtype=torch.int32)
+    if cfg.family == "audio":
+        return {"tokens": toks[..., :-1], "targets": toks[..., 1:]}
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     if cfg.family == "vlm":
         batch["frontend_embeds"] = torch.randn((batch_size, seq_len, cfg.d_model),

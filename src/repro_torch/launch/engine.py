@@ -92,6 +92,13 @@ attention block, whose stacks have no leading axis.
 ``refresh``, sync and ``autotune`` take stacks with two leading axes
 (gemma3's ``g_local`` (g, r), the MoE expert stacks (L, E)) as any other.
 
+The audio family (musicgen) is refused by ``generate``, ``serve_once``,
+``ServingModel`` and ``ServingEngine.submit`` with a ValueError
+(``refuse_audio``), as the reference's fail or refuse: its prompts are
+(B, K, T), and the reference serves them only through
+``models.model.prefill_step`` / ``decode_step``. The encoder-only ViT has
+no decode path at all (``prefill_step`` refuses it).
+
 Not ported: tensor parallelism (``mesh``) and ``abstract_plan_key``
 (ROADMAP queue 1), and speculative decoding on MoE, which raise.
 """
@@ -302,6 +309,19 @@ def _contiguous_decoder(cfg, params, masks, b: int, max_len: int, device, *,
 # ---------------------------------------------------------------------------
 
 
+def refuse_audio(cfg) -> None:
+    """The serving loops take (B, T) prompts; the audio family's are (B, K,
+    T). The reference's ``generate`` fails on them (``b, t =
+    prompts.shape``, its ``launch/engine.py:100``) and its
+    ``ServingEngine.submit`` refuses them (``:850``)."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: audio prompts are (batch, n_codebooks, prompt_len), which the "
+            "serving loops (generate, ServingModel, ServingEngine, the serve CLI) do not "
+            "take, as in the reference (its launch/engine.py:100 and :850): serve the audio "
+            "family through models.model.prefill_step and decode_step")
+
+
 def _prefill(cfg, params, masks, batch, cache):
     return M.prefill_step(cfg, params, masks, batch, cache)
 
@@ -315,6 +335,7 @@ def _timed_serve(cfg, params, masks, prompts: torch.Tensor, gen_len: int, *,
     captured for this call); ``eager=True`` decodes by running the step
     eagerly instead, which only ``_serve_eager`` asks for.
     Returns (tokens (B, T+gen_len), prefill_s, decode_s, decode_tok_per_s)."""
+    refuse_audio(cfg)
     b, t = prompts.shape
     if gen_len == 0:
         return prompts.clone(), 0.0, 0.0, 0.0
@@ -1253,7 +1274,9 @@ class ServingEngine:
         ``[0, vocab_size)``, decode ``gen_len`` greedy tokens per stream.
         Validated and cast to int32 here, so a malformed request fails with
         a readable error rather than as a device gather of garbage rows.
-        Returns the request id."""
+        Returns the request id. The audio family is refused
+        (``refuse_audio``)."""
+        refuse_audio(self.cfg)
         prompts = torch.as_tensor(prompts)
         if prompts.ndim != 2 or 0 in prompts.shape:
             raise ValueError(f"prompts must be (batch, prompt_len) with both dims >= 1; "

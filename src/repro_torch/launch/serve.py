@@ -66,7 +66,9 @@ auto evaluate the same masked weights, so their tokens agree (up to float
 ties). On the card each decode step is a replayed CUDA graph. Runs on CUDA
 unless ``--device cpu``; with no card and no ``--device cpu`` it exits with
 an error. The reference CLI's ``--tp`` is not ported yet (ROADMAP queue 1,
-item 9).
+item 9). As the reference's, it refuses the encoder-only vit-b16 ("no
+decode path"), and musicgen-medium with a ValueError: its prompts are (B,
+K, T), which the engine does not take (``engine.refuse_audio``).
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ import argparse
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.launch.engine import ServingEngine
+from repro_torch.launch.engine import ServingEngine, refuse_audio
 from repro_torch.launch.speculative import SpecConfig
 from repro_torch.models import model as M
 from repro_torch.sparse import plan as PLAN
@@ -153,6 +155,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke_config if args.smoke else configs.get_config)(args.arch)
+    if not cfg.causal:
+        raise SystemExit(f"{args.arch} is encoder-only — no decode path")
+    refuse_audio(cfg)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     reg = REG.build_registry(cfg)

@@ -50,7 +50,7 @@ def main(argv=None):
 
     data = SyntheticLM(vocab_size=max(cfg.vocab_size, 2), seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed, family=cfg.family,
-                       d_model=cfg.d_model)
+                       n_codebooks=cfg.n_codebooks, d_model=cfg.d_model)
     batches = Prefetcher(data.iterate(), depth=2, pin=device.type == "cuda")
     trainer = Trainer(
         cfg=cfg,

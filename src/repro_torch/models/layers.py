@@ -29,8 +29,9 @@ def sparse_init(generator: torch.Generator, d_in: int, d_out: int, k: int,
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
-               dtype=torch.float32) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=generator, device=generator.device)
+               dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Normal init, std 0.02, shape (*lead, vocab, d)."""
+    w = torch.randn((*lead, vocab, d), generator=generator, device=generator.device)
     return (w * 0.02).to(dtype)
 
 

@@ -1,4 +1,5 @@
-"""Decoder LM, dense, VLM, MoE, SSM and hybrid families (port of ``repro/models/model.py``).
+"""Decoder LM, dense, VLM, MoE, SSM, hybrid and audio families, and the
+encoder-only ViT (port of ``repro/models/model.py``).
 
 Parameters are a nested dict with the reference's paths and stacked layout:
 ``params["blocks"][name]`` holds all ``n_layers`` layers on axis 0, or, for
@@ -27,11 +28,19 @@ the backbone sums the routers' load-balance losses and ``loss_fn`` adds
 0.01 of it) and the SSM family (a Mamba2 / SSD mixer a layer,
 ``models/ssm.py``, its decode state (conv_x, conv_bc, h) kept per layer in
 the cache and written in place) and the hybrid family (Mamba2 layers and
-the shared block, above): ``init_params``, ``prefill_step``,
-``decode_step`` and their
-pieces for serving, and ``backbone``, ``cross_entropy_chunked`` and
-``loss_fn`` for training. ``remat="block"`` recomputes each block and
-each cross-entropy chunk in the backward pass
+the shared block, above) and the audio family (musicgen: K codebooks whose
+embeddings are summed, ``embed`` (K, Vp, d), and one head a codebook,
+``lm_head`` (K, d, Vp); tokens (B, K, T), logits (B, K, Vp), the loss the
+mean of the K codebooks' cross-entropies): ``init_params``,
+``prefill_step``, ``decode_step`` and their pieces for serving, and
+``backbone``, ``cross_entropy_chunked`` and ``loss_fn`` for training. The
+ViT family (``causal=False``) is an encoder: no RoPE, attention without a
+causal mask, the precomputed ``frontend_embeds`` (B, T, d) as its input,
+``embed`` the (1, d) CLS stub the reference keeps unused, and a class head
+``lm_head`` (d, n_classes) over the mean-pooled hidden states
+(``class_logits``); it has no decode path, so ``prefill_step`` and
+``decode_step`` refuse it, as the reference's do. ``remat="block"``
+recomputes each block and each cross-entropy chunk in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 ``supports_paged``, ``init_paged_pool``, ``paged_prefill_step``,
 ``paged_decode_step`` and ``paged_verify_step`` (the speculative verify)
@@ -39,8 +48,6 @@ serve the continuous-batching engine from a shared page pool, for the
 uniform full-attention ``blocks`` layout only, as in the reference (the
 MoE family included, but not its speculative verify, whose groups of B *
 (gamma + 1) rows would route and drop tokens other than plain decode's).
-The audio and encoder-only ViT families are not ported
-(``check_supported`` refuses them).
 """
 from __future__ import annotations
 
@@ -76,12 +83,15 @@ def _pdt(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") or not cfg.causal
-            or cfg.is_moe != (cfg.family == "moe")):
+    """Every family of the reference is ported; what is refused is a config
+    no reference config has: a causal ViT, a non-causal decoder, or experts
+    outside the MoE family."""
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio", "vit")
+            or cfg.causal != (cfg.family != "vit") or cfg.is_moe != (cfg.family == "moe")):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (causal={cfg.causal}) is not ported to "
-            f"repro_torch yet; the dense, vlm, moe, ssm and hybrid families are (audio "
-            f"and the encoder-only ViT are ROADMAP queue 1, item 8, steps 7-8)")
+            f"{cfg.name}: family {cfg.family!r} with causal={cfg.causal} and "
+            f"n_experts={cfg.n_experts} is not a configuration of the reference (only "
+            f"the vit family is encoder-only, only the moe family has experts)")
 
 
 def group_counts(cfg) -> tuple[int, int, int]:
@@ -220,9 +230,16 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
     dtype = _pdt(cfg)
     d, vp = cfg.d_model, cfg.vocab_padded
     params: Params = {"final_norm": torch.zeros((d,), dtype=dtype, device=generator.device)}
-    params["embed"] = L.embed_init(generator, vp, d, dtype)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(generator, d, vp, dtype)
+    if cfg.family == "audio":  # one embedding table and one head a codebook
+        params["embed"] = L.embed_init(generator, vp, d, dtype, lead=(cfg.n_codebooks,))
+        params["lm_head"] = L.dense_init(generator, d, vp, dtype, lead=(cfg.n_codebooks,))
+    elif cfg.family == "vit":  # the CLS stub (unused) and the class head
+        params["embed"] = L.embed_init(generator, 1, d, dtype)
+        params["lm_head"] = L.dense_init(generator, d, cfg.n_classes, dtype)
+    else:
+        params["embed"] = L.embed_init(generator, vp, d, dtype)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(generator, d, vp, dtype)
     init = _BLOCK_INIT.get(cfg.family, _init_attn_block)
     for key, lead in block_stacks(cfg):
         # the hybrid's shared block is an attention + MLP block
@@ -309,7 +326,7 @@ def attn_sublayer(cfg, p: dict, m: dict, x: torch.Tensor, *, positions, window: 
     if cfg.mrope:
         q = L.apply_mrope(q, positions, cfg.rope_theta)
         k = L.apply_mrope(k, positions, cfg.rope_theta)
-    else:
+    elif cfg.causal:  # the encoder (ViT) takes no positions
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -468,24 +485,37 @@ def backbone(cfg, params: Params, masks: Masks, x: torch.Tensor, *,
 
 def embed_inputs(cfg, params: Params, batch: dict):
     """Token embedding, plus the precomputed ``frontend_embeds`` (B, T, d) a
-    VLM batch may carry. Returns (x (B, T, d), positions): (B, T), or under
-    M-RoPE the (3, B, T) ``mrope_positions``, by default three copies of
+    VLM batch may carry; audio tokens (B, K, T) embed as the sum of their K
+    codebooks' embeddings, and a ViT batch's ``frontend_embeds`` are its
+    input. Returns (x (B, T, d), positions): (B, T), or under M-RoPE the
+    (3, B, T) ``mrope_positions``, by default three copies of
     ``arange(T)``."""
-    toks = batch["tokens"]
-    x = params["embed"][toks]
-    if "frontend_embeds" in batch:
-        x = x + batch["frontend_embeds"].to(x.dtype)
+    if cfg.family == "audio":
+        toks = batch["tokens"]
+        x = params["embed"][0][toks[:, 0]]
+        for k in range(1, cfg.n_codebooks):
+            x = x + params["embed"][k][toks[:, k]]
+        bsz, t = toks.shape[0], toks.shape[2]
+    elif cfg.family == "vit":
+        x = batch["frontend_embeds"]
+        bsz, t = x.shape[0], x.shape[1]
+    else:
+        toks = batch["tokens"]
+        x = params["embed"][toks]
+        if "frontend_embeds" in batch:
+            x = x + batch["frontend_embeds"].to(x.dtype)
+        bsz, t = toks.shape
     x = x.to(_dt(cfg))
-    bsz, t = toks.shape
+    dev = x.device
     if cfg.mrope:
         positions = batch.get("mrope_positions")
         if positions is None:
-            p = torch.arange(t, device=toks.device)[None].expand(bsz, t)
+            p = torch.arange(t, device=dev)[None].expand(bsz, t)
             positions = torch.stack([p, p, p])
     else:
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(t, device=toks.device)[None].expand(bsz, t)
+            positions = torch.arange(t, device=dev)[None].expand(bsz, t)
     return x, positions
 
 
@@ -532,8 +562,19 @@ def cross_entropy_chunked(hidden: torch.Tensor, lm_head: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def class_logits(cfg, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """The ViT's class logits (B, n_classes) float32: the final hidden
+    states (B, T, d) mean-pooled over T, through the class head at their
+    dtype."""
+    pooled = hidden.mean(dim=1)
+    return torch.matmul(pooled, params["lm_head"].to(pooled.dtype)).float()
+
+
 def loss_fn(cfg, params: Params, masks: Masks, batch: dict):
-    """Training loss: next-token cross-entropy of the (tied) head.
+    """Training loss: next-token cross-entropy of the (tied) head; for audio
+    the mean over the codebooks of each head's cross-entropy on its own
+    targets (B, K, T); for the ViT the cross-entropy of ``class_logits``
+    on the batch's ``labels`` (B,).
 
     Returns (total, {"loss": ..., "aux_loss": ...}) with total = loss + 0.01
     * aux_loss; the aux loss (the MoE routers' load-balance losses summed
@@ -541,17 +582,31 @@ def loss_fn(cfg, params: Params, masks: Masks, batch: dict):
     """
     x, positions = embed_inputs(cfg, params, batch)
     hidden, aux = backbone(cfg, params, masks, x, positions=positions)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    loss = cross_entropy_chunked(hidden, head, batch["targets"], cfg.ce_chunk,
-                                 batch.get("loss_mask"), valid_vocab=cfg.vocab_size)
+    if cfg.family == "vit":
+        logits = class_logits(cfg, params, hidden)
+        gold = torch.take_along_dim(logits, batch["labels"].long()[:, None], dim=-1)[:, 0]
+        loss = torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+    elif cfg.family == "audio":
+        loss = sum(cross_entropy_chunked(hidden, params["lm_head"][k], batch["targets"][:, k],
+                                         cfg.ce_chunk, valid_vocab=cfg.vocab_size)
+                   for k in range(cfg.n_codebooks)) / cfg.n_codebooks
+    else:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        loss = cross_entropy_chunked(hidden, head, batch["targets"], cfg.ce_chunk,
+                                     batch.get("loss_mask"), valid_vocab=cfg.vocab_size)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux}
 
 
 def _lm_logits(cfg, params: Params, last: torch.Tensor) -> torch.Tensor:
-    """float32 logits of the (tied) head; padded vocab columns are -inf."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(last, head.to(last.dtype)).float()
+    """float32 logits of the (tied) head, (B, Vp), or for audio of each
+    codebook's head, (B, K, Vp); padded vocab columns are -inf."""
+    if cfg.family == "audio":
+        logits = torch.stack([torch.matmul(last, params["lm_head"][k].to(last.dtype)).float()
+                              for k in range(cfg.n_codebooks)], dim=1)
+    else:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.matmul(last, head.to(last.dtype)).float()
     if cfg.vocab_padded != cfg.vocab_size:
         valid = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
         logits = torch.where(valid, logits, -torch.inf)
@@ -597,11 +652,14 @@ def init_cache(cfg, bsz: int, max_len: int, device) -> dict:
     ``SSM_STATE`` (``_ssm_cache``), of a size independent of ``max_len``.
     The hybrid keeps the SSM state of ``m_groups`` with lead (g, r) and of
     ``m_rem`` with lead (rem,), and full KV caches for the shared block's g
-    applications, ``shared_attn`` with lead (g,).
+    applications, ``shared_attn`` with lead (g,). The encoder (ViT) keeps
+    only the length, as the reference's does: it has no decode path.
     """
     check_supported(cfg)
     dt = _dt(cfg)
     cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family == "vit":
+        return cache
     if cfg.family == "ssm":
         cache["blocks"] = _ssm_cache(cfg, cfg.n_layers, bsz, dt, device)
         return cache
@@ -658,11 +716,19 @@ def _run_blocks(cfg, params, masks, x, positions, cache, decode: bool):
     return x
 
 
+def _no_decode_path(cfg) -> None:
+    if cfg.family == "vit":
+        raise ValueError(f"{cfg.name}: the vit family is encoder-only, with no decode path "
+                         "(its forward is backbone + class_logits)")
+
+
 def prefill_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
     """Process a full prompt, fill the cache in place, return last-token logits.
 
-    batch["tokens"]: (B, T). Returns (logits (B, V) float32, cache).
+    batch["tokens"]: (B, T), audio (B, K, T). Returns (logits (B, V) float32,
+    audio (B, K, V), cache). Refused for the encoder-only ViT.
     """
+    _no_decode_path(cfg)
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     x = _run_blocks(cfg, params, masks, x, positions, cache, decode=False)
@@ -672,9 +738,11 @@ def prefill_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
 
 
 def decode_step(cfg, params: Params, masks: Masks, batch: dict, cache: dict):
-    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, V), cache);
-    the cache, its length included, is advanced in place. Under M-RoPE all
-    three position streams advance by the cache's length."""
+    """One-token decode. batch["tokens"]: (B, 1), audio (B, K, 1). Returns
+    (logits (B, V), audio (B, K, V), cache); the cache, its length included,
+    is advanced in place. Under M-RoPE all three position streams advance by
+    the cache's length. Refused for the encoder-only ViT."""
+    _no_decode_path(cfg)
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     positions = positions + cache["len"]

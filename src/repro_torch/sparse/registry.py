@@ -112,10 +112,8 @@ def build_registry(cfg) -> list[SparseStack]:
     """All sparse stacks of ``cfg`` with ERK/uniform densities solved."""
     if cfg.sparsity.method == "dense":
         return []
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"item 8, steps 7-8)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio", "vit"):
+        raise ValueError(cfg.family)
     if cfg.family == "moe":
         stacks = _moe_stacks(cfg, ("blocks",), (cfg.n_layers,))
     elif cfg.family == "ssm":
@@ -126,8 +124,9 @@ def build_registry(cfg) -> list[SparseStack]:
                   for s in (_attn_stacks(cfg, (key,), lead) if key == "shared_attn"
                             else _ssm_stacks(cfg, (key,), lead))]
     else:
-        # the model's block stacks: ("blocks", (L,)), or gemma3's grouped
-        # ("g_local", (g, r)), ("g_global", (g,)) and ("g_rem", (rem,))
+        # the model's block stacks: ("blocks", (L,)) (audio and vit too),
+        # or gemma3's grouped ("g_local", (g, r)), ("g_global", (g,)) and
+        # ("g_rem", (rem,))
         stacks = [s for key, lead in M.block_stacks(cfg)
                   for s in _attn_stacks(cfg, (key,), lead)]
     shapes = [D.LayerShape(s.name, s.d_in, s.d_out, s.n_replicas) for s in stacks]

@@ -57,18 +57,21 @@ def _dst_schedule(cfg) -> DSTSchedule:
 
 
 def _grads(cfg, params: dict, masks: dict, batch: dict, paths) -> tuple:
-    """(loss, metrics, {path: gradient}) of ``loss_fn`` wrt the leaves at ``paths``."""
+    """(loss, metrics, {path: gradient}) of ``loss_fn`` wrt the leaves at
+    ``paths``; a leaf the loss does not read (the ViT's CLS stub ``embed``)
+    gets zeros, as ``jax.grad`` gives it."""
     leaves = [REG.get_path(params, p) for p in paths]
     for t in leaves:
         t.requires_grad_(True)
     try:
         with torch.enable_grad():
             loss, metrics = M.loss_fn(cfg, params, masks, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for t in leaves:
             t.requires_grad_(False)
     metrics = {k: v.detach() for k, v in metrics.items()}
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
     return loss.detach(), metrics, dict(zip(paths, grads))
 
 

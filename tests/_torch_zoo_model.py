@@ -9,9 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 from repro import configs as JC
 from repro.models import model as JM
+from repro.sparse import condensed as JCond
 from repro.sparse import registry as JR
 from repro_torch import bridge
 from repro_torch import configs as TC
+from repro_torch.sparse import condensed as TCond
 from repro_torch.sparse import registry as TR
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -41,6 +43,16 @@ def _model(arch: str, kw: tuple) -> dict:
                 tmasks=bridge.from_jax_numpy(jax.tree.map(np.asarray, jstate["masks"])),
                 tactive=bridge.from_jax_numpy(jax.tree.map(np.asarray,
                                                            jstate["neuron_active"])))
+
+
+@functools.lru_cache(maxsize=None)
+def condensed_trees(arch: str, kw: tuple) -> tuple:
+    """(the reference's, the port's) condensed export of ``_model(arch,
+    kw)``'s params and masks, built once per process. Callers must not
+    modify them."""
+    m = _model(arch, kw)
+    return (JCond.export_condensed(m["jcfg"], m["jreg"], m["jparams"], m["jmasks"]),
+            TCond.export_condensed(m["tcfg"], m["treg"], m["tparams"], m["tmasks"]))
 
 
 def _prompts(cfg, b: int, t: int, seed: int = 0) -> np.ndarray:

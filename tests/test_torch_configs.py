@@ -73,8 +73,10 @@ def test_invalid_sparsity_raises_as_in_the_reference():
 
 
 def test_unported_families_raise():
-    # the moe, ssm and hybrid families are ported (tests/test_torch_moe_model.py,
-    # tests/test_torch_ssm.py, tests/test_torch_hybrid.py); audio is not
+    # every family is ported: moe, ssm, hybrid (tests/test_torch_moe_model.py,
+    # tests/test_torch_ssm.py, tests/test_torch_hybrid.py), audio and vit
+    # (tests/test_torch_audio.py, tests/test_torch_vit.py); an unknown one
+    # is refused as the reference refuses it
     cfg = tconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16,
                                                   hybrid_attn_every=1)
     assert [(s.name, s.lead) for s in TR.build_registry(cfg)] == [
@@ -85,9 +87,14 @@ def test_unported_families_raise():
         (s.name, s.lead) for s in JR.build_registry(
             jconfigs.get_smoke_config(ARCH).replace(family="hybrid", ssm_state=16,
                                                     hybrid_attn_every=1))]
-    with pytest.raises(NotImplementedError, match="item 8, steps 7-8"):
-        TR.build_registry(tconfigs.get_smoke_config(ARCH).replace(family="audio",
-                                                                  n_codebooks=4))
+    audio = tconfigs.get_smoke_config(ARCH).replace(family="audio", n_codebooks=4)
+    assert [(s.name, s.lead) for s in TR.build_registry(audio)] == [
+        (s.name, s.lead) for s in JR.build_registry(
+            jconfigs.get_smoke_config(ARCH).replace(family="audio", n_codebooks=4))] == [
+        (f"blocks/{n}", (audio.n_layers,)) for n in ("wo", "w_gate", "w_up", "w_down")]
+    for reg in (TR, JR):
+        with pytest.raises(ValueError):
+            reg.build_registry(tconfigs.get_smoke_config(ARCH).replace(family="speech"))
     ssm = tconfigs.get_smoke_config(ARCH).replace(family="ssm", ssm_state=16)
     assert [s.path[-1] for s in TR.build_registry(ssm)] == ["in_z", "in_x", "out_proj"]
 
@@ -98,6 +105,8 @@ NEW_ARCHS = ("internlm2-20b", "mistral-large-123b", "gemma3-1b", "qwen2-vl-7b")
 MOE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 SSM_ARCHS = ("mamba2-130m",)  # fields and registry: tests/test_torch_ssm.py
 HYBRID_ARCHS = ("zamba2-7b",)  # fields and registry: tests/test_torch_hybrid.py
+# fields and registries: tests/test_torch_audio.py, tests/test_torch_vit.py
+AUDIO_VIT_ARCHS = ("musicgen-medium", "vit-b16")
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -127,7 +136,8 @@ def test_new_registry_stacks_densities_and_fan_ins_equal(arch, getter):
 
 def test_every_ported_arch_is_registered_with_the_references_shapes():
     assert set(tconfigs.ALL_ARCHS) == {ARCH, *NEW_ARCHS, *MOE_ARCHS, *SSM_ARCHS,
-                                       *HYBRID_ARCHS}
+                                       *HYBRID_ARCHS, *AUDIO_VIT_ARCHS}
+    assert tconfigs.ALL_ARCHS == jconfigs.ALL_ARCHS  # all eleven, in the reference's order
     assert [dataclasses.asdict(s) for s in tconfigs.ALL_SHAPES] == [
         dataclasses.asdict(s) for s in jconfigs.ALL_SHAPES]
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == {
@@ -170,5 +180,9 @@ def test_other_unported_families_raise(family, kw):
             s.lead for s in JR.build_registry(jconfigs.get_smoke_config(ARCH).replace(
                 family=family, **kw))]
         return
-    with pytest.raises(NotImplementedError, match="item 8, steps 7-8"):
-        TR.build_registry(cfg)
+    # audio and vit: ported since item 8 steps 7-8 (tests/test_torch_audio.py,
+    # tests/test_torch_vit.py); the dense family's blocks stacks
+    assert [(s.name, s.lead, s.d_in, s.d_out, s.density) for s in TR.build_registry(cfg)] == [
+        (s.name, s.lead, s.d_in, s.d_out, s.density) for s in JR.build_registry(
+            jconfigs.get_smoke_config(ARCH).replace(family=family, **kw))]
+    assert [s.lead for s in TR.build_registry(cfg)] == [(cfg.n_layers,)] * 4

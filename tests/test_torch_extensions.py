@@ -123,8 +123,15 @@ def test_make_train_batch_invariants():
     jb = JD.make_train_batch(JCfg.get_smoke_config(ARCH), jax.random.PRNGKey(0), 3, 11)
     assert {k: (v.shape, str(v.dtype)) for k, v in jb.items()} == {
         k: (tuple(v.shape), "int32") for k, v in b.items()}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TD.make_train_batch(cfg.replace(family="audio"), torch.Generator(), 1, 4)
+    # the audio family's batches (ported since item 8 step 7): (B, K, T)
+    audio = cfg.replace(family="audio", n_codebooks=3)
+    ab = TD.make_train_batch(audio, torch.Generator().manual_seed(0), 2, 4)
+    jab = JD.make_train_batch(JCfg.get_smoke_config(ARCH).replace(family="audio",
+                                                                  n_codebooks=3),
+                              jax.random.PRNGKey(0), 2, 4)
+    assert {k: (tuple(v.shape), "int32") for k, v in ab.items()} == {
+        k: (v.shape, str(v.dtype)) for k, v in jab.items()}
+    assert torch.equal(ab["tokens"][..., 1:], ab["targets"][..., :-1])
 
 
 def test_largest_feasible_mesh_equals_the_reference():

@@ -28,7 +28,6 @@ import numpy as np  # noqa: E402
 from repro import configs as JC  # noqa: E402
 from repro.launch import engine as JE  # noqa: E402
 from repro.models import model as JM  # noqa: E402
-from repro.sparse import condensed as JCond  # noqa: E402
 from repro.sparse import plan as JP  # noqa: E402
 from repro.sparse import registry as JR  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -36,11 +35,10 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch.data import pipeline as TD  # noqa: E402
 from repro_torch.launch import engine as TE  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.sparse import condensed as TCond  # noqa: E402
 from repro_torch.sparse import plan as TP  # noqa: E402
 from repro_torch.sparse import registry as TR  # noqa: E402
 
-from _torch_zoo_model import TOL, _model, _prompts  # noqa: E402
+from _torch_zoo_model import TOL, _model, _prompts, condensed_trees  # noqa: E402
 
 GRANITE, KIMI = "granite-moe-1b-a400m", "kimi-k2-1t-a32b"
 ARCHS = [GRANITE, KIMI]
@@ -183,11 +181,11 @@ def test_the_train_cli_takes_granite(capsys):
 # ---------------------------------------------------------------------------
 
 def _trees(m, path: str):
-    """(reference serving tree, port serving tree) for ``path``."""
+    """(reference serving tree, port serving tree) for ``path``: the
+    condensed exports built once per process (``condensed_trees``)."""
     if path == "masked":
         return m["jmasks"], m["tmasks"]
-    return (JCond.export_condensed(m["jcfg"], m["jreg"], m["jparams"], m["jmasks"]),
-            TCond.export_condensed(m["tcfg"], m["treg"], m["tparams"], m["tmasks"]))
+    return condensed_trees(m["tcfg"].name, ())
 
 
 @pytest.mark.parametrize("path", ["masked", "condensed"])

@@ -24,7 +24,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from repro import configs as JC  # noqa: E402
 from repro.models import model as JM  # noqa: E402
-from repro.sparse import condensed as JCond  # noqa: E402
 from repro.sparse import registry as JR  # noqa: E402
 from repro.train import checkpoint as JCK  # noqa: E402
 from repro.train import state as JSt  # noqa: E402
@@ -32,12 +31,12 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch.data import pipeline as TD  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.sparse import condensed as TCond  # noqa: E402
 from repro_torch.sparse import registry as TR  # noqa: E402
 from repro_torch.train import checkpoint as TCK  # noqa: E402
 from repro_torch.train import state as TSt  # noqa: E402
 
-from _torch_zoo_model import ALL, GEMMA, TOL, _assert_trees_close, _ids, _model, _prompts  # noqa: E402
+from _torch_zoo_model import (ALL, GEMMA, TOL, _assert_trees_close, _ids, _model,  # noqa: E402
+                              _prompts, condensed_trees)
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +121,7 @@ def test_prefill_and_decode_logits_equal_the_reference(arch, kw, path):
     if path == "masked":
         serve_j, serve_t = m["jmasks"], m["tmasks"]
     else:
-        serve_j = JCond.export_condensed(m["jcfg"], m["jreg"], m["jparams"], m["jmasks"])
-        serve_t = TCond.export_condensed(m["tcfg"], m["treg"], m["tparams"], m["tmasks"])
+        serve_j, serve_t = condensed_trees(arch, kw)
         for s in m["treg"]:  # indices exactly, the (g, r) stacks included
             np.testing.assert_array_equal(TR.get_path(serve_t, s.path).indices.numpy(),
                                           np.asarray(JR.get_path(serve_j, s.path).indices))
@@ -215,8 +213,7 @@ def test_grouped_train_state_round_trips_through_both_checkpoints(tmp_path):
     for k in want:
         np.testing.assert_array_equal(again[k], want[k], err_msg=k)
     # the bridge: a condensed serving tree keeps the nested paths
-    m = _model(*GEMMA[1])
-    cond = TCond.export_condensed(m["tcfg"], m["treg"], m["tparams"], m["tmasks"])
+    cond = condensed_trees(*GEMMA[1])[1]
     flat = bridge.flatten(cond)
     assert "g_local/w_down/values" in flat and flat["g_local/w_down/values"].shape[:2] == (2, 2)
     leaf = cond["g_local"]["w_down"]
@@ -262,14 +259,26 @@ def test_unported_families_are_refused_naming_item_8(family, kw):
                                  torch.zeros((1, 1), dtype=torch.int32),
                                  torch.zeros((1,), dtype=torch.int32))
         return
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TR.build_registry(cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TD.SyntheticLM(vocab_size=16, seq_len=4, batch_size=1, family=family)
+    # audio and vit: ported since item 8 steps 7-8 (the rest:
+    # tests/test_torch_audio.py, tests/test_torch_vit.py)
+    TM.check_supported(cfg)
+    params = TM.init_params(cfg, torch.Generator())
+    assert [s.name for s in TR.build_registry(cfg)] == [
+        "blocks/wo", "blocks/w_gate", "blocks/w_up", "blocks/w_down"]
+    data = TD.SyntheticLM(vocab_size=16, seq_len=4, batch_size=1, family=family,
+                          n_codebooks=cfg.n_codebooks, d_model=cfg.d_model)
+    if family == "audio":
+        assert params["embed"].shape == (4, cfg.vocab_padded, cfg.d_model)
+        assert params["lm_head"].shape == (4, cfg.d_model, cfg.vocab_padded)
+        assert data.batch(0)["tokens"].shape == (1, 4, 4)
+        return
+    assert params["embed"].shape == (1, cfg.d_model)
+    assert params["lm_head"].shape == (cfg.d_model, cfg.n_classes)
+    assert set(data.batch(0)) == {"frontend_embeds", "labels"}
+    # what no reference config is: a causal ViT, an encoder of another family
+    for bad in (cfg.replace(causal=True), cfg.replace(family="dense")):
+        with pytest.raises(NotImplementedError, match="not a configuration of the reference"):
+            TM.check_supported(bad)
 
 
 
