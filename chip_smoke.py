@@ -392,6 +392,17 @@ KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
      "src/repro/kernels/condensed_matmul.py:235"),
     ("K2-moe", "condensed_matmul_grouped(scales=)", CSRC + "condensed_matmul_grouped.cu",
      "src/repro/kernels/condensed_matmul.py:254"),
+    # the rest of the expert stacks' bodies, grouped the same way
+    ("K4-moe", "condensed_over_active_matmul_grouped", CSRC + "condensed_matmul_grouped.cu",
+     "src/repro/kernels/structured_matmul.py:274"),
+    ("K2-coa-moe", "condensed_over_active_matmul_grouped(scales=)",
+     CSRC + "condensed_matmul_grouped.cu", "src/repro/kernels/structured_matmul.py:297"),
+    ("K5-moe", "structured_matmul_grouped", CSRC + "structured_matmul_grouped.cu",
+     "src/repro/kernels/structured_matmul.py:217"),
+    ("K6-moe", "structured_matmul_prefetch_grouped", CSRC + "structured_matmul_grouped.cu",
+     "src/repro/kernels/structured_matmul.py:244"),
+    ("K3-moe", "condensed_matmul_dw_grouped", CSRC + "condensed_dw.cu",
+     "src/repro/kernels/condensed_matmul.py:271"),
 )
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
 QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
@@ -1601,7 +1612,8 @@ def _masked_gaps(cfg, model, prompts, gen_len: int):
 def _kernel_counters() -> dict:
     """Each kernel's launch counter: its wrapper function and the attribute
     the wrapper adds to (K2 and K2-coa count on K1's and K4's wrappers, K3
-    on condensed_matmul_dw, K1-moe and K2-moe on condensed_matmul_grouped)."""
+    on condensed_matmul_dw, K1-moe and K2-moe on condensed_matmul_grouped,
+    K4-moe and K2-coa-moe on condensed_over_active_matmul_grouped)."""
     from repro_torch.kernels import condensed_matmul as cm
     from repro_torch.kernels import structured_matmul as sm
     return {"K1": (cm.condensed_matmul, "launches"),
@@ -1612,7 +1624,12 @@ def _kernel_counters() -> dict:
             "K2-coa": (sm.condensed_over_active_matmul, "scaled_launches"),
             "K3": (cm.condensed_matmul_dw, "launches"),
             "K1-moe": (cm.condensed_matmul_grouped, "launches"),
-            "K2-moe": (cm.condensed_matmul_grouped, "scaled_launches")}
+            "K2-moe": (cm.condensed_matmul_grouped, "scaled_launches"),
+            "K4-moe": (sm.condensed_over_active_matmul_grouped, "launches"),
+            "K2-coa-moe": (sm.condensed_over_active_matmul_grouped, "scaled_launches"),
+            "K5-moe": (sm.structured_matmul_grouped, "launches"),
+            "K6-moe": (sm.structured_matmul_prefetch_grouped, "launches"),
+            "K3-moe": (cm.condensed_matmul_dw_grouped, "launches")}
 
 
 def _none() -> dict:
@@ -2301,21 +2318,23 @@ def _applications(cfg, stack) -> int:
 def _engine_expected(eng, dispatches: dict) -> dict:
     """Kernel launches the plans' decisions imply for ``dispatches``
     ({plan key: prefill dispatches + decode steps}): each stack's kernel
-    ``_applications`` times per dispatch (an MoE expert stack's condensed
-    leaf: the expert-grouped launch)."""
+    ``_applications`` times per dispatch (an MoE expert stack: its
+    expert-grouped launch)."""
     from repro_torch.sparse import registry as REG
     quant = eng.values_dtype is not None
     kernel_of = {"condensed": "K2" if quant else "K1",
                  "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
+    grouped = {"K1": "K1-moe", "K2": "K2-moe", "K4": "K4-moe", "K2-coa": "K2-coa-moe",
+               "K5": "K5-moe"}
     stacks = {s.name: s for s in eng.registry}
     expected = _none()
     for key, n in dispatches.items():
         for name, rep in key.formats:
             runs = _applications(eng.cfg, stacks[name]) * n
-            if REG.is_expert_stack(stacks[name], eng.cfg) and rep == "condensed":
-                expected["K2-moe" if quant else "K1-moe"] += runs
-            elif rep in kernel_of:
-                expected[kernel_of[rep]] += runs
+            if rep in kernel_of:
+                kern = kernel_of[rep]
+                expected[grouped[kern] if REG.is_expert_stack(stacks[name], eng.cfg)
+                         else kern] += runs
     return expected
 
 
@@ -3301,15 +3320,16 @@ def _sparse_grads(cfg, reg, params, masks, batch):
 
 
 def _gathered(dense, leaf, d_out: int):
-    """The dense gradient (L, d_in, d_out) at a condensed leaf's slots:
-    [l, r, j] = dense[l, indices[l, r, j], column of row r] (0 for a padding row)."""
+    """The dense gradient (*lead, d_in, d_out) at a condensed leaf's slots:
+    [..., r, j] = dense[..., indices[..., r, j], column of row r] (0 for a
+    padding row)."""
     import torch
-    g_t = dense.transpose(1, 2)                                   # (L, d_out, d_in)
+    g_t = dense.transpose(-1, -2)                                 # (*lead, d_out, d_in)
     out_index = getattr(leaf, "out_index", None)
     if out_index is not None:
         rows = out_index.long().clamp(max=d_out - 1)
-        g_t = torch.gather(g_t, 1, rows[..., None].expand(*rows.shape, g_t.shape[-1]))
-    got = torch.gather(g_t, 2, leaf.indices.long())
+        g_t = torch.gather(g_t, -2, rows[..., None].expand(*rows.shape, g_t.shape[-1]))
+    got = torch.gather(g_t, -1, leaf.indices.long())
     if out_index is not None:
         got = got * (out_index < d_out)[..., None]
     return got
@@ -3439,10 +3459,10 @@ def _check_dst(cfg, reg, state, old_masks: dict, old_versions: dict) -> None:
     for s in reg:
         spec = s.srigl_spec(cfg)
         new, old = REG.get_path(state.masks, s.path), REG.get_path(old_masks, s.path)
-        act = REG.get_path(state.neuron_active, s.path)                  # (L, d_out)
-        fan = new.sum(dim=-2)                                            # (L, d_out)
+        act = REG.get_path(state.neuron_active, s.path)                  # (*lead, d_out)
+        fan = new.sum(dim=-2)                                            # (*lead, d_out)
         k_new = torch.clamp(spec.target_nnz // act.sum(-1).clamp(min=1), 1, s.d_in)
-        if not bool(torch.where(act, fan == k_new[:, None], fan == 0).all()):
+        if not bool(torch.where(act, fan == k_new[..., None], fan == 0).all()):
             raise AssertionError(f"{s.name}: an active neuron's fan-in is not its layer's k'")
         if not bool((new.sum(dim=(-2, -1)) <= spec.k0 * s.d_out).all()):
             raise AssertionError(f"{s.name}: nnz above k0 * d_out")
@@ -4982,6 +5002,235 @@ def moe_kernel_phase(device) -> list:
     return cases
 
 
+# rows an expert takes in the ablated phases' grouped launches: MOE_ROWS's
+# granite rows (decode group, the engine's bucket, the prefill capacities)
+# and the training capacity, 8 x 64 tokens in one group of 512 (capacity
+# 160), where K3-moe runs
+MOE_TRAIN_ROWS = 160
+
+
+def _moe_ablated_operands(gen, e: int, d_in: int, d_out: int, k: int, device) -> dict:
+    """One granite expert stack's operands with about half of each expert's
+    neurons ablated at seeded random positions: expert i ablates d_out / 2 +
+    i % 3 of them, so the experts are ragged and an expert with fewer
+    surviving rows than the largest has sentinel rows. Returns the condensed
+    slots (``vals``, ``idx``: (E, d_out, k)), K4's surviving rows (``va``,
+    ``ia``: (E, a_max, k), padding rows value 0; ``out_index`` (E, a_max),
+    the sentinel d_out on padding rows), the dense weights on ablation-only
+    masks (``wd``: (E, d_in, d_out), ablated columns 0) with K5's
+    ``active_index`` (E, a_pad), ``live`` (the surviving rows an expert
+    holds, summed) and ``a_max``."""
+    import torch
+    from repro_torch.kernels import structured_matmul as sm
+    vals, idx = _moe_operands(gen, e, d_in, d_out, k, device)
+    active = torch.ones((e, d_out), dtype=torch.bool, device=device)
+    for i in range(e):
+        active[i, torch.randperm(d_out, generator=gen, device=device)[:d_out // 2 + i % 3]] = False
+    counts = active.sum(-1)
+    a_max = int(counts.max())
+    # each expert's surviving rows first, in ascending order
+    rows = torch.sort((~active).to(torch.int8), dim=-1, stable=True).indices[:, :a_max]
+    real = torch.arange(a_max, device=device)[None] < counts[:, None]
+    out_index = torch.where(real, rows, d_out).to(torch.int32).contiguous()
+    va = (torch.gather(vals, 1, rows[..., None].expand(-1, -1, k)) * real[..., None]).contiguous()
+    ia = torch.gather(idx, 1, rows[..., None].expand(-1, -1, k)).contiguous()
+    wd = (torch.randn((e, d_in, d_out), generator=gen, device=device) / d_in ** 0.5
+          * active[:, None, :]).contiguous()
+    ai = torch.full((e, sm.padded_active_count(a_max, d_out)), d_out, dtype=torch.int32,
+                    device=device)
+    ai[:, :a_max] = out_index
+    return dict(vals=vals, idx=idx, va=va, ia=ia, out_index=out_index, wd=wd, ai=ai,
+                live=int(counts.sum()), a_max=a_max)
+
+
+def _coa_dense_t(va, ia, out_index, d_in: int, d_out: int):
+    """(E, d_out, d_in) dense masked weights K4-moe's rows stand for, at
+    va's dtype (padding rows dropped): the operand torch.bmm reads
+    transposed."""
+    import torch
+    e, a, k = va.shape
+    dense = torch.zeros((e, d_out + 1, d_in), dtype=va.dtype, device=va.device)
+    for i in range(e):
+        dense[i].index_put_((out_index[i].long()[:, None].expand(a, k), ia[i].long()), va[i])
+    return dense[:, :d_out].contiguous()
+
+
+def _moe_ablation_record(label: str, name: str, e: int, d_in: int, d_out: int, k: int,
+                         dtype_name: str, rows: int, ms: float, plain_ms: float,
+                         library_ms: float, nbytes: int, ops: int, err: float, what: str) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    rec = dict(kernel=label, arch=MOE_ARCH, stack=name, experts=e, d_in=d_in, d_out=d_out, k=k,
+               dtype=dtype_name, rows=rows, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, ops=ops,
+               max_abs_err=err, bitwise=f"== {e} single launches")
+    print(f"[kernel:moe_ablation] {label:10s} {name:6s} E={e} {d_in}->{d_out} k={k} "
+          f"{dtype_name:8s} M={rows:3d}: kernel {ms * 1e3:.2f} us | bound "
+          f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}) | plain {plain_ms * 1e3:.2f} us | "
+          f"{what} {library_ms * 1e3:.2f} us | max_abs_err {err:.3g} | == {e} single "
+          f"launches bitwise")
+    return rec
+
+
+def moe_ablation_kernel_phase(device) -> list:
+    """The expert-grouped launches of the ablated expert stacks at granite's
+    full width (32 experts; w_gate / w_up 1024 -> 512 k 103, w_down 512 ->
+    1024 k 52), about half of each expert's neurons ablated at seeded random
+    positions (``_moe_ablated_operands``: ragged experts, sentinel rows):
+    K4-moe, K2-coa-moe (int8 codes), K5-moe (structured on ablation-only
+    masks) and, at decode rows, K6-moe at MOE_ROWS' granite rows an
+    expert, and K3-moe at MOE_TRAIN_ROWS over the condensed rows and the
+    surviving rows; each in bfloat16 and float32. Each case is bitwise
+    equal to E single launches of its one-expert kernel (K6-moe also to
+    K5-moe), within TOL of its plain version (K3-moe within _k3_tol), and
+    timed beside the plain version, torch.bmm on the dense masked experts
+    (K3-moe: the dense weight gradient by torch.bmm, then the gather) and
+    the bound (the bytes and operations of the surviving rows and
+    columns). Returns the per-case records."""
+    import torch
+    from repro_torch.kernels import condensed_matmul as cm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import structured_matmul as sm
+    from repro_torch.sparse import formats as F
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    cases = []
+    rows_list = MOE_ROWS[MOE_ARCH]
+    for arch, name, e, d_in, d_out, k in _moe_expert_shapes():
+        if arch != MOE_ARCH:
+            continue
+        op = _moe_ablated_operands(gen, e, d_in, d_out, k, device)
+        a_max, live, a_pad = op["a_max"], op["live"], op["ai"].shape[1]
+        print(f"[kernel:moe_ablation] {name} E={e} {d_in}->{d_out} k={k}: surviving rows "
+              f"{live / e:.1f} an expert on average, a_max {a_max}, a_pad {a_pad}")
+        codes, scales = F.quantize_values(op["va"], "int8")
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            isz = torch.empty((), dtype=dtype).element_size()
+            va, wd = op["va"].to(dtype).contiguous(), op["wd"].to(dtype).contiguous()
+            ia, oi, ai = op["ia"], op["out_index"], op["ai"]
+            panel = sm._gather_columns_grouped(wd, ai)
+            coa_dense = _coa_dense_t(va, ia, oi, d_in, d_out)
+            qdense = _coa_dense_t(F.dequantize_values(codes, scales, dtype=dtype), ia, oi, d_in,
+                                  d_out)
+            wd_t = wd.transpose(1, 2).contiguous()
+            for m in rows_list:
+                x = torch.randn((e, m, d_in), generator=gen, device=device).to(dtype)
+                xy = e * m * (d_in + d_out) * isz
+                # K4-moe and K2-coa-moe
+                for label, v, sc, dense in (("K4-moe", va, None, coa_dense),
+                                            ("K2-coa-moe", codes, scales, qdense)):
+                    y = sm.condensed_over_active_matmul_grouped(x, v, ia, oi, d_out, scales=sc)
+                    per = torch.stack([sm.condensed_over_active_matmul(
+                        x[i], v[i], ia[i], oi[i], d_out, scales=None if sc is None else sc[i])
+                        for i in range(e)])
+                    if not torch.equal(y, per):
+                        raise AssertionError(f"{label} {name} {dtype_name} M={m}: the grouped "
+                                             f"launch differs from {e} single launches")
+                    want, plain_ms = _timed_call(ref.condensed_over_active_matmul_grouped_ref,
+                                                 x, v, ia, oi, d_out, sc)
+                    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name])
+                    err = (y.float() - want.float()).abs().max().item()
+                    wbytes = live * k * (v.element_size() + 4) + e * a_max * 4 + (
+                        live * 4 if sc is not None else 0)
+                    sets = [(v, ia, oi, sc)] + [(v.clone(), ia.clone(), oi.clone(), sc)
+                                                for _ in range(_copies(wbytes) - 1)]
+                    ms = _time_ms(
+                        lambda x_, v_, i_, o_, s_: sm.condensed_over_active_matmul_grouped(
+                            x_, v_, i_, o_, d_out, scales=s_), [(x, *a) for a in sets])
+                    dsets = [dense] + [dense.clone() for _ in range(
+                        _copies(dense.numel() * dense.element_size()) - 1)]
+                    lib_ms = _time_ms(lambda x_, w_: torch.bmm(x_, w_.transpose(1, 2)),
+                                      [(x, w_) for w_ in dsets])
+                    cases.append(_moe_ablation_record(
+                        label, name, e, d_in, d_out, k, dtype_name, m, ms, plain_ms, lib_ms,
+                        wbytes + xy, 2 * m * live * k, err, "torch.bmm"))
+                    del per, want, sets, dsets
+                # K5-moe, and K6-moe at decode rows
+                y = sm.structured_matmul_grouped(x, wd, ai, prefetch_gather=False)
+                per = torch.stack([sm.structured_matmul(x[i], wd[i], ai[i],
+                                                        prefetch_gather=False)
+                                   for i in range(e)])
+                if not torch.equal(y, per):
+                    raise AssertionError(f"K5-moe {name} {dtype_name} M={m}: the grouped launch "
+                                         f"differs from {e} single launches")
+                want, plain_ms = _timed_call(ref.structured_matmul_grouped_ref, x, panel, ai,
+                                             d_out)
+                torch.testing.assert_close(y.float(), want.float(), **TOL[dtype_name])
+                err = (y.float() - want.float()).abs().max().item()
+                wbytes = d_in * live * isz + e * a_pad * 4
+                psets = [panel] + [panel.clone() for _ in range(_copies(wbytes) - 1)]
+                ms = _time_ms(lambda x_, p_: sm.structured_matmul_grouped_pregathered(
+                    x_, p_, ai, d_out), [(x, p_) for p_ in psets])
+                dsets = [wd_t] + [wd_t.clone() for _ in range(_copies(wd_t.numel() * isz) - 1)]
+                lib_ms = _time_ms(lambda x_, w_: torch.bmm(x_, w_.transpose(1, 2)),
+                                  [(x, w_) for w_ in dsets])
+                cases.append(_moe_ablation_record(
+                    "K5-moe", name, e, d_in, d_out, k, dtype_name, m, ms, plain_ms, lib_ms,
+                    wbytes + xy, 2 * m * live * d_in, err, "torch.bmm"))
+                del psets
+                if m <= cm.SMALL_BATCH_MAX:
+                    y6 = sm.structured_matmul_prefetch_grouped(x, wd, ai)
+                    per6 = torch.stack([sm.structured_matmul_prefetch(x[i], wd[i], ai[i])
+                                        for i in range(e)])
+                    if not (torch.equal(y6, per6) and torch.equal(y6, y)):
+                        raise AssertionError(f"K6-moe {name} {dtype_name} M={m}: not bitwise "
+                                             f"{e} single K6 launches and K5-moe")
+                    wsets = [wd] + [wd.clone() for _ in range(_copies(wd.numel() * isz) - 1)]
+                    ms6 = _time_ms(lambda x_, w_: sm.structured_matmul_prefetch_grouped(
+                        x_, w_, ai), [(x, w_) for w_ in wsets])
+                    cases.append(_moe_ablation_record(
+                        "K6-moe", name, e, d_in, d_out, k, dtype_name, m, ms6, plain_ms,
+                        lib_ms, wbytes + xy, 2 * m * live * d_in, err, "torch.bmm"))
+                    del wsets, per6, y6
+                del dsets, per, want, x, y
+            # K3-moe over the condensed rows and the surviving rows
+            for label, idx, n in (("condensed", op["idx"], d_out), ("surviving", ia, a_max)):
+                b = MOE_TRAIN_ROWS
+                dy = torch.randn((e, b, n), generator=gen, device=device).to(dtype)
+                x = torch.randn((e, b, d_in), generator=gen, device=device).to(dtype)
+                dw = cm.condensed_matmul_dw_grouped(dy, x, idx)
+                per = torch.stack([cm.condensed_matmul_dw(dy[i], x[i], idx[i]) for i in range(e)])
+                if not torch.equal(dw, per):
+                    raise AssertionError(f"K3-moe {name} {label} {dtype_name}: the grouped "
+                                         f"launch differs from {e} single K3 launches")
+                want, plain_ms = _timed_call(ref.condensed_matmul_dw_grouped_ref, dy, x, idx)
+                torch.testing.assert_close(dw, want, **_k3_tol(want))
+                err = (dw - want).abs().max().item()
+                nbytes = e * (b * (n + d_in) * isz + 2 * n * k * 4)
+                sets = [(dy, x, idx)] + [(dy.clone(), x.clone(), idx.clone())
+                                         for _ in range(_copies(nbytes) - 1)]
+                ms = _time_ms(cm.condensed_matmul_dw_grouped, sets)
+                it = [(dy_, x_, i_.long().transpose(1, 2).contiguous()) for dy_, x_, i_ in sets]
+                lib_ms = _time_ms(lambda dy_, x_, it_: torch.gather(
+                    torch.bmm(x_.transpose(1, 2), dy_), 1, it_), it)
+                rec = _moe_ablation_record("K3-moe", name, e, d_in, d_out, k, dtype_name, b, ms,
+                                           plain_ms, lib_ms, nbytes, 2 * e * b * n * k, err,
+                                           f"{label} rows {n}: bmm(x^T, dy) + gather")
+                rec["n_rows"] = n
+                cases.append(rec)
+                del sets, it, dy, x, dw, per, want
+            del va, wd, panel, coa_dense, qdense, wd_t
+            torch.cuda.empty_cache()
+        del op, codes, scales
+        _release()
+    per_layer = {"w_gate": 2, "w_down": 1}  # w_up shares w_gate's shape
+    for label in ("K4-moe", "K2-coa-moe", "K5-moe", "K6-moe"):
+        for m in (8, 80):
+            layer = [c for c in cases if c["kernel"] == label and c["dtype"] == "bfloat16"
+                     and c["rows"] == m]
+            if not layer:
+                continue
+            tot = {t: sum(c[t] * per_layer[c["stack"]] for c in layer)
+                   for t in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            print(f"[kernel:moe_ablation] {MOE_ARCH} one layer's experts (w_gate + w_up + "
+                  f"w_down, bf16, {m} rows an expert): {label} {tot['ms'] * 1e3:.2f} us | bound "
+                  f"{tot['bound_ms'] * 1e3:.2f} us | plain {tot['plain_ms'] * 1e3:.2f} us | "
+                  f"torch.bmm {tot['library_ms'] * 1e3:.2f} us")
+    return cases
+
+
 def _moe_run(cfg, compute, tree, prompts, gen_len: int, force=None, replay=None) -> dict:
     """One path's greedy run, step by step and eager, reading every router
     call. ``force`` (B, gen_len) feeds those tokens instead of the run's own;
@@ -5163,12 +5412,17 @@ def _moe_hold(label: str, cfg, compute, tree, prompts, standalone, ref: dict, ag
     return dict(agree=agree, at_tie=at_tie, after_router=after_router, d=d, d_router=d_router)
 
 
-def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, card):
-    """One paged engine on ``path``: a warm request, a counted one, two more
-    (the median wall of three), the standalone generate of its serving tree
-    (graph decode) against the eager decode loop. Returns (engine result's
-    tokens, standalone tokens, launch counts, (compute params, serving
-    tree)); the engine itself is freed."""
+def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, card,
+                prefetch: bool = False, repeats: bool = True):
+    """One paged engine on ``path``: a warm request, a counted one, with
+    ``repeats`` two more (the median wall of three, each held to the
+    request that took the same rows), and the standalone generate of its
+    serving tree (graph decode), which the caller holds to a step-by-step
+    eager run (``_moe_run``, in ``_moe_hold`` for a held path): the eager
+    decode loop's check, at no extra run. ``prefetch``: the caller set
+    REPRO_PREFETCH_GATHER=1, so the structured decode launches are K6 /
+    K6-moe. Returns (engine result's tokens, standalone tokens, launch
+    counts, (compute params, serving tree)); the engine itself is freed."""
     import torch
     from repro_torch.launch import engine as E
     eng = E.ServingEngine(cfg, params, masks, reg, path=path, values_dtype=values_dtype,
@@ -5176,13 +5430,16 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
     if not eng.paged:
         raise AssertionError(f"{label}: the MoE engine is not paged")
     first, _ = _zoo_request(eng, prompts)
-    before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
+    before = {key: (r.prefills, r.steps) for key, r in eng._runners.items()}
     _zero_counts()
     res, wall = _zoo_request(eng, prompts)
     counts = _counts()
-    dispatches = {key: r.prefills + r.steps - before.get(key, 0)
+    steps = {key: r.steps - before.get(key, (0, 0))[1] for key, r in eng._runners.items()}
+    dispatches = {key: r.prefills - before.get(key, (0, 0))[0] + steps[key]
                   for key, r in eng._runners.items()}
     expected = _engine_expected(eng, dispatches)
+    if prefetch:
+        expected = _prefetched(expected, eng, steps)
     if counts != expected or sum(dispatches.values()) != 1 + GEN:
         raise AssertionError(f"{label}: launched {counts} over {dispatches}, expected "
                              f"{expected}")
@@ -5191,11 +5448,11 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
     # tokens overflow an expert's capacity, so a request is held to the one
     # that took the same rows
     walls, tokens = [wall], [first.tokens, res.tokens]
-    for _ in range(2):
+    for _ in range(2 if repeats else 0):
         again, wall = _zoo_request(eng, prompts)
         walls.append(wall)
         tokens.append(again.tokens)
-    for i in (0, 1):
+    for i in (0, 1) if repeats else ():
         if not torch.equal(tokens[i], tokens[i + 2]):
             raise AssertionError(f"{label}: request {i + 3} gave other tokens than request "
                                  f"{i + 1} on the same rows")
@@ -5204,31 +5461,21 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
     standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
     torch.cuda.synchronize()
     _part("standalone")
-    t1 = time.perf_counter()
-    eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
-    torch.cuda.synchronize()
-    eager_wall = time.perf_counter() - t1
-    _part("eager")
-    if not torch.equal(eager, standalone):
-        raise AssertionError(f"{label}: the eager decode loop gave other tokens than the "
-                             f"graph replays")
     reps = sorted({r for _, r in res.plan_key.formats})
     print(f"[{label}] {card}: paged engine ({', '.join(reps)}), request {BATCH}x{PROMPT}+{GEN} "
           f"(bucket {res.plan_key.batch_bucket}): graph wall "
           f"{statistics.median(walls) * 1e3:.2f} ms (median of {len(walls)}; prefill "
-          f"{res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms), standalone "
-          f"eager decode loop wall {eager_wall * 1e3:.2f} ms (decode {t_dec * 1e3:.2f} ms), "
-          f"eager == graph tokens; on rows 0-3 and rows 4-7 the engine's tokens {placed}; "
+          f"{res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms); on rows 0-3 and "
+          f"rows 4-7 the engine's tokens {placed}; "
           f"dispatches {sum(dispatches.values())}, launches "
           f"{ {n: c for n, c in counts.items() if c} }; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (max_memory_allocated)")
     if path == "auto":  # what the cost model weighed for each stack at this bucket
         plan = eng.plan_for(res.plan_key)
         for name, dec in plan.decisions.items():
+            est = ", ".join(f"{rep} {sec * 1e6:.2f} us" for rep, sec in dec.est_s.items())
             print(f"[{label}] plan at bucket {res.plan_key.batch_bucket}, profile "
-                  f"{plan.profile.name}: {name} -> {dec.representation} (est masked "
-                  f"{dec.est_s['masked'] * 1e6:.2f} us, condensed "
-                  f"{dec.est_s['condensed'] * 1e6:.2f} us a step)")
+                  f"{plan.profile.name}: {name} -> {dec.representation} (est {est} a step)")
         del plan
     out = res.tokens, standalone, counts, (eng.compute, tree)
     del eng, tree
@@ -5245,9 +5492,10 @@ def moe_phase(device, card: str) -> dict:
     masked and condensed. Each engine (``_moe_engine``): a counted request
     launching what its plan implies (condensed: K1 24 x 17 times for wo and
     K1-moe 3 x 24 x 17 for the experts; int8: K2 and K2-moe), repeated
-    requests with the same tokens, standalone graph decode == the eager
-    loop bitwise. Each path is held to masked's step-by-step run (int8 to
-    its dequantized twin's) by ``_moe_hold``: logits within
+    requests with the same tokens, standalone graph decode == each path's
+    step-by-step eager run bitwise. Each path is held to masked's
+    step-by-step run (int8 to its dequantized twin's) by ``_moe_hold``:
+    logits within
     LOGIT_NOISE_BOUND on the same tokens and routing, and its own routing
     and tokens parting only at a router near-tie or a logit tie; in f32
     nothing parts. Returns the condensed request's K1 and K1-moe launches
@@ -5320,6 +5568,324 @@ def moe_phase(device, card: str) -> dict:
     del params, masks
     _release()
     return launches
+
+
+# the [moe:ablated] phase's serving runs, (dtype, path, values dtype, masks,
+# REPRO_PREFETCH_GATHER): "ablated" are the SRigL masks with the last half
+# of every stack's neurons emptied (condensed_over_active is exact on any
+# mask), "ablation-only" those neurons' columns empty and every other
+# column dense (where structured is exact); each group's masked run comes
+# first and is the one the paths after it are held to
+MOE_ABLATED_RUNS = (("bfloat16", "masked", None, "ablated", False),
+                    ("bfloat16", "condensed_over_active", None, "ablated", False),
+                    ("bfloat16", "condensed_over_active", "int8", "ablated", False),
+                    ("bfloat16", "auto", None, "ablated", False),
+                    ("bfloat16", "masked", None, "ablation-only", False),
+                    ("bfloat16", "structured", None, "ablation-only", False),
+                    ("bfloat16", "structured", None, "ablation-only", True),
+                    ("float32", "masked", None, "ablated", False),
+                    ("float32", "condensed_over_active", None, "ablated", False))
+
+
+def _prefetched(expected: dict, eng, steps: dict) -> dict:
+    """``expected`` with each structured stack's decode launches (``steps``:
+    {plan key: decode steps}) moved from K5 / K5-moe to K6 / K6-moe, as
+    REPRO_PREFETCH_GATHER=1 runs them (a decode step's rows: the bucket,
+    and an expert's capacity at that group, both at most 8)."""
+    from repro_torch.sparse import registry as REG
+    stacks = {s.name: s for s in eng.registry}
+    out = dict(expected)
+    for key, n in steps.items():
+        for name, rep in key.formats:
+            if rep == "structured":
+                grouped = "-moe" if REG.is_expert_stack(stacks[name], eng.cfg) else ""
+                runs = _applications(eng.cfg, stacks[name]) * n
+                out["K5" + grouped] -= runs
+                out["K6" + grouped] += runs
+    return out
+
+
+def moe_ablated_phase(device, card: str) -> dict:
+    """granite-moe-1b-a400m at its published width and depth (24 layers,
+    d_model 1024, 32 experts top-8, d_ff 512), random weights and 90% SRigL
+    ERK masks from a seeded generator, with half of every stack's neurons
+    (each expert's and wo's) ablated, served by the paged ServingEngine
+    with graph decode at B = 4 x 32 + GEN (``_moe_engine``) on
+    MOE_ABLATED_RUNS: bf16 condensed_over_active (K4 24 x 17 and K4-moe 3 x
+    24 x 17 a request), the same on int8 codes (K2-coa, K2-coa-moe),
+    auto (its decision per stack printed), structured (K5, K5-moe) and
+    structured with REPRO_PREFETCH_GATHER=1 (K6, K6-moe at decode) on
+    ablation-only masks, and f32 condensed_over_active. Every run launches
+    what its plan implies; standalone graph decode == its step-by-step
+    eager run bitwise; each path is held by ``_moe_hold`` to its masks'
+    masked run (int8 to its dequantized twin's), step by step on the serving params
+    with no engine ([moe] serves masked on the engine); a run whose kernels
+    are bitwise those of a path already held (auto where its plan is
+    condensed_over_active on every stack, structured with prefetch: K6 ==
+    K5 at decode) is held to that path's standalone tokens bitwise instead.
+    Each engine serves a warm and a counted request, no repeats ([moe]
+    repeats its own). Returns the launches of the bf16 runs, by kernel."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    reg = REG.build_registry(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    mask_sets = {"ablated": _ablate_masks(reg, masks, ABLATION),
+                 "ablation-only": _ablation_only(reg, masks, ABLATION)}
+    del masks
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    print(f"[moe:ablated] {MOE_ARCH}: {cfg.n_layers} layers, {cfg.n_experts} experts top-"
+          f"{cfg.top_k_experts}, d_model {cfg.d_model}, d_ff {cfg.d_ff}; the last "
+          f"{ABLATION:.0%} of every stack's neurons ablated (every expert's and wo's); "
+          f"prompts {BATCH}x{PROMPT} + {GEN}")
+    launches, masked, held = {}, None, {}
+    for dtype_name, path, vd, which, prefetch in MOE_ABLATED_RUNS:
+        run_cfg = cfg.replace(dtype=dtype_name)
+        label = (f"moe:ablated:{path}" + ("+prefetch" if prefetch else "")
+                 + (f":{vd}" if vd else "") + ("" if dtype_name == "bfloat16" else ":f32"))
+        if path == "masked":  # the reference the paths after it are held to
+            masked = _moe_run(run_cfg, M.serving_params(run_cfg, params), mask_sets[which],
+                              prompts, GEN)
+            print(f"[{label}] {card}: first stream {masked['tokens'][0].tolist()}")
+            continue
+        with _prefetch_gather(prefetch):
+            tokens, standalone, counts, (compute, tree) = _moe_engine(
+                run_cfg, params, mask_sets[which], reg, path, vd, prompts, label, card,
+                prefetch=prefetch, repeats=False)
+            if dtype_name == "bfloat16":
+                for key, n in counts.items():
+                    launches[key] = launches.get(key, 0) + n
+            if path == "condensed_over_active" and not vd and dtype_name == "bfloat16":
+                want = {"K4": cfg.n_layers * (1 + GEN), "K4-moe": 3 * cfg.n_layers * (1 + GEN)}
+                if {n: counts[n] for n in want} != want:
+                    raise AssertionError(f"{label}: launched {counts}, expected {want}")
+            reps = {type(REG.get_path(tree, s.path)).format_name for s in reg}
+            same = (path, dtype_name, vd) if path != "auto" else (*reps, dtype_name, vd)
+            if same in held and (prefetch or path == "auto"):
+                if not torch.equal(standalone, held[same]):
+                    raise AssertionError(f"{label}: other tokens than the {same[0]} run, whose "
+                                         f"kernels it runs bitwise")
+                print(f"[{label}] {card}: its plan {sorted(reps)}; standalone tokens == the "
+                      f"{same[0]} run's bitwise (held there to masked)")
+            else:
+                ref, against = masked, f"masked ({which} masks)"
+                if vd:  # codes are held to their dequantized twin, as in [quant]
+                    twin = _dequantized_twin(types.SimpleNamespace(registry=reg,
+                                                                   serving_tree=tree),
+                                             getattr(torch, dtype_name))
+                    ref, against = _moe_run(run_cfg, compute, twin, prompts, GEN), "the twin"
+                    del twin
+                _moe_hold(label, run_cfg, compute, tree, prompts, standalone, ref, against,
+                          card)
+                held[(path, dtype_name, vd)] = standalone
+                del ref
+        del compute, tree, tokens, standalone
+        _release()
+    print(f"[moe:ablated] {card}: peak memory over the phase "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (max_memory_allocated)")
+    del params, mask_sets, masked
+    _release()
+    return launches
+
+
+def moe_grad_phase(device) -> int:
+    """The loss of full-width granite-moe-1b (float32, 24 layers, half of
+    every stack's neurons ablated) over 8 x 64 SyntheticLM tokens (one
+    routing group of 512, 160 rows an expert), differentiated through its
+    condensed and its condensed_over_active trees into the values: the
+    forward launches K1 / K4 for wo and K1-moe / K4-moe for the experts
+    (twice with the blocks recomputed), the backward K3 for wo and K3-moe
+    for the experts. The masked loss's expert choices (each router call's
+    top-k indices) are recorded and replayed in each run, the gates still
+    computed from the run's own router logits, so that the two differ only
+    in their linears' kernels and the gradient still flows through the
+    routers; each stack's values gradient is then within GRAD_F32_BOUND of
+    the masked straight-through gradient gathered at its slots, as [grad]
+    holds qwen3's. Returns K3-moe's launches per backward."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.sparse import condensed as COND
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(MOE_ARCH).replace(dtype="float32")
+    reg = REG.build_registry(cfg)
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
+    masks = _ablate_masks(reg, REG.init_sparsity_state(cfg, gen, reg)["masks"], ABLATION)
+    batch = _train_batch(cfg, device)
+    top_k = MOE.top_k
+    choices: list = []
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        choices.append(idx)
+        return vals, idx
+    MOE.top_k = recording
+    try:
+        mloss, dense = _sparse_grads(cfg, reg, params, masks, batch)
+    finally:
+        MOE.top_k = top_k
+    passes = 2 if cfg.remat == "block" else 1
+    layers = cfg.n_layers
+    k3 = None
+    for label, export, kern in (("condensed", COND.export_condensed, "K1"),
+                                ("condensed_over_active", COND.export_condensed_over_active,
+                                 "K4")):
+        tree = export(cfg, reg, params, masks)
+        leaves = {s.name: REG.get_path(tree, s.path) for s in reg}
+        for leaf in leaves.values():
+            leaf.values.requires_grad_(True)
+        replay = iter(choices)
+
+        def replaying(probs, k):
+            idx = next(replay)
+            return torch.gather(probs, -1, idx), idx
+        MOE.top_k = replaying
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _zero_counts()
+            loss = M.loss_fn(cfg, params, tree, batch)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = _counts()
+            step_s = time.perf_counter() - t0
+        finally:
+            MOE.top_k = top_k
+        if next(replay, None) is not None:
+            raise AssertionError(f"[grad:moe] {label}: fewer router calls than the masked run")
+        expected = {**_none(), kern: passes * layers, kern + "-moe": 3 * passes * layers,
+                    "K3": layers, "K3-moe": 3 * layers}
+        if counts != expected:
+            raise AssertionError(f"[grad:moe] {label}: launched {counts}, expected {expected}")
+        if abs(loss.item() - mloss.item()) > GRAD_F32_BOUND * abs(mloss.item()):
+            raise AssertionError(f"[grad:moe] {label}: loss {loss.item()} vs masked "
+                                 f"{mloss.item()}")
+        for s in reg:
+            leaf = leaves[s.name]
+            got = leaf.values.grad.float()
+            want = _gathered(dense[s.name], leaf, s.d_out).float()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if not (bool(torch.isfinite(got).all()) and rel <= GRAD_F32_BOUND):
+                raise AssertionError(f"[grad:moe] {label} {s.name}: relative difference {rel} "
+                                     f"(bound {GRAD_F32_BOUND})")
+            print(f"[grad:moe] {label} {s.name} (lead {tuple(s.lead)}): max |values grad - "
+                  f"gathered dense grad| / max |dense grad| = {rel:.3g} (max |dense grad| "
+                  f"{want.abs().max().item():.3g})")
+        print(f"[grad:moe] {label}: loss {loss.item():.6f} (masked {mloss.item():.6f}, the "
+              f"masked run's expert choices replayed); forward + backward {step_s:.2f}s; launches "
+              f"{ {n: c for n, c in counts.items() if c} } (bound {GRAD_F32_BOUND:g})")
+        k3 = counts["K3-moe"]
+        del tree, leaves, loss
+        torch.cuda.empty_cache()
+    del params, masks, dense, choices
+    _release()
+    return k3
+
+
+MOE_TRAIN_STEPS = 3  # AdamW steps; the last one with the SRigL update (delta_t 3)
+
+
+def moe_train_phase(device, card: str) -> None:
+    """granite-moe-1b-a400m trained at its published width and depth on the
+    card from a seeded init: the Trainer for MOE_TRAIN_STEPS AdamW steps on
+    SyntheticLM 8 x 64 batches (masked-dense, the routers' aux loss in the
+    loss), the last one with the SRigL update over every stack (the expert
+    stacks' (L, E) vmapped update): losses and grad norms finite, the SRigL
+    invariants held, moments 0 off the mask. Prints the step ms, the DST
+    step s, max_memory_allocated and each stack's ablated neurons. Then the
+    trained state is exported and one B = 4 request served through
+    ``--path auto`` on the paged engine, launching what its plan implies."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.launch import engine as E
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.sparse import registry as REG
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats(device)
+    base = configs.get_config(MOE_ARCH)
+    cfg = base.replace(sparsity=dataclasses.replace(base.sparsity, delta_t=MOE_TRAIN_STEPS))
+    trainer = Trainer(cfg=cfg, lr_fn=warmup_cosine(3e-3, 1, 2 * MOE_TRAIN_STEPS), log_every=1)
+    reg = trainer.registry
+    dst_times: list = []
+    _timed_dst(trainer, dst_times)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                       seed=0)
+    batches = Prefetcher(data.iterate(), depth=2, pin=True)
+    step_ms = []
+    _zero_counts()
+    try:
+        for i in range(MOE_TRAIN_STEPS):
+            old_masks = state.masks
+            old_versions = {k: int(v) for k, v in state.mask_versions.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.fit(state, batches, 1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            m = trainer.last_metrics
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"[moe:train] step {i}: loss {loss}, grad norm {gnorm}")
+            dst = (i + 1) % MOE_TRAIN_STEPS == 0
+            print(f"[moe:train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+                  f"{step_ms[-1]:.1f} ms" + (" with the SRigL update" if dst else ""))
+            if dst:
+                _check_dst(cfg, reg, state, old_masks, old_versions)
+            else:
+                _moments_off_mask(f"[moe:train] step {i}", reg, state)
+            del old_masks
+    finally:
+        batches.close()
+    if _counts() != _none():
+        raise AssertionError(f"[moe:train] the masked-dense trainer launched {_counts()}")
+    ablated = {s.name: int((~REG.get_path(state.neuron_active, s.path)).sum()) for s in reg}
+    neurons = {s.name: s.n_replicas * s.d_out for s in reg}
+    print(f"[moe:train] {card}: {MOE_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens at "
+          f"{[round(t, 1) for t in step_ms]} ms (the last with the SRigL update); SRigL DST "
+          f"step {[round(t, 3) for t in dst_times]} s; peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB (max_memory_allocated); "
+          f"ablated neurons per stack {ablated} (of {neurons})")
+    params, masks = state.params, state.masks
+    del state, trainer
+    _release()
+    eng = E.ServingEngine(cfg, params, masks, reg, path="auto", block_size=ENGINE_BLOCK,
+                          gen_chunk=ENGINE_CHUNK)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator(device=device).manual_seed(1),
+                            device=device, dtype=torch.int32)
+    _zoo_request(eng, prompts)  # warm: graphs captured
+    before = {key: r.prefills + r.steps for key, r in eng._runners.items()}
+    _zero_counts()
+    res, wall = _zoo_request(eng, prompts)
+    counts = _counts()
+    dispatches = {key: r.prefills + r.steps - before.get(key, 0)
+                  for key, r in eng._runners.items()}
+    expected = _engine_expected(eng, dispatches)
+    if counts != expected or res.tokens.shape != (BATCH, PROMPT + GEN):
+        raise AssertionError(f"[moe:train] auto: launched {counts}, expected {expected}; "
+                             f"tokens {tuple(res.tokens.shape)}")
+    plan = eng.plan_for(res.plan_key)
+    reps = {n: d.representation for n, d in plan.decisions.items()}
+    print(f"[moe:train] {card}: the trained state exported and served on --path auto, request "
+          f"{BATCH}x{PROMPT}+{GEN} (bucket {res.plan_key.batch_bucket}): wall "
+          f"{wall * 1e3:.2f} ms, plan {reps}, launches { {n: c for n, c in counts.items() if c} }")
+    del eng, plan, params, masks
+    _release()
 
 
 # ---------------------------------------------------------------------------
@@ -6849,6 +7415,7 @@ def main() -> int:
                         ((TRAIN_TOKENS, "grad"),), ("K1", "K4"))
     zoo_cases = timed("kernel_zoo", zoo_kernel_phase, device)
     moe_cases = timed("kernel_moe", moe_kernel_phase, device)
+    moe_ablation_cases = timed("kernel_moe_ablation", moe_ablation_kernel_phase, device)
     ssm_cases = timed("kernel_ssm", ssm_kernel_phase, device)
     hybrid_cases = timed("kernel_hybrid", hybrid_kernel_phase, device)
     vit_cases = timed("kernel_vit", vit_kernel_phase, device)
@@ -6891,6 +7458,10 @@ def main() -> int:
     launches["K1"] += moe["K1"]
     launches["K2"] += moe["K2"]
     launches.update({"K1-moe": moe["K1-moe"], "K2-moe": moe["K2-moe"]})
+    for key, n in timed("moe_ablated", moe_ablated_phase, device, card).items():
+        launches[key] = launches.get(key, 0) + n
+    launches["K3-moe"] = timed("grad_moe", moe_grad_phase, device)
+    timed("moe_train", moe_train_phase, device, card)
     ssm = timed("ssm", ssm_phase, device, card)
     launches["K1"] += ssm["K1"]
     launches["K2"] += ssm["K2"]
@@ -6918,7 +7489,8 @@ def main() -> int:
         json.dumps({"card": smi, "cases": cases, "layer_cases": layer_cases,
                     "rigl_cases": rigl_cases, "spec_cases": spec_cases,
                     "autotune_cases": autotune_cases, "zoo_cases": zoo_cases,
-                    "moe_cases": moe_cases, "ssm_cases": ssm_cases,
+                    "moe_cases": moe_cases, "moe_ablation_cases": moe_ablation_cases,
+                    "ssm_cases": ssm_cases,
                     "autotune_moe_cases": autotune_moe_cases,
                     "hybrid_cases": hybrid_cases, "vit_cases": vit_cases,
                     "audio_cases": audio_cases}, indent=1))
@@ -6931,6 +7503,17 @@ def main() -> int:
             shape = (f"one decode layer's experts of {MOE_ARCH}: w_gate + w_up + w_down, "
                      f"32 experts of 8 rows (the paged engine's bucket at B=4), bfloat16 x"
                      + (", int8 codes" if key == "K2-moe" else ""))
+        elif key == "K3-moe":  # an MoE training layer's experts, their condensed rows
+            layer = [c for c in moe_ablation_cases if c["kernel"] == key
+                     and c["dtype"] == "bfloat16" and c["n_rows"] == c["d_out"]]
+            shape = (f"one training layer's experts of {MOE_ARCH}: w_gate + w_up + w_down, 32 "
+                     f"experts of {MOE_TRAIN_ROWS} rows (8 x 64 tokens), bfloat16 dy and x")
+        elif key.endswith("-moe"):  # an ablated MoE decode layer's expert stacks
+            layer = [c for c in moe_ablation_cases if c["kernel"] == key
+                     and c["dtype"] == "bfloat16" and c["rows"] == 8]
+            shape = (f"one decode layer's experts of {MOE_ARCH}: w_gate + w_up + w_down, 32 "
+                     f"experts of 8 rows, bfloat16 x, about half of each expert's neurons "
+                     f"ablated" + (", int8 codes" if key == "K2-coa-moe" else ""))
         elif key == "K3":  # the training layer: every stack's full row count
             layer = [c for c in cases if c["kernel"] == key and c["dtype"] == "bfloat16"
                      and c["batch"] == TRAIN_TOKENS and c["rows"] == c["d_out"]]

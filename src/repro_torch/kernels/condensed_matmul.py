@@ -26,7 +26,12 @@ bodies) and ``ref.condensed_matmul_grouped_ref`` is the plain version.
 K3 (``condensed_matmul_dw``): the values gradient,
 ``dw[n, k] = sum_b f32(dy[b, n]) * f32(x[b, indices[n, k]])`` in float32,
 the function of ``_dw_kernel``; its source is ``csrc/condensed_dw.cu`` and
-``ref.condensed_matmul_dw_ref`` its plain version.
+``ref.condensed_matmul_dw_ref`` its plain version. K3-moe
+(``condensed_matmul_dw_grouped``): K3 over an MoE layer's E experts in
+one launch, dy (E, B, n_out), x (E, B, d_in), indices (E, n_out, k), the
+reference's ``jax.vmap`` of ``_dw_kernel``; each expert's tiles and
+workspace slice are the one-expert launch's, so it equals E launches of K3
+bitwise (``ref.condensed_matmul_dw_grouped_ref`` is the plain version).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback. As in the reference,
@@ -42,7 +47,8 @@ one shape is bitwise equal to every other, so the launch is a knob that
 ``condensed_matmul.launches`` counts K1's launches,
 ``condensed_matmul.scaled_launches`` K2's, ``condensed_matmul_grouped.launches``
 and ``.scaled_launches`` K1-moe's and K2-moe's and
-``condensed_matmul_dw.launches`` K3's (never plain-version calls), so a run can show that its sparse linears
+``condensed_matmul_dw.launches`` K3's and ``condensed_matmul_dw_grouped.launches``
+K3-moe's (never plain-version calls), so a run can show that its sparse linears
 went through the kernel it expects; ``counters`` counts a launch captured in
 a CUDA graph once for each replay.
 """
@@ -222,6 +228,9 @@ def _grouped_lib() -> ctypes.CDLL:
     lib = _build.load("condensed_matmul_grouped")
     fn = lib.condensed_matmul_grouped_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.coa_matmul_grouped_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.condensed_matmul_grouped_error_string.argtypes = [ctypes.c_int]
     lib.condensed_matmul_grouped_error_string.restype = ctypes.c_char_p
@@ -482,6 +491,15 @@ def condensed_matmul_decode(x: torch.Tensor, values: torch.Tensor,
     return _launch(x, values, indices, scales, tile, block_n)
 
 
+def grouped_tile(m: int, block_b: int | None, tiled: int) -> int:
+    """The batch tile of an expert-grouped launch over M rows an expert:
+    the caller's ``block_b``, else the decode launch's (M rounded up to a
+    power of two) for M <= SMALL_BATCH_MAX, else ``tiled``."""
+    if block_b is not None:
+        return block_b
+    return decode_rows(m) if m <= SMALL_BATCH_MAX else tiled
+
+
 def _check_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                    scales: torch.Tensor | None) -> None:
     if x.ndim != 3 or values.ndim != 3 or indices.shape != values.shape or (
@@ -520,10 +538,7 @@ def condensed_matmul_grouped(x: torch.Tensor, values: torch.Tensor, indices: tor
     _check_grouped(x, values, indices, scales)
     check_block_b(block_b, x.dtype)
     e, m, d_in = x.shape
-    if block_b is None:
-        tile = decode_rows(m) if m <= SMALL_BATCH_MAX else TILED_ROWS[x.dtype]
-    else:
-        tile = block_b
+    tile = grouped_tile(m, block_b, TILED_ROWS[x.dtype])
     check_block_n(block_n, tile, d_in, x.dtype)
     if x.device.type == "cpu":
         return ref.condensed_matmul_grouped_ref(x, values, indices, scales)
@@ -561,6 +576,9 @@ def _dw_lib() -> ctypes.CDLL:
     lib.condensed_matmul_dw.restype = ctypes.c_int
     lib.condensed_matmul_dw_workspace.argtypes = [ctypes.c_int] * 3
     lib.condensed_matmul_dw_workspace.restype = ctypes.c_longlong
+    lib.condensed_matmul_dw_grouped.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                                                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.condensed_matmul_dw_grouped.restype = ctypes.c_int
     lib.condensed_matmul_dw_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.condensed_matmul_dw_limits.restype = None
     lib.condensed_dw_error_string.argtypes = [ctypes.c_int]
@@ -638,18 +656,7 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor
     A shape past what one launch takes (``dw_limits()``, or ``limits``)
     runs in pieces (``dw_pieces``), bitwise as one launch.
     """
-    if dy.ndim != 2 or x.ndim != 2 or indices.ndim != 2 or dy.shape != (
-            x.shape[0], indices.shape[0]):
-        raise ValueError(f"need dy (B, n_out), x (B, d_in), indices (n_out, k); got "
-                         f"{tuple(dy.shape)}, {tuple(x.shape)}, {tuple(indices.shape)}")
-    if dy.dtype not in _DTYPE_CODES or x.dtype != dy.dtype:
-        raise TypeError(f"dy and x must both be float32 or bfloat16; got {dy.dtype}, {x.dtype}")
-    if indices.dtype != torch.int32:
-        raise TypeError(f"indices must be int32, got {indices.dtype}")
-    if not (dy.device == x.device == indices.device):
-        raise ValueError("dy, x and indices must be on one device")
-    if not (dy.is_contiguous() and x.is_contiguous() and indices.is_contiguous()):
-        raise ValueError("dy, x and indices must be contiguous")
+    _check_dw(dy, x, indices, 0)
     if x.device.type == "cpu":
         return ref.condensed_matmul_dw_ref(dy, x, indices)
     if x.device.type != "cuda":
@@ -709,3 +716,70 @@ def _dw_launch(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor) -> torc
 
 
 condensed_matmul_dw.launches = 0
+
+
+def _check_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor, lead: int) -> None:
+    """K3's operand checks; ``lead`` 1 for the expert-grouped launch, whose
+    operands carry the experts first."""
+    nd = 2 + lead
+    if dy.ndim != nd or x.ndim != nd or indices.ndim != nd or dy.shape != (
+            *x.shape[:-1], indices.shape[-2]) or x.shape[:lead] != indices.shape[:lead]:
+        what = "dy (E, B, n_out), x (E, B, d_in), indices (E, n_out, k)" if lead else (
+            "dy (B, n_out), x (B, d_in), indices (n_out, k)")
+        raise ValueError(f"need {what}; got {tuple(dy.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(indices.shape)}")
+    if dy.dtype not in _DTYPE_CODES or x.dtype != dy.dtype:
+        raise TypeError(f"dy and x must both be float32 or bfloat16; got {dy.dtype}, {x.dtype}")
+    if indices.dtype != torch.int32:
+        raise TypeError(f"indices must be int32, got {indices.dtype}")
+    if not (dy.device == x.device == indices.device):
+        raise ValueError("dy, x and indices must be on one device")
+    if not (dy.is_contiguous() and x.is_contiguous() and indices.is_contiguous()):
+        raise ValueError("dy, x and indices must be contiguous")
+
+
+def condensed_matmul_dw_grouped(dy: torch.Tensor, x: torch.Tensor,
+                                indices: torch.Tensor) -> torch.Tensor:
+    """Expert-grouped values gradient (K3-moe). dy (E, B, n_out), x (E, B,
+    d_in), indices (E, n_out, k) int32 -> dw (E, n_out, k) float32, dw[e]
+    == ``condensed_matmul_dw(dy[e], x[e], indices[e])``, bitwise on the card.
+
+    One bucket kernel and one tile kernel for every expert, the expert a
+    grid axis of its own, each with its own workspace slice (E x
+    ``condensed_matmul_dw_workspace``); the launch is one expert's
+    (``dw_plan``). A shape past what one launch takes (``dw_limits()``)
+    raises: no MoE config reaches it."""
+    _check_dw(dy, x, indices, 1)
+    if x.device.type == "cpu":
+        return ref.condensed_matmul_dw_grouped_ref(dy, x, indices)
+    if x.device.type != "cuda":
+        raise ValueError(f"the condensed_matmul_dw kernel runs on CUDA tensors, not {x.device}")
+    e, b, d_in = x.shape
+    n_out, k = indices.shape[1:]
+    if e == 0 or b == 0:
+        return torch.zeros((e, n_out, k), dtype=torch.float32, device=x.device)
+    if n_out == 0 or k == 0:
+        return torch.empty((e, n_out, k), dtype=torch.float32, device=x.device)
+    pieces = dw_pieces(d_in, k, dw_limits())
+    if len(pieces.slots) != 1 or len(pieces.inputs) != 1:
+        raise ValueError(f"d_in={d_in}, k={k}: past what one condensed_matmul_dw_grouped "
+                         f"launch takes {dw_limits()}")
+    dw = torch.empty((e, n_out, k), dtype=torch.float32, device=x.device)
+    plan = dw_plan(d_in, n_out, x.dtype, _sm_count(x.device.index or 0))
+    lib = _dw_lib()
+    ws_ints = e * lib.condensed_matmul_dw_workspace(d_in, n_out, k)
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.condensed_matmul_dw_grouped(dy.data_ptr(), x.data_ptr(), indices.data_ptr(),
+                                              dw.data_ptr(), ws.data_ptr(), ws_ints, e, b, d_in,
+                                              n_out, k, _DTYPE_CODES[x.dtype], plan.stages or 0,
+                                              stream)
+    if err:
+        raise RuntimeError("condensed_matmul_dw_grouped kernel launch failed: "
+                           + lib.condensed_dw_error_string(err).decode())
+    counters.add(condensed_matmul_dw_grouped)
+    return dw
+
+
+condensed_matmul_dw_grouped.launches = 0

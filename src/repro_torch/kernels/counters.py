@@ -2,7 +2,12 @@
 
 Each kernel wrapper counts its launches on an attribute of its own function
 (``condensed_matmul.launches``, ``condensed_matmul.scaled_launches``,
-``condensed_matmul_grouped.launches`` for the expert-grouped K1-moe, ...)
+``condensed_matmul_grouped.launches`` for the expert-grouped K1-moe;
+``condensed_over_active_matmul_grouped.launches`` /
+``.scaled_launches`` for K4-moe / K2-coa-moe,
+``structured_matmul_grouped.launches`` for K5-moe,
+``structured_matmul_prefetch_grouped.launches`` for K6-moe and
+``condensed_matmul_dw_grouped.launches`` for K3-moe, ...)
 through ``add``, where it launches the kernel and nowhere else. A launch
 issued while a graph is being captured under ``recording()`` runs nothing
 yet: it goes to that capture's tally instead, and ``replayed`` adds the

@@ -71,6 +71,19 @@
 // the card, bound by the random 16-byte reads of x from shared memory; a
 // run longer than kF32Entries takes more passes.
 //
+// Expert-grouped launch (K3-moe: the values gradient of an MoE layer's
+// expert stack, the reference's jax.vmap of _dw_kernel over the experts):
+// `experts` problems of one shape (B, d_in, n_out, k) in one launch, the
+// expert a grid axis of every kernel (y in dw_kernel_bucket, z in
+// dw_kernel_mma and dw_kernel_f32). Expert e reads dy + e * B * n_out, x + e
+// * B * d_in and idx + e * n_out * k, writes dw + e * n_out * k and has its
+// own workspace, ws + e * condensed_matmul_dw_workspace(d_in, n_out, k) (a
+// DGroup of element strides). Each block moves its pointers to its expert's
+// problem and then runs the one-expert body as it stands, so the grouped
+// launch equals E separate launches bitwise. Grouping is a template argument
+// (kGrouped): the plain kernels (kGrouped false, kDOne) compile with no
+// expert offset.
+//
 // The kernels allocate nothing and launch on the caller's stream. The
 // cp.async, wgmma and fence helpers are in hopper.cuh.
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
@@ -92,6 +105,14 @@ constexpr int kGroupRows = kTJ / 8;      // rows of a workspace group: one warp'
 constexpr int kSlotBits = 25;            // a workspace entry: slot in its group, then index % kTI
 constexpr int kMaxBucketSmem = 227 * 1024;  // shared memory a block may opt into
 constexpr int kEpilogueLoads = 4;        // workspace entries a lane loads at once in the epilogue
+
+// Element strides between the experts of a grouped launch (see the header
+// note); a plain launch passes kDOne, which its kernels never read.
+struct DGroup {
+  int experts;
+  long long dy, x, idx, ws, dw;  // dy (B * n_out), x (B * d_in), idx and dw, workspace
+};
+constexpr DGroup kDOne = {1, 0, 0, 0, 0, 0};
 static_assert(kMmaThreads / 32 * kGroupRows == kTJ, "a warp per group of rows");
 // A stage operand (kBK batch rows x 128 columns) as wgmma reads it with the
 // 128-byte swizzle, MN-major: two blocks of 64 columns kHalfBytes apart,
@@ -197,17 +218,23 @@ __device__ __forceinline__ void for_each_slot(const int32_t* __restrict__ src, i
   for (int f = f0 + threadIdx.x; f < slots; f += blockDim.x) visit(__ldg(src + f), f);
 }
 
-// grid: ceil(n_out / kGroupRows); block: 256; dynamic shared memory:
+// grid: ceil(n_out / kGroupRows) (by the experts, kGrouped); block: 256;
+// dynamic shared memory:
 // tiles * kGroupRows ints. Group g of kGroupRows rows (their slots f = row *
 // k + s, contiguous in idx) gets ws[g] (stride kGroupRows * k + tiles *
 // kGroupRows + 1): its slots f | (index % kTI) << kSlotBits grouped into
 // cells (tile index / kTI, row), tile-major, then the cells' start offsets
 // and the group's slot count. A tile's cells are contiguous: its segment.
 // The order inside a cell follows shared-memory atomics and may vary.
+template <bool kGrouped>
 __global__ void __launch_bounds__(256)
 dw_kernel_bucket(const int32_t* __restrict__ idx, int32_t* __restrict__ ws, int n_out, int k,
-                 int tiles) {
+                 int tiles, DGroup grp) {
   extern __shared__ int cursor[];
+  if constexpr (kGrouped) {  // expert blockIdx.y
+    idx += blockIdx.y * grp.idx;
+    ws += blockIdx.y * grp.ws;
+  }
   // dw_kernel_mma may start now: it reads ws only after griddepcontrol.wait
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int lane = threadIdx.x & 31;
@@ -246,16 +273,22 @@ dw_kernel_bucket(const int32_t* __restrict__ idx, int32_t* __restrict__ ws, int 
   });
 }
 
-// grid: (ceil(n_out / kTJ), ceil(d_in / kTI)); block: kMmaThreads; dynamic
+// grid: (ceil(n_out / kTJ), ceil(d_in / kTI), experts); block: kMmaThreads; dynamic
 // shared memory mma_smem<kStages>(). Block (bj, t) owns the tile of neurons
 // [bj * kTJ, +kTJ) and inputs [t * kTI, +kTI); ws is dw_kernel_bucket's
 // workspace. Warpgroup w computes rows [64 w, +64) of G.
-template <int kStages, bool kVecX, bool kVecD>
+template <int kStages, bool kVecX, bool kVecD, bool kGrouped>
 __global__ void __launch_bounds__(kMmaThreads, kStages <= 3 ? 2 : 1)
 dw_kernel_mma(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
               const int32_t* __restrict__ ws, float* __restrict__ dw, int batch, int d_in,
-              int n_out, int k) {
+              int n_out, int k, DGroup grp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (kGrouped) {  // expert blockIdx.z
+    dy += blockIdx.z * grp.dy;
+    x += blockIdx.z * grp.x;
+    ws += blockIdx.z * grp.ws;
+    dw += blockIdx.z * grp.dw;
+  }
   const uint32_t base = smem_addr(smem_raw);
   const uint32_t ring = (base + 1023) & ~1023u;  // the swizzle atoms' alignment
   float* g = reinterpret_cast<float*>(smem_raw + (ring - base));
@@ -401,20 +434,27 @@ __device__ __forceinline__ void stage_f32(float* __restrict__ dst, const float* 
         make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
 }
 
-// grid: (ceil(n_out / kTJ), ceil(d_in / kTI)); block: kF32Threads. Block
+// grid: (ceil(n_out / kTJ), ceil(d_in / kTI), experts); block: kF32Threads. Block
 // (bj, t) owns the tile of neurons [bj * kTJ, +kTJ) and inputs [t * kTI,
 // +kTI), as dw_kernel_mma, and ws is dw_kernel_bucket's workspace, complete
 // before this kernel starts (an ordinary launch). Warp w takes group w's
 // segment for tile t, its entries ordered by row: lane l a contiguous run of
 // ceil(entries / 32), up to kF32Entries of them per pass (more passes where
 // the segment is longer), adding every batch row into each in order.
+template <bool kGrouped>
 __global__ void __launch_bounds__(kF32Threads, 3)
 dw_kernel_f32(const float* __restrict__ dy, const float* __restrict__ x,
               const int32_t* __restrict__ ws, float* __restrict__ dw, int batch, int d_in,
-              int n_out, int k) {
+              int n_out, int k, DGroup grp) {
   __shared__ __align__(16) float xs[kTI * kF32Stride];
   __shared__ __align__(16) float ds[kTJ * kF32Stride];
   __shared__ int passes;
+  if constexpr (kGrouped) {  // expert blockIdx.z
+    dy += blockIdx.z * grp.dy;
+    x += blockIdx.z * grp.x;
+    ws += blockIdx.z * grp.ws;
+    dw += blockIdx.z * grp.dw;
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -503,10 +543,10 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted_in) {
   return err;
 }
 
-template <int kStages, bool kVecX, bool kVecD>
+template <int kStages, bool kVecX, bool kVecD, bool kGrouped>
 cudaError_t launch_mma(const void* dy, const void* x, const int32_t* ws, float* dw, int batch,
-                       int d_in, int n_out, int k, cudaStream_t stream) {
-  auto kernel = dw_kernel_mma<kStages, kVecX, kVecD>;
+                       int d_in, int n_out, int k, const DGroup& grp, cudaStream_t stream) {
+  auto kernel = dw_kernel_mma<kStages, kVecX, kVecD, kGrouped>;
   constexpr int smem = mma_smem<kStages>();
   static size_t opted_in = 48 * 1024;
   cudaError_t err = opt_in(kernel, smem, opted_in);
@@ -514,7 +554,7 @@ cudaError_t launch_mma(const void* dy, const void* x, const int32_t* ws, float* 
   // a programmatic dependent launch: the tile products overlap
   // dw_kernel_bucket, and each epilogue waits for its workspace
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((n_out + kTJ - 1) / kTJ, (d_in + kTI - 1) / kTI);
+  config.gridDim = dim3((n_out + kTJ - 1) / kTJ, (d_in + kTI - 1) / kTI, grp.experts);
   config.blockDim = dim3(kMmaThreads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
@@ -524,16 +564,61 @@ cudaError_t launch_mma(const void* dy, const void* x, const int32_t* ws, float* 
   config.attrs = attr;
   config.numAttrs = 1;
   return cudaLaunchKernelEx(&config, kernel, static_cast<const __nv_bfloat16*>(dy),
-                            static_cast<const __nv_bfloat16*>(x), ws, dw, batch, d_in, n_out, k);
+                            static_cast<const __nv_bfloat16*>(x), ws, dw, batch, d_in, n_out, k,
+                            grp);
 }
 
-template <int kStages>
+template <int kStages, bool kGrouped>
 cudaError_t dispatch_mma(bool vx, bool vd, const void* dy, const void* x, const int32_t* ws,
-                         float* dw, int batch, int d_in, int n_out, int k, cudaStream_t s) {
-  if (vx && vd) return launch_mma<kStages, true, true>(dy, x, ws, dw, batch, d_in, n_out, k, s);
-  if (vx) return launch_mma<kStages, true, false>(dy, x, ws, dw, batch, d_in, n_out, k, s);
-  if (vd) return launch_mma<kStages, false, true>(dy, x, ws, dw, batch, d_in, n_out, k, s);
-  return launch_mma<kStages, false, false>(dy, x, ws, dw, batch, d_in, n_out, k, s);
+                         float* dw, int batch, int d_in, int n_out, int k, const DGroup& grp,
+                         cudaStream_t s) {
+  if (vx && vd)
+    return launch_mma<kStages, true, true, kGrouped>(dy, x, ws, dw, batch, d_in, n_out, k, grp, s);
+  if (vx)
+    return launch_mma<kStages, true, false, kGrouped>(dy, x, ws, dw, batch, d_in, n_out, k, grp,
+                                                      s);
+  if (vd)
+    return launch_mma<kStages, false, true, kGrouped>(dy, x, ws, dw, batch, d_in, n_out, k, grp,
+                                                      s);
+  return launch_mma<kStages, false, false, kGrouped>(dy, x, ws, dw, batch, d_in, n_out, k, grp,
+                                                     s);
+}
+
+// The bucket kernel, then a block per 128 x 128 tile (an expert's, grp):
+// the launches of condensed_matmul_dw (see its note), checked by the caller.
+template <bool kGrouped>
+cudaError_t dw_launch(const void* dy, const void* x, const void* indices, void* dw,
+                      int32_t* ws, int batch, int d_in, int n_out, int k, int dtype, int stages,
+                      const DGroup& grp, cudaStream_t s) {
+  const int tiles = (d_in + kTI - 1) / kTI;
+  const size_t bucket_smem = static_cast<size_t>(tiles) * kGroupRows * sizeof(int);
+  static size_t bucket_opted_in = 48 * 1024;
+  cudaError_t err = opt_in(dw_kernel_bucket<kGrouped>, bucket_smem, bucket_opted_in);
+  // the bucket kernel needs little shared memory; asking for the most keeps
+  // the SMs it runs on ready for dw_kernel_mma's blocks beside it
+  static const cudaError_t carved = cudaFuncSetAttribute(
+      dw_kernel_bucket<kGrouped>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = carved;
+  if (err != cudaSuccess) return err;
+  dw_kernel_bucket<kGrouped>
+      <<<dim3((n_out + kGroupRows - 1) / kGroupRows, grp.experts), 256, bucket_smem, s>>>(
+          static_cast<const int32_t*>(indices), ws, n_out, k, tiles, grp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto out = static_cast<float*>(dw);
+  if (dtype == 0) {
+    const dim3 grid((n_out + kTJ - 1) / kTJ, tiles, grp.experts);
+    dw_kernel_f32<kGrouped><<<grid, kF32Threads, 0, s>>>(static_cast<const float*>(dy),
+                                                         static_cast<const float*>(x), ws, out,
+                                                         batch, d_in, n_out, k, grp);
+    return cudaGetLastError();
+  }
+  const bool vx = d_in % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vd = n_out % 8 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  if (stages == 4)
+    return dispatch_mma<4, kGrouped>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, grp, s);
+  return dispatch_mma<3, kGrouped>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, grp, s);
 }
 
 }  // namespace
@@ -576,35 +661,31 @@ int condensed_matmul_dw(const void* dy, const void* x, const void* indices, void
   if (batch <= 0 || need == 0 || workspace == nullptr || workspace_ints < need ||
       (dtype == 1 && stages != 3 && stages != 4) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const int tiles = (d_in + kTI - 1) / kTI;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto ws = static_cast<int32_t*>(workspace);
-  const size_t bucket_smem = static_cast<size_t>(tiles) * kGroupRows * sizeof(int);
-  static size_t bucket_opted_in = 48 * 1024;
-  cudaError_t err = opt_in(dw_kernel_bucket, bucket_smem, bucket_opted_in);
-  // the bucket kernel needs little shared memory; asking for the most keeps
-  // the SMs it runs on ready for dw_kernel_mma's blocks beside it
-  static const cudaError_t carved =
-      cudaFuncSetAttribute(dw_kernel_bucket, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) err = carved;
-  if (err != cudaSuccess) return err;
-  dw_kernel_bucket<<<(n_out + kGroupRows - 1) / kGroupRows, 256, bucket_smem, s>>>(
-      static_cast<const int32_t*>(indices), ws, n_out, k, tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto out = static_cast<float*>(dw);
-  if (dtype == 0) {
-    const dim3 grid((n_out + kTJ - 1) / kTJ, tiles);
-    dw_kernel_f32<<<grid, kF32Threads, 0, s>>>(static_cast<const float*>(dy),
-                                                static_cast<const float*>(x), ws, out, batch,
-                                                d_in, n_out, k);
-    return cudaGetLastError();
-  }
-  const bool vx = d_in % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vd = n_out % 8 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  if (stages == 4) return dispatch_mma<4>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, s);
-  return dispatch_mma<3>(vx, vd, dy, x, ws, out, batch, d_in, n_out, k, s);
+  return dw_launch<false>(dy, x, indices, dw, static_cast<int32_t*>(workspace), batch, d_in,
+                         n_out, k, dtype, stages, kDOne, static_cast<cudaStream_t>(stream));
+}
+
+// K3-moe: condensed_matmul_dw over `experts` problems of one shape stored one
+// after another: dy (experts, batch, n_out), x (experts, batch, d_in),
+// indices and dw (experts, n_out, k); workspace: workspace_ints of int32, at
+// least experts * condensed_matmul_dw_workspace(d_in, n_out, k), an expert's
+// slice each. dtype and stages as there, one expert's. Returns the
+// cudaError_t of the launches (0 = success).
+int condensed_matmul_dw_grouped(const void* dy, const void* x, const void* indices, void* dw,
+                                void* workspace, long long workspace_ints, int experts,
+                                int batch, int d_in, int n_out, int k, int dtype, int stages,
+                                void* stream) {
+  using namespace condensed_dw;
+  const long long need = condensed_matmul_dw_workspace(d_in, n_out, k);
+  if (experts <= 0 || experts > 65535 || batch <= 0 || need == 0 || workspace == nullptr ||
+      workspace_ints < experts * need || (dtype == 1 && stages != 3 && stages != 4) ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const DGroup grp = {experts, static_cast<long long>(batch) * n_out,
+                      static_cast<long long>(batch) * d_in, static_cast<long long>(n_out) * k,
+                      need, static_cast<long long>(n_out) * k};
+  return dw_launch<true>(dy, x, indices, dw, static_cast<int32_t*>(workspace), batch, d_in,
+                         n_out, k, dtype, stages, grp, static_cast<cudaStream_t>(stream));
 }
 
 const char* condensed_dw_error_string(int err) {

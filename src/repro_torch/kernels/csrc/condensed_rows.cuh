@@ -123,11 +123,13 @@
 // bitwise, and a code converts to float32 exactly, so K2(x, q, idx, s) is
 // bitwise K1(x, f32(q), idx) * s. Duplicate indices simply add.
 //
-// Expert-grouped launch (K1-moe, K2-moe: an MoE layer's expert stack, the
-// reference's jax.vmap of _fwd_kernel / _fwd_scaled_kernel over the experts).
-// `experts` problems of one shape (B, d_in, n_rows, k) in one launch: expert
-// e reads x + e * B * d_in, values and idx + e * n_rows * k and scales + e *
-// n_rows, and writes y + e * B * ld_y (a Group of element strides). The
+// Expert-grouped launch (K1-moe, K2-moe, K4-moe, K2-coa-moe: an MoE layer's
+// expert stack, the reference's jax.vmap of _fwd_kernel / _fwd_scaled_kernel
+// / _coa_kernel over the experts). `experts` problems of one shape (B, d_in,
+// n_rows, k) in one launch: expert e reads x + e * B * d_in, values and idx +
+// e * n_rows * k, scales + e * n_rows and out_index + e * n_rows, and writes
+// y + e * B * ld_y (a Group of element strides; ld_y = d_out for a scatter
+// through out_index). The
 // expert is a grid axis that no cluster spans: z in gather_rows_kernel and
 // gather_mma_decode, z = expert * batch tiles + batch tile in gather_mma.
 // Each block offsets its pointers and then runs the body as it stands, so
@@ -166,18 +168,20 @@ constexpr int kSmemMax = 232448;
 struct Group {
   int experts;
   long long x, slots, rows, y;  // x (B * d_in), values and idx, scales, y
+  long long outs;               // out_index (n_rows; 0 where it is null)
 };
-constexpr Group kOne = {1, 0, 0, 0, 0};
+constexpr Group kOne = {1, 0, 0, 0, 0, 0};
 // A block's pointers moved to expert `e`'s problem (written out in each
 // kernel, whose parameters are __restrict__ pointers).
-#define CONDENSED_ROWS_TO_EXPERT(grp, e)                  \
-  do {                                                    \
-    const long long e_ = (e);                             \
-    x += e_ * (grp).x;                                    \
-    values += e_ * (grp).slots;                           \
-    idx += e_ * (grp).slots;                              \
-    if (scales != nullptr) scales += e_ * (grp).rows;     \
-    y += e_ * (grp).y;                                    \
+#define CONDENSED_ROWS_TO_EXPERT(grp, e)                      \
+  do {                                                        \
+    const long long e_ = (e);                                 \
+    x += e_ * (grp).x;                                        \
+    values += e_ * (grp).slots;                               \
+    idx += e_ * (grp).slots;                                  \
+    if (scales != nullptr) scales += e_ * (grp).rows;         \
+    if (out_index != nullptr) out_index += e_ * (grp).outs;   \
+    y += e_ * (grp).y;                                        \
   } while (0)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

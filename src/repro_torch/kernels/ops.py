@@ -21,8 +21,19 @@ only. The ``_nd`` wrappers flatten the leading dims of x to the batch axis:
 * ``condensed_linear_nd`` — the condensed gather (K1; K2 with ``scales=``,
   inference only);
 * ``condensed_linear_grouped`` — an MoE layer's expert stack in one
-  expert-grouped launch (K1-moe; K2-moe with ``scales=``; inference
-  only), its blocks read at one expert's key;
+  expert-grouped launch (K1-moe; K2-moe with ``scales=``, inference
+  only), its blocks read at one expert's key; differentiable in x and the
+  values, the backward a batched scatter-add for dx and K3-moe
+  (``condensed_matmul_dw_grouped``) for dw, as the reference's ``jax.vmap``
+  of the custom VJP;
+* ``condensed_over_active_linear_grouped`` — the same over the experts'
+  surviving rows (K4-moe; K2-coa-moe with ``scales=``, inference only),
+  its backward K3-moe on dy gathered at ``out_index``;
+* ``structured_linear_grouped`` / ``structured_gathered_linear_grouped`` —
+  the experts' column-gathered matmul (K5-moe, K6-moe under
+  ``REPRO_PREFETCH_GATHER=1`` at decode shapes; over a caller's panels),
+  the first differentiable in x and the weights through the reference's
+  ``_structured_bwd`` batched over the experts;
 * ``condensed_over_active_linear_nd`` — the gather over surviving rows,
   written through ``out_index`` (K4; K2-coa with ``scales=``, inference
   only);
@@ -124,10 +135,12 @@ def condensed_linear(x: torch.Tensor, values: torch.Tensor, indices: torch.Tenso
 
 
 def _dy_active(dy: torch.Tensor, out_index: torch.Tensor, d_out: int) -> torch.Tensor:
-    """dy at the surviving rows' dense columns; padding rows
-    (out_index == d_out) get exact-zero cotangents."""
-    sel = dy[:, out_index.clamp(max=d_out - 1).long()]
-    return (sel * (out_index < d_out)[None, :].to(sel.dtype)).contiguous()
+    """dy (..., M, d_out) at the surviving rows' dense columns, out_index
+    (..., a) (an expert's own for each expert of a grouped launch); padding
+    rows (out_index == d_out) get exact-zero cotangents."""
+    cols = out_index.clamp(max=d_out - 1).long().unsqueeze(-2).expand(*dy.shape[:-1], -1)
+    sel = torch.gather(dy, -1, cols)
+    return (sel * (out_index < d_out).unsqueeze(-2).to(sel.dtype)).contiguous()
 
 
 class _CondensedOverActiveLinear(torch.autograd.Function):
@@ -188,26 +201,102 @@ def condensed_linear_nd(x: torch.Tensor, values: torch.Tensor, indices: torch.Te
     return y.reshape(*x.shape[:-1], values.shape[0])
 
 
+class _CondensedLinearGrouped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, values, indices, block_b, block_n):
+        ctx.save_for_backward(x, values, indices)
+        return cm.condensed_matmul_grouped(x, values, indices, block_b=block_b, block_n=block_n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ref.condensed_matmul_dx_grouped_ref(dy, values, indices,
+                                                     x.shape[-1]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = cm.condensed_matmul_dw_grouped(dy, x, indices).to(values.dtype)
+        return dx, dw, None, None, None
+
+
+def _experts_rows(x: torch.Tensor) -> torch.Tensor:
+    """x (E, ..., d_in) as (E, M, d_in), contiguous."""
+    return x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+
+
 def condensed_linear_grouped(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
                              scales: torch.Tensor | None = None) -> torch.Tensor:
     """The experts' condensed linear: x (E, ..., d_in), values and indices
     (E, n_out, k) -> (E, ..., n_out), expert e's rows through expert e's
     weights (the reference's ``jax.vmap`` of ``condensed_linear_nd`` over the
-    experts). ``scales`` (E, n_out) marks ``values`` as codes (K2-moe).
-    Inference only, as K2 is. The launch is resolved at the key the
-    reference's wrapper reads under its ``vmap``: one expert's shape
-    (d_in, n_out, k) at its rows (x's middle dims flattened, G * C for a
-    routed layer), bucketed; the blocks apply to every expert."""
-    if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
-        raise RuntimeError("the expert-grouped condensed launch is inference-only: the "
-                           "condensed experts' backward (a grouped K3) is not ported yet "
-                           "(ROADMAP queue 1, item 8)")
-    e, d_in = x.shape[0], x.shape[-1]
-    x3 = x.reshape(e, -1, d_in).contiguous()
+    experts). ``scales`` (E, n_out) marks ``values`` as codes (K2-moe,
+    inference only, as K2 is). Differentiable in x and values: dx by a
+    batched scatter-add in dy's dtype, dw by K3-moe. The launch is resolved
+    at the key the reference's wrapper reads under its ``vmap``: one
+    expert's shape (d_in, n_out, k) at its rows (x's middle dims flattened,
+    G * C for a routed layer), bucketed; the blocks apply to every expert."""
+    x3 = _experts_rows(x)
     bb, bn = _resolve_blocks(x3[0], *values.shape[1:], None, None,
                              values_dtype=None if scales is None else _quantized_name(values))
-    y = cm.condensed_matmul_grouped(x3, values, indices, scales=scales, block_b=bb, block_n=bn)
+    if scales is not None:
+        _inference_only(x)
+        y = cm.condensed_matmul_grouped(x3, values, indices, scales=scales, block_b=bb,
+                                        block_n=bn)
+    elif _needs_graph(x3, values):
+        y = _CondensedLinearGrouped.apply(x3, values, indices, bb, bn)
+    else:
+        y = cm.condensed_matmul_grouped(x3, values, indices, block_b=bb, block_n=bn)
     return y.reshape(*x.shape[:-1], values.shape[-2])
+
+
+class _CondensedOverActiveLinearGrouped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, values, indices, out_index, d_out, block_b, block_n):
+        ctx.save_for_backward(x, values, indices, out_index)
+        ctx.d_out = d_out
+        return sm.condensed_over_active_matmul_grouped(x, values, indices, out_index, d_out,
+                                                       block_b=block_b, block_n=block_n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, out_index = ctx.saved_tensors
+        dy_act = _dy_active(dy, out_index, ctx.d_out)          # (E, M, a)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ref.condensed_matmul_dx_grouped_ref(dy_act, values, indices,
+                                                     x.shape[-1]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = cm.condensed_matmul_dw_grouped(dy_act, x, indices).to(values.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def condensed_over_active_linear_grouped(x: torch.Tensor, values: torch.Tensor,
+                                         indices: torch.Tensor, out_index: torch.Tensor,
+                                         d_out: int, *,
+                                         scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The experts' condensed gather over surviving rows: x (E, ..., d_in);
+    values, indices (E, a, k); out_index (E, a) -> (E, ..., d_out), the
+    reference's ``jax.vmap`` of ``condensed_over_active_linear_nd``.
+    ``scales`` marks ``values`` as codes (K2-coa-moe, inference only).
+    Differentiable in x and values (K3-moe on dy gathered at
+    ``out_index``). The launch as ``condensed_linear_grouped``'s, at one
+    expert's ``coa`` key."""
+    x3 = _experts_rows(x)
+    bb, bn = _resolve_blocks(x3[0], *values.shape[1:], None, None, kind="coa",
+                             scatter_width=d_out,
+                             values_dtype=None if scales is None else _quantized_name(values))
+    if scales is not None:
+        _inference_only(x)
+        y = sm.condensed_over_active_matmul_grouped(x3, values, indices, out_index, d_out,
+                                                    scales=scales, block_b=bb, block_n=bn)
+    elif _needs_graph(x3, values):
+        y = _CondensedOverActiveLinearGrouped.apply(x3, values, indices, out_index, d_out, bb,
+                                                    bn)
+    else:
+        y = sm.condensed_over_active_matmul_grouped(x3, values, indices, out_index, d_out,
+                                                    block_b=bb, block_n=bn)
+    return y.reshape(*x.shape[:-1], d_out)
 
 
 def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,
@@ -230,26 +319,31 @@ def condensed_over_active_linear_nd(x: torch.Tensor, values: torch.Tensor,
 
 
 class _StructuredLinear(torch.autograd.Function):
+    """K5 (x (B, d_in), w (d_in, d_out)) or, with the experts first (x (E,
+    M, d_in), w (E, d_in, d_out), active_index (E, a_pad)), K5-moe; the
+    backward is the reference's ``_structured_bwd`` (for each expert)."""
+
     @staticmethod
     def forward(ctx, x, w, active_index, block_b):
         ctx.save_for_backward(x, w, active_index)
-        return sm.structured_matmul(x, w.to(x.dtype), active_index, block_b=block_b)
+        run = sm.structured_matmul_grouped if x.ndim == 3 else sm.structured_matmul
+        return run(x, w.to(x.dtype), active_index, block_b=block_b)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, active_index = ctx.saved_tensors
         d_out = w.shape[-1]
-        dy_act = _dy_active(dy, active_index, d_out)                  # (B, a_pad)
-        cols = active_index.long()
+        dy_act = _dy_active(dy, active_index, d_out)                  # (..., M, a_pad)
+        cols = active_index.long().unsqueeze(-2).expand(*w.shape[:-1], -1)  # (..., d_in, a_pad)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            w_act = w[:, cols.clamp(max=d_out - 1)].to(dy_act.dtype)  # (d_in, a_pad)
-            dx = (dy_act @ w_act.T).to(x.dtype)
+            w_act = torch.gather(w, -1, cols.clamp(max=d_out - 1)).to(dy_act.dtype)
+            dx = (dy_act @ w_act.transpose(-1, -2)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            contrib = (x.to(dy_act.dtype).T @ dy_act).to(w.dtype)     # (d_in, a_pad)
+            contrib = (x.to(dy_act.dtype).transpose(-1, -2) @ dy_act).to(w.dtype)
             # one spare column takes the padding entries, then is cut off
-            dw = torch.zeros((w.shape[0], d_out + 1), dtype=w.dtype, device=w.device)
-            dw = dw.index_add_(1, cols, contrib)[:, :d_out].contiguous()
+            dw = torch.zeros((*w.shape[:-1], d_out + 1), dtype=w.dtype, device=w.device)
+            dw = dw.scatter_add_(-1, cols, contrib)[..., :d_out].contiguous()
         return dx, dw, None, None
 
 
@@ -286,4 +380,35 @@ def structured_gathered_linear_nd(x: torch.Tensor, panel: torch.Tensor,
                             scatter_width=d_out, values_dtype=values_dtype)
     y = sm.structured_matmul_pregathered(x2, panel.to(x.dtype), active_index, d_out,
                                          block_b=bb)
+    return y.reshape(*x.shape[:-1], d_out)
+
+
+def structured_linear_grouped(x: torch.Tensor, w: torch.Tensor,
+                              active_index: torch.Tensor) -> torch.Tensor:
+    """The experts' structured linear: x (E, ..., d_in), w (E, d_in, d_out),
+    active_index (E, a_pad) -> (E, ..., d_out), the reference's ``jax.vmap``
+    of ``structured_linear_nd`` (K5-moe; K6-moe under
+    ``REPRO_PREFETCH_GATHER=1`` at decode shapes). Differentiable in x and
+    w. The batch tile at one expert's ``structured`` key."""
+    x3 = _experts_rows(x)
+    bb, _ = _resolve_blocks(x3[0], active_index.shape[-1], 0, None, None, kind="structured",
+                            scatter_width=w.shape[-1])
+    if _needs_graph(x3, w):
+        y = _StructuredLinear.apply(x3, w, active_index, bb)
+    else:
+        y = sm.structured_matmul_grouped(x3, w.to(x.dtype), active_index, block_b=bb)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def structured_gathered_linear_grouped(x: torch.Tensor, panel: torch.Tensor,
+                                       active_index: torch.Tensor, d_out: int, *,
+                                       values_dtype: str | None = None) -> torch.Tensor:
+    """K5-moe over the experts' (E, d_in, a_pad) panels of already gathered
+    columns (a quantized expert leaf's, dequantized); forward only.
+    ``values_dtype`` names the quantized leaf's key."""
+    x3 = _experts_rows(x)
+    bb, _ = _resolve_blocks(x3[0], active_index.shape[-1], 0, None, None, kind="structured",
+                            scatter_width=d_out, values_dtype=values_dtype)
+    y = sm.structured_matmul_grouped_pregathered(x3, panel.to(x.dtype), active_index, d_out,
+                                                 block_b=bb)
     return y.reshape(*x.shape[:-1], d_out)

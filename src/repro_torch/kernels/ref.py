@@ -100,6 +100,40 @@ def condensed_over_active_matmul_scaled_ref(x: torch.Tensor, q: torch.Tensor,
                             d_out)
 
 
+def condensed_over_active_matmul_grouped_ref(x: torch.Tensor, values: torch.Tensor,
+                                             indices: torch.Tensor, out_index: torch.Tensor,
+                                             d_out: int,
+                                             scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The expert-grouped condensed gather over surviving rows (K4-moe;
+    K2-coa-moe with ``scales``).
+
+    x         : (E, M, d_in)
+    values    : (E, a, k)   values, or int8 / float8_e4m3fn codes
+    indices   : (E, a, k)
+    out_index : (E, a)      each row's dense column, ``d_out`` a padding row
+    scales    : (E, a)      float32 per-row scale of the codes, or None
+    returns   : (E, M, d_out), y[e] = condensed_over_active_matmul_ref(x[e], ...)
+
+    Expert by expert the one-expert plain version (its scaled form with
+    ``scales``), so each expert's output is exactly that version's.
+    """
+    if scales is None:
+        return torch.stack([condensed_over_active_matmul_ref(xe, v, i, o, d_out)
+                            for xe, v, i, o in zip(x, values, indices, out_index)])
+    return torch.stack([condensed_over_active_matmul_scaled_ref(xe, q, i, o, s, d_out)
+                        for xe, q, i, o, s in zip(x, values, indices, out_index, scales)])
+
+
+def structured_matmul_grouped_ref(x: torch.Tensor, panel: torch.Tensor,
+                                  active_index: torch.Tensor, d_out: int) -> torch.Tensor:
+    """The expert-grouped structured matmul (K5-moe; K6-moe reads the same
+    columns of the dense weights). x (E, M, d_in), panel (E, d_in, a_pad),
+    active_index (E, a_pad) -> (E, M, d_out): expert by expert
+    ``structured_matmul_ref``."""
+    return torch.stack([structured_matmul_ref(xe, p, ai, d_out)
+                        for xe, p, ai in zip(x, panel, active_index)])
+
+
 def structured_matmul_ref(x: torch.Tensor, panel: torch.Tensor,
                           active_index: torch.Tensor, d_out: int) -> torch.Tensor:
     """Matmul over gathered columns, each placed at its dense position.
@@ -167,3 +201,35 @@ def condensed_matmul_dw_ref(dy: torch.Tensor, x: torch.Tensor,
     out = torch.float32 if dy.dtype in (torch.bfloat16, torch.float16) else dy.dtype
     gathered = x[:, indices.long()].float()                        # (B, n_out, k)
     return torch.einsum("bn,bnk->nk", dy.float(), gathered).to(out)
+
+
+def condensed_matmul_dw_grouped_ref(dy: torch.Tensor, x: torch.Tensor,
+                                    indices: torch.Tensor) -> torch.Tensor:
+    """The expert-grouped values gradient (K3-moe). dy (E, B, n_out), x (E,
+    B, d_in), indices (E, n_out, k) -> (E, n_out, k): expert by expert
+    ``condensed_matmul_dw_ref``."""
+    return torch.stack([condensed_matmul_dw_ref(d, xe, i) for d, xe, i in zip(dy, x, indices)])
+
+
+def condensed_matmul_dx_grouped_ref(dy: torch.Tensor, values: torch.Tensor,
+                                    indices: torch.Tensor, d_in: int) -> torch.Tensor:
+    """Gradient wrt x of the expert-grouped condensed matmul: one batched
+    scatter-add over every expert, in ``dy.dtype`` (the reference's
+    ``jax.vmap`` of ``condensed_matmul_dx_ref``).
+
+    dy (E, B, n_out), values/indices (E, n_out, k) -> (E, B, d_in). Expert
+    e's indices are offset by e * d_in into one (B, E * d_in) accumulator,
+    so each expert's slots add into its own columns; neurons go in chunks as
+    in ``condensed_matmul_dx_ref``.
+    """
+    e, b, n_out = dy.shape
+    k = values.shape[-1]
+    dx = torch.zeros((b, e * d_in), dtype=dy.dtype, device=dy.device)
+    offset = (torch.arange(e, device=dy.device) * d_in).view(e, 1, 1)
+    flat_idx = indices.long() + offset                                   # (E, n_out, k)
+    dyt = dy.permute(1, 0, 2)                                            # (B, E, n_out)
+    step = max(1, (1 << 26) // max(b * e * k, 1))
+    for n0 in range(0, n_out, step):
+        contrib = dyt[:, :, n0:n0 + step, None] * values[None, :, n0:n0 + step].to(dy.dtype)
+        dx.index_add_(1, flat_idx[:, n0:n0 + step].reshape(-1), contrib.reshape(b, -1))
+    return dx.view(b, e, d_in).permute(1, 0, 2).contiguous()

@@ -18,9 +18,25 @@ K6 (port of ``repro/kernels/structured_matmul.py``).
   (``_structured_prefetch_kernel``); decode shapes only.
 
 The CUDA source is ``csrc/structured_matmul.cu`` (its header note gives the
-bounds and the design); ``ref.condensed_over_active_matmul_ref``,
+bounds and the design) over K5/K6's bodies in ``csrc/structured_rows.cuh``;
+``ref.condensed_over_active_matmul_ref``,
 ``ref.condensed_over_active_matmul_scaled_ref`` and
 ``ref.structured_matmul_ref`` are the plain versions.
+
+The expert-grouped launches run one of these over an MoE layer's E experts
+in one launch, the reference's ``jax.vmap`` over the experts, each expert
+bitwise its one-expert launch (the expert a grid axis of its own):
+
+* K4-moe / K2-coa-moe, ``condensed_over_active_matmul_grouped`` (K1-moe's
+  body with ``out_index``, ``csrc/condensed_matmul_grouped.cu``);
+* K5-moe, ``structured_matmul_grouped`` and
+  ``structured_matmul_grouped_pregathered`` (panels (E, d_in, a_pad)), and
+  K6-moe, ``structured_matmul_prefetch_grouped`` (``csrc/structured_matmul_grouped.cu``).
+
+Their plain versions are ``ref.condensed_over_active_matmul_grouped_ref``
+and ``ref.structured_matmul_grouped_ref``. An expert stack's rows are the
+largest expert's surviving count; another expert's padding rows (columns)
+carry the sentinel ``d_out`` and write nothing.
 
 Ablated columns are exact zeros: the kernels' C entry points clear the
 output with ``cudaMemsetAsync`` before the launch, so the wrappers allocate
@@ -44,8 +60,11 @@ None, as in the reference) has no memory budget to check.
 calls): ``condensed_over_active_matmul.launches`` (K4),
 ``condensed_over_active_matmul.scaled_launches`` (K2-coa),
 ``structured_matmul.launches`` (K5) and ``structured_matmul_prefetch.launches``
-(K6), through ``counters`` (a launch captured in a CUDA graph counts once
-for each replay).
+(K6), and ``condensed_over_active_matmul_grouped.launches`` /
+``.scaled_launches`` (K4-moe / K2-coa-moe), ``structured_matmul_grouped.launches``
+(K5-moe) and ``structured_matmul_prefetch_grouped.launches`` (K6-moe),
+through ``counters`` (a launch captured in a CUDA graph counts once for each
+replay).
 """
 from __future__ import annotations
 
@@ -147,6 +166,20 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_longlong
     lib.structured_matmul_error_string.argtypes = [ctypes.c_int]
     lib.structured_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _grouped_lib() -> ctypes.CDLL:
+    lib = _build.load("structured_matmul_grouped")
+    fn = lib.structured_matmul_grouped_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                            ctypes.c_longlong] + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.structured_matmul_grouped_out_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -404,3 +437,180 @@ def condensed_over_active_matmul_decode(x: torch.Tensor, values: torch.Tensor,
     if x.device.type == "cpu":
         return _coa_plain(x, values, indices, out_index, d_out, scales)
     return _coa_launch(x, values, indices, out_index, d_out, tile, scales, block_n)
+
+
+# ---------------------------------------------------------------------------
+# the expert-grouped launches: K4-moe / K2-coa-moe, K5-moe, K6-moe
+# ---------------------------------------------------------------------------
+
+def _check_index_grouped(index: torch.Tensor, x: torch.Tensor, shape: tuple,
+                         name: str) -> None:
+    if tuple(index.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(index.shape)}")
+    _check_index(index, x, name)
+
+
+def condensed_over_active_matmul_grouped(x: torch.Tensor, values: torch.Tensor,
+                                         indices: torch.Tensor, out_index: torch.Tensor,
+                                         d_out: int, *, scales: torch.Tensor | None = None,
+                                         block_b: int | None = None,
+                                         block_n: int | None = None) -> torch.Tensor:
+    """Expert-grouped condensed gather over surviving rows (K4-moe;
+    K2-coa-moe with ``scales``). x (E, M, d_in); values, indices (E, a, k);
+    out_index (E, a) int32 (``d_out`` a padding row); scales (E, a) float32
+    -> y (E, M, d_out), y[e] == ``condensed_over_active_matmul(x[e], ...)``,
+    bitwise on the card. One launch (and one memset) for every expert, the
+    launch of one expert's shape; ``block_b`` and ``block_n`` as
+    ``condensed_matmul.condensed_matmul_grouped``'s."""
+    cm._check_grouped(x, values, indices, scales)
+    _check_index_grouped(out_index, x, values.shape[:2], "out_index")
+    cm.check_block_b(block_b, x.dtype)
+    e, m, d_in = x.shape
+    tile = cm.grouped_tile(m, block_b, cm.TILED_ROWS[x.dtype])
+    cm.check_block_n(block_n, tile, d_in, x.dtype)
+    if x.device.type == "cpu":
+        return ref.condensed_over_active_matmul_grouped_ref(x, values, indices, out_index, d_out,
+                                                            scales)
+    _on_cuda(x, "condensed_over_active_matmul_grouped")
+    a, k = values.shape[1:]
+    y = torch.empty((e, m, d_out), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    if a == 0:
+        return y.zero_()
+    args = cm.launch_args(x[0], e * a, tile, cm._sm_count(x.device.index or 0), block_n)
+    lib = cm._grouped_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.coa_matmul_grouped_fwd(
+            x.data_ptr(), values.data_ptr(), indices.data_ptr(), out_index.data_ptr(),
+            None if scales is None else scales.data_ptr(), y.data_ptr(), e, m, d_in, a, k, d_out,
+            cm._DTYPE_CODES[x.dtype], 0 if scales is None else cm._VALUE_CODES[values.dtype],
+            *args, stream)
+    if err:
+        raise RuntimeError("condensed_over_active_matmul_grouped kernel launch failed: "
+                           + lib.condensed_matmul_grouped_error_string(err).decode())
+    counters.add(condensed_over_active_matmul_grouped,
+                 "launches" if scales is None else "scaled_launches")
+    return y
+
+
+condensed_over_active_matmul_grouped.launches = 0
+condensed_over_active_matmul_grouped.scaled_launches = 0
+
+
+def _check_structured_grouped(x: torch.Tensor, w: torch.Tensor,
+                              active_index: torch.Tensor) -> None:
+    if x.ndim != 3 or w.ndim != 3 or active_index.ndim != 2 or x.shape[0] == 0 or not (
+            x.shape[0] == w.shape[0] == active_index.shape[0]) or w.shape[1] != x.shape[2]:
+        raise ValueError(f"need x (E, M, d_in), weights (E, d_in, n) and active_index (E, a), "
+                         f"E >= 1; got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(active_index.shape)}")
+    # one expert's slices pass the one-expert checks (dtypes, devices,
+    # contiguity of the whole tensors)
+    _check_structured(x[0], w[0], active_index[0])
+    if not (x.is_contiguous() and w.is_contiguous() and active_index.is_contiguous()):
+        raise ValueError("x, the weights and active_index must be contiguous")
+
+
+def _gather_columns_grouped(w: torch.Tensor, active_index: torch.Tensor) -> torch.Tensor:
+    """(E, d_in, a) panels of each expert's surviving columns, as
+    ``_gather_columns`` per expert (padding entries clip to the last
+    column; their products are dropped at the store)."""
+    cols = active_index.clamp(max=w.shape[-1] - 1).long()
+    return torch.gather(w, 2, cols[:, None, :].expand(-1, w.shape[1], -1))
+
+
+def _structured_grouped_launch(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor,
+                               d_out: int, block_rows: int, gather: bool) -> torch.Tensor:
+    e, m, d_in = x.shape
+    a_pad = active_index.shape[1]
+    if m == 0 or a_pad == 0:
+        return torch.zeros((e, m, d_out), dtype=x.dtype, device=x.device)
+    lib, dtype = _grouped_lib(), cm._DTYPE_CODES[x.dtype]
+    # every expert's output and, after them, the float32 kernels' tickets:
+    # one buffer, one memset
+    region = torch.empty(lib.structured_matmul_grouped_out_bytes(e, m, d_out, a_pad, dtype,
+                                                                 block_rows),
+                         dtype=torch.uint8, device=x.device)
+    out = region[:e * m * d_out * x.element_size()].view(x.dtype).view(e, m, d_out)
+    ws = torch.empty(e * workspace_floats(m, d_in, a_pad, x.dtype), dtype=torch.float32,
+                     device=x.device)
+    split_rows = split_geometry(d_in, x.dtype)[0]
+    with torch.cuda.device(x.device):
+        err = lib.structured_matmul_grouped_fwd(
+            x.data_ptr(), w.data_ptr(), active_index.data_ptr(), region.data_ptr(),
+            region.numel(), ws.data_ptr(), ws.numel(), e, m, d_in, a_pad, d_out, w.shape[2],
+            int(gather), dtype, block_rows, split_rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "structured_matmul_grouped")
+    counters.add(structured_matmul_prefetch_grouped if gather else structured_matmul_grouped)
+    return out
+
+
+def _panel_matmul_grouped(x: torch.Tensor, panel: torch.Tensor, active_index: torch.Tensor,
+                          d_out: int, block_b: int | None) -> torch.Tensor:
+    """K5-moe on gathered (E, d_in, a_pad) panels: the plain version on the
+    CPU, else the launch at ``cm.grouped_tile``'s batch tile."""
+    if block_b is not None and block_b not in STRUCTURED_ROWS[x.dtype]:
+        raise ValueError(f"block_b must be one of {STRUCTURED_ROWS[x.dtype]} for {x.dtype}, "
+                         f"got {block_b}")
+    if x.device.type == "cpu":
+        return ref.structured_matmul_grouped_ref(x, panel, active_index, d_out)
+    _on_cuda(x, "structured_matmul_grouped")
+    return _structured_grouped_launch(
+        x, panel, active_index, d_out, cm.grouped_tile(x.shape[1], block_b, TILED_ROWS[x.dtype]),
+        gather=False)
+
+
+def structured_matmul_grouped(x: torch.Tensor, w: torch.Tensor, active_index: torch.Tensor, *,
+                              block_b: int | None = None,
+                              prefetch_gather: bool | None = None) -> torch.Tensor:
+    """Expert-grouped structured matmul (K5-moe). x (E, M, d_in), w (E, d_in,
+    d_out), active_index (E, a_pad) -> (E, M, d_out), out[e] ==
+    ``structured_matmul(x[e], w[e], active_index[e])``, bitwise on the card.
+    ``block_b`` as ``structured_matmul``'s, for every expert. At decode
+    shapes (M <= SMALL_BATCH_MAX, ``block_b`` None) ``prefetch_gather``
+    (None reads ``REPRO_PREFETCH_GATHER``) runs K6-moe instead, which reads
+    ``w`` through ``active_index`` and gathers no panel."""
+    _check_structured_grouped(x, w, active_index)
+    if block_b is None and x.shape[1] <= SMALL_BATCH_MAX and (
+            _prefetch_default() if prefetch_gather is None else prefetch_gather):
+        return structured_matmul_prefetch_grouped(x, w, active_index)
+    return _panel_matmul_grouped(x, _gather_columns_grouped(w, active_index), active_index,
+                                 w.shape[2], block_b)
+
+
+structured_matmul_grouped.launches = 0
+
+
+def structured_matmul_prefetch_grouped(x: torch.Tensor, w: torch.Tensor,
+                                       active_index: torch.Tensor) -> torch.Tensor:
+    """K6-moe: K6 over the experts' dense (E, d_in, d_out) weights, each read
+    at its ``active_index`` inside the kernel (M <= SMALL_BATCH_MAX).
+    Bitwise equal to ``structured_matmul_grouped`` without prefetch."""
+    _check_structured_grouped(x, w, active_index)
+    if x.device.type == "cpu":
+        return ref.structured_matmul_grouped_ref(x, _gather_columns_grouped(w, active_index),
+                                                 active_index, w.shape[2])
+    _on_cuda(x, "structured_matmul_prefetch_grouped")
+    if x.shape[1] > SMALL_BATCH_MAX:
+        raise ValueError(f"the prefetch kernel takes decode batches (M <= "
+                         f"{SMALL_BATCH_MAX}), got M={x.shape[1]}")
+    return _structured_grouped_launch(x, w, active_index, w.shape[2], _decode_rows(x.shape[1]),
+                                      gather=True)
+
+
+structured_matmul_prefetch_grouped.launches = 0
+
+
+def structured_matmul_grouped_pregathered(x: torch.Tensor, panel: torch.Tensor,
+                                          active_index: torch.Tensor, d_out: int, *,
+                                          block_b: int | None = None) -> torch.Tensor:
+    """K5-moe over caller-supplied (E, d_in, a_pad) panels of already
+    gathered columns (a quantized expert leaf's dequantized panels)."""
+    _check_structured_grouped(x, panel, active_index)
+    if panel.shape[2] != active_index.shape[1]:
+        raise ValueError(f"panels have {panel.shape[2]} columns for "
+                         f"{active_index.shape[1]} active_index entries")
+    return _panel_matmul_grouped(x, panel, active_index, d_out, block_b)

@@ -76,7 +76,8 @@ is refused.
 
 The MoE family serves on the paged engine like the dense one (its routing
 runs inside the captured decode step, the experts through the
-expert-grouped condensed launch). Its dispatches route their padding rows
+expert-grouped launch of their stack's representation: K1-moe, K4-moe or
+K5-moe / K6-moe). Its dispatches route their padding rows
 too, as the reference's do, so an MoE request's tokens can depend on the
 bucket it is padded to, and on what the padding rows read from the
 garbage page they all write: of colliding writes the last is kept, as in

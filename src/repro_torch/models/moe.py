@@ -9,9 +9,12 @@ the group, so nothing is dropped there.
 Experts are SwiGLU FFNs stored stacked ``(E, d, ff)``, so SRigL treats each
 expert as its own constant fan-in matrix. The reference runs the experts
 with ``jax.vmap``; here each sparse linear takes the whole expert axis at
-once: a bool mask as a batched masked product, a ``formats.Condensed`` leaf
-with values ``(E, n, k)`` through the expert-grouped launch of K1 / K2
-(``kernels.ops.condensed_linear_grouped``), one launch per stack and call.
+once: a bool mask as a batched masked product, a format leaf whose arrays
+carry the expert axis first through its expert-grouped launch, one launch
+per stack and call (``formats.Condensed``: K1-moe / K2-moe,
+``CondensedOverActive``: K4-moe / K2-coa-moe, ``StructuredFanIn``: K5-moe
+/ K6-moe; ``kernels.ops.*_grouped``), differentiable in ``xe`` and the
+leaves as the reference's vmapped custom VJPs are.
 
 Routing has no data-dependent shape and no host sync (top-k by a stable
 sort, one-hot by comparison with an ``arange``, the slot loop over the k

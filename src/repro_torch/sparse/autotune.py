@@ -21,9 +21,10 @@ launch is a measured property of the card:
   one batch bucket, under the keys the formats' ``spec_tuning_key`` give
   (``formats.shape_tuning_key``), which are the keys ``kernels.ops`` reads.
   An MoE expert stack keys as the reference's does (one expert's shape at
-  the bucket) and is timed on the expert-grouped launch (K1-moe / K2-moe)
-  over its E experts, ``experts=E`` in ``autotune_blocks``: the launch
-  that reads the entry.
+  the bucket) and is timed on the expert-grouped launch over its E experts
+  (``experts=E``): K1-moe / K2-moe in ``autotune_blocks``, K4-moe /
+  K2-coa-moe in ``autotune_coa_blocks``, K5-moe in
+  ``autotune_structured_blocks``: the launch that reads the entry.
 * ``lookup_entry`` / ``lookup_blocks`` read the in-memory view of the
   cache, never the disk on each call.
 
@@ -255,9 +256,17 @@ def candidate_call(kind: str, block_b: int | None, block_n: int | None):
     K2 with scales) takes ``(x, values, indices, scales)``, "coa" (K4,
     K2-coa) ``(x, values, indices, out_index, d_out, scales)`` and
     "structured" (K5 over a gathered panel) ``(x, panel, active_index,
-    d_out)`` and "grouped" (K1-moe, K2-moe with scales) ``(x, values,
-    indices, scales)`` with the experts first; ``block_b`` None is the
-    decode launch."""
+    d_out)``; "grouped" (K1-moe, K2-moe with scales), "grouped_coa"
+    (K4-moe, K2-coa-moe) and "grouped_structured" (K5-moe) take the same
+    with the experts first; ``block_b`` None is the decode launch."""
+    if kind == "grouped_coa":
+        return lambda x, v, i, o, d, s: sm.condensed_over_active_matmul_grouped(
+            x, v, i, o, d, scales=s, block_b=block_b, block_n=block_n)
+    if kind == "grouped_structured":
+        if block_n is not None:
+            raise ValueError("the structured kernel (K5-moe) takes block_b only")
+        return lambda x, p, ai, d: sm.structured_matmul_grouped_pregathered(x, p, ai, d,
+                                                                           block_b=block_b)
     if kind == "grouped":
         return lambda x, v, i, s: cm.condensed_matmul_grouped(x, v, i, scales=s,
                                                               block_b=block_b,
@@ -328,8 +337,14 @@ def grouped_operands(experts: int, batch: int, d_in: int, rows: int, k: int, *,
     rows) or None)``."""
     each = [gather_operands(batch, d_in, rows, k, dtype=dtype, seed=seed + e, device=device,
                             values_dtype=values_dtype) for e in range(experts)]
-    return tuple(None if parts[0] is None else torch.stack(parts).contiguous()
-                 for parts in zip(*each))
+    return _stacked(each)
+
+
+def _stacked(each: list) -> tuple:
+    """Per-expert operand tuples stacked along a new leading axis (an int,
+    such as ``d_out``, or None is kept as it is)."""
+    return tuple(torch.stack(parts).contiguous() if isinstance(parts[0], torch.Tensor)
+                 else parts[0] for parts in zip(*each))
 
 
 def gather_operands(batch: int, d_in: int, rows: int, k: int, *, dtype=torch.float32,
@@ -421,43 +436,54 @@ def autotune_blocks(batch: int, d_in: int, n_out: int, k: int, *, dtype=torch.fl
 
 def autotune_coa_blocks(batch: int, d_in: int, a: int, k: int, d_out: int, *,
                         dtype=torch.float32, reps: int = 3, seed: int = 0, device=None,
-                        values_dtype: str | None = None, save: bool = True) -> TuneResult:
+                        values_dtype: str | None = None, save: bool = True,
+                        experts: int = 0) -> TuneResult:
     """The search for K4 (K2-coa with a quantized ``values_dtype``): ``a``
     surviving rows of fan-in ``k`` stored into a ``d_out``-wide output,
     over K1's candidates at ``a`` rows, kept under the
-    ``CondensedOverActive`` key."""
+    ``CondensedOverActive`` key. ``experts`` > 0 times K4-moe (K2-coa-moe)
+    over that many experts of this shape instead, under the same key, as
+    ``autotune_blocks`` does for K1-moe."""
     from repro_torch.sparse import formats as F  # lazy: formats reaches this module
-    ops_ = gather_operands(batch, d_in, a, k, dtype=dtype, seed=seed, device=device,
-                           values_dtype=values_dtype, d_out=d_out)
-    b = ops_[0].shape[0]
-    key = F.shape_tuning_key(d_in, a, k, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(),
-                             compute_dtype=ops_[0].dtype, kind="coa",
+    each = [gather_operands(batch, d_in, a, k, dtype=dtype, seed=seed + e, device=device,
+                            values_dtype=values_dtype, d_out=d_out)
+            for e in range(max(experts, 1))]
+    ops_ = _stacked(each) if experts else each[0]
+    x0 = each[0][0]
+    b = x0.shape[0]
+    key = F.shape_tuning_key(d_in, a, k, b, backend=device_key(x0.device),
+                             itemsize=x0.element_size(),
+                             compute_dtype=x0.dtype, kind="coa",
                              scatter_width=d_out, values_dtype=values_dtype)
-    cands = cm.gather_candidates(b, d_in, a, dtype, sm_count=_sm_count(ops_[0].device))
-    return _search("coa", key, cands, ops_, reps=reps, save=save)
+    cands = cm.gather_candidates(b, d_in, a * max(experts, 1), dtype,
+                                 sm_count=_sm_count(x0.device))
+    return _search("grouped_coa" if experts else "coa", key, cands, ops_, reps=reps, save=save)
 
 
 def autotune_structured_blocks(batch: int, d_in: int, a: int, d_out: int, *,
                                dtype=torch.float32, reps: int = 3, seed: int = 0,
                                device=None, values_dtype: str | None = None,
-                               save: bool = True) -> TuneResult:
+                               save: bool = True, experts: int = 0) -> TuneResult:
     """The search for K5 over ``a`` (the exported ``active_index`` length,
     padding included) gathered columns of a ``d_out``-wide weight, over
     ``structured_matmul.structured_candidates``, kept under the
     ``StructuredFanIn`` key. K5 runs on a gathered panel (the per-call
     column gather does not depend on the launch and is not timed);
     ``values_dtype`` only names the key, since a quantized structured leaf
-    runs K5 on its dequantized panel."""
+    runs K5 on its dequantized panel. ``experts`` > 0 times K5-moe over
+    that many experts' panels instead, under the same key."""
     from repro_torch.sparse import formats as F  # lazy: formats reaches this module
-    ops_ = structured_operands(batch, d_in, a, d_out, dtype=dtype, seed=seed, device=device)
-    b = ops_[0].shape[0]
-    key = F.shape_tuning_key(d_in, a, 0, b, backend=device_key(ops_[0].device),
-                             itemsize=ops_[0].element_size(),
-                             compute_dtype=ops_[0].dtype, kind="structured",
+    each = [structured_operands(batch, d_in, a, d_out, dtype=dtype, seed=seed + e,
+                                device=device) for e in range(max(experts, 1))]
+    ops_ = _stacked(each) if experts else each[0]
+    x0 = each[0][0]
+    b = x0.shape[0]
+    key = F.shape_tuning_key(d_in, a, 0, b, backend=device_key(x0.device),
+                             itemsize=x0.element_size(),
+                             compute_dtype=x0.dtype, kind="structured",
                              scatter_width=d_out, values_dtype=values_dtype)
-    return _search("structured", key, sm.structured_candidates(b, d_in, a, dtype), ops_,
-                   reps=reps, save=save)
+    return _search("grouped_structured" if experts else "structured", key,
+                   sm.structured_candidates(b, d_in, a, dtype), ops_, reps=reps, save=save)
 
 
 def tune_registry(registry, stats: dict, *, cfg, batch: int, dtype=torch.float32,
@@ -473,9 +499,9 @@ def tune_registry(registry, stats: dict, *, cfg, batch: int, dtype=torch.float32
     ``spec_tuning_key``, which ``kernels.ops`` reads; a key already cached
     is skipped. ``values_dtype`` ("int8"/"fp8") tunes K2 / K2-coa on codes
     under the quantized keys. An MoE expert stack of ``cfg``
-    (``registry.is_expert_stack``) has its ``Condensed`` key timed on the
-    expert-grouped launch over its E experts (``autotune_blocks(experts=E)``),
-    the launch that reads it."""
+    (``registry.is_expert_stack``) has each of its keys timed on the
+    expert-grouped launch over its E experts (``experts=E``: K1-moe, K4-moe,
+    K5-moe), the launch that reads it."""
     from repro_torch.sparse import formats as F  # lazy: formats reaches this module
     from repro_torch.sparse import registry as REG
     if int(tp) > 1:
@@ -498,12 +524,14 @@ def tune_registry(registry, stats: dict, *, cfg, batch: int, dtype=torch.float32
                                            **kw))]
         if a < s.d_out:
             tuners.append((f"{s.name}@a{a}", F.CondensedOverActive,
-                           lambda: autotune_coa_blocks(batch, s.d_in, a, spec.k, s.d_out, **kw)))
+                           lambda: autotune_coa_blocks(batch, s.d_in, a, spec.k, s.d_out,
+                                                       experts=experts, **kw)))
             if st.min_fan_in >= s.d_in:
                 a_pad = sm.padded_active_count(a, s.d_out)
                 tuners.append((f"{s.name}@structured", F.StructuredFanIn,
                                lambda: autotune_structured_blocks(batch, s.d_in, a_pad,
-                                                                  s.d_out, **kw)))
+                                                                  s.d_out, experts=experts,
+                                                                  **kw)))
         for label, cls, tune in tuners:
             key = cls.spec_tuning_key(spec, batch, backend=backend, dtype=dtype)
             if key in seen:

@@ -409,13 +409,6 @@ def _revalue(leaf, w, mask, donate: bool, *stored) -> "SparseFormat":
     return dataclasses.replace(leaf, **targets)
 
 
-def _expert_leaf(fmt: str) -> NotImplementedError:
-    """The refusal of a format that has no expert-grouped launch yet."""
-    return NotImplementedError(
-        f"{fmt} on an MoE expert stack is not ported to repro_torch yet: K4, K2-coa, K5 and "
-        f"K6 have no expert-grouped launch (ROADMAP queue 1, item 8)")
-
-
 class SparseFormat:
     """Base of the serving formats (see the module docstring).
 
@@ -579,7 +572,10 @@ class StructuredFanIn(SparseFormat):
     serves it instead of the live weight: ``apply`` dequantizes the panel in
     plain torch and runs K5 on it, as the reference does in plain jnp.
     ``values`` without ``scales`` (a quantized checkpoint restored into a
-    float template) is the dequantized float panel.
+    float template) is the dequantized float panel. One layer of an MoE
+    expert stack keeps the expert axis, ``active_index`` (E, a_pad), and
+    ``apply`` takes x (E, ..., d_in) and the (E, d_in, d_out) weights
+    through the expert-grouped launch (K5-moe, K6-moe).
     """
 
     neuron_active: torch.Tensor          # (*lead, d_out) bool
@@ -597,14 +593,18 @@ class StructuredFanIn(SparseFormat):
                                                         "values_dtype")
 
     def apply(self, x, w=None):
-        if self.active_index.ndim == 2:
-            raise _expert_leaf("structured (and its prefetch variant)")
+        # an MoE layer's experts, active_index (E, a_pad) against x (E, M, d):
+        # one expert-grouped launch (K5-moe, or K6-moe at decode shapes)
+        grouped = self.active_index.ndim == 2
         if self.values is not None:
             panel = (self.values if self.scales is None else
                      dequantize_values(self.values, self.scales, axis=-2, dtype=x.dtype))
-            return ops.structured_gathered_linear_nd(x, panel, self.active_index,
-                                                     self.neuron_active.shape[-1],
-                                                     values_dtype=self.values_dtype)
+            run = (ops.structured_gathered_linear_grouped if grouped
+                   else ops.structured_gathered_linear_nd)
+            return run(x, panel, self.active_index, self.neuron_active.shape[-1],
+                       values_dtype=self.values_dtype)
+        if grouped:
+            return ops.structured_linear_grouped(x, w, self.active_index)
         return ops.structured_linear_nd(x, w, self.active_index)
 
     @classmethod
@@ -887,7 +887,10 @@ class CondensedOverActive(SparseFormat):
     ``values``/``indices`` (*lead, a, k) cover the ``a <= d_out`` surviving
     rows; ``out_index`` (*lead, a) int32 is each row's dense output column,
     ``d_out`` marking a padding row. Exact for any mask. Quantized as
-    ``Condensed`` is, with one scale per surviving row (*lead, a).
+    ``Condensed`` is, with one scale per surviving row (*lead, a). One layer
+    of an MoE expert stack keeps the expert axis, values (E, a, k), and
+    ``apply`` takes x (E, ..., d_in) through the expert-grouped launch
+    (K4-moe, K2-coa-moe with the scales).
     """
 
     values: torch.Tensor
@@ -904,14 +907,14 @@ class CondensedOverActive(SparseFormat):
     _static_fields: typing.ClassVar[tuple[str, ...]] = ("d_in", "d_out", "values_dtype")
 
     def apply(self, x, w=None):
-        if self.values.ndim == 3:
-            raise _expert_leaf("condensed_over_active")
-        if self.scales is not None:
-            return ops.condensed_over_active_linear_nd(x, self.values, self.indices,
-                                                       self.out_index, self.d_out,
-                                                       scales=self.scales)
-        return ops.condensed_over_active_linear_nd(x, self.values.to(x.dtype), self.indices,
-                                                   self.out_index, self.d_out)
+        # an MoE layer's experts, values (E, a, k) against x (E, M, d): one
+        # expert-grouped launch (K4-moe, K2-coa-moe with the scales)
+        run = (ops.condensed_over_active_linear_grouped if self.values.ndim == 3
+               else ops.condensed_over_active_linear_nd)
+        if self.scales is not None:  # codes and scales go to K2-coa untouched
+            return run(x, self.values, self.indices, self.out_index, self.d_out,
+                       scales=self.scales)
+        return run(x, self.values.to(x.dtype), self.indices, self.out_index, self.d_out)
 
     @classmethod
     def export_from_dense(cls, w, mask, stats=None, *, dtype=None, quantize_spec=None):

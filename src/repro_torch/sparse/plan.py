@@ -32,10 +32,12 @@ weights at a higher neuron ablation, sharing every value tensor with it, and
 ``price_speculation`` prices draft steps and one batched verify against
 plain decode, so ``--path auto`` can decline.
 
-An MoE expert stack (lead (L, E)) is priced over its L * E replicas, as in
-the reference, and serves ``EXPERT_REPRESENTATIONS`` only (masked, or
-condensed through the expert-grouped launch): a decision for another
-format there raises rather than serve something else.
+An MoE expert stack (lead (L, E)) serves any of the four representations,
+each through its expert-grouped launch (K1-moe, K4-moe, K5-moe / K6-moe,
+or the masked product), and is priced as in the reference: over its L * E
+replicas at the bucket's rows, although an expert's launch takes G * C
+rows. That pricing is a kept quirk of the reference's (ROADMAP section 3),
+kept because it decides which representation runs.
 
 Ported for one device (``tp=1``). Queued: tensor parallelism.
 """
@@ -52,9 +54,6 @@ from repro_torch.sparse import registry as REG
 
 REPRESENTATIONS = ("masked", "condensed", "structured", "condensed_over_active")
 PATHS = REPRESENTATIONS + ("auto",)
-# what an MoE expert stack (lead (L, E)) can run: the masked product and the
-# expert-grouped condensed launch; K4, K2-coa, K5 and K6 have no grouped launch
-EXPERT_REPRESENTATIONS = ("masked", "condensed")
 
 # fraction below 1.0 at which a stack counts as having ablated neurons (guards
 # against float fuzz in the mean-active reduction)
@@ -283,14 +282,9 @@ def _build_leaf(rep: str, weight: torch.Tensor, mask: torch.Tensor, stats: F.Exp
 
 
 def _decide(stack, path: str, *, batch_size: int, itemsize: int, stats: F.ExportStats,
-            profile: HardwareProfile, values_dtype: str | None = None,
-            expert: bool = False) -> StackDecision:
+            profile: HardwareProfile, values_dtype: str | None = None) -> StackDecision:
     """One stack's decision: the cost model's for "auto", forced otherwise.
-
-    An MoE expert stack (``expert``) is priced over its L * E replicas as
-    any stack; a decision outside ``EXPERT_REPRESENTATIONS`` there (forced,
-    or the cost model's choice once ablation lets condensed_over_active or
-    structured win) raises rather than serve another format quietly."""
+    An MoE expert stack is priced over its L * E replicas as any stack."""
     if path == "auto":
         dec = select_representation(stack, batch_size=batch_size, itemsize=itemsize,
                                     stats=stats, profile=profile, values_dtype=values_dtype)
@@ -299,11 +293,6 @@ def _decide(stack, path: str, *, batch_size: int, itemsize: int, stats: F.Export
                             est_s=_costs(stack, batch_size, itemsize, stats, profile,
                                          values_dtype),
                             stats=stats)
-    if expert and dec.representation not in EXPERT_REPRESENTATIONS:
-        raise NotImplementedError(
-            f"{stack.name}: {dec.representation} on an MoE expert stack is not ported to "
-            f"repro_torch yet, only {' and '.join(EXPERT_REPRESENTATIONS)} are (ROADMAP "
-            f"queue 1, item 8)")
     return dec
 
 
@@ -383,8 +372,7 @@ class Plan:
             for s in changed:
                 dec = _decide(s, self.path, batch_size=self.batch_size, itemsize=itemsize,
                               stats=stats[s.name], profile=self.profile,
-                              values_dtype=self.values_dtype,
-                              expert=REG.is_expert_stack(s, self.cfg))
+                              values_dtype=self.values_dtype)
                 rep = dec.representation
                 weight, mask = REG.get_path(params, s.path), REG.get_path(masks, s.path)
                 key = (s.name, rep, self.values_dtype, versions[s.name])
@@ -485,8 +473,7 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
     tree: dict = {}
     for s in registry:
         dec = _decide(s, path, batch_size=batch_size, itemsize=itemsize,
-                      stats=stats[s.name], profile=profile, values_dtype=vd,
-                      expert=REG.is_expert_stack(s, cfg))
+                      stats=stats[s.name], profile=profile, values_dtype=vd)
         decisions[s.name] = dec
         REG.set_path(tree, s.path, _build_leaf(dec.representation,
                                                REG.get_path(params, s.path),

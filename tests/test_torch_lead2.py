@@ -8,9 +8,9 @@ reference's stacks, with its ``export_calls`` and ``value_refreshes``; every
 refreshed leaf equals the reference's refreshed leaf (integers exactly,
 floats within FLOAT_TOL) and a fresh port export exactly, and a same-shape
 refresh keeps every ``data_ptr``; ``donate=False`` leaves the old leaves
-as they were. An expert stack that a refresh would move outside
-``plan.EXPERT_REPRESENTATIONS`` raises, naming ROADMAP item 8. The
-engine's refresh is in ``test_torch_lead2_engine.py``.
+as they were. A refresh that moves an expert stack to
+condensed_over_active (half of its neurons ablated) re-exports it as the
+reference does. The engine's refresh is in ``test_torch_lead2_engine.py``.
 
 The reference's weights and masks (from ``PRNGKey(0)``) are bridged into
 the port (``tests/_torch_zoo_model.py``).
@@ -132,20 +132,31 @@ def test_plan_refresh_donate_false_keeps_the_old_leaves(arch, kw, name):
 def test_refresh_to_a_format_without_a_grouped_launch_raises():
     """auto at bucket 1 serves granite's experts condensed; half of their
     neurons ablated, the reference's cost model picks condensed_over_active
-    for them, which has no grouped launch: the refresh raises."""
+    for them. That refresh raised until the expert stacks had a grouped K4
+    (K4-moe); it now re-exports the stacks the reference's refresh does,
+    each leaf equal to the reference's (integers exactly) and to a fresh
+    port export."""
     m = _model(GRANITE, ())
     treg = m["treg"]
     versions = {s.name: 0 for s in treg}
     plan = TP.build_plan(m["tcfg"], treg, m["tparams"], m["tmasks"], batch_size=1,
                          path="auto", mask_versions=dict(versions), profile=PROFILE)
-    assert {plan.representation_of(s.name) for s in treg if TR.is_expert_stack(s, m["tcfg"])} \
-        <= set(TP.EXPERT_REPRESENTATIONS)
+    jplan = JP.build_plan(m["jcfg"], m["jreg"], m["jparams"], m["jmasks"], batch_size=1,
+                          path="auto", mask_versions=dict(versions))
+    assert {plan.representation_of(s.name) for s in treg
+            if TR.is_expert_stack(s, m["tcfg"])} == {"condensed"}
     masks = to_port(m["jmasks"])
     for s in treg:
         TR.get_path(masks, s.path)[..., : s.d_out // 2] = False
-    jplan = JP.build_plan(m["jcfg"], m["jreg"], m["jparams"],
-                          jax.tree.map(jnp.asarray, bridge.to_jax_numpy(masks)), batch_size=1,
-                          path="auto")
-    assert jplan.representation_of("blocks/w_gate") not in TP.EXPERT_REPRESENTATIONS
-    with pytest.raises(NotImplementedError, match="blocks/w_gate.*MoE expert stack.*item 8"):
-        plan.refresh(m["tparams"], masks, {s.name: 1 for s in treg})
+    jmasks = jax.tree.map(jnp.asarray, bridge.to_jax_numpy(masks))
+    versions2 = {s.name: 1 for s in treg}
+    jchanged = jplan.refresh(m["jparams"], jmasks, versions2, donate=False)
+    assert plan.refresh(m["tparams"], masks, versions2) == jchanged
+    assert jplan.representation_of("blocks/w_gate") == "condensed_over_active"
+    fresh = TP.build_plan(m["tcfg"], treg, m["tparams"], masks, batch_size=1, path="auto",
+                          mask_versions=dict(versions2), profile=PROFILE)
+    for s in treg:
+        assert plan.representation_of(s.name) == jplan.representation_of(s.name), s.name
+        leaf = TR.get_path(plan.serving_tree, s.path)
+        _assert_matches_reference(leaf, JR.get_path(jplan.serving_tree, s.path), s.name)
+        _assert_equal_leaves(leaf, TR.get_path(fresh.serving_tree, s.path), s.name)

@@ -10,7 +10,10 @@ reference on the CPU, at smoke widths.
   path of K1-moe / K2-moe) equals the per-expert plain K1 / K2 exactly,
   and the reference's ``jax.vmap`` of its Pallas kernel (interpret mode)
   within the kernels' tolerances (float32 atol 1e-5; bfloat16 one ulp).
-* The formats without a grouped launch refuse an expert leaf.
+* Every format's expert leaf runs its expert-grouped launch: condensed
+  (K1-moe), condensed_over_active (K4-moe) and structured (K5-moe), each
+  expert equal to the one-expert format and the reference's ``jax.vmap``
+  of the format's apply; the grouped condensed linear takes gradients.
 
 Inputs are drawn with numpy from fixed seeds.
 """
@@ -255,6 +258,9 @@ def test_grouped_scaled_plain_version_is_the_per_expert_k2(dtype, name):
 
 
 def test_grouped_launch_checks_its_operands_and_refuses_gradients():
+    """The operand checks; the grouped linear's gradient, refused until its
+    backward (K3-moe) was ported, now equals each expert's condensed_linear
+    gradient exactly (the quantized codes still refuse one)."""
     _, (tx, tv, ti) = _grouped(2, 3, 16, 8, 4, seed=1)
     with pytest.raises(ValueError, match="need x"):
         TCM.condensed_matmul_grouped(tx[0], tv, ti)
@@ -262,8 +268,16 @@ def test_grouped_launch_checks_its_operands_and_refuses_gradients():
         TCM.condensed_matmul_grouped(tx, tv[:1], ti[:1])
     with pytest.raises(TypeError):
         TCM.condensed_matmul_grouped(tx, tv.double(), ti)
-    with pytest.raises(RuntimeError, match="item 8"):
-        TOPS.condensed_linear_grouped(tx.requires_grad_(), tv, ti)
+    xg, vg = tx.clone().requires_grad_(), tv.clone().requires_grad_()
+    cot = torch.randn((2, 3, 8), generator=torch.Generator().manual_seed(0))
+    (TOPS.condensed_linear_grouped(xg, vg, ti) * cot).sum().backward()
+    for j in range(2):
+        xj, vj = tx[j].clone().requires_grad_(), tv[j].clone().requires_grad_()
+        (TOPS.condensed_linear(xj, vj, ti[j]) * cot[j]).sum().backward()
+        assert torch.equal(xg.grad[j], xj.grad) and torch.equal(vg.grad[j], vj.grad)
+    q, s = TF.quantize_values(tv, "int8")
+    with pytest.raises(RuntimeError, match="inference-only"):
+        TOPS.condensed_linear_grouped(tx.clone().requires_grad_(), q, ti, scales=s)
 
 
 # ---------------------------------------------------------------------------
@@ -300,8 +314,19 @@ def test_condensed_expert_leaf_runs_the_grouped_launch(values_dtype):
 
 @pytest.mark.parametrize("fmt", ["condensed_over_active", "structured"])
 def test_formats_without_a_grouped_launch_refuse_an_expert_leaf(fmt):
+    """These two formats refused an expert leaf until their grouped
+    launches (K4-moe, K5-moe) were ported: the leaf's apply now equals the
+    one-expert format expert by expert exactly, and the reference's
+    ``jax.vmap`` of the format's apply within TOL."""
+    from repro.models import layers as JL
     w, m, x = _expert_leaf_inputs()
     ablation_only = m.any(dim=-2, keepdim=True).expand_as(m).clone()
-    leaf = TF.FORMATS[fmt].export_from_dense(w, ablation_only if fmt == "structured" else m)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        leaf.apply(x, w)
+    mask = ablation_only if fmt == "structured" else m
+    leaf = TF.FORMATS[fmt].export_from_dense(w, mask)
+    y = leaf.apply(x, w)
+    for j in range(4):
+        assert torch.equal(y[j], leaf.layer(j).apply(x[j], w[j]))
+    jleaf = JF.FORMATS[fmt].export_from_dense(jnp.asarray(w.numpy()), jnp.asarray(mask.numpy()))
+    want = jax.vmap(lambda wj, lj, xj: JL.linear(xj, wj, lj))(
+        jnp.asarray(w.numpy()), jleaf, jnp.asarray(x.numpy()))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL["float32"])

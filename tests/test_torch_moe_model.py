@@ -2,7 +2,8 @@
 reference on the CPU: configs and registry, the parameter layout, the loss
 with the routers' aux term and its gradients, prefill and decode on masked
 and condensed, the engines' tokens, the CLI, one SRigL update over the (L,
-E) expert stacks, and the refusals of what this slice does not serve.
+E) expert stacks, plans on every representation with half of the experts'
+neurons ablated, and the refusals of what the port does not serve yet.
 
 The reference's weights and masks (from ``PRNGKey(0)``) are bridged into the
 port (``tests/_torch_zoo_model.py``). Masks, ``neuron_active``, indices and
@@ -331,26 +332,48 @@ def test_engine_refusals_name_their_roadmap_item(capsys, tmp_path, monkeypatch):
                              torch.zeros((1,), dtype=torch.int32))
 
 
+def _half_ablated(m):
+    """The model's masks with the first half of every stack's neurons
+    emptied: (the port's masks, the reference's)."""
+    masks = bridge.from_jax_numpy(jax.tree.map(np.asarray, m["jmasks"]))
+    for s in m["treg"]:
+        TR.get_path(masks, s.path)[..., : s.d_out // 2] = False
+    return masks, jax.tree.map(jnp.asarray, bridge.to_jax_numpy(masks))
+
+
 @pytest.mark.parametrize("path", ["structured", "condensed_over_active"])
 def test_plans_refuse_formats_without_a_grouped_launch(path):
+    """A plan forced to structured or condensed_over_active raised on the
+    expert stacks until their grouped launches (K5-moe, K4-moe) were ported;
+    it now builds, every stack on ``path`` as in the reference's plan, the
+    expert leaves keeping the (L, E) lead and their integer arrays equal to
+    the reference's."""
     m = _model(GRANITE, ())
-    with pytest.raises(NotImplementedError, match="blocks/w_gate.*MoE expert stack.*item 8"):
-        TP.build_plan(m["tcfg"], m["treg"], m["tparams"], m["tmasks"], path=path)
+    masks, jmasks = _half_ablated(m)
+    jplan = JP.build_plan(m["jcfg"], m["jreg"], m["jparams"], jmasks, batch_size=1, path=path)
+    tplan = TP.build_plan(m["tcfg"], m["treg"], m["tparams"], masks, batch_size=1, path=path)
+    for s in m["treg"]:
+        assert tplan.representation_of(s.name) == jplan.representation_of(s.name) == path
+        leaf, jleaf = (TR.get_path(t.serving_tree, s.path) for t in (tplan, jplan))
+        assert tuple(leaf.arrays()["active_index" if path == "structured" else "values"]
+                     .shape[:len(s.lead)]) == s.lead
+        for f, t in leaf.arrays().items():
+            if not t.dtype.is_floating_point:
+                np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jleaf, f)),
+                                              err_msg=f"{s.name}/{f}")
 
 
 def test_auto_raises_where_the_reference_would_pick_another_format():
     """Half of each stack's neurons ablated: at bucket 1 the reference's
-    cost model picks condensed_over_active for the expert stacks, which
-    has no grouped launch here, so the port's plan raises."""
+    cost model picks condensed_over_active for the expert stacks. The
+    port's plan raised there until K4-moe was ported; it now decides every
+    stack as the reference does."""
     m = _model(GRANITE, ())
-    masks = bridge.from_jax_numpy(jax.tree.map(np.asarray, m["jmasks"]))
-    for s in m["treg"]:
-        mask = TR.get_path(masks, s.path)
-        mask[..., : s.d_out // 2] = False
-    jmasks = jax.tree.map(jnp.asarray, bridge.to_jax_numpy(masks))
+    masks, jmasks = _half_ablated(m)
     jplan = JP.build_plan(m["jcfg"], m["jreg"], m["jparams"], jmasks, batch_size=1,
                           path="auto")
     picked = {jplan.representation_of(s.name) for s in m["jreg"] if s.path[-1] != "wo"}
-    assert picked - set(TP.EXPERT_REPRESENTATIONS)
-    with pytest.raises(NotImplementedError, match="MoE expert stack.*item 8"):
-        TP.build_plan(m["tcfg"], m["treg"], m["tparams"], masks, batch_size=1, path="auto")
+    assert picked - {"masked", "condensed"}
+    tplan = TP.build_plan(m["tcfg"], m["treg"], m["tparams"], masks, batch_size=1, path="auto")
+    assert {s.name: tplan.representation_of(s.name) for s in m["treg"]} == \
+        {s.name: jplan.representation_of(s.name) for s in m["jreg"]}
