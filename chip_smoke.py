@@ -104,10 +104,11 @@ Phases, each of which raises (exit code != 0) on any failed check:
    live requests never share a page and every page comes back; the second
    wave captures no graph, runs no new prefill shape, has no cold result
    and launches each kernel as often as the plans' decisions imply; every
-   request's tokens equal a standalone generate's, or part only at a logit
-   near-tie (max(TIE_GAP, 2 x the bucket-padded prefill's logit noise)).
-   Then the first four requests once more in float32 (K1), where a stream
-   may part only below 1e-3.
+   second-wave request's tokens equal a standalone generate's, or part only
+   at a logit near-tie (max(TIE_GAP, 2 x the bucket-padded prefill's logit
+   noise)). Then the first four requests once more in float32 (K1), where a
+   stream may part only below 1e-3. The condensed engine's bucket-8 pool,
+   serving leaves and one eager decode step's memory go to [dryrun].
 9. rows: whether torch.matmul gives other rows for other row counts M on
    the card (M = 4 vs 8, 8 vs 32, 128 vs 512; bf16 and f32; qwen3-1.7b's
    dense product shapes, the head through the embedding's transpose), and
@@ -219,9 +220,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    and in decode) and qwen2-vl-7b's M-RoPE on the slab path, the other two
    on the paged pool, each on masked and condensed: the counted request
    launches K1 4 * layers * (1 + GEN) times on condensed and nothing on
-   masked; the engine's tokens equal standalone generate's (the paged
-   engine's may part at a near-tie), the eager decode loop's equal the
-   graph replays', and condensed is held to masked under the tie rule.
+   masked, with the warm request's tokens; the paged engine's tokens equal
+   standalone generate's (they may part at a near-tie), the eager decode
+   loop's (masked: its step-by-step run's) equal the graph replays', and
+   condensed is held to masked under the tie rule.
    Prints the layout, the depth, the graph and eager walls and
    max_memory_allocated.
 19. moe: granite-moe-1b-a400m at its published width and depth (24
@@ -240,6 +242,25 @@ Phases, each of which raises (exit code != 0) on any failed check:
    its tokens part only at a logit tie or after such a routing change.
    Then f32 masked and condensed, where neither routing nor tokens part.
    Prints walls, launches, the logit differences and max_memory_allocated.
+   Then spec:moe: self-draft speculative decoding on the same model at
+   bucket 8 and gamma 3, bf16 condensed at draft ablation 0.5 and f32 at
+   0.0, each beside a plain engine (a warm request, then a timed one): the
+   draft runs wo on K4 and the experts on K4-moe, the verify routes the
+   bucket's 32 rows as one group at capacity 10 (K1, K1-moe), as the
+   reference's does. The draft and verify are captured graphs, none new in
+   the timed wave, which launches what the plan and draft kinds imply;
+   pages come back; the draft holds no value bytes; every round's verify
+   (and the first round's drafts) equals its eager rerun on the card
+   bitwise, each of its router calls one group at capacity 10; in f32 the
+   first round's verify logits lie within LOGIT_NOISE_BOUND of the CPU
+   plain-version verify's on the same inputs, the card's routing
+   replayed; a stream parts from the plain engine's only at a tie or at
+   or after the first token that a verify drop of its own row's (token,
+   expert) assignments moved (counted per row and position from the eager
+   rerun's router calls), and in f32 at ablation 0.0 a draft is rejected
+   only so. Prints
+   acceptance, rounds, the share of verify rounds that dropped, draft and
+   verify device ms, both tok/s, launches a round and the SpecEstimate.
 20. ssm: mamba2-130m at its published width and depth (24 layers, d_model
    768, d_inner 1536, 24 SSD heads of 64, state 128), random weights and
    90% SRigL masks from a seeded generator, served by the slab
@@ -247,8 +268,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    64-token SSD chunks, the last padded; 16 new tokens) in bf16 on masked,
    condensed, int8 condensed and auto, and in f32 on masked and condensed:
    the counted request launches what its plan implies (condensed: K1 3 x
-   24 x 17 times, int8: K2), repeated requests equal, the engine ==
-   standalone generate == the eager decode loop, each path held to masked's
+   24 x 17 times, int8: K2) with the warm request's tokens, the engine's
+   tokens == the eager decode loop's (masked: its step-by-step run's),
+   each path held to masked's
    tokens under the tie rule (int8 to its dequantized twin's). Prints the
    walls and max_memory_allocated. Its kernel phase (kernel:ssm, after
    kernel:moe): K1 and K2 at mamba2's three stack shapes at decode B=4 and
@@ -278,8 +300,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    masked, condensed, int8 condensed and auto, then in f32 on masked,
    condensed and int8 condensed at a 15-layer cut (two groups and the 3
    m_rem layers): launches as the plan implies (condensed: K1 (3 x 81 + 4
-   x 13) x 17 times), repeated requests equal, engine == standalone
-   generate == the eager loop, each of the 13 shared KV slabs written,
+   x 13) x 17 times), the counted request equal to the warm one, the
+   engine's tokens == the eager loop's (masked: its step-by-step run's),
+   each of the 13 shared KV slabs written,
    each path held to masked's tokens under the tie rule (int8 to its
    dequantized twin's), the bf16 noise bound at this depth
    HYBRID_NOISE_BOUND. Its kernel phase (kernel:hybrid, after kernel:ssm):
@@ -311,11 +334,23 @@ Phases, each of which raises (exit code != 0) on any failed check:
    tokens a codebook by prefill_step and 16 decode_steps (no serving loop
    takes audio prompts, as in the reference), bf16 masked, condensed, int8
    condensed and auto, f32 masked and condensed: K1 (K2) 4 x 48 x 17 =
-   3264 launches a condensed (int8) request, repeated requests equal, every
+   3264 launches a condensed (int8) request, a repeated request equal, every
    codebook's tokens held to masked's (int8: its twin's) under the tie
    rule. Its kernel phase (kernel:audio, after kernel:vit): K1 and K2 at
    its stack shapes, decode B=4 and the prefill's 128 rows.
-25. reference: the smoke config on the card against the port's CPU path
+25. dryrun (run after grad:structured, while the qwen3 setup lives):
+   planning without allocation (launch/dryrun.py), every tensor on the
+   meta device. qwen3-1.7b condensed on the [engine] group's
+   pool: memory_allocated unchanged across the meta cells, the params' and
+   the pool's bytes equal to what the card allocated, the abstract serving
+   tree equal to the export in every axis but k (both k printed), and the
+   meta decode step's peak beside the measured max_memory_allocated
+   increase of one eager step (a finding). A process that sees no card
+   (start_dryrun, started with the script) meanwhile runs every config's
+   serve_zoo cell at its published width and full depth (kimi-k2-1t and
+   mistral-large-123b too) and the train cells of DRYRUN_TRAIN; each
+   cell's bytes are printed beside the card's memory.
+26. reference: the smoke config on the card against the port's CPU path
    (plain versions), which the CPU tests hold to the JAX reference, on the
    condensed, condensed_over_active and structured paths, each with float,
    int8 and fp8 values: identical tokens, and the path's kernel launched
@@ -335,13 +370,16 @@ build/chip_smoke_kernels.json.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
 import math
 import os
 import re
+import shlex
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -405,7 +443,7 @@ KERNELS = (  # key, wrapper (call), CUDA source, the TPU kernel it replaces
      "src/repro/kernels/condensed_matmul.py:271"),
 )
 QUANT = ("int8", "fp8")  # the quantized --values-dtype choices
-QUANT_REPEATS = 3  # timed generate runs per quantized path and dtype
+QUANT_REPEATS = 2  # timed generate runs per quantized path and dtype
 ABLATION = 0.5  # fraction of each sparse stack's output neurons ablated
 # the port's kernels as the profiler names them: K1, K2, K4 and K2-coa run
 # gather_mma in bfloat16 and gather_rows_kernel in float32; K5 and K6 run
@@ -542,13 +580,35 @@ def _ptxas_kernels(log: str) -> list[tuple[str, str]]:
     return found
 
 
-def build_phase():
+def start_build() -> dict:
+    """Start nvcc on every CUDA source at once, in a thread, so that the
+    compile overlaps the card's first use and the set-up before [build];
+    ``build_phase`` waits for it."""
+    import threading
     from repro_torch.kernels import _build
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    t0 = time.perf_counter()
-    _build.build(*names)
-    print(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    job = {"names": sorted(p.stem for p in _build.CSRC.glob("*.cu")),
+           "t0": time.perf_counter()}
+
+    def run():
+        try:
+            _build.build(*job["names"])
+        except Exception as e:  # noqa: BLE001 -- raised again in build_phase
+            job["error"] = e
+
+    job["thread"] = threading.Thread(target=run)
+    job["thread"].start()
+    return job
+
+
+def build_phase(job: dict | None = None):
+    from repro_torch.kernels import _build
+    job = job or start_build()
+    names = job["names"]
+    job["thread"].join()
+    if "error" in job:
+        raise job["error"]
+    print(f"[build] {', '.join(names)} in {time.perf_counter() - job['t0']:.1f}s from the "
+          f"start of the compile (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in names:
         found = _ptxas_kernels(_build.build_logs.get(name, ""))
         if found:  # what ptxas said of the source's kernels
@@ -1758,8 +1818,7 @@ def slice_phase(setup: dict, card: str):
         _eager_wall(f"slice:{dtype_name}:condensed", cond_model, prompts, out_c,
                     walls["condensed"], tok_s["condensed"])
         setup["report"][f"condensed_wall:{dtype_name}"] = statistics.median(walls["condensed"])
-        _eager_wall(f"slice:{dtype_name}:masked", masked_model, prompts, out_m,
-                    walls["masked"], tok_s["masked"])
+        # masked's eager loop is its step-by-step run, held to generate here
         toks_m, gaps = _masked_gaps(cfg, masked_model, prompts, GEN)
         if not torch.equal(toks_m, out_m[:, PROMPT:]):
             raise AssertionError("masked step-by-step run differs from generate")
@@ -2338,6 +2397,48 @@ def _engine_expected(eng, dispatches: dict) -> dict:
     return expected
 
 
+def _bytes(*trees) -> int:
+    """Bytes of the distinct storages under ``trees`` (tensors, dicts and
+    format leaves), as the dry run counts them."""
+    from repro_torch.launch import dryrun as DR
+    return DR.tree_bytes(*trees)
+
+
+def _gib(n: int) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def _engine_bytes(eng) -> dict:
+    """What [dryrun] holds its qwen3-1.7b cell to, from the engine's
+    bucket-8 group after its waves: the pool's pages and table width, the
+    pool's bytes, each serving leaf's field shapes and dtypes, the tree's
+    and the serving copy's bytes, and the max_memory_allocated increase of
+    one eager paged decode step on the group's state, emptied (every row
+    on the garbage page, as a capture's warm-up step runs)."""
+    import torch
+    from repro_torch.sparse import registry as REG
+    key = eng.plan_key(SPEC_BUCKET)
+    runner = eng._runners[key]
+    tree = eng.serving_tree_for(key)
+    leaves = {s.name: {f: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                       for f, t in REG.get_path(tree, s.path).arrays().items()}
+              for s in eng.registry}
+    st = runner.state
+    st.table.zero_()
+    st.lengths.zero_()
+    st.step.zero_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        runner.decoder.step()
+    torch.cuda.synchronize()
+    return dict(bucket=key.batch_bucket, pages=(runner.num_blocks, runner.nb),
+                block_size=runner.bs, pool_bytes=_bytes(st.pool), leaves=leaves,
+                tree_bytes=_bytes(tree), compute_bytes=_bytes(eng.compute),
+                step_peak=torch.cuda.max_memory_allocated() - base)
+
+
 def engine_phase(setup: dict, card: str) -> None:
     """The paged ServingEngine at full width, bf16, block_size 16, gen_chunk
     16: ENGINE_MIX (two groups, buckets 1 and 8) submitted two at a time
@@ -2349,8 +2450,10 @@ def engine_phase(setup: dict, card: str) -> None:
     replay == eager bitwise from a saved state; pages disjoint and none
     leaked; the second wave captures
     no graph, runs no new prefill shape, has no cold result and launches
-    each kernel as the plans' decisions imply; every request's tokens equal
-    a standalone generate's, except at near-ties."""
+    each kernel as the plans' decisions imply; every second-wave request's
+    tokens equal a standalone generate's, except at near-ties. The condensed
+    bf16 engine's bucket-8 group leaves its allocations in
+    ``setup["report"]["engine"]`` (``_engine_bytes``) for [dryrun]."""
     import torch
     from repro_torch.launch import engine as E
 
@@ -2387,11 +2490,14 @@ def engine_phase(setup: dict, card: str) -> None:
         if counts != expected:
             raise AssertionError(f"{label}: the second wave launched {counts}, its plans imply "
                                  f"{expected}")
-        graphs: dict = {}
-        equal, total = (a + b for a, b in zip(_engine_tokens(label, cfg, eng, first, graphs),
-                                              _engine_tokens(label, cfg, eng, second, graphs)))
-        del graphs
+        # the second wave's requests (the first wave's shapes, other
+        # prompts) are held to standalone generate; the first wave is their
+        # repetition and held only by the replay check
+        equal, total = _engine_tokens(label, cfg, eng, second, {})
         _part("checks")
+        if label == "engine:condensed":
+            setup["report"]["engine"] = _engine_bytes(eng)
+            _part("bytes")
         tokens = sum(b * g for b, _, g in mix)
         groups = ", ".join(f"{k.describe()}: {r.prefills} prefills, {r.steps} decode steps"
                            for k, r in eng._runners.items())
@@ -2399,8 +2505,8 @@ def engine_phase(setup: dict, card: str) -> None:
               f"waves {wall1:.3f}s and {wall2:.3f}s ({tokens / wall2:.1f} tok/s); {groups}; "
               f"graphs captured {programs['decode']}, prefill shapes {programs['prefill']}, "
               f"none new in the second wave, no cold result; second-wave launches {counts} "
-              f"as the plans imply; streams bitwise equal to standalone generate "
-              f"{equal}/{total}")
+              f"as the plans imply; second-wave streams bitwise equal to standalone "
+              f"generate {equal}/{total}")
         del eng, first, second
         _release()
 
@@ -2722,23 +2828,32 @@ def _replay_ms(decoder, reps: int = 10) -> float:
 
 def _spec_expected(eng, dispatches: dict) -> dict:
     """Kernel launches the plans and draft kinds imply for ``dispatches``
-    ({plan key: (prefills, rounds)}): per layer, each stack's target kernel
-    once per prefill and per verify, its draft's kernel gamma times a round."""
+    ({plan key: (prefills, rounds)}): each stack's target kernel
+    ``_applications`` times per prefill and per verify, its draft's kernel
+    gamma times as often a round; an MoE expert stack's through its
+    expert-grouped launch."""
+    from repro_torch.sparse import registry as REG
     quant = eng.values_dtype is not None
     target = {"condensed": "K2" if quant else "K1",
               "condensed_over_active": "K2-coa" if quant else "K4", "structured": "K5"}
     draft = {"sentinel": "K2-coa" if quant else "K4", "subset": "K5"}
+    grouped = {"K1": "K1-moe", "K2": "K2-moe", "K4": "K4-moe", "K2-coa": "K2-coa-moe",
+               "K5": "K5-moe"}
+    stacks = {s.name: s for s in eng.registry}
     gamma = eng.speculative.gamma
     expected = _none()
     for key, (prefills, rounds) in dispatches.items():
         report = eng._draft_reports[key]
         for name, rep in key.formats:
+            runs = _applications(eng.cfg, stacks[name])
+            expert = REG.is_expert_stack(stacks[name], eng.cfg)
             if rep in target:
-                expected[target[rep]] += eng.cfg.n_layers * (prefills + rounds)
+                expected[grouped[target[rep]] if expert else target[rep]] += \
+                    runs * (prefills + rounds)
             kind = report[name]
             kern = draft.get(kind) if kind != "identity" else target.get(rep)
             if kern:
-                expected[kern] += eng.cfg.n_layers * gamma * rounds
+                expected[grouped[kern] if expert else kern] += runs * gamma * rounds
     return expected
 
 
@@ -4689,10 +4804,10 @@ def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> 
     path) on masked, then condensed (K1). Each engine serves a warm request
     (which captures its decode graph), then one with the counts zeroed just
     before and read just after (condensed: K1 four times a layer a dispatch,
-    4 * layers * (1 + GEN) on the slab path; masked: nothing), then two
-    more, all with the same tokens. The eager decode loop gives standalone
-    generate's tokens bitwise; the engine's tokens equal standalone
-    generate's (the paged engine's may part only at a near-tie,
+    4 * layers * (1 + GEN) on the slab path; masked: nothing), with the
+    warm one's tokens. The eager decode loop (masked: the step-by-step run
+    it is held to) gives the engine's tokens bitwise (paged: standalone
+    generate's, which the engine's equal but at a near-tie,
     ``_engine_tokens``). Condensed is held to masked under the tie rule
     (``_check_ties`` at ``_tie_threshold``). Prints the layout, the depth,
     both walls and the peak memory. Returns the counted request's K1
@@ -4762,39 +4877,37 @@ def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> 
                                           if path == "condensed" else 0)}
         if counts != expected:
             raise AssertionError(f"{name}: launched {counts}, expected {expected}")
-        walls = [wall]
-        for _ in range(2):
-            again, wall = _zoo_request(eng, prompts)
-            walls.append(wall)
-            if not torch.equal(again.tokens, res.tokens):
-                raise AssertionError(f"{name}: a repeated request gave other tokens")
         if not torch.equal(first.tokens, res.tokens):
             raise AssertionError(f"{name}: the warm request gave other tokens")
         tree = eng.serving_tree_for(res.plan_key)
-        standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
+        # a paged engine's tokens are held to standalone generate's
+        # (``_engine_tokens``), a slab one's are the engine's own
+        standalone = (E.generate(cfg, eng.compute, tree, prompts, GEN) if eng.paged
+                      else res.tokens)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
-        torch.cuda.synchronize()
-        eager_wall = time.perf_counter() - t1
-        if not torch.equal(eager, standalone):
-            raise AssertionError(f"{name}: the eager decode loop gave other tokens than the "
-                                 f"graph replays")
+        eager_s = "the step-by-step run below"
+        checked = ["the counted request == the warm one"]
+        if path != "masked":  # masked's step-by-step run (_masked_gaps) is its eager loop
+            t1 = time.perf_counter()
+            eager, _, t_dec, _ = E._serve_eager(cfg, eng.compute, tree, prompts, GEN)
+            torch.cuda.synchronize()
+            eager_s = (f"wall {(time.perf_counter() - t1) * 1e3:.2f} ms (decode "
+                       f"{t_dec * 1e3:.2f} ms)")
+            if not torch.equal(eager, standalone):
+                raise AssertionError(f"{name}: the eager decode loop gave other tokens than "
+                                     f"the graph replays")
+            checked.append("the eager loop == " + ("standalone generate" if eng.paged
+                                                   else "the engine's tokens"))
         if eng.paged:
             equal, total = _engine_tokens(name, cfg, eng, {res.id: (prompts.cpu(), GEN, res)},
                                           {})
-            agree = f"engine streams bitwise equal to standalone generate {equal}/{total}"
-        elif not torch.equal(res.tokens, standalone):
-            raise AssertionError(f"{name}: the slab engine's tokens differ from standalone "
-                                 f"generate's")
-        else:
-            agree = "engine tokens == standalone generate"
+            checked.append(f"engine streams bitwise equal to standalone generate "
+                           f"{equal}/{total}")
         print(f"[{name}] {card}: {'paged' if eng.paged else 'slab'} engine, request "
-              f"{BATCH}x{prompt}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
-              f"(median of {len(walls)}; prefill {res.prefill_s * 1e3:.2f} ms, decode "
-              f"{res.decode_s * 1e3:.2f} ms), eager decode loop wall {eager_wall * 1e3:.2f} ms "
-              f"(decode {t_dec * 1e3:.2f} ms); dispatches {sum(dispatches.values())}, "
-              f"launches {counts}; {agree}; eager == graph tokens")
+              f"{BATCH}x{prompt}+{GEN}: graph wall {wall * 1e3:.2f} ms (the counted request; "
+              f"prefill {res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms), eager "
+              f"decode loop {eager_s}; dispatches {sum(dispatches.values())}, launches "
+              f"{counts}; {'; '.join(checked)}")
         outs[path] = standalone
         if path == "condensed":
             launches, cond_tree = counts["K1"], tree
@@ -4803,7 +4916,8 @@ def _zoo_serve(device, card: str, arch: str, depth: int | None, prompt: int) -> 
     masked = SimpleNamespace(compute=compute, serving=masks)
     toks_m, gaps = _masked_gaps(cfg, masked, prompts, GEN)
     if not torch.equal(toks_m, outs["masked"][:, prompt:]):
-        raise AssertionError(f"{label}: masked step-by-step run differs from generate")
+        raise AssertionError(f"{label}: masked step-by-step run differs from the engine "
+                             f"(paged: standalone generate)")
     tie = _tie_threshold(label, cfg, SimpleNamespace(compute=compute, serving=cond_tree),
                          masked, prompts)
     agree = _check_ties(label, cfg, outs["condensed"], toks_m, gaps, tie, prompt=prompt)
@@ -5415,8 +5529,8 @@ def _moe_hold(label: str, cfg, compute, tree, prompts, standalone, ref: dict, ag
 def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, card,
                 prefetch: bool = False, repeats: bool = True):
     """One paged engine on ``path``: a warm request, a counted one, with
-    ``repeats`` two more (the median wall of three, each held to the
-    request that took the same rows), and the standalone generate of its
+    ``repeats`` one more on the warm one's rows and held to its tokens (the
+    median wall of the counted and the repeated), and the standalone generate of its
     serving tree (graph decode), which the caller holds to a step-by-step
     eager run (``_moe_run``, in ``_moe_hold`` for a held path): the eager
     decode loop's check, at no extra run. ``prefetch``: the caller set
@@ -5448,14 +5562,12 @@ def _moe_engine(cfg, params, masks, reg, path, values_dtype, prompts, label, car
     # tokens overflow an expert's capacity, so a request is held to the one
     # that took the same rows
     walls, tokens = [wall], [first.tokens, res.tokens]
-    for _ in range(2 if repeats else 0):
+    if repeats:
         again, wall = _zoo_request(eng, prompts)
         walls.append(wall)
-        tokens.append(again.tokens)
-    for i in (0, 1) if repeats else ():
-        if not torch.equal(tokens[i], tokens[i + 2]):
-            raise AssertionError(f"{label}: request {i + 3} gave other tokens than request "
-                                 f"{i + 1} on the same rows")
+        if not torch.equal(tokens[0], again.tokens):
+            raise AssertionError(f"{label}: request 3 gave other tokens than request 1 on "
+                                 f"the same rows")
     placed = "equal" if torch.equal(tokens[0], tokens[1]) else "part"
     tree = eng.serving_tree_for(res.plan_key)
     standalone = E.generate(cfg, eng.compute, tree, prompts, GEN)
@@ -5889,6 +6001,428 @@ def moe_train_phase(device, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding on the MoE family ([spec:moe])
+# ---------------------------------------------------------------------------
+
+# (label, compute dtype, draft ablation): bf16 sentinel drafts at half the
+# neurons, and f32 at draft ablation 0.0, the protocol's ceiling, where a
+# draft is the target's weights and a rejection needs a tie or a verify drop
+SPEC_MOE_RUNS = (("spec:moe", "bfloat16", 0.5), ("spec:moe:f32", "float32", 0.0))
+
+
+@contextlib.contextmanager
+def _recorded_rounds(rounds: list, prefill_gaps: list):
+    """Record every speculative round the paged runners dispatch while the
+    block runs (``engine._spec_dispatch``): the device pool, the host
+    tables, lengths and next tokens it starts from, its live rows, and the
+    feed and verify argmax the graphs gave; and each prefill dispatch's
+    top-2 logit gap per bucket row (``prefill_gaps``; the last is the
+    admission's, after any warm-up of a new prompt bucket), which chose the
+    first generated token. Nothing of a dispatch changes."""
+    from repro_torch.launch import engine as E
+    dispatch, prefill = E._spec_dispatch, E._paged_prefill_dispatch
+
+    def recording(runner):
+        start = dict(runner=runner, pool={k: v.clone() for k, v in runner.state.pool.items()},
+                     table=runner.table.copy(), lengths=runner.lengths.copy(),
+                     cur=runner.cur.copy(),
+                     rows={a.req.id: list(a.rows) for a in runner.active.values()})
+        out = dispatch(runner)
+        rounds.append(dict(start, feed=out[0].copy(), targ=out[1].copy()))
+        return out
+
+    def recording_prefill(cfg, *args, **kw):
+        out = prefill(cfg, *args, **kw)
+        top2 = out[0][..., :cfg.vocab_size].float().topk(2, dim=-1).values
+        prefill_gaps.append((top2[..., 0] - top2[..., 1]).reshape(-1).cpu().numpy())
+        return out
+
+    E._spec_dispatch, E._paged_prefill_dispatch = recording, recording_prefill
+    try:
+        yield rounds
+    finally:
+        E._spec_dispatch, E._paged_prefill_dispatch = dispatch, prefill
+
+
+def _spec_rounds_eager(label: str, cfg, eng, rounds: list, on_cpu: bool) -> dict:
+    """Each recorded round run again eagerly on the card from its saved
+    state, through the graphs' own step functions (the same kernels): the
+    first round's draft steps and every round's verify, which decides every
+    committed token. A later round's verify reads the graph's drafts (the
+    recorded feed; it overwrites every pool slot the drafts wrote before
+    any position attends it, ``models.model`` ``_serve_block``). The feed
+    and the verify's argmax must equal the graphs' bitwise on every live
+    row. Every router call of a verify must route the bucket's rows as one
+    group (B * (gamma + 1) rows) at the capacity the reference's
+    ``moe_block`` gives it, min(gs, max(ceil(gs * k * cf / E), k)), worked
+    out here from the config. Adds to each round the verify's top-2 gaps
+    (bucket, gamma + 1) and, per live row and verify position, the (token,
+    expert) assignments its verify dropped: a token's top-k expert that
+    kept no slot for it, from the router calls of the eager verify
+    (``moe.route_topk``). With ``on_cpu``, the first round's verify is also
+    held to ``_spec_verify_on_cpu``. Returns what that check found (or
+    an empty dict)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    gamma = eng.speculative.gamma
+    route, verify = MOE.route_topk, M.paged_verify_step
+    calls, seen, found = [], {}, {}
+
+    def recording(logits, top_k, capacity):
+        out = route(logits, top_k, capacity)
+        calls.append((logits, out))
+        return out
+
+    def kept_logits(*args, **kw):
+        out = verify(*args, **kw)
+        seen["logits"] = out[0]
+        return out
+
+    MOE.route_topk, M.paged_verify_step = recording, kept_logits
+    try:
+        with torch.no_grad():
+            for r in rounds:
+                runner, st = r["runner"], r["runner"].state
+                for k, v in r["pool"].items():
+                    st.pool[k].copy_(v)
+                st.table.copy_(torch.from_numpy(r["table"]))
+                st.step.zero_()
+                if r is rounds[0]:
+                    st.lengths.copy_(torch.from_numpy(r["lengths"]))
+                    st.cur.copy_(torch.from_numpy(r["cur"]))
+                    for _ in range(gamma):
+                        runner.draft.step()
+                else:  # the state the draft graph left: its tokens, lengths + gamma
+                    st.lengths.copy_(torch.from_numpy(r["lengths"] + gamma))
+                    st.toks[:, :gamma].copy_(torch.from_numpy(r["feed"][:, :gamma]))
+                    st.cur.copy_(torch.from_numpy(r["feed"][:, gamma:]))
+                calls.clear()
+                runner.verify.step()
+                live = sorted(row for rows in r["rows"].values() for row in rows)
+                feed = st.toks[:, :gamma + 1].cpu().numpy()
+                targ = runner.targ.cpu().numpy()
+                if not (np.array_equal(feed[live], r["feed"][live])
+                        and np.array_equal(targ[live], r["targ"][live])):
+                    raise AssertionError(f"{label}: a round's eager draft and verify give other "
+                                         f"tokens than its graph replays")
+                lg = seen["logits"][..., :cfg.vocab_size].float()
+                top2 = lg.topk(2, dim=-1).values
+                r["gaps"] = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+                b, t = lg.shape[:2]
+                gs = min(cfg.moe_group_size, b * t)
+                cap = min(gs, max(math.ceil(gs * cfg.top_k_experts * cfg.capacity_factor
+                                            / cfg.n_experts), cfg.top_k_experts))
+                drops = torch.zeros((b, t), dtype=torch.int64, device=lg.device)
+                for logits, (dispatch, _, _) in calls:  # one router call a layer
+                    if tuple(logits.shape[:2]) != (b * t // gs, gs) or dispatch.shape[-1] != cap:
+                        raise AssertionError(f"{label}: a verify router call routed groups "
+                                             f"{tuple(logits.shape[:2])} at capacity "
+                                             f"{dispatch.shape[-1]}, the reference's "
+                                             f"{(b * t // gs, gs)} at {cap}")
+                    chosen = MOE.top_k(torch.softmax(logits.float(), dim=-1),
+                                       cfg.top_k_experts)[1]
+                    held = dispatch.any(-1).gather(-1, chosen)          # (G, S, k)
+                    drops += (~held).reshape(b, t, -1).sum(-1)
+                r["drops"] = {row: drops[row].tolist() for row in live}
+                r["capacity"] = cap
+                if on_cpu and r is rounds[0]:
+                    found = _spec_verify_on_cpu(label, cfg, eng, r, feed, calls,
+                                                seen["logits"], live, route)
+                del r["pool"]
+    finally:
+        MOE.route_topk, M.paged_verify_step = route, verify
+    return found
+
+
+def _spec_verify_on_cpu(label: str, cfg, eng, r: dict, feed, calls: list, logits,
+                        live: list, route) -> dict:
+    """The round ``r``'s verify run again on the CPU through the plain
+    versions of the kernels, on copies of the same params, serving tree,
+    pool, table, lengths and feed (the path the CPU tests hold to the
+    reference's ``paged_verify_step``). The routing: each layer's dispatch
+    on the card must equal ``route`` (``moe.route_topk``) run here on the card's router
+    logits at the group's capacity, bitwise; the CPU verify then replays the
+    card's routing (a float32 near-tie of two experts' scores may rank them
+    otherwise here), and its logits on the live rows must lie within
+    LOGIT_NOISE_BOUND of the card's. Returns the largest difference and
+    the rows and positions compared."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    cpu = torch.device("cpu")
+
+    def to_cpu(tree):  # tensors and format leaves alike
+        return {k: to_cpu(v) if isinstance(v, dict) else v.to(cpu) for k, v in tree.items()}
+
+    cap = r["capacity"]
+    replay = []
+    for router_logits, (dispatch, combine, aux) in calls:
+        replay.append((dispatch.cpu(), combine.cpu(), aux.cpu()))
+        want = route(router_logits.cpu(), cfg.top_k_experts, cap)[0]
+        if not torch.equal(want, replay[-1][0]):
+            raise AssertionError(f"{label}: a verify layer's dispatch on the card differs from "
+                                 f"route_topk on its router logits at capacity {cap}")
+    params, tree = to_cpu(eng.compute), to_cpu(eng.serving_tree_for(r["runner"].key))
+    pool = {k: v.cpu() for k, v in r["pool"].items()}
+    it, kept = iter(replay), MOE.route_topk
+    MOE.route_topk = lambda *a, **kw: next(it)
+    try:
+        got, _ = M.paged_verify_step(cfg, params, tree, {"tokens": torch.from_numpy(feed)},
+                                     pool, torch.from_numpy(r["table"]),
+                                     torch.from_numpy(r["lengths"]))
+    finally:
+        MOE.route_topk = kept
+    if next(it, None) is not None:
+        raise AssertionError(f"{label}: the CPU verify made fewer router calls than the card's")
+    v = cfg.vocab_size
+    diff = (logits[live, :, :v].float().cpu() - got[live, :, :v].float()).abs().max().item()
+    bound = LOGIT_NOISE_BOUND[cfg.dtype]
+    if not diff <= bound:
+        raise AssertionError(f"{label}: the first round's verify logits on the card part from "
+                             f"the CPU plain-version verify by {diff:.3g} (bound {bound:.3g})")
+    del params, tree, pool
+    return {"max_abs": diff, "bound": bound, "rows": len(live), "positions": logits.shape[1],
+            "layers": len(calls)}
+
+
+def _round_at(rounds: list, row: int, t: int, j: int):
+    """The recorded round whose verify chose generated token ``j`` of the
+    stream on bucket row ``row`` (prompt ``t``): the last round of that row
+    whose first predicted position, L0 - t + 1, is at or before ``j``."""
+    found = None
+    for r in rounds:
+        if any(row in rows for rows in r["rows"].values()) and \
+                int(r["lengths"][row]) - t + 1 <= j:
+            found = r
+    return found
+
+
+def spec_moe_phase(device, card: str, measured) -> dict:
+    """[spec:moe]: self-draft speculative decoding on granite-moe-1b-a400m
+    at its published width and depth, random weights and 90% SRigL ERK masks
+    from [moe]'s seed, on the paged engine (condensed, bucket 8, gamma 3,
+    one B = 4 x 32 + GEN request a wave, a warm wave then a timed one),
+    each run (SPEC_MOE_RUNS) beside a plain engine of the same path, dtype
+    and waves. The draft is sentinel condensed-over-active (wo on K4 and the
+    experts on K4-moe, 24 and 72 launches a draft step); the verify routes
+    the bucket's 32 rows as one group at capacity 10 (K1 at 32 rows, K1-moe
+    at up to 10 an expert), where a decode step's 8-row groups hold 8 and
+    never drop. Gates: the draft and verify are captured graphs, replayed in
+    the timed wave with no new signature and no cold result; the timed wave
+    launches each kernel as the plan and the draft kinds imply; all pages
+    back after each wave; the draft holds no value bytes of its own; every
+    round's verify (and the first round's drafts) equals its eager rerun on
+    the card bitwise, and every verify routes its rows as one group at the
+    reference's capacity (``_spec_rounds_eager``); in f32, the first round's
+    verify logits lie within LOGIT_NOISE_BOUND of the CPU plain-version
+    verify's on the same inputs (``_spec_verify_on_cpu``); a stream parts
+    from the plain engine's only at a tie (the verify's top-2 gap at the
+    parting token below max(TIE_GAP, 2 LOGIT_NOISE_BOUND), the largest
+    difference [moe] lets two paths' logits show) or at or after the first
+    token that a verify drop of its own row's assignments moved (a drop at
+    verify position q moves the logits of q and after); in f32 at draft
+    ablation 0.0 every rejected draft (position m) is at a tie (TIE_GAP) or
+    its row's verify dropped an assignment at positions 0-m. Returns the
+    bf16 run's timed-wave launches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import speculative as SP
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    cfg = configs.get_config(MOE_ARCH)
+    reg = REG.build_registry(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, REG.k_fan_map(cfg, reg))
+    masks = REG.init_sparsity_state(cfg, gen, reg)["masks"]
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    gamma, rows = SPEC_GAMMA, SPEC_BUCKET * (SPEC_GAMMA + 1)
+    print(f"[spec:moe] {MOE_ARCH}: {cfg.n_layers} layers, {cfg.n_experts} experts top-"
+          f"{cfg.top_k_experts}; gamma {gamma} at bucket {SPEC_BUCKET}: a draft step routes "
+          f"{SPEC_BUCKET} rows at capacity {MOE.capacity_for(cfg, SPEC_BUCKET)}, the verify "
+          f"{rows} rows as one group (group size {cfg.moe_group_size}) at capacity "
+          f"{MOE.capacity_for(cfg, min(cfg.moe_group_size, rows))}; request "
+          f"{BATCH}x{PROMPT}+{GEN} a wave")
+    launches = {}
+    for label, dtype_name, ablation in SPEC_MOE_RUNS:
+        t_run = time.perf_counter()
+        run_cfg = cfg.replace(dtype=dtype_name)
+        plain = E.ServingEngine(run_cfg, params, masks, reg, path="condensed",
+                                block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK)
+        _part("setup")
+        _zoo_request(plain, prompts)
+        plain_res, plain_wall = _zoo_request(plain, prompts)
+        key = plain_res.plan_key
+        plain_step_ms = _replay_ms(plain._runners[key].decoder)
+        _part("plain")
+        eng = E.ServingEngine(run_cfg, params, masks, reg, path="condensed",
+                              block_size=ENGINE_BLOCK, gen_chunk=ENGINE_CHUNK,
+                              speculative=SP.SpecConfig(gamma=gamma, draft_ablation=ablation,
+                                                        force=True))
+        _part("setup")
+        _zoo_request(eng, prompts)
+        _part("capture")
+        runner = eng._runners[key]
+
+        def pages_back(wave: str) -> None:
+            for e in (plain, eng):
+                for rn in e._runners.values():
+                    if rn.active or rn.alloc.available != rn.num_blocks - 1:
+                        raise AssertionError(f"{label}: pages still held after the {wave} wave")
+
+        pages_back("warm")
+        programs = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
+        if not programs["draft"] or eng.program_count("decode") or \
+                runner.draft.graph is None or runner.verify.graph is None:
+            raise AssertionError(f"{label}: graphs {programs}, decode "
+                                 f"{eng.program_count('decode')}: the draft or verify is not a "
+                                 f"captured graph")
+        before = (runner.prefills, runner.rounds, runner.draft_s, runner.verify_s)
+        rounds, prefill_gaps = [], []
+        _zero_counts()
+        with _recorded_rounds(rounds, prefill_gaps):
+            res, wall = _zoo_request(eng, prompts)
+        counts = _counts()
+        pages_back("timed")
+        after = {k: eng.program_count(k) for k in ("prefill", "draft", "verify")}
+        if after != programs or res.cold:
+            raise AssertionError(f"{label}: the timed wave ran new signatures {programs} -> "
+                                 f"{after}, cold {res.cold}")
+        n_rounds = runner.rounds - before[1]
+        expected = _spec_expected(eng, {key: (runner.prefills - before[0], n_rounds)})
+        if counts != expected or len(rounds) != n_rounds:
+            raise AssertionError(f"{label}: the timed wave launched {counts} in {len(rounds)} "
+                                 f"rounds, the plan and draft kinds imply {expected}")
+        target, draft = eng.serving_tree_for(key), eng.draft_tree_for(key)
+        shared, extra = PLAN.draft_weight_overhead_bytes(reg, target, draft)
+        if extra:
+            raise AssertionError(f"{label}: the draft holds {extra} value bytes of its own")
+        kinds = sorted(set(eng._draft_reports[key].values()))
+        in_prefill = _spec_expected(eng, {key: (1, 0)})
+        per_round = {k: (v - in_prefill[k]) / n_rounds for k, v in counts.items()
+                     if v - in_prefill[k]}
+        _part("serve")
+        on_cpu = _spec_rounds_eager(label, run_cfg, eng, rounds, dtype_name == "float32")
+        _part("eager")
+
+        # the timed request against the plain engine's (both on rows 4-7)
+        t = PROMPT
+        [req_rows] = {tuple(rs) for r in rounds for rs in r["rows"].values()}
+        tie = max(TIE_GAP[dtype_name], 2 * LOGIT_NOISE_BOUND[dtype_name])
+        dropped = [r for r in rounds if any(any(d) for d in r["drops"].values())]
+        # a verify drop at position q of a row first moves the logits that
+        # choose its generated token L0 - t + 1 + q: each stream's first
+        first_drop = [min((int(r["lengths"][row]) - t + 1 + q for r in rounds
+                           if row in r["drops"] for q, d in enumerate(r["drops"][row]) if d),
+                          default=None) for row in req_rows]
+        div = _first_divergence(res.tokens[:, t:], plain_res.tokens[:, t:])
+        at_tie = after_drop = 0
+        for i, j in enumerate(div):
+            if j is None:
+                continue
+            r = _round_at(rounds, req_rows[i], t, j)
+            gap = (r["gaps"][req_rows[i], j - (int(r["lengths"][req_rows[i]]) - t) - 1]
+                   if r is not None else prefill_gaps[-1][req_rows[i]])
+            if gap < tie:
+                at_tie += 1
+            elif first_drop[i] is not None and first_drop[i] <= j:
+                after_drop += 1
+            else:
+                raise AssertionError(f"{label}: stream {i} parts from the plain engine at "
+                                     f"generated token {j}, the verify's top-2 gap {gap:.4g} "
+                                     f"(tie below {tie:.4g}), no drop of its own row's "
+                                     f"assignments at or before it (first at {first_drop[i]})")
+            print(f"[{label}] stream {i}: parts from the plain engine at generated token {j}, "
+                  f"the verify's top-2 gap {gap:.3g} (tie below {tie:.3g}); its row's first "
+                  f"verify drop moves generated token {first_drop[i]}")
+        # the rejected drafts, round by round: row's accepted prefix m < gamma
+        rejected, rejects_tie = 0, TIE_GAP[dtype_name]
+        for r in rounds:
+            for i, row in enumerate(req_rows):
+                m = 0
+                while m < gamma and r["feed"][row, m + 1] == r["targ"][row, m]:
+                    m += 1
+                held = int(np.count_nonzero(r["table"][row]))
+                room = held * ENGINE_BLOCK - int(r["lengths"][row])
+                pick = int(r["lengths"][row]) - t + m + 1
+                if not (m < gamma and m < room and pick < GEN):
+                    continue
+                rejected += 1
+                gap = r["gaps"][row, m]
+                if ablation == 0.0 and not (gap < rejects_tie or any(r["drops"][row][:m + 1])):
+                    raise AssertionError(f"{label}: at draft ablation 0 stream {i}'s draft was "
+                                         f"rejected at generated token {pick}, a top-2 gap of "
+                                         f"{gap:.4g}, and the verify dropped none of its row's "
+                                         f"assignments at positions 0-{m}")
+        if rejected != len(res.spec["rejected"]):
+            raise AssertionError(f"{label}: {rejected} rejections in the rounds, the engine "
+                                 f"counted {len(res.spec['rejected'])}")
+        _part("checks")
+        draft_ms = (runner.draft_s - before[2]) / n_rounds * 1e3
+        verify_ms = (runner.verify_s - before[3]) / n_rounds * 1e3
+        draft_step_ms, verify_step_ms = _replay_ms(runner.draft), _replay_ms(runner.verify)
+        _part("timing")
+        s = res.spec
+        est = {name: PLAN.price_speculation(reg, target, draft, batch_size=SPEC_BUCKET,
+                                            gamma=gamma, acceptance=a, profile=p)
+               for name, p, a in (("default", PLAN.DEFAULT_PROFILE, 0.7),
+                                  ("measured at the measured acceptance", measured,
+                                   s["acceptance_rate"]))}
+        est_s = "; ".join(
+            f"{n}: draft/target {e.draft_step_s / e.target_step_s:.3f}, verify/target "
+            f"{e.verify_s / e.target_step_s:.3f}, {e.spec_s_per_token * 1e6:.2f} vs "
+            f"{e.base_s_per_token * 1e6:.2f} us/token at acceptance {e.acceptance:.3f} -> auto "
+            f"would {'run' if e.worthwhile else 'decline'}" for n, e in est.items())
+        tokens = BATCH * GEN
+        drops = sum(sum(map(sum, r["drops"].values())) for r in rounds)
+        excused = sum(bool(any(r["drops"][row][:m + 1])) for r in rounds for row in req_rows
+                      for m in range(gamma + 1))
+        cpu_s = ("; round 1's verify == the CPU plain-version verify on the same inputs "
+                 f"(the card's routing replayed, each layer's dispatch == route_topk at "
+                 f"capacity {rounds[0]['capacity']}): max |logit diff| {on_cpu['max_abs']:.3g} "
+                 f"(bound {on_cpu['bound']:.3g}) on {on_cpu['rows']} rows x "
+                 f"{on_cpu['positions']} positions" if on_cpu else "")
+        equal = sum(j is None for j in div)
+        print(f"[{label}] {card}: {dtype_name}, gamma {gamma}, draft ablation {ablation} "
+              f"({'/'.join(kinds)} drafts); timed wave {wall * 1e3:.2f} ms = "
+              f"{tokens / wall:.1f} tok/s vs the plain engine's {plain_wall * 1e3:.2f} ms = "
+              f"{tokens / plain_wall:.1f} tok/s ({plain_wall / wall:.3f}x); acceptance "
+              f"{s['acceptance_rate']:.4f} ({s['matched']}/{s['drafted']}), {s['rounds']} "
+              f"rounds, full-network dispatches/token {s['full_dispatches_per_token']:.4f}; "
+              f"verify rounds that dropped a live row's assignment {len(dropped)}/{n_rounds} "
+              f"({len(dropped) / n_rounds:.1%}; {drops} assignments in all; live (row, "
+              f"position) pairs whose row dropped at or before it "
+              f"{excused}/{len(rounds) * len(req_rows) * (gamma + 1)}){cpu_s}; bucket "
+              f"{SPEC_BUCKET} per round: draft {draft_ms:.3f} ms + verify {verify_ms:.3f} ms "
+              f"device (events); one replay: draft step {draft_step_ms:.3f} ms, verify "
+              f"{verify_step_ms:.3f} ms, plain decode step {plain_step_ms:.3f} ms; graphs: draft "
+              f"{programs['draft']}, verify {programs['verify']}, none new in the timed wave, "
+              f"no cold result; launches {counts} as the plan implies, per round "
+              f"{ {k: round(v, 2) for k, v in per_round.items()} }; pages all back after each "
+              f"wave; draft weight bytes shared {shared}, extra {extra}; every round's verify "
+              f"(and round 1's drafts) == its eager rerun bitwise; streams equal to the plain "
+              f"engine's {equal}/{BATCH} "
+              f"(parted at a tie {at_tie}, after a verify drop {after_drop}); rejected drafts "
+              f"{rejected}")
+        print(f"[{label}] SpecEstimate at bucket {SPEC_BUCKET}: {est_s}")
+        print(f"[time] {label}: {time.perf_counter() - t_run:.1f}s")
+        if dtype_name == "bfloat16":
+            launches = counts
+        del eng, plain, runner, rounds, target, draft
+        _release()
+    del params, masks
+    _release()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the SSM family ([kernel:ssm], [ssm:*])
 # ---------------------------------------------------------------------------
 
@@ -6079,15 +6613,17 @@ def _family_phase(device, card: str, tag: str, arch: str, prompt: int, paths: tu
     slab ServingEngine (paged=None: SSM state has no paged form) with graph
     decode, B=4, prompts of ``prompt`` tokens + GEN new ones. Gates: the counted request
     launches what its plan implies (condensed: each stack's K1 once per
-    application a pass, 1 + GEN passes; int8: K2 as often), repeated
-    requests give the same tokens (each prefill zeroes the decode state
-    the graph reads), the engine's tokens equal standalone generate's and
-    the eager decode loop's, the hybrid's shared KV slabs are each written,
-    and each path is held to masked's tokens of its dtype and depth under
-    the tie rule, its prefill logits within ``bound`` (int8 codes to their
-    dequantized twin's). Prints the graph wall (median of 3) with its
-    prefill and decode parts, the eager loop's wall, the launches and
-    max_memory_allocated; each path's engine is freed before the next.
+    application a pass, 1 + GEN passes; int8: K2 as often), the counted
+    request repeats the warm one's tokens (each prefill zeroes the decode
+    state the graph reads), the engine's tokens equal the eager decode
+    loop's (masked, and an auto plan
+    of masked on every stack: masked's step-by-step run's, bitwise),
+    the hybrid's shared KV slabs are each written, and each path is held to
+    masked's tokens of its dtype and depth under the tie rule, its prefill
+    logits within ``bound`` (int8 codes to their dequantized twin's). Prints
+    the counted request's graph wall with its prefill and decode parts, the
+    eager loop's wall, the launches and max_memory_allocated; each path's
+    engine is freed before the next.
     Returns the bf16 condensed request's K1 launches and the int8 one's K2
     launches."""
     import torch
@@ -6158,34 +6694,40 @@ def _family_phase(device, card: str, tag: str, arch: str, prompt: int, paths: tu
             g = M.hybrid_counts(cfg)[0]
             n = _shared_caches_written(label, eng, res.plan_key, prompt + GEN)
             slabs = f"; shared KV slabs written {n}/{g}"
-        walls = [wall]
-        for _ in range(2):
-            again, wall = _zoo_request(eng, prompts)
-            walls.append(wall)
-            if not torch.equal(again.tokens, res.tokens):
-                raise AssertionError(f"{label}: a repeated request gave other tokens")
         if not torch.equal(first.tokens, res.tokens):
             raise AssertionError(f"{label}: the warm request gave other tokens")
         tree = eng.serving_tree_for(res.plan_key)
-        standalone = E.generate(cfg, compute, tree, prompts, GEN)
-        torch.cuda.synchronize()
-        _part("standalone")
-        t1 = time.perf_counter()
-        eager, _, t_dec, _ = E._serve_eager(cfg, compute, tree, prompts, GEN)
-        torch.cuda.synchronize()
-        eager_wall = time.perf_counter() - t1
-        _part("eager")
-        if not (torch.equal(eager, standalone) and torch.equal(res.tokens, standalone)):
-            raise AssertionError(f"{label}: engine, graph decode and the eager loop disagree")
+        tokens = res.tokens
+        eager_s, checked = "the step-by-step run below", "the counted request == the warm one"
+        # an auto plan of masked on every stack runs masked's computation: it
+        # is held bitwise to masked's step-by-step run, which is its eager loop
+        as_masked = path == "auto" and {rp for _, rp in res.plan_key.formats} == {"masked"}
+        if path != "masked" and not as_masked:  # masked's step-by-step run is its eager loop
+            t1 = time.perf_counter()
+            eager, _, t_dec, _ = E._serve_eager(cfg, compute, tree, prompts, GEN)
+            torch.cuda.synchronize()
+            eager_s = (f"wall {(time.perf_counter() - t1) * 1e3:.2f} ms (decode "
+                       f"{t_dec * 1e3:.2f} ms)")
+            _part("eager")
+            if not torch.equal(eager, tokens):
+                raise AssertionError(f"{label}: graph decode and the eager loop disagree")
+            checked += "; the eager loop == the engine's tokens"
         peak = torch.cuda.max_memory_allocated(device)
         model = SimpleNamespace(compute=compute, serving=tree)
         if path == "masked":
             toks_m, gaps = _masked_gaps(cfg, model, prompts, GEN)
-            if not torch.equal(toks_m, standalone[:, prompt:]):
-                raise AssertionError(f"{label}: the step-by-step run differs from generate")
+            if not torch.equal(toks_m, tokens[:, prompt:]):
+                raise AssertionError(f"{label}: the step-by-step run differs from the engine's "
+                                     f"tokens")
             refs["masked"] = (model, toks_m, gaps)
-            held = (f"first stream {toks_m[0].tolist()}, "
+            held = (f"the step-by-step run == the engine's tokens; first stream "
+                    f"{toks_m[0].tolist()}, "
                     f"{len(set(toks_m.reshape(-1).tolist()))} distinct tokens")
+        elif as_masked:
+            if not torch.equal(tokens[:, prompt:], refs["masked"][1]):
+                raise AssertionError(f"{label}: masked on every stack, but other tokens than "
+                                     f"masked's step-by-step run")
+            held = "masked on every stack: tokens == masked's step-by-step run bitwise"
         else:
             ref_model, toks_r, gaps_r = refs["masked"]
             against = "masked"
@@ -6196,21 +6738,19 @@ def _family_phase(device, card: str, tag: str, arch: str, prompt: int, paths: tu
                 toks_r, gaps_r = _masked_gaps(cfg, ref_model, prompts, GEN)
                 against = "the twin"
             tie = _tie_threshold(label, cfg, model, ref_model, prompts, against, bound)
-            agree = _check_ties(label, cfg, standalone, toks_r, gaps_r, tie,
+            agree = _check_ties(label, cfg, tokens, toks_r, gaps_r, tie,
                                 against=against, prompt=prompt)
             held = (f"streams agreeing in full with {against} {agree}/{BATCH} (tie below "
                     f"{tie:.3g}, min top-2 gap {gaps_r.min().item():.3g})")
         reps = sorted({rp for _, rp in res.plan_key.formats})
         cut = "" if depth is None else f", {cfg.n_layers}-layer cut"
         print(f"[{label}] {card}: slab engine ({', '.join(reps)}){cut}, request "
-              f"{BATCH}x{prompt}+{GEN}: graph wall {statistics.median(walls) * 1e3:.2f} ms "
-              f"(median of {len(walls)}; prefill {res.prefill_s * 1e3:.2f} ms, decode "
-              f"{res.decode_s * 1e3:.2f} ms), eager decode loop wall {eager_wall * 1e3:.2f} ms "
-              f"(decode {t_dec * 1e3:.2f} ms); launches "
+              f"{BATCH}x{prompt}+{GEN}: graph wall {wall * 1e3:.2f} ms (the counted request; "
+              f"prefill {res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms), eager "
+              f"decode loop {eager_s}; launches "
               f"{ {n: c for n, c in counts.items() if c} } ({per_pass} sparse linears a pass x "
-              f"{passes} passes where condensed){slabs}; engine == generate == eager tokens; "
-              f"{held}; peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
-        del eng, tree, model, standalone, eager
+              f"{passes} passes where condensed){slabs}; {checked}; {held}; peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+        del eng, tree, model, tokens
         _release()
     del model_of, refs
     _release()
@@ -7215,14 +7755,15 @@ def audio_phase(device, card: str) -> dict:
     (``_audio_run``), in bf16 on masked, condensed (K1), int8 condensed (K2)
     and auto, then f32 masked and condensed, each path's plan built at the
     request's bucket. Gates: a condensed request launches K1 4 x 48 x (1 +
-    GEN) = 3264 times (int8: K2), auto as its plan implies; repeated
-    requests give the same tokens; every codebook's tokens equal masked's
+    GEN) = 3264 times (int8: K2), auto as its plan implies; a repeated
+    request gives the same tokens (an auto plan of masked on every stack
+    serves one request, held bitwise to masked's); every codebook's tokens equal masked's
     (int8: its dequantized twin's) up to a stream's first differing
     position, where each codebook that differs has a top-2 gap below
     max(TIE_GAP, 2 d), d the prefill logits' difference, itself below
     LOGIT_NOISE_BOUND (a stream's codebooks share its next input). Prints
-    the wall (median of 3) with its prefill and decode parts, ms a decode
-    step and max_memory_allocated; each dtype's model is freed before the
+    the wall (the faster of 2) with its prefill and decode parts, ms a
+    decode step and max_memory_allocated; each dtype's model is freed before the
     next. Returns the bf16 K1 and K2 launches of one request each."""
     import torch
     from repro_torch import configs
@@ -7276,7 +7817,10 @@ def audio_phase(device, card: str) -> dict:
         export_s = time.perf_counter() - t0
         _part("export")
         torch.cuda.reset_peak_memory_stats(device)
-        first = _audio_run(cfg, compute, tree, prompts, GEN)
+        # an auto plan of masked on every stack runs masked's computation: one
+        # counted request, held bitwise to masked's tokens
+        as_masked = path == "auto" and {plan.representation_of(s.name) for s in reg} == {"masked"}
+        first = None if as_masked else _audio_run(cfg, compute, tree, prompts, GEN)
         _zero_counts()
         run = _audio_run(cfg, compute, tree, prompts, GEN)
         counts = _counts()
@@ -7290,10 +7834,9 @@ def audio_phase(device, card: str) -> dict:
                                      f"{len(reg)} x {cfg.n_layers} x {passes}")
             if dtype_name == "bfloat16":
                 launches[key] += counts[key]
-        runs = [first, run, _audio_run(cfg, compute, tree, prompts, GEN)]
-        for r in runs[:-1]:
-            if not torch.equal(r[0], runs[-1][0]):
-                raise AssertionError(f"{label}: a repeated request gave other tokens")
+        runs = [r for r in (first, run) if r is not None]
+        if first is not None and not torch.equal(first[0], run[0]):
+            raise AssertionError(f"{label}: a repeated request gave other tokens")
         peak = torch.cuda.max_memory_allocated(device)
         _part("serve")
         toks, gaps, logits0 = run[0], run[1], run[2]
@@ -7304,6 +7847,11 @@ def audio_phase(device, card: str) -> dict:
             refs["masked"] = (toks, gaps, logits0)
             held = (f"codebook 0 of stream 0 {toks[0, 0].tolist()}, "
                     f"{len(set(toks.reshape(-1).tolist()))} distinct tokens")
+        elif as_masked:
+            if not torch.equal(toks, refs["masked"][0]):
+                raise AssertionError(f"{label}: masked on every stack, but other tokens than "
+                                     f"masked's")
+            held = "masked on every stack: tokens == masked's bitwise"
         else:
             against = "masked"
             r_toks, r_gaps, r_logits = refs["masked"]
@@ -7342,10 +7890,11 @@ def audio_phase(device, card: str) -> dict:
         if path == "auto":
             chose = "; chose " + ", ".join(f"{s.name} {plan.representation_of(s.name)}"
                                           for s in reg)
-        mid = sorted(runs, key=lambda r: r[3] + r[4])[1]
+        mid = min(runs, key=lambda r: r[3] + r[4])
         print(f"[{label}] {card}: prefill_step + {GEN} decode_steps, {BATCH}x"
               f"{cfg.n_codebooks}x{PROMPT} + {GEN}: wall {(mid[3] + mid[4]) * 1e3:.2f} ms "
-              f"(median of 3; prefill {mid[3] * 1e3:.2f} ms, decode {mid[4] * 1e3:.2f} ms, "
+              f"(the faster of {len(runs)}; prefill {mid[3] * 1e3:.2f} ms, decode "
+              f"{mid[4] * 1e3:.2f} ms, "
               f"{mid[4] / GEN * 1e3:.2f} ms a decode step, eager); export "
               f"{export_s:.2f}s; launches { {n: c for n, c in counts.items() if c} }{chose}; "
               f"{held}; peak memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
@@ -7356,6 +7905,155 @@ def audio_phase(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# planning without allocation ([dryrun])
+# ---------------------------------------------------------------------------
+
+# the configs whose training state [dryrun] sizes (one meta trainer step at
+# train_4k): the first slice's, the two ROADMAP does not train on the card for
+# their memory (zamba2-7b, musicgen-medium), and the paper's own ViT
+DRYRUN_TRAIN = ("qwen3-1.7b", "zamba2-7b", "musicgen-medium", "vit-b16")
+
+
+def start_dryrun():
+    """Start the [dryrun] cells that need no card with the dry run's own
+    CLI, in a session of their own that sees no card (CUDA_VISIBLE_DEVICES
+    empty) and runs beside the phases: ``--program serve_zoo --arch all``
+    (every config at its published width and full depth), then ``--program
+    train`` for each of DRYRUN_TRAIN, one after another, each writing its
+    cells as JSON lines under build/dryrun/. Returns (the process, that
+    directory)."""
+    out = REPO / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cli = f"{shlex.quote(sys.executable)} -m repro_torch.launch.dryrun"
+    steps = [f"{cli} --program serve_zoo --arch all --out {shlex.quote(str(out / 'zoo.jsonl'))}"]
+    steps += [f"{cli} --program train --shapes train_4k --arch {arch} "
+              f"--out {shlex.quote(str(out / f'train_{arch}.jsonl'))}" for arch in DRYRUN_TRAIN]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO / "src"))
+    with open(out / "log", "w") as f:
+        proc = subprocess.Popen(["sh", "-c", " && ".join(steps)], stdout=f,
+                                stderr=subprocess.STDOUT, env=env, cwd=REPO,
+                                start_new_session=True)
+    return proc, out
+
+
+def _stop(proc) -> None:
+    """End ``proc``'s session (the shell and the CLI it runs) if it runs."""
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dryrun_phase(setup: dict, card: str, cells_proc) -> None:
+    """[dryrun]: planning without allocation (``launch/dryrun.py``). First
+    qwen3-1.7b condensed at the [engine] phase's bucket 8, on that engine's
+    pool pages and table width, in this process. Gates: memory_allocated
+    is unchanged across these meta cells; the cell's params bytes equal the
+    real params' (``model_setup``), its pool bytes the engine's pool, and
+    its abstract serving tree equals the engine's concrete export in every
+    axis but k (both k and both byte totals printed). Prints the cell's
+    peak above its arguments beside the measured max_memory_allocated
+    increase of the same decode step (a finding, not a gate). Then the
+    cells of ``start_dryrun``'s process, which sees no card: every
+    config's ``serve_zoo`` cell at its published width and full depth
+    (kimi-k2-1t and mistral-large-123b included: the engine's plan key at
+    the decode shape, the abstract serving tree and one meta decode step)
+    and the DRYRUN_TRAIN configs' train cells (one meta trainer step at
+    train_4k), each one's bytes beside the card's memory; the process must
+    end with every cell."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.sparse import plan as PLAN
+    from repro_torch.sparse import registry as REG
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg, reg = setup["base"], setup["reg"]
+    eng = setup["report"]["engine"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cell = DR.run_zoo_cell(ARCH, quiet=True, batch=eng["bucket"], path="condensed",
+                           pages=eng["pages"], block_size=eng["block_size"])
+    served = DR.run_zoo_cell(ARCH, quiet=True, batch=eng["bucket"], path="condensed",
+                             pages=eng["pages"], block_size=eng["block_size"],
+                             serving_copy=True)
+    tree = PLAN.abstract_serving_tree(cfg, reg, {s.name: "condensed" for s in reg})
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"[dryrun] memory_allocated moved across the meta cells: "
+                             f"{before} -> {after}")
+    real_params = _bytes(setup["params"])
+    if cell["params_bytes"] != real_params or cell["pool_bytes"] != eng["pool_bytes"]:
+        raise AssertionError(f"[dryrun] {ARCH}: params {cell['params_bytes']} vs "
+                             f"{real_params} allocated, pool {cell['pool_bytes']} vs "
+                             f"{eng['pool_bytes']}")
+    ks = []
+    for s in reg:
+        leaf, real = REG.get_path(tree, s.path), eng["leaves"][s.name]
+        for f, t in leaf.arrays().items():
+            if tuple(t.shape[:-1]) != real[f][0][:-1]:
+                raise AssertionError(f"[dryrun] {s.name}.{f}: abstract {tuple(t.shape)}, "
+                                     f"exported {real[f][0]}")
+        ks.append(f"{s.name} k {leaf.values.shape[-1]} (target) vs {real['values'][0][-1]} "
+                  f"(realized), values {str(leaf.values.dtype).removeprefix('torch.')} vs "
+                  f"{real['values'][1]}")
+    step = served["peak_bytes"] - served["argument_bytes"]
+    print(f"[dryrun:{ARCH}] condensed at bucket {eng['bucket']} on the [engine] pool "
+          f"({eng['pages'][0]} pages of {eng['block_size']}, table width {eng['pages'][1]}): "
+          f"params {cell['params_bytes']} B == allocated {real_params} B; pool "
+          f"{cell['pool_bytes']} B == the engine's {eng['pool_bytes']} B; abstract tree == the "
+          f"export in every axis but k: {'; '.join(ks)}; tree bytes {cell['tree_bytes']} "
+          f"(abstract, param dtype) vs {eng['tree_bytes']} (export); memory_allocated "
+          f"unchanged across the meta cells ({before} B)")
+    print(f"[dryrun:{ARCH}] one paged decode step on the serving copy "
+          f"({_gib(served['params_bytes'])} meta vs {_gib(eng['compute_bytes'])} allocated): "
+          f"meta peak above the arguments {step} B vs the card's measured "
+          f"max_memory_allocated increase {eng['step_peak']} B "
+          f"({step / max(eng['step_peak'], 1):.3f}x)")
+    _part("qwen3")
+
+    proc, out = cells_proc
+    try:
+        proc.wait(timeout=600)
+    finally:
+        _stop(proc)
+    log = (out / "log").read_text()
+    files = [out / "zoo.jsonl"] + [out / f"train_{arch}.jsonl" for arch in DRYRUN_TRAIN]
+    cells = [json.loads(line) for f in files if f.exists() for line in f.read_text().splitlines()]
+    want = [(a, "serve_zoo") for a in configs.ALL_ARCHS] + [(a, "train") for a in DRYRUN_TRAIN]
+    if proc.returncode != 0 or [(c["arch"], c["program"]) for c in cells] != want:
+        raise AssertionError(f"[dryrun] the cells' process ended {proc.returncode} with "
+                             f"{[(c['arch'], c['program']) for c in cells]}:\n{log[-4000:]}")
+    _part("wait")
+    for c in cells:
+        tag = f"[dryrun:{c['arch']}] {c['program']}"
+        if "peak_bytes" not in c:
+            print(f"{tag}: encoder-only: plan key {c['plan_key']}, {c['abstract_leaves']} "
+                  f"abstract leaves, no decode program")
+            continue
+        fits = f"{'fits' if c['peak_bytes'] <= total else 'does not fit'} ({c['step_s']:.2f}s)"
+        if c["program"] == "serve_zoo":
+            print(f"{tag} at {c['decode_shape']} (B {c['batch']} x {c['seq_len']}), group "
+                  f"{c['plan_key']} ({'paged' if c['supports_paged'] else 'slab'}): params "
+                  f"{_gib(c['params_bytes'])}, tree {_gib(c['tree_bytes'])}, cache "
+                  f"{_gib(c['cache_bytes'])}; arguments {_gib(c['argument_bytes'])}, outputs "
+                  f"{_gib(c['output_bytes'])}, peak {_gib(c['peak_bytes'])} against the "
+                  f"card's {_gib(total)}: {fits}")
+            continue
+        state = sum(c[f"{k}_bytes"] for k in ("params", "opt_state", "masks",
+                                              "neuron_active", "grad_accum"))
+        print(f"{tag} at train_4k (B {c['batch']} x {c['seq_len']}), one meta trainer step: "
+              f"params {_gib(c['params_bytes'])}, optimizer state "
+              f"{_gib(c['opt_state_bytes'])}, the state in all {_gib(state)} "
+              f"({'fits' if state <= total else 'does not fit'}), batch "
+              f"{_gib(c['batch_bytes'])}; peak {_gib(c['peak_bytes'])} against the card's "
+              f"{_gib(total)}: {fits}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7363,6 +8061,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    build_job = start_build()
 
     # full float32 products and reductions in every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7387,6 +8086,10 @@ def main() -> int:
     AT.reset_cache_state()
     print(f"[env] launch cache {AT.cache_path()} (fresh, no entries); the [autotune] "
           f"phase's engines use build/autotune_phase.json")
+    # [dryrun]'s cells that need no card run in a process of their own,
+    # beside the phases, and are read (and the process ended) in [dryrun]
+    cells_proc = start_dryrun()
+    atexit.register(_stop, cells_proc[0])
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -7401,7 +8104,7 @@ def main() -> int:
 
     print(f"[time] start: {time.perf_counter() - _T_START:.1f}s (imports, nvidia-smi, "
           f"the card's first use)")
-    timed("build", build_phase)
+    timed("build", build_phase, build_job)
     cases = timed("kernel", kernel_phase, device)
     cases += timed("ablation_kernel", ablation_kernel_phase, device)
     cases += timed("random_ablation", random_ablation_phase, device)
@@ -7441,6 +8144,7 @@ def main() -> int:
                              f"must be {cache} with no launch entries")
     launches["K3"] = timed("grad", grad_phase, setup)
     timed("grad_structured", structured_grad_phase, setup)
+    timed("dryrun", dryrun_phase, setup, card, cells_proc)
     report = setup["report"]
     del setup
     _release()
@@ -7458,6 +8162,8 @@ def main() -> int:
     launches["K1"] += moe["K1"]
     launches["K2"] += moe["K2"]
     launches.update({"K1-moe": moe["K1-moe"], "K2-moe": moe["K2-moe"]})
+    for key, n in timed("spec_moe", spec_moe_phase, device, card, measured).items():
+        launches[key] = launches.get(key, 0) + n
     for key, n in timed("moe_ablated", moe_ablated_phase, device, card).items():
         launches[key] = launches.get(key, 0) + n
     launches["K3-moe"] = timed("grad_moe", moe_grad_phase, device)

@@ -88,6 +88,35 @@ class SyntheticLM:
             step += 1
 
 
+def make_batch_spec(cfg, shape) -> dict:
+    """Every model input of (``cfg``, ``shape``) as a meta tensor (the dry
+    run's: shapes and dtypes, no storage). ``shape``: a ``configs.Shape``;
+    a decode shape gives one token a stream."""
+    b, t = shape.global_batch, shape.seq_len
+    f = getattr(torch, cfg.dtype)
+
+    def meta(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        if cfg.family == "audio":
+            return {"tokens": meta((b, cfg.n_codebooks, 1))}
+        batch = {"tokens": meta((b, 1))}
+        if cfg.family == "vlm":
+            batch["mrope_positions"] = meta((3, b, 1))
+        return batch
+    if cfg.family == "audio":
+        return {"tokens": meta((b, cfg.n_codebooks, t)),
+                "targets": meta((b, cfg.n_codebooks, t))}
+    if cfg.family == "vit":
+        return {"frontend_embeds": meta((b, t, cfg.d_model), f), "labels": meta((b,))}
+    batch = {"tokens": meta((b, t)), "targets": meta((b, t))}
+    if cfg.family == "vlm":
+        batch["frontend_embeds"] = meta((b, t, cfg.d_model), f)
+        batch["mrope_positions"] = meta((3, b, t))
+    return batch
+
+
 def make_train_batch(cfg, generator: torch.Generator, batch_size: int, seq_len: int) -> dict:
     """Random batch on the generator's device (tests, examples): ``tokens``
     and ``targets`` (B, T) int32, uniform over the vocab, ``targets`` the

@@ -34,7 +34,11 @@ workspace slice are the one-expert launch's, so it equals E launches of K3
 bitwise (``ref.condensed_matmul_dw_grouped_ref`` is the plain version).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises — there is no fallback. As in the reference,
+launches the kernel or raises — there is no fallback. A tensor on the meta
+device (the dry run's, ``launch/dryrun.py``) runs nothing: the wrapper
+returns the kernel's output, and allocates the workspace it would, as meta
+tensors, never through the plain version, whose intermediates are not the
+kernel's. As in the reference,
 ``B <= SMALL_BATCH_MAX`` takes the decode launch (the whole batch in one
 block row) and larger batches the tiled launch; a caller-given ``block_b``
 (the batch rows of a block, one of ``GATHER_ROWS[dtype]``) forces the tiled
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -400,11 +405,13 @@ def gather_candidates(b: int, d_in: int, n_rows: int, dtype: torch.dtype, *,
 def _launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
             scales: torch.Tensor | None, block_rows: int,
             block_n: int | None = None) -> torch.Tensor:
+    b, d_in = x.shape
+    n_out, k = values.shape
+    if x.device.type == "meta":
+        return x.new_empty((b, n_out))
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul kernel runs on CUDA tensors, "
                          f"not {x.device}")
-    b, d_in = x.shape
-    n_out, k = values.shape
     y = torch.empty((b, n_out), dtype=x.dtype, device=x.device)
     if b == 0 or n_out == 0:
         return y
@@ -542,6 +549,8 @@ def condensed_matmul_grouped(x: torch.Tensor, values: torch.Tensor, indices: tor
     check_block_n(block_n, tile, d_in, x.dtype)
     if x.device.type == "cpu":
         return ref.condensed_matmul_grouped_ref(x, values, indices, scales)
+    if x.device.type == "meta":
+        return x.new_empty((e, m, values.shape[1]))
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul kernel runs on CUDA tensors, not {x.device}")
     n_out, k = values.shape[1:]
@@ -574,8 +583,6 @@ def _dw_lib() -> ctypes.CDLL:
     lib.condensed_matmul_dw.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.condensed_matmul_dw.restype = ctypes.c_int
-    lib.condensed_matmul_dw_workspace.argtypes = [ctypes.c_int] * 3
-    lib.condensed_matmul_dw_workspace.restype = ctypes.c_longlong
     lib.condensed_matmul_dw_grouped.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                                                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.condensed_matmul_dw_grouped.restype = ctypes.c_int
@@ -659,6 +666,8 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor
     _check_dw(dy, x, indices, 0)
     if x.device.type == "cpu":
         return ref.condensed_matmul_dw_ref(dy, x, indices)
+    if x.device.type == "meta":
+        return _dw_meta(x, indices)
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul_dw kernel runs on CUDA tensors, not {x.device}")
     b, d_in = x.shape
@@ -670,6 +679,27 @@ def condensed_matmul_dw(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor
     dw = _dw_in_pieces(dy, x, indices, dw_pieces(d_in, k, limits or dw_limits()), _dw_launch)
     counters.add(condensed_matmul_dw)
     return dw
+
+
+def dw_workspace_ints(d_in: int, n_out: int, k: int) -> int:
+    """int32 elements of one K3 launch's workspace: a group of 16 neurons
+    keeps its 16 * k slots, a start per 128-input tile and row, and an end.
+    The CUDA launches refuse a smaller workspace (and a shape past
+    ``dw_limits()``)."""
+    tiles = -(-d_in // 128)
+    return -(-n_out // 16) * (16 * k + tiles * 16 + 1)
+
+
+def _dw_meta(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """K3's (K3-moe's) meta branch: the float32 gradient of ``indices``'
+    shape, after the int32 workspace one launch (one a grouped launch's
+    expert) allocates."""
+    lead = indices.shape[:-2]
+    n_out, k = indices.shape[-2:]
+    ws = x.new_empty((math.prod(lead) * dw_workspace_ints(x.shape[-1], n_out, k),),
+                     dtype=torch.int32)
+    del ws
+    return x.new_empty(indices.shape, dtype=torch.float32)
 
 
 def _dw_in_pieces(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor,
@@ -700,9 +730,7 @@ def _dw_launch(dy: torch.Tensor, x: torch.Tensor, indices: torch.Tensor) -> torc
     dw = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
     plan = dw_plan(d_in, n_out, x.dtype, _sm_count(x.device.index or 0))
     lib = _dw_lib()
-    ws_ints = lib.condensed_matmul_dw_workspace(d_in, n_out, k)
-    if ws_ints == 0:
-        raise ValueError(f"d_in={d_in}, k={k}: too large for one condensed_matmul_dw launch")
+    ws_ints = dw_workspace_ints(d_in, n_out, k)
     ws = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -746,12 +774,14 @@ def condensed_matmul_dw_grouped(dy: torch.Tensor, x: torch.Tensor,
 
     One bucket kernel and one tile kernel for every expert, the expert a
     grid axis of its own, each with its own workspace slice (E x
-    ``condensed_matmul_dw_workspace``); the launch is one expert's
+    ``dw_workspace_ints``); the launch is one expert's
     (``dw_plan``). A shape past what one launch takes (``dw_limits()``)
     raises: no MoE config reaches it."""
     _check_dw(dy, x, indices, 1)
     if x.device.type == "cpu":
         return ref.condensed_matmul_dw_grouped_ref(dy, x, indices)
+    if x.device.type == "meta":
+        return _dw_meta(x, indices)
     if x.device.type != "cuda":
         raise ValueError(f"the condensed_matmul_dw kernel runs on CUDA tensors, not {x.device}")
     e, b, d_in = x.shape
@@ -767,7 +797,7 @@ def condensed_matmul_dw_grouped(dy: torch.Tensor, x: torch.Tensor,
     dw = torch.empty((e, n_out, k), dtype=torch.float32, device=x.device)
     plan = dw_plan(d_in, n_out, x.dtype, _sm_count(x.device.index or 0))
     lib = _dw_lib()
-    ws_ints = e * lib.condensed_matmul_dw_workspace(d_in, n_out, k)
+    ws_ints = e * dw_workspace_ints(d_in, n_out, k)
     ws = torch.empty(ws_ints, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

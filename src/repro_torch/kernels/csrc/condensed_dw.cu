@@ -626,11 +626,13 @@ cudaError_t dw_launch(const void* dy, const void* x, const void* indices, void* 
 
 extern "C" {
 
-// The int32 workspace condensed_matmul_dw needs at these shapes: for each
-// group of 16 rows, its 16 * k slots grouped by (d_in tile, row), then the
-// 16 T + 1 cells' offsets (T = ceil(d_in / 128)). 0 where the kernels do
-// not take the shapes: an entry holds a slot of its group in 25 bits (k <
-// 2^21), and the bucket kernel counts the cells in shared memory (T <= 3632).
+// The int32 workspace condensed_matmul_dw needs at these shapes, which the
+// launches check the caller's against (the Python wrapper sizes it with
+// dw_workspace_ints): for each group of 16 rows, its 16 * k slots grouped
+// by (d_in tile, row), then the 16 T + 1 cells' offsets (T = ceil(d_in /
+// 128)). 0 where the kernels do not take the shapes: an entry holds a slot
+// of its group in 25 bits (k < 2^21), and the bucket kernel counts the
+// cells in shared memory (T <= 3632).
 long long condensed_matmul_dw_workspace(int d_in, int n_out, int k) {
   using namespace condensed_dw;
   if (d_in <= 0 || n_out <= 0 || k <= 0 || k >= (1 << kSlotBits) / kGroupRows) return 0;

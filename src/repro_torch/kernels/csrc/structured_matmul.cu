@@ -158,8 +158,9 @@ int coa_matmul_scaled_fwd(const void* x, const void* codes, const void* indices,
 
 // K5 (gather = 0: w is the (d_in, a_pad) panel, ld_w = a_pad) and K6
 // (gather = 1: w is the dense (d_in, d_out) weight, ld_w = d_out).
-// out: out_bytes bytes, at least structured_matmul_out_bytes(...): the
-// (batch, d_out) output, then (float32) the tickets. block_rows: the batch
+// out: out_bytes bytes, at least the (batch, d_out) output, then (float32)
+// the tickets, after the output rounded up to 16 bytes: one int32 per
+// 32-column tile and block of batch rows. block_rows: the batch
 // rows of a block. split_rows: the rows of d_in of a split.
 //   bfloat16 (dtype 1): block_rows a power of two up to 128; split_rows a
 //   multiple of 64 with at most 8 splits; no workspace.
@@ -188,16 +189,6 @@ int structured_matmul_fwd(const void* x, const void* w, const void* active_index
   return structured_launch<false>(x, w, active_index, out, static_cast<float*>(workspace),
                                   tickets, batch, d_in, a_pad, d_out, ld_w, gather, dtype,
                                   block_rows, split_rows, kSOne, s);
-}
-
-// Bytes of the region structured_matmul_fwd takes as out: the output and,
-// in float32, the tickets.
-long long structured_matmul_out_bytes(int batch, int d_out, int a_pad, int dtype,
-                                      int block_rows) {
-  if (batch <= 0 || d_out <= 0 || a_pad <= 0 || block_rows <= 0) return 0;
-  if (dtype == 1) return static_cast<long long>(batch) * d_out * 2;
-  return static_cast<long long>(tickets_offset(batch, d_out, 4) +
-                                f32_tickets(batch, a_pad, block_rows) * sizeof(int));
 }
 
 const char* structured_matmul_error_string(int err) {

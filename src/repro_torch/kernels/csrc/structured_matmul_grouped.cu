@@ -32,11 +32,10 @@ extern "C" {
 // and K6-moe (gather = 1: w is the experts' dense (d_in, d_out) weights,
 // ld_w = d_out), `experts` problems stored one after another: x (experts,
 // batch, d_in), w (experts, d_in, ld_w), active_index (experts, a_pad), out
-// (experts, batch, d_out). out: out_bytes bytes, at least
-// structured_matmul_grouped_out_bytes(...): the outputs, then (float32) the
-// tickets. workspace (float32): ws_floats, at least experts * ceil(d_in /
-// 256) * batch * a_pad. The launch arguments are structured_matmul_fwd's,
-// one expert's. Returns the cudaError_t (0 = success).
+// (experts, batch, d_out). out: out_bytes bytes, at least the outputs, then
+// (float32) every expert's tickets, as structured_matmul_fwd's. workspace
+// (float32): ws_floats, at least experts * ceil(d_in / 256) * batch * a_pad.
+// The launch arguments are structured_matmul_fwd's, one expert's. Returns the cudaError_t (0 = success).
 int structured_matmul_grouped_fwd(const void* x, const void* w, const void* active_index,
                                   void* out, long long out_bytes, void* workspace,
                                   long long ws_floats, int experts, int batch, int d_in,
@@ -76,16 +75,6 @@ int structured_matmul_grouped_fwd(const void* x, const void* w, const void* acti
   return structured_launch<true>(x, w, active_index, out, static_cast<float*>(workspace),
                                  tickets, batch, d_in, a_pad, d_out, ld_w, gather, dtype,
                                  block_rows, split_rows, grp, s);
-}
-
-// Bytes of the region structured_matmul_grouped_fwd takes as out.
-long long structured_matmul_grouped_out_bytes(int experts, int batch, int d_out, int a_pad,
-                                              int dtype, int block_rows) {
-  if (experts <= 0 || batch <= 0 || d_out <= 0 || a_pad <= 0 || block_rows <= 0) return 0;
-  if (dtype == 1) return static_cast<long long>(experts) * batch * d_out * 2;
-  return static_cast<long long>(tickets_offset(experts * batch, d_out, 4) +
-                                static_cast<size_t>(experts) *
-                                    f32_tickets(batch, a_pad, block_rows) * sizeof(int));
 }
 
 const char* structured_matmul_grouped_error_string(int err) {

@@ -46,7 +46,9 @@ buffer). Sentinel slots (``out_index`` or ``active_index`` equal to
 ``d_out``) are dropped.
 
 Dispatch is as for K1 (``condensed_matmul``): a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. ``B <= SMALL_BATCH_MAX``
+version; a CUDA tensor launches the kernel or raises; a meta tensor runs
+nothing and gets the kernel's output buffer and workspace as meta tensors
+(``_buffers``, which sizes them for the CUDA launch too). ``B <= SMALL_BATCH_MAX``
 takes the decode launch (the batch in one block row, padded to a power of
 two), larger batches the tiled launch (``TILED_ROWS`` batch rows a block);
 the two are bitwise equal, and K6 is bitwise equal to K5's decode launch,
@@ -161,9 +163,6 @@ def _lib() -> ctypes.CDLL:
                                             ctypes.c_longlong] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.structured_matmul_out_bytes
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_longlong
     lib.structured_matmul_error_string.argtypes = [ctypes.c_int]
     lib.structured_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -177,9 +176,6 @@ def _grouped_lib() -> ctypes.CDLL:
                                             ctypes.c_longlong] + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.structured_matmul_grouped_out_bytes
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -211,8 +207,35 @@ def _check_structured(x: torch.Tensor, w: torch.Tensor,
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
+    """Refuse any device but CUDA and meta (whose launch branch allocates
+    and runs nothing)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"the {what} kernel runs on CUDA tensors, not {x.device}")
+
+
+def _out_bytes(experts: int, b: int, d_out: int, a_pad: int, dtype: torch.dtype,
+               block_rows: int) -> int:
+    """Bytes of the output region K5/K6 (their grouped launch over
+    ``experts``) take: the outputs, then in float32 a ticket (int32) per
+    32-column tile and batch tile, after the outputs rounded up to 16 bytes.
+    The CUDA launches refuse a smaller region."""
+    if dtype == torch.bfloat16:
+        return experts * b * d_out * 2
+    tickets = -(-a_pad // 32) * -(-b // block_rows)
+    return (experts * b * d_out * 4 + 15) // 16 * 16 + experts * tickets * 4
+
+
+def _buffers(x: torch.Tensor, experts: int, b: int, d_in: int, a_pad: int, d_out: int,
+             block_rows: int, out_shape: tuple):
+    """A K5/K6 launch's buffers on x's device (meta included): the output
+    region (the outputs and, after them, the float32 kernels' tickets: one
+    buffer, one memset), the output view of it, and the float32 workspace."""
+    region = x.new_empty((_out_bytes(experts, b, d_out, a_pad, x.dtype, block_rows),),
+                         dtype=torch.uint8)
+    out = region[:experts * b * d_out * x.element_size()].view(x.dtype).view(out_shape)
+    ws = x.new_empty((experts * workspace_floats(b, d_in, a_pad, x.dtype),),
+                     dtype=torch.float32)
+    return region, out, ws
 
 
 _decode_rows = cm.decode_rows
@@ -234,14 +257,10 @@ def _structured_launch(x: torch.Tensor, w: torch.Tensor, active_index: torch.Ten
     a_pad = active_index.shape[0]
     if b == 0 or a_pad == 0:
         return torch.zeros((b, d_out), dtype=x.dtype, device=x.device)
+    region, out, ws = _buffers(x, 1, b, d_in, a_pad, d_out, block_rows, (b, d_out))
+    if x.device.type == "meta":
+        return out
     lib, dtype = _lib(), cm._DTYPE_CODES[x.dtype]
-    # the output and, after it, the float32 kernels' tickets: one buffer, one
-    # memset
-    region = torch.empty(lib.structured_matmul_out_bytes(b, d_out, a_pad, dtype, block_rows),
-                         dtype=torch.uint8, device=x.device)
-    out = region[:b * d_out * x.element_size()].view(x.dtype).view(b, d_out)
-    ws = torch.empty(workspace_floats(b, d_in, a_pad, x.dtype), dtype=torch.float32,
-                     device=x.device)
     split_rows = split_geometry(d_in, x.dtype)[0]
     with torch.cuda.device(x.device):
         err = lib.structured_matmul_fwd(
@@ -354,7 +373,7 @@ def _coa_launch(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     b, d_in = x.shape
     a, k = values.shape
     out = torch.empty((b, d_out), dtype=x.dtype, device=x.device)
-    if b == 0:
+    if b == 0 or x.device.type == "meta":
         return out
     if a == 0:
         return out.zero_()
@@ -474,7 +493,7 @@ def condensed_over_active_matmul_grouped(x: torch.Tensor, values: torch.Tensor,
     _on_cuda(x, "condensed_over_active_matmul_grouped")
     a, k = values.shape[1:]
     y = torch.empty((e, m, d_out), dtype=x.dtype, device=x.device)
-    if m == 0:
+    if m == 0 or x.device.type == "meta":
         return y
     if a == 0:
         return y.zero_()
@@ -527,15 +546,10 @@ def _structured_grouped_launch(x: torch.Tensor, w: torch.Tensor, active_index: t
     a_pad = active_index.shape[1]
     if m == 0 or a_pad == 0:
         return torch.zeros((e, m, d_out), dtype=x.dtype, device=x.device)
+    region, out, ws = _buffers(x, e, m, d_in, a_pad, d_out, block_rows, (e, m, d_out))
+    if x.device.type == "meta":
+        return out
     lib, dtype = _grouped_lib(), cm._DTYPE_CODES[x.dtype]
-    # every expert's output and, after them, the float32 kernels' tickets:
-    # one buffer, one memset
-    region = torch.empty(lib.structured_matmul_grouped_out_bytes(e, m, d_out, a_pad, dtype,
-                                                                 block_rows),
-                         dtype=torch.uint8, device=x.device)
-    out = region[:e * m * d_out * x.element_size()].view(x.dtype).view(e, m, d_out)
-    ws = torch.empty(e * workspace_floats(m, d_in, a_pad, x.dtype), dtype=torch.float32,
-                     device=x.device)
     split_rows = split_geometry(d_in, x.dtype)[0]
     with torch.cuda.device(x.device):
         err = lib.structured_matmul_grouped_fwd(

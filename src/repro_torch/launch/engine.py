@@ -81,7 +81,11 @@ K5-moe / K6-moe). Its dispatches route their padding rows
 too, as the reference's do, so an MoE request's tokens can depend on the
 bucket it is padded to, and on what the padding rows read from the
 garbage page they all write: of colliding writes the last is kept, as in
-the reference (``attention.paged_cache_write``), on any device.
+the reference (``attention.paged_cache_write``), on any device. It
+speculates too: the draft steps route as the decode steps do, and a
+verify routes its bucket x (gamma + 1) rows as one group, as the
+reference's does, whose capacity may drop assignments that plain decode
+keeps (``models.model.paged_verify_step``).
 
 The SSM family (mamba2) serves on the slab path too, its decode state
 (conv_x, conv_bc, h per layer) in the contiguous cache: a captured decode
@@ -100,8 +104,12 @@ The audio family (musicgen) is refused by ``generate``, ``serve_once``,
 ``models.model.prefill_step`` / ``decode_step``. The encoder-only ViT has
 no decode path at all (``prefill_step`` refuses it).
 
-Not ported: tensor parallelism (``mesh``) and ``abstract_plan_key``
-(ROADMAP queue 1), and speculative decoding on MoE, which raise.
+``abstract_plan_key`` gives the plan key a request would group under,
+and its per-stack formats, from static information alone, allocating
+nothing (the dry run's, ``launch/dryrun.py``).
+
+Not ported: tensor parallelism (``mesh``, ROADMAP queue 1, item 9), which
+raises.
 """
 from __future__ import annotations
 
@@ -1101,10 +1109,6 @@ class ServingEngine:
                     "speculative decoding runs on the paged scheduler (draft overshoot "
                     "rollback is a page-table edit); this configuration only supports "
                     "the slab path")
-            if cfg.family == "moe":
-                # a verify routes bucket x (gamma + 1) rows as one group, whose
-                # capacity drops would part it from plain greedy decode
-                raise _not_ported(f"speculative decoding on the MoE family ({cfg.name})", 8)
         if paged is None:
             paged = M.supports_paged(cfg)
         elif paged and not M.supports_paged(cfg):
@@ -1636,3 +1640,26 @@ class ServingEngine:
         return AT.tune_registry(self.registry, self.stats(), batch=batch_size, dtype=dtype,
                                 reps=reps, device=self.device, values_dtype=self.values_dtype,
                                 tp=self.tp, cfg=self.cfg)
+
+
+# ---------------------------------------------------------------------------
+# grouping without allocation (the dry run's)
+# ---------------------------------------------------------------------------
+
+
+def abstract_plan_key(cfg, registry, batch_size: int, *, path: str = "auto",
+                      profile: PLAN.HardwareProfile = PLAN.DEFAULT_PROFILE
+                      ) -> tuple[PlanKey, dict[str, str]]:
+    """The plan key a request of ``batch_size`` streams would group under,
+    from static information alone (target densities, no realized mask), and
+    its per-stack representations for ``plan.abstract_serving_tree``: the
+    engine's grouping without a model."""
+    if path not in PLAN.PATHS:
+        raise ValueError(f"unknown serving path {path!r}; expected one of {PLAN.PATHS}")
+    bucket = PLAN.batch_bucket(max(int(batch_size), 1))
+    if path != "auto":
+        reps = {s.name: path for s in registry}
+    else:
+        reps = PLAN.plan_for_shape(cfg, registry, batch_size=bucket, profile=profile)
+    key = PlanKey(batch_bucket=bucket, formats=tuple((s.name, reps[s.name]) for s in registry))
+    return key, reps

@@ -3,7 +3,9 @@
 
 Functions on tensors with the reference's signatures (RoPE and the
 three-stream M-RoPE among them); random init draws
-from an explicit ``torch.Generator`` on the generator's device.
+from an explicit ``torch.Generator`` on the generator's device. In place of
+a generator, ``torch.device("meta")`` builds the same shapes and dtypes
+with no storage and no draw (the dry run's, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -14,24 +16,45 @@ from repro_torch.core.srigl import apply_mask_for_forward
 from repro_torch.sparse import formats as F
 
 
+def init_device(generator) -> torch.device:
+    """The device an init builds on: the generator's, or the meta device
+    passed in its place."""
+    if isinstance(generator, torch.device):
+        if generator.type != "meta":
+            raise TypeError(f"an init takes a torch.Generator or the meta device, "
+                            f"not {generator}")
+        return generator
+    return generator.device
+
+
+def normal(generator, shape: tuple[int, ...]) -> torch.Tensor:
+    """Standard normal float32 draws of ``shape`` from ``generator`` on its
+    device; on the meta device (``init_device``) a tensor of that shape with
+    no storage, and nothing drawn."""
+    device = init_device(generator)
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
     """Normal init, std = 1/sqrt(d_in), shape (*lead, d_in, d_out)."""
-    w = torch.randn((*lead, d_in, d_out), generator=generator, device=generator.device)
+    w = normal(generator, (*lead, d_in, d_out))
     return (w / d_in ** 0.5).to(dtype)
 
 
 def sparse_init(generator: torch.Generator, d_in: int, d_out: int, k: int,
                 dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
     """Fan-in-aware init for sparse layers (Evci et al. 2022): std = 1/sqrt(k)."""
-    w = torch.randn((*lead, d_in, d_out), generator=generator, device=generator.device)
+    w = normal(generator, (*lead, d_in, d_out))
     return (w / max(k, 1) ** 0.5).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32, *, lead: tuple[int, ...] = ()) -> torch.Tensor:
     """Normal init, std 0.02, shape (*lead, vocab, d)."""
-    w = torch.randn((*lead, vocab, d), generator=generator, device=generator.device)
+    w = normal(generator, (*lead, vocab, d))
     return (w * 0.02).to(dtype)
 
 

@@ -45,9 +45,10 @@ recomputes each block and each cross-entropy chunk in the backward pass
 ``supports_paged``, ``init_paged_pool``, ``paged_prefill_step``,
 ``paged_decode_step`` and ``paged_verify_step`` (the speculative verify)
 serve the continuous-batching engine from a shared page pool, for the
-uniform full-attention ``blocks`` layout only, as in the reference (the
-MoE family included, but not its speculative verify, whose groups of B *
-(gamma + 1) rows would route and drop tokens other than plain decode's).
+uniform full-attention ``blocks`` layout only, as in the reference, the
+MoE family and its speculative verify included. A verify routes its B *
+(gamma + 1) rows as the reference's does, as one group whose expert
+capacity may drop (token, expert) assignments that the decode steps keep.
 """
 from __future__ import annotations
 
@@ -166,7 +167,7 @@ def _init_attn_block(generator: torch.Generator, cfg, dtype, k_fan: dict,
                      with_mlp: bool = True, *, lead: tuple[int, ...] = ()) -> dict:
     """One block's params, or a stack of them with leading dims ``lead``."""
     d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
-    dev = generator.device
+    dev = L.init_device(generator)
 
     def maybe_sparse(a, b, name):
         fan = k_fan.get(name)
@@ -200,7 +201,7 @@ def _init_moe_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
     """An MoE block: attention without the MLP, ``ln2``, then the router and
     the experts' stacks (``moe.init_moe_params``)."""
     p = _init_attn_block(generator, cfg, dtype, k_fan, with_mlp=False, lead=lead)
-    p["ln2"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=generator.device)
+    p["ln2"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=L.init_device(generator))
     moe = MOE.init_moe_params(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
                               {k: v for k, v in k_fan.items() if v}, dtype, lead=lead)
     p.update(moe._asdict())
@@ -212,7 +213,7 @@ def _init_ssm_block(generator: torch.Generator, cfg, dtype, k_fan: dict, *,
     """An SSM block: the mixer's params (``ssm.init_ssm_params``) and its
     pre-norm scale ``ln``."""
     p = SSM.init_ssm_params(generator, cfg, dtype, k_fan, lead=lead)._asdict()
-    p["ln"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=generator.device)
+    p["ln"] = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=L.init_device(generator))
     return p
 
 
@@ -221,6 +222,8 @@ _BLOCK_INIT = {"moe": _init_moe_block, "ssm": _init_ssm_block, "hybrid": _init_s
 
 def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> Params:
     """Initialize the parameter tree for ``cfg`` on ``generator``'s device.
+    ``generator`` may be ``torch.device("meta")``: the same tree of meta
+    tensors, allocating and drawing nothing (``layers.init_device``).
 
     ``k_fan`` maps sparse layer names to their constant fan-in k, so sparse
     layers get 1/sqrt(k)-scaled init (``registry.k_fan_map``).
@@ -229,7 +232,7 @@ def init_params(cfg, generator: torch.Generator, k_fan: dict | None = None) -> P
     k_fan = k_fan or {}
     dtype = _pdt(cfg)
     d, vp = cfg.d_model, cfg.vocab_padded
-    params: Params = {"final_norm": torch.zeros((d,), dtype=dtype, device=generator.device)}
+    params: Params = {"final_norm": torch.zeros((d,), dtype=dtype, device=L.init_device(generator))}
     if cfg.family == "audio":  # one embedding table and one head a codebook
         params["embed"] = L.embed_init(generator, vp, d, dtype, lead=(cfg.n_codebooks,))
         params["lm_head"] = L.dense_init(generator, d, vp, dtype, lead=(cfg.n_codebooks,))
@@ -845,13 +848,12 @@ def paged_verify_step(cfg, params: Params, masks: Masks, batch: dict, pool: dict
     ``argmax(logits[:, i])`` is the model's next token after consuming
     ``batch["tokens"][:, :i + 1]``.
 
-    Refused on the MoE family: its B * T rows route as groups other than
-    the T decode steps' and may drop tokens that those keep.
+    On the MoE family the B * T rows route as one group of min(group size,
+    B * T) rows, idle bucket rows included, at that group's capacity
+    (``moe.moe_block``), as the reference's verify does: where the T decode
+    steps route groups of B rows that never drop, the verify may drop
+    (token, expert) assignments, and its logits then part from theirs.
     """
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the speculative verify on the MoE family is not ported to "
-            f"repro_torch yet (ROADMAP queue 1, item 8)")
     masks = masks or {}
     x, positions = embed_inputs(cfg, params, batch)
     positions = positions + lengths[:, None]

@@ -45,10 +45,9 @@ def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int, n_exper
     1/sqrt(its fan-in, from ``k_fan_in``, else the dense fan-in), the
     router dense and float32. ``lead`` stacks the blocks (e.g. ``(L,)``)."""
     kf = k_fan_in or {}
-    dev = generator.device
 
     def init(a: int, b: int, fan: int) -> torch.Tensor:
-        w = torch.randn((*lead, n_experts, a, b), generator=generator, device=dev)
+        w = L.normal(generator, (*lead, n_experts, a, b))
         return (w / max(fan, 1) ** 0.5).to(dtype)
 
     return MoEParams(

@@ -55,13 +55,13 @@ def init_ssm_params(generator: torch.Generator, cfg, dtype=torch.float32,
     so ``out_proj`` is drawn at the dense fan-in; the port keeps that."""
     h, di, n2 = cfg.ssm_n_heads, cfg.d_inner, 2 * cfg.ssm_state
     kf = k_fan_in or {}
-    dev = generator.device
+    dev = L.init_device(generator)
 
     def sp(a: int, b: int, name: str) -> torch.Tensor:
         return L.sparse_init(generator, a, b, kf.get(name, a), dtype, lead=lead)
 
     def conv(c: int) -> torch.Tensor:
-        w = torch.randn((*lead, cfg.ssm_conv_width, c), generator=generator, device=dev)
+        w = L.normal(generator, (*lead, cfg.ssm_conv_width, c))
         return (w * 0.1).to(dtype)
 
     def per_head(v: torch.Tensor) -> torch.Tensor:

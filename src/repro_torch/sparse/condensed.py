@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributions import fan_in_from_density
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import registry as REG
 
@@ -128,3 +129,25 @@ def _export_tree(cfg, cls, registry, params, masks, stats, quantize_spec):
         REG.set_path(out, s.path, cls.export_from_dense(w, m, stats[s.name], dtype=dtype,
                                                         quantize_spec=quantize_spec))
     return out
+
+
+def abstract_condensed(cfg, registry, param_dtype: torch.dtype | None = None) -> dict:
+    """The condensed serving tree at each stack's target fan-in, as meta
+    tensors (``plan.abstract_serving_tree``, imported here late: the plan
+    imports this module)."""
+    from repro_torch.sparse import plan as PLAN
+    return PLAN.abstract_serving_tree(cfg, registry, {s.name: "condensed" for s in registry},
+                                      param_dtype=param_dtype)
+
+
+def condensed_bytes(cfg, registry) -> tuple[int, int]:
+    """(condensed weight bytes, dense weight bytes) over the sparse stacks at
+    their target fan-ins and the param dtype: values and int32 indices
+    against the dense weights."""
+    itemsize = getattr(torch, cfg.param_dtype).itemsize
+    dense = cond = 0
+    for s in registry:
+        k = fan_in_from_density(s.d_in, s.density)
+        dense += s.n_replicas * s.d_in * s.d_out * itemsize
+        cond += s.n_replicas * s.d_out * k * (itemsize + 4)
+    return cond, dense

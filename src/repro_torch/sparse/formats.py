@@ -17,7 +17,9 @@ Protocol: ``apply(x, w)`` runs one layer (``w`` is the live dense weight,
 read by the masked and structured formats); ``layer(i)`` slices layer ``i``
 out of a stack; ``to(device)``; ``spec()`` gives the static ``FormatSpec``
 that ``estimate_cost`` / ``estimate_weight_bytes`` price (the plan's cost
-model, the same formulas as the reference so that plans agree).
+model, the same formulas as the reference so that plans agree);
+``abstract`` gives a leaf of meta tensors at a static fan-in, which the dry
+run builds without allocating (``launch/dryrun.py``).
 
 Quantized values (``quantize_spec="int8"|"fp8"``): the value-storing
 formats keep 1-byte codes and a per-neuron float32 ``scales`` (symmetric,
@@ -256,6 +258,11 @@ def shape_tuning_key(d_in: int, n_out: int, k: int, batch: int, *,
     return key
 
 
+def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` with no storage."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """The short name of a torch dtype: ``VALUES_DTYPES``' where it has one
     (``f32``, ``bf16``), else torch's (``float16``)."""
@@ -448,6 +455,14 @@ class SparseFormat:
     def spec(self) -> FormatSpec:
         raise NotImplementedError
 
+    @classmethod
+    def abstract(cls, lead: tuple[int, ...], d_in: int, d_out: int, k: int,
+                 dtype: torch.dtype) -> "SparseFormat":
+        """A leaf whose tensors lie on the meta device, at the field shapes
+        and dtypes an export at fan-in ``k`` and param dtype ``dtype`` has
+        (no storage: the dry run's, ``launch/dryrun.py``)."""
+        raise NotImplementedError
+
     def cost(self, batch: int, profile) -> float:
         """Estimated seconds per serving step for this exported instance."""
         return self.estimate_cost(self.spec(), batch, profile)
@@ -539,6 +554,11 @@ class MaskedDense(SparseFormat):
     def export_from_dense(cls, w, mask, stats=None):
         return cls(mask=mask, weight_itemsize=w.element_size())
 
+    @classmethod
+    def abstract(cls, lead, d_in, d_out, k, dtype):
+        return cls(mask=_meta((*lead, d_in, d_out), torch.bool),
+                   weight_itemsize=dtype.itemsize)
+
     def spec(self):
         d_in, d_out = self.mask.shape[-2:]
         return FormatSpec(d_in=d_in, d_out=d_out, n_replicas=math.prod(self.mask.shape[:-2]),
@@ -615,6 +635,15 @@ class StructuredFanIn(SparseFormat):
             return fmt  # a storage cast has nothing to store: the live weight is read
         q, s = quantize_values(_gather_active_panel(w, mask, fmt.active_index), qdt, axis=-2)
         return dataclasses.replace(fmt, values=q, scales=s, values_dtype=qdt)
+
+    @classmethod
+    def abstract(cls, lead, d_in, d_out, k, dtype):
+        # a_pad is the padded d_out, the bound before any ablation is
+        # realized; a concrete export shrinks it to the active count
+        a_pad = padded_active_count(d_out, d_out)
+        return cls(neuron_active=_meta((*lead, d_out), torch.bool),
+                   active_index=_meta((*lead, a_pad), torch.int32), d_in=d_in,
+                   weight_itemsize=dtype.itemsize)
 
     @classmethod
     def from_mask(cls, mask, stats=None, *, weight_itemsize: int = 4):
@@ -771,6 +800,11 @@ class Condensed(SparseFormat):
         return ops.condensed_linear_nd(x, self.values.to(x.dtype), self.indices)
 
     @classmethod
+    def abstract(cls, lead, d_in, d_out, k, dtype):
+        shape = (*lead, d_out, k)
+        return cls(values=_meta(shape, dtype), indices=_meta(shape, torch.int32), d_in=d_in)
+
+    @classmethod
     def export_from_dense(cls, w: torch.Tensor, mask: torch.Tensor,
                           stats: ExportStats | None = None, *,
                           dtype: torch.dtype | None = None,
@@ -915,6 +949,14 @@ class CondensedOverActive(SparseFormat):
             return run(x, self.values, self.indices, self.out_index, self.d_out,
                        scales=self.scales)
         return run(x, self.values.to(x.dtype), self.indices, self.out_index, self.d_out)
+
+    @classmethod
+    def abstract(cls, lead, d_in, d_out, k, dtype):
+        # a = d_out, the bound before any ablation is realized; a concrete
+        # export shrinks it to the largest active count
+        shape = (*lead, d_out, k)
+        return cls(values=_meta(shape, dtype), indices=_meta(shape, torch.int32),
+                   out_index=_meta((*lead, d_out), torch.int32), d_in=d_in, d_out=d_out)
 
     @classmethod
     def export_from_dense(cls, w, mask, stats=None, *, dtype=None, quantize_spec=None):

@@ -30,7 +30,13 @@ Self-draft speculative decoding (``launch/speculative.py``) derives its
 draft here: ``derive_draft_tree`` turns a plan's serving tree into the same
 weights at a higher neuron ablation, sharing every value tensor with it, and
 ``price_speculation`` prices draft steps and one batched verify against
-plain decode, so ``--path auto`` can decline.
+plain decode, so ``--path auto`` can decline. Its MoE expert leaves (lead
+(L, E)) draft per expert row block and are priced over L * E replicas, as
+in the reference.
+
+``plan_for_shape`` and ``abstract_serving_tree`` plan and shape a serving
+tree from static information alone, on the meta device (the dry run's,
+``launch/dryrun.py``).
 
 An MoE expert stack (lead (L, E)) serves any of the four representations,
 each through its expert-grouped launch (K1-moe, K4-moe, K5-moe / K6-moe,
@@ -48,6 +54,7 @@ import math
 
 import torch
 
+from repro_torch.core import distributions as D
 from repro_torch.sparse import condensed as COND
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import registry as REG
@@ -483,6 +490,46 @@ def build_plan(cfg, registry, params: dict, masks: dict, *, batch_size: int = 1,
                 profile=profile, decisions=decisions, serving_tree=tree, values_dtype=vd,
                 mask_versions={s.name: versions.get(s.name, 0) for s in registry},
                 export_calls=len(registry))
+
+
+# ---------------------------------------------------------------------------
+# planning without allocation (the dry run's)
+# ---------------------------------------------------------------------------
+
+def plan_for_shape(cfg, registry, *, batch_size: int,
+                   profile: HardwareProfile = DEFAULT_PROFILE) -> dict[str, str]:
+    """Each stack's representation at ``batch_size`` from static
+    information alone: the target ERK densities, no realized mask, so no
+    ablation is assumed and only masked and condensed compete (the dry
+    run's choice of what to build)."""
+    itemsize = getattr(torch, cfg.param_dtype).itemsize
+    out = {}
+    for s in registry:
+        k = D.fan_in_from_density(s.d_in, s.density)
+        stats = F.ExportStats(k=k, max_active=s.d_out, active_fraction=1.0, min_fan_in=k)
+        out[s.name] = select_representation(s, batch_size=batch_size, itemsize=itemsize,
+                                            stats=stats, profile=profile).representation
+    return out
+
+
+def abstract_serving_tree(cfg, registry, reps: dict[str, str],
+                          param_dtype: torch.dtype | None = None) -> dict:
+    """The serving tree of ``reps`` (stack name -> representation) as leaves
+    of meta tensors (each format's ``abstract``), at each stack's target
+    fan-in and ``param_dtype`` (default ``cfg.param_dtype``), as the
+    reference's. Condensed-over-active and structured take the padded
+    ``d_out`` as their row bound; a concrete export shrinks it to the
+    realized active count."""
+    dt = param_dtype or getattr(torch, cfg.param_dtype)
+    out: dict = {}
+    for s in registry:
+        try:
+            cls = F.FORMATS[reps[s.name]]
+        except KeyError:
+            raise ValueError(f"unknown representation {reps[s.name]!r}") from None
+        REG.set_path(out, s.path, cls.abstract(s.lead, s.d_in, s.d_out,
+                                               D.fan_in_from_density(s.d_in, s.density), dt))
+    return out
 
 
 # ---------------------------------------------------------------------------

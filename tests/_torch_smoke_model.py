@@ -9,12 +9,20 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from repro import configs as jconfigs
 from repro.models import model as JM
 from repro.sparse import registry as JR
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch.sparse import registry as TR
+
+# The suite runs in several processes at once (pytest-xdist), each of which
+# would otherwise give torch's CPU kernels a pool of every core: at the
+# tests' small shapes the pools then contend, and ops run several times
+# slower. One intra-op thread a process; every test module is collected in
+# every process, so this holds for the whole run.
+torch.set_num_threads(1)
 
 ARCH = "qwen3-1.7b"
 ABLATION = 0.5

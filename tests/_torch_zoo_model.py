@@ -7,6 +7,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from repro import configs as JC
 from repro.models import model as JM
 from repro.sparse import condensed as JCond
@@ -15,6 +16,13 @@ from repro_torch import bridge
 from repro_torch import configs as TC
 from repro_torch.sparse import condensed as TCond
 from repro_torch.sparse import registry as TR
+
+# The suite runs in several processes at once (pytest-xdist), each of which
+# would otherwise give torch's CPU kernels a pool of every core: at the
+# tests' small shapes the pools then contend, and ops run several times
+# slower. One intra-op thread a process; every test module is collected in
+# every process, so this holds for the whole run.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # (arch, config overrides): gemma3 at smoke (rem = 0) and at 8 layers (rem = 2)

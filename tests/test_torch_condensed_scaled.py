@@ -136,9 +136,15 @@ def test_scaled_wrappers_reject_what_the_kernels_do_not_take():
                                          scales=ts)
 
 
-def test_scaled_wrappers_take_the_plain_version_only_on_the_cpu():
-    """Off the CPU a scaled call launches K2 / K2-coa or raises; it never
-    runs the plain version, and only a launch counts."""
+def test_scaled_wrappers_take_the_plain_version_only_on_the_cpu(monkeypatch):
+    """Off the CPU a scaled call launches K2 / K2-coa or raises, or on the
+    meta device (the dry run's) gets the kernel's output shape and dtype; it
+    never runs the plain version, and only a launch counts."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(TCM, "_plain", plain)
+    monkeypatch.setattr(TSM, "_coa_plain", plain)
     meta = dict(device="meta")
     x = torch.zeros((2, 8), **meta)
     q = torch.zeros((3, 2), dtype=torch.int8, **meta)
@@ -153,11 +159,12 @@ def test_scaled_wrappers_take_the_plain_version_only_on_the_cpu():
                  lambda: TSM.condensed_over_active_matmul(x, q, idx, oi, 5, scales=s),
                  lambda: TSM.condensed_over_active_matmul(x, q, idx, oi, 5, scales=s,
                                                           block_b=2)):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            call()
+        y = call()
+        assert y.device.type == "meta" and y.shape[0] == 2 and y.dtype == x.dtype
     assert (TCM.condensed_matmul.scaled_launches,
             TSM.condensed_over_active_matmul.scaled_launches,
             TCM.condensed_matmul.launches) == before
+    monkeypatch.undo()
     # on the CPU the plain version runs and nothing is counted either
     TCM.condensed_matmul(torch.zeros((2, 8)), torch.zeros((3, 2), dtype=torch.int8),
                          torch.zeros((3, 2), dtype=torch.int32), scales=torch.ones(3))

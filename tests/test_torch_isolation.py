@@ -127,15 +127,20 @@ def test_entry_points_refuse_to_drop_to_the_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_kernel_wrapper_takes_the_plain_version_only_on_the_cpu():
+def test_kernel_wrapper_takes_the_plain_version_only_on_the_cpu(monkeypatch):
     """A tensor that is not on the CPU never reaches the plain version: it
-    launches the kernel (CUDA) or raises."""
+    launches the kernel (CUDA), raises, or, on the meta device (the dry
+    run's), gets the kernel's output shape with nothing run or counted."""
     x = torch.zeros((2, 8), device="meta")
     values = torch.zeros((3, 2), device="meta")
     idx = torch.zeros((3, 2), dtype=torch.int32, device="meta")
     before = cm.condensed_matmul.launches
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cm.condensed_matmul(x, values, idx)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cm.condensed_matmul_decode(x, values, idx)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(cm, "_plain", plain)
+    for run in (cm.condensed_matmul, cm.condensed_matmul_decode):
+        y = run(x, values, idx)
+        assert y.device.type == "meta" and tuple(y.shape) == (2, 3) and y.dtype == x.dtype
     assert cm.condensed_matmul.launches == before

@@ -3,7 +3,7 @@ reference on the CPU: configs and registry, the parameter layout, the loss
 with the routers' aux term and its gradients, prefill and decode on masked
 and condensed, the engines' tokens, the CLI, one SRigL update over the (L,
 E) expert stacks, plans on every representation with half of the experts'
-neurons ablated, and the refusals of what the port does not serve yet.
+neurons ablated, and what the port once refused (speculation among it).
 
 The reference's weights and masks (from ``PRNGKey(0)``) are bridged into the
 port (``tests/_torch_zoo_model.py``). Masks, ``neuron_active``, indices and
@@ -289,21 +289,43 @@ def test_the_serve_cli_streams_equal_on_masked_and_condensed(capsys):
 # ---------------------------------------------------------------------------
 
 def test_engine_refusals_name_their_roadmap_item(capsys, tmp_path, monkeypatch):
-    """Speculation on MoE is refused, naming item 8; refresh, live sync and
-    the launch search, refused on the (L, E) expert stacks until item 8's
-    two-leading-axes step, now run (their parity with the reference is in
-    ``tests/test_torch_lead2*.py``)."""
+    """What this family once refused now runs as the reference does:
+    speculation (the engine, the CLI and ``paged_verify_step``, refused
+    naming item 8 until speculation on MoE was ported: each now equals the
+    reference's), and refresh, live sync and the launch search on the (L, E)
+    expert stacks (refused until item 8's two-leading-axes step; their
+    parity with the reference is in ``tests/test_torch_lead2*.py``)."""
+    from repro.launch import speculative as JSP
     from repro_torch.launch import serve as TSv
     from repro_torch.launch.speculative import SpecConfig
     from repro_torch.sparse import autotune as AT
     from repro_torch.sync import DirChannel, Publisher, Subscriber
     m = _model(GRANITE, ())
     args = (m["tcfg"], m["tparams"], m["tmasks"], m["treg"])
-    with pytest.raises(NotImplementedError, match="speculative decoding on the MoE.*item 8"):
-        TE.ServingEngine(*args, path="condensed", speculative=SpecConfig())
-    with pytest.raises(NotImplementedError, match="speculative decoding on the MoE.*item 8"):
-        TSv.main(["--arch", GRANITE, "--smoke", "--device", "cpu", "--path", "condensed",
-                  "--speculative"])
+    prompts = _prompts(m["tcfg"], 1, 6, 5)
+    jeng = JE.ServingEngine(m["jcfg"], m["jparams"], m["jmasks"], m["jreg"], path="condensed",
+                            speculative=JSP.SpecConfig(force=True))
+    jrid = jeng.submit(jnp.asarray(prompts), 4)
+    jeng.step()
+    [jres] = jeng.retire(jrid)
+    spec = TE.ServingEngine(*args, path="condensed", speculative=SpecConfig(force=True))
+    rid = spec.submit(prompts, 4)
+    spec.step()
+    [res] = spec.retire(rid)
+    assert np.array_equal(res.tokens.numpy(), np.asarray(jres.tokens))
+    assert res.spec["rounds"] == jres.spec["rounds"]
+    monkeypatch.setattr(TSv.M, "init_params", lambda cfg, gen, k_fan=None: m["tparams"])
+    monkeypatch.setattr(TSv.REG, "init_sparsity_state",
+                        lambda cfg, gen, reg: {"masks": m["tmasks"]})
+    tokens = TSv.main(["--arch", GRANITE, "--smoke", "--device", "cpu", "--path", "condensed",
+                       "--speculative", "--batch", "1", "--prompt-len", "6", "--gen", "4"])
+    jrid = jeng.submit(jnp.asarray(tokens[:, :6].numpy()), 4)
+    jeng.step()
+    [jcli] = jeng.retire(jrid)
+    out = capsys.readouterr().out
+    assert f"[serve] first stream: {np.asarray(jcli.tokens)[0, -4:].tolist()}" in out
+    assert "[serve:spec]" in out
+    monkeypatch.undo()
     eng = TE.ServingEngine(*args, path="condensed",
                            mask_versions={s.name: 0 for s in m["treg"]})
     eng.plan_for(eng.plan_key(1))
@@ -324,12 +346,17 @@ def test_engine_refusals_name_their_roadmap_item(capsys, tmp_path, monkeypatch):
     sub.poll()
     eng.attach_subscriber(sub)
     assert eng._sync_generation == sub.generation == 1
+    feed = np.array([[3, 7]], np.int32)
+    jpool = JM.init_paged_pool(m["jcfg"], 4, 4)
+    jl, _ = JM.paged_verify_step(m["jcfg"], m["jparams"], m["jmasks"],
+                                 {"tokens": jnp.asarray(feed)}, jpool,
+                                 jnp.zeros((1, 1), jnp.int32), jnp.zeros((1,), jnp.int32))
     pool = TM.init_paged_pool(m["tcfg"], 4, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="speculative verify on the MoE.*item 8"):
-        TM.paged_verify_step(m["tcfg"], m["tparams"], m["tmasks"],
-                             {"tokens": torch.zeros((1, 2), dtype=torch.int32)}, pool,
-                             torch.zeros((1, 1), dtype=torch.int32),
-                             torch.zeros((1,), dtype=torch.int32))
+    tl, _ = TM.paged_verify_step(m["tcfg"], m["tparams"], m["tmasks"],
+                                 {"tokens": torch.from_numpy(feed)}, pool,
+                                 torch.zeros((1, 1), dtype=torch.int32),
+                                 torch.zeros((1,), dtype=torch.int32))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 def _half_ablated(m):

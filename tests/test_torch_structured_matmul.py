@@ -332,9 +332,10 @@ def test_block_b_is_what_each_dtype_takes():
                 TSM.structured_matmul(xd, wd, ai, block_b=tile)
 
 
-def test_wrappers_take_the_plain_version_only_on_the_cpu():
-    """A tensor that is not on the CPU launches its kernel or raises; no
-    launch is counted for a refused call."""
+def test_wrappers_take_the_plain_version_only_on_the_cpu(monkeypatch):
+    """A tensor that is not on the CPU launches its kernel or raises; on the
+    meta device (the dry run's) it gets the kernel's output shape and dtype
+    with nothing run: never the plain version, and no launch counted."""
     meta = dict(device="meta")
     x = torch.zeros((2, 8), **meta)
     vals = torch.zeros((3, 2), **meta)
@@ -345,13 +346,19 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     counters = (TSM.condensed_over_active_matmul, TSM.structured_matmul,
                 TSM.structured_matmul_prefetch)
     before = [f.launches for f in counters]
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    for name in ("condensed_over_active_matmul_ref", "structured_matmul_ref"):
+        monkeypatch.setattr(TSM.ref, name, plain)
     for call in (lambda: TSM.condensed_over_active_matmul(x, vals, idx, oi, 5),
                  lambda: TSM.condensed_over_active_matmul_decode(x, vals, idx, oi, 5),
                  lambda: TSM.structured_matmul(x, w, ai),
                  lambda: TSM.structured_matmul(x, w, ai, prefetch_gather=True),
                  lambda: TSM.structured_matmul_pregathered(x, w[:, :4].contiguous(), ai, 5)):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            call()
+        y = call()
+        assert y.device.type == "meta" and tuple(y.shape) == (2, 5) and y.dtype == x.dtype
     assert [f.launches for f in counters] == before
 
 

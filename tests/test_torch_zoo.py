@@ -248,16 +248,24 @@ def test_unported_families_are_refused_naming_item_8(family, kw):
         TD.SyntheticLM(vocab_size=16, seq_len=4, batch_size=1, family=family)
         return
     if family == "moe":
-        # ported since item 8 step 4, but for its speculative verify, which
-        # still names the item (the rest: tests/test_torch_moe_model.py)
+        # ported since item 8 step 4, its speculative verify since speculation
+        # on MoE (the rest: tests/test_torch_moe_model.py,
+        # tests/test_torch_moe_speculative.py): the verify equals the reference's
         TM.check_supported(cfg)
         params = TM.init_params(cfg, torch.Generator())
         assert params["blocks"]["w_gate"].shape[:2] == (cfg.n_layers, 4)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TM.paged_verify_step(cfg, params, {}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
-                                 TM.init_paged_pool(cfg, 2, 4, "cpu"),
-                                 torch.zeros((1, 1), dtype=torch.int32),
-                                 torch.zeros((1,), dtype=torch.int32))
+        jcfg = JC.get_smoke_config("qwen3-1.7b").replace(family=family, **kw)
+        jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+        feed = np.array([[3, 7]], np.int32)
+        jl, _ = JM.paged_verify_step(jcfg, jparams, {}, {"tokens": jnp.asarray(feed)},
+                                     JM.init_paged_pool(jcfg, 2, 4), jnp.zeros((1, 1), jnp.int32),
+                                     jnp.zeros((1,), jnp.int32))
+        tl, _ = TM.paged_verify_step(cfg, bridge.from_jax_numpy(jax.tree.map(np.asarray, jparams)),
+                                     {}, {"tokens": torch.from_numpy(feed)},
+                                     TM.init_paged_pool(cfg, 2, 4, "cpu"),
+                                     torch.zeros((1, 1), dtype=torch.int32),
+                                     torch.zeros((1,), dtype=torch.int32))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
         return
     # audio and vit: ported since item 8 steps 7-8 (the rest:
     # tests/test_torch_audio.py, tests/test_torch_vit.py)
